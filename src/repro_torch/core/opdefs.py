@@ -1,0 +1,219 @@
+"""Unified op definitions: one :class:`OpDef` per op, the record the
+planner, the fuser and the kernels' tune spaces all derive from.
+
+  * graph view -- ``impl`` (``(args, attrs, lowering, block)`` -> Tensor),
+    ``lowerings``, the ``attrs`` schema and the ``elementwise`` fuser
+    trait with its ``fuse_step``.
+  * eager view -- ``eager`` (the user-facing function) and ``oracle``
+    (pure numpy).
+  * tuning view -- ``tune_space`` names the kernel's
+    :class:`repro_torch.kernels.tune.TuneSpace`; ``tune_ctx`` extracts the
+    shape facts the space needs.
+
+This slice of the port declares the ops of the ``pfb_power`` path:
+``pfb``, ``pfb_frontend``, ``abs2``, ``scale`` and ``fused_ew``.  The
+reference's precision, streaming and remaining ops come with their
+slices; a graph naming an op missing here fails to compile with the
+reference's "unknown op" error.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import functions, pfb
+
+
+def _kops():
+    from repro_torch.kernels import ops
+    return ops
+
+
+REQUIRED = object()      # sentinel: attr has no default, caller must set it
+
+
+@dataclasses.dataclass(frozen=True)
+class Attr:
+    """One entry of an op's attr schema."""
+    name: str
+    default: Any = REQUIRED
+
+
+@dataclasses.dataclass(frozen=True)
+class OpDef:
+    name: str                                  # graph op name (canonical)
+    impl: Callable                             # (args, attrs, lowering, block)
+    lowerings: tuple[str, ...] = ("native",)
+    elementwise: bool = False                  # fuser trait (needs fuse_step)
+    fuse_step: Callable[[dict], tuple] | None = None
+    # attrs -> the op's step in a fused chain: ("mul",) / ("add",) consume
+    # the node's second input, ("abs2",) squares a complex head,
+    # ("scale", c) multiplies by a constant
+    lowering_agnostic: bool = False
+    # True: every lowering is the same computation, so a request for
+    # conv/kernel is satisfied by native and is not a downgrade
+    attrs: tuple[Attr, ...] = ()               # attr schema
+    section: str = ""                          # paper section
+    building_block: str = ""                   # paper Table 1 column
+    eager: Callable | None = None              # user-facing fn(*args, lowering=)
+    oracle: Callable | None = None             # numpy reference
+    tune_space: str | None = None              # kernels.tune space key
+    tune_ctx: Callable | None = None           # (attrs, in_shapes) -> dict
+
+    def bind(self, attrs: dict) -> dict:
+        """Merge ``attrs`` over the schema defaults and validate."""
+        schema = {a.name: a for a in self.attrs}
+        unknown = set(attrs) - set(schema)
+        if unknown:
+            raise ValueError(
+                f"{self.name}: unknown attr(s) {sorted(unknown)}; "
+                f"schema: {sorted(schema)}")
+        out = {}
+        for a in self.attrs:
+            if a.name in attrs:
+                out[a.name] = attrs[a.name]
+            elif a.default is REQUIRED:
+                raise ValueError(
+                    f"{self.name}: missing required attr {a.name!r}")
+            else:
+                out[a.name] = a.default
+        return out
+
+
+OPDEFS: dict[str, OpDef] = {}
+
+
+def register(op: OpDef) -> OpDef:
+    if op.name in OPDEFS:
+        raise ValueError(f"duplicate OpDef {op.name!r}")
+    OPDEFS[op.name] = op
+    return op
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles
+# ---------------------------------------------------------------------------
+def _np_pfb_frontend(x, taps):
+    m, p = taps.shape
+    frames = x.reshape(x.shape[:-1] + (-1, p))
+    nfr = frames.shape[-2]
+    idx = np.arange(nfr - m + 1)[:, None] + np.arange(m)[None, :]
+    return np.einsum("...tmp,mp->...tp", frames[..., idx, :], taps[::-1, :])
+
+
+def _np_pfb(x, taps):
+    return np.fft.fft(_np_pfb_frontend(x, taps), axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# graph implementations
+# ---------------------------------------------------------------------------
+def _impl_abs2(args, at, lowering, block=None):
+    (x,) = args
+    if lowering == "kernel":
+        return _kops().abs2(x, **(block or {}))
+    re, im = x.real, x.imag
+    if lowering == "conv" and re.ndim >= 2:
+        return functions.elementwise_add(
+            functions.elementwise_mult(re, re, lowering="conv"),
+            functions.elementwise_mult(im, im, lowering="conv"),
+            lowering="conv")
+    return re * re + im * im
+
+
+def _impl_fused(args, at, lowering, block=None):
+    x, operands = args[0], tuple(args[1:])
+    steps = at["steps"]
+    if lowering == "kernel":
+        return _kops().fused_elementwise(x, operands, steps, **(block or {}))
+    k = 0
+    acc = x
+    for step in steps:
+        tag = step[0]
+        if tag == "abs2":
+            acc = _impl_abs2((acc,), {}, lowering)
+        elif tag in ("mul", "add"):
+            fn = (functions.elementwise_mult if tag == "mul"
+                  else functions.elementwise_add)
+            o = operands[k].expand(acc.shape)
+            k += 1
+            if lowering == "conv" and acc.ndim >= 2:
+                acc = fn(acc, o, lowering="conv")
+            else:
+                acc = acc * o if tag == "mul" else acc + o
+        elif tag == "scale":
+            acc = acc * step[1]
+        else:
+            raise ValueError(f"unknown fused step {tag!r}")
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# tune contexts
+# ---------------------------------------------------------------------------
+def _rows(shape) -> int:
+    from repro_torch.kernels import tune
+    return tune.leading_rows(shape)
+
+
+def _ctx_pfb(at, shapes):
+    m, p = int(shapes[1][0]), int(shapes[1][1])
+    return {"m": m, "p": p, "t": int(shapes[0][-1]) // p}
+
+
+def _ctx_abs2(at, shapes):
+    return {"rows": _rows(shapes[0]), "cols": int(shapes[0][-1]), "n_in": 2}
+
+
+def _ctx_fused(at, shapes):
+    steps = at["steps"]
+    heads = 2 if (steps and steps[0][0] == "abs2") else 1
+    return {"rows": _rows(shapes[0]), "cols": int(shapes[0][-1]),
+            "n_in": heads + len(shapes) - 1}
+
+
+# ---------------------------------------------------------------------------
+# the declarations
+# ---------------------------------------------------------------------------
+register(OpDef(
+    "pfb_frontend",
+    lambda a, at, lw, b=None: pfb.pfb_frontend(a[0], a[1], lowering=lw,
+                                               block=b),
+    ("native", "conv", "kernel"),
+    section="5.2", building_block="standard conv bank",
+    eager=pfb.pfb_frontend, oracle=_np_pfb_frontend,
+    tune_space="pfb", tune_ctx=_ctx_pfb))
+
+register(OpDef(
+    "pfb",
+    lambda a, at, lw, b=None: pfb.pfb(
+        a[0], a[1], lowering=lw, variant=at["variant"], block=b),
+    ("native", "conv", "kernel"),
+    attrs=(Attr("variant", "4mult"),),
+    section="5.2", building_block="conv bank + pointwise conv",
+    eager=pfb.pfb, oracle=_np_pfb,
+    tune_space="pfb", tune_ctx=_ctx_pfb))
+
+register(OpDef(
+    "abs2", _impl_abs2, ("native", "conv", "kernel"),
+    elementwise=True, fuse_step=lambda at: ("abs2",),
+    section="3.1+3.3", building_block="depthwise conv",
+    tune_space="elementwise", tune_ctx=_ctx_abs2))
+
+register(OpDef(
+    "scale",
+    lambda a, at, lw, b=None: a[0] * at["factor"],
+    ("native",), elementwise=True,
+    fuse_step=lambda at: ("scale", at["factor"]),
+    lowering_agnostic=True, attrs=(Attr("factor"),)))
+
+register(OpDef(
+    "fused_ew", _impl_fused, ("native", "conv", "kernel"),
+    attrs=(Attr("steps"), Attr("members", ())),
+    tune_space="elementwise", tune_ctx=_ctx_fused))
+
+
+__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register"]

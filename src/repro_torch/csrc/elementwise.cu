@@ -1,0 +1,115 @@
+// Fused elementwise chain for Hopper (sm_90a): one pass over the flat
+// elements applying a whole run of elementwise graph nodes.
+//
+// Replaces: src/repro/kernels/elementwise.py:elementwise_chain (Pallas,
+// TPU).
+//
+// What it computes: acc = re^2 + im^2 of an interleaved complex head (the
+// `abs2` head, read straight from torch.view_as_real(z)) or the real head
+// value, then in order: acc *= operand, acc += operand, acc *= constant.
+//
+// What bounds it on this card: memory.  An abs2 chain moves 12 bytes per
+// element (8 in, 4 out) for 3 flops; at 3.35 TB/s that is the whole
+// story.  The design reads each input once and writes the output once
+// in a grid-stride loop with neighbouring threads on neighbouring
+// elements, and keeps every intermediate of the chain in a register.
+//
+// The chain travels by value as a small struct (step codes, constants,
+// operand pointers), so one compiled kernel serves every chain; the TPU
+// kernel was specialised per static step tuple.  The arithmetic uses
+// __fmul_rn / __fadd_rn so nvcc cannot contract re*re + im*im into an
+// FMA: the kernel then matches the plain torch version bit for bit.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_STEPS = 8;
+enum : int { STEP_MUL = 0, STEP_ADD = 1, STEP_SCALE = 2 };
+
+struct Chain {
+  int n_steps;
+  int code[MAX_STEPS];
+  float c[MAX_STEPS];                    // constant of a scale step
+  const float* operand[MAX_STEPS];       // operands of mul/add steps, in order
+};
+
+template <bool ABS2>
+__global__ void chain_kernel(const float* __restrict__ head, long long n,
+                             const Chain ch, float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float acc;
+    if (ABS2) {
+      const float2 z = __ldg(reinterpret_cast<const float2*>(head) + i);
+      acc = __fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y));
+    } else {
+      acc = __ldg(head + i);
+    }
+    int k = 0;
+    for (int s = 0; s < ch.n_steps; ++s) {
+      const int code = ch.code[s];
+      if (code == STEP_MUL) {
+        acc = __fmul_rn(acc, __ldg(ch.operand[k++] + i));
+      } else if (code == STEP_ADD) {
+        acc = __fadd_rn(acc, __ldg(ch.operand[k++] + i));
+      } else {
+        acc = __fmul_rn(acc, ch.c[s]);
+      }
+    }
+    out[i] = acc;
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+}  // namespace
+
+// head: n f32 values, or n interleaved complex64 values (head_is_complex);
+// codes/consts: n_steps host values; operands: one device pointer of n f32
+// per mul/add step, in step order; out: n f32.  Returns cudaError_t.
+extern "C" int tina_chain(const void* head, int head_is_complex, long long n,
+                          const int* codes, const float* consts,
+                          const void* const* operands, int n_steps, void* out,
+                          int threads, void* stream) {
+  if (n_steps < 0 || n_steps > MAX_STEPS || n < 0 || threads <= 0 ||
+      threads > 1024 || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  Chain ch{};
+  ch.n_steps = n_steps;
+  int k = 0;
+  for (int s = 0; s < n_steps; ++s) {
+    const int code = codes[s];
+    if (code != STEP_MUL && code != STEP_ADD && code != STEP_SCALE)
+      return cudaErrorInvalidValue;
+    ch.code[s] = code;
+    ch.c[s] = consts[s];
+    if (code != STEP_SCALE) {
+      ch.operand[k] = static_cast<const float*>(operands[k]);
+      ++k;
+    }
+  }
+  const long long want = (n + threads - 1) / threads;
+  const long long cap = (long long)sm_count() * (2048 / threads) * 4;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* h = static_cast<const float*>(head);
+  auto* o = static_cast<float*>(out);
+  if (head_is_complex)
+    chain_kernel<true><<<blocks, threads, 0, s>>>(h, n, ch, o);
+  else
+    chain_kernel<false><<<blocks, threads, 0, s>>>(h, n, ch, o);
+  return cudaGetLastError();
+}

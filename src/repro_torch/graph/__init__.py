@@ -1,0 +1,29 @@
+"""TINA pipeline-graph subsystem in torch: op graphs compiled into
+cached plans that run on the card.
+
+  graph.py      declarative graph IR (a copy of the reference's, so
+                signatures hash the same) and ``load_graph``
+  plan.py       planner: shape specialization, elementwise fusion,
+                lowering selection, memoized plans
+  pipelines.py  built-in workloads (``pfb_power`` so far)
+
+Quick use::
+
+    from repro_torch import graph
+    g = graph.build_pfb_power(n_branches=1024, n_taps=8)
+    plan = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="kernel")
+    power = plan(x)                     # x: a float32 tensor on the card
+"""
+from repro_torch.core.opdefs import OPDEFS, OpDef
+from repro_torch.graph import pipelines, plan
+from repro_torch.graph.graph import Graph, Node, load_graph
+from repro_torch.graph.pipelines import (BUILTINS, build_pfb_power,
+                                         pfb_power_oracle)
+from repro_torch.graph.plan import (CompileOptions, Plan, cache_stats,
+                                    clear_cache, compile)
+
+__all__ = [
+    "Graph", "Node", "load_graph", "OpDef", "OPDEFS", "Plan",
+    "CompileOptions", "compile", "cache_stats", "clear_cache", "BUILTINS",
+    "build_pfb_power", "pfb_power_oracle", "pipelines", "plan",
+]

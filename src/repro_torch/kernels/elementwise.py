@@ -1,0 +1,132 @@
+"""Fused elementwise chain kernel: a whole run of adjacent elementwise
+graph nodes in one pass over memory.
+
+The CUDA kernel is ``csrc/elementwise.cu`` (it replaces the JAX
+reference's ``kernels/elementwise.py:elementwise_chain``; the source says
+what bounds it and how).  :func:`elementwise_chain` launches it for a
+CUDA tensor and runs :func:`elementwise_chain_plain` for a CPU tensor.
+
+``steps`` is a tuple of tags applied in order to an accumulator:
+  ("mul",)        acc *= next operand
+  ("add",)        acc += next operand
+  ("scale", c)    acc *= c
+``abs2_head=True``: the head is complex and the chain starts from
+acc = re² + im².  The chain reaches the kernel as data, so a new chain
+needs no recompile.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, tune
+
+MAX_STEPS = 8                        # csrc/elementwise.cu: MAX_STEPS
+_CODES = {"mul": 0, "add": 1, "scale": 2}
+
+LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
+
+# ctx: {"rows", "cols", "n_in"}.  The kernel walks the flat elements in a
+# grid-stride loop, so the one tunable is the threads per block: a
+# multiple of the warp within the per-block limit.
+TUNE_SPACE = tune.register(tune.TuneSpace(
+    kernel="elementwise",
+    params=("threads",),
+    candidates=lambda ctx: tuple({"threads": t} for t in (128, 256, 512,
+                                                           1024)),
+    valid=lambda cfg, ctx: (
+        0 < cfg["threads"] <= tune.MAX_THREADS
+        and cfg["threads"] % tune.WARP == 0),
+    default=lambda ctx: {"threads": 256},
+))
+
+
+def _check_steps(steps) -> None:
+    if len(steps) > MAX_STEPS:
+        raise ValueError(f"elementwise_chain: {len(steps)} steps > "
+                         f"{MAX_STEPS}")
+    for step in steps:
+        if step[0] not in _CODES:
+            raise ValueError(f"unknown chain step {step[0]!r}")
+
+
+def elementwise_chain_plain(head: torch.Tensor, operands, steps, *,
+                            abs2_head: bool = False) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, one rounding per step."""
+    _check_steps(steps)
+    if abs2_head:
+        v = torch.view_as_real(head)
+        re, im = v[..., 0], v[..., 1]
+        acc = re * re + im * im
+    else:
+        acc = head
+    k = 0
+    for step in steps:
+        if step[0] == "mul":
+            acc = acc * operands[k]
+            k += 1
+        elif step[0] == "add":
+            acc = acc + operands[k]
+            k += 1
+        else:
+            acc = acc * step[1]
+    return acc
+
+
+def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
+                      abs2_head: bool = False,
+                      threads: int = 256) -> torch.Tensor:
+    """Apply a fused chain in one kernel launch.
+
+    ``head``: complex64 (``abs2_head``) or float32; ``operands``: one
+    float32 tensor of the head's shape per mul/add step.  All contiguous.
+    A CPU tensor runs :func:`elementwise_chain_plain`; a CUDA tensor
+    launches the kernel on the current stream or raises."""
+    operands = tuple(operands)
+    dev = head.device
+    if dev.type == "cpu":
+        return elementwise_chain_plain(head, operands, steps,
+                                       abs2_head=abs2_head)
+    if dev.type != "cuda":
+        raise ValueError(f"elementwise_chain: no kernel for device {dev}")
+    _check_steps(steps)
+    want = torch.complex64 if abs2_head else torch.float32
+    if head.dtype != want:
+        raise TypeError(f"elementwise_chain: head must be {want}, got "
+                        f"{head.dtype}")
+    n_ops = sum(1 for s in steps if s[0] in ("mul", "add"))
+    if len(operands) != n_ops:
+        raise ValueError(f"elementwise_chain: {n_ops} mul/add steps but "
+                         f"{len(operands)} operands")
+    for t in (head, *operands):
+        if not t.is_contiguous():
+            raise ValueError("elementwise_chain: inputs must be contiguous")
+        if t.device != dev:
+            raise ValueError(f"elementwise_chain: input on {t.device}, "
+                             f"head on {dev}")
+    for o in operands:
+        if o.dtype != torch.float32 or o.shape != head.shape:
+            raise ValueError(
+                f"elementwise_chain: operand {o.dtype}{tuple(o.shape)} must "
+                f"be float32{tuple(head.shape)}")
+    if not (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0):
+        raise ValueError(f"elementwise_chain: threads={threads}")
+    out = torch.empty(head.shape, device=dev, dtype=torch.float32)
+    n = head.numel()
+    codes = (ctypes.c_int * MAX_STEPS)(*(_CODES[s[0]] for s in steps))
+    consts = (ctypes.c_float * MAX_STEPS)(
+        *(float(s[1]) if s[0] == "scale" else 0.0 for s in steps))
+    ptrs = (ctypes.c_void_p * MAX_STEPS)(*(o.data_ptr() for o in operands))
+    lib = _build.lib()
+    code = lib.tina_chain(
+        head.data_ptr(), int(abs2_head), n, codes, consts, ptrs, len(steps),
+        out.data_ptr(), threads, torch.cuda.current_stream(dev).cuda_stream)
+    global LAUNCHES
+    LAUNCHES += 1
+    _build.check(code, "elementwise_chain")
+    return out
+
+
+__all__ = ["elementwise_chain", "elementwise_chain_plain", "TUNE_SPACE",
+           "LAUNCHES", "MAX_STEPS"]

@@ -1,0 +1,43 @@
+"""Plain torch oracles for the kernels of this package.
+
+Each ``ref_*`` matches the signature of its twin in the JAX reference's
+``kernels/ref.py``; kernel tests hold kernel against oracle.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ref_elementwise_mult(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x * y
+
+
+def ref_elementwise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return x + y
+
+
+def ref_pfb_fir(frames: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """frames (..., n', P), taps (M, P) -> (..., n'-M+1, P):
+    y[.., t, p] = sum_m taps[M-1-m, p] * frames[.., t+m, p]  (true FIR)."""
+    m = taps.shape[0]
+    nfr = frames.shape[-2]
+    dev = frames.device
+    idx = (torch.arange(nfr - m + 1, device=dev)[:, None]
+           + torch.arange(m, device=dev)[None, :])
+    return torch.einsum("...tmp,mp->...tp", frames[..., idx, :],
+                        taps.flip(0))
+
+
+def ref_pfb(x: torch.Tensor, taps: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full PFB: branch decompose + FIR + DFT over branches.
+    Returns (real, imag) of shape (..., n'-M+1, P)."""
+    m, p = taps.shape
+    frames = x.reshape(x.shape[:-1] + (-1, p))
+    y = ref_pfb_fir(frames, taps)
+    z = torch.fft.fft(y.to(torch.float32), dim=-1)
+    return z.real, z.imag
+
+
+__all__ = ["ref_elementwise_mult", "ref_elementwise_add", "ref_pfb_fir",
+           "ref_pfb"]

@@ -1,0 +1,59 @@
+"""``repro_torch.obs`` — the unified telemetry layer: thread-safe counters,
+gauges, quantile histograms, nestable spans, and a Chrome-trace
+exporter, behind one process-global registry.
+
+Quick use (module-level API, bound to the global :data:`REGISTRY`)::
+
+    from repro_torch import obs
+
+    obs.counter("plan.cache.hits").add()
+    obs.gauge("stream.deferred_samples").set(carry_len)
+    obs.histogram("service.latency_ms", unit="ms").record(lat_ms)
+    with obs.span("plan.compile", cat="compile", graph=g.name):
+        ...                      # timed region -> one trace event
+
+Meters (counters/gauges/histograms) are always live — they are the
+system's bookkeeping.  Spans are gated on ``TINA_TELEMETRY=off|on``
+(default off; :func:`enable` / :func:`disable` override at runtime):
+disabled, :func:`span` returns a shared no-op context manager — no
+allocation, no clock read.  Export the collected spans with
+:func:`export_chrome_trace` and open the file in ``chrome://tracing``
+or https://ui.perfetto.dev (``dsp_serve --trace out.json`` does this
+end to end).
+"""
+from repro_torch.obs.telemetry import (ENV_VAR, NULL_SPAN, REGISTRY, Counter,
+                                 Gauge, Histogram, Registry, Span)
+from repro_torch.obs.trace import (chrome_trace, export_chrome_trace,
+                             validate_nesting)
+# faults rides in obs because fault injection IS an observability
+# concern: armed points meter through the same registry.  Imported after
+# telemetry (faults imports repro_torch.obs.telemetry directly, not this
+# package, to stay cycle-free).
+from repro_torch.obs import faults
+from repro_torch.obs.faults import InjectedFault
+
+counter = REGISTRY.counter
+gauge = REGISTRY.gauge
+histogram = REGISTRY.histogram
+span = REGISTRY.span
+instant = REGISTRY.instant
+complete = REGISTRY.complete
+snapshot = REGISTRY.snapshot
+events = REGISTRY.events
+enable = REGISTRY.enable
+disable = REGISTRY.disable
+reset = REGISTRY.reset
+
+
+def enabled() -> bool:
+    """Is span collection on (``TINA_TELEMETRY`` / :func:`enable`)?"""
+    return REGISTRY.enabled
+
+
+__all__ = ["Counter", "Gauge", "Histogram", "Span", "Registry",
+           "REGISTRY", "NULL_SPAN", "ENV_VAR", "counter", "gauge",
+           "histogram", "span", "instant", "complete", "snapshot",
+           "events",
+           "enable", "disable", "enabled", "reset", "chrome_trace",
+           "export_chrome_trace", "validate_nesting", "faults",
+           "InjectedFault"]

@@ -1,0 +1,392 @@
+"""Telemetry core: thread-safe counters, gauges, histograms, and
+nestable spans behind one process-global registry.
+
+Dependency-free (stdlib only — importable before jax initializes) and
+cheap by construction:
+
+  * **Counters / gauges / histograms are always live.**  They are the
+    system's bookkeeping — the plan cache's hit/miss counts, the
+    autotuner's measured/cached tallies, a service's request stats all
+    read off them — so they cannot be the thing an env var turns off.
+    Each is one lock acquisition per update (a histogram additionally
+    writes one ring-buffer slot); per-request cost is nanoseconds
+    against multi-millisecond batches.
+  * **Spans are gated.**  ``TINA_TELEMETRY=off`` (the default) makes
+    :meth:`Registry.span` return one shared no-op context manager —
+    no object allocated, no clock read, no event buffered — so an
+    uninstrumented-in-spirit production serve pays only the boolean
+    check.  ``TINA_TELEMETRY=on`` (or :func:`enable`) records every
+    span as a Chrome trace event (wall-relative microsecond timestamps,
+    per-thread track) exportable via :mod:`repro_torch.obs.trace` and
+    viewable in ``chrome://tracing`` / Perfetto.
+
+Spans nest naturally: within one thread, a span entered inside another
+span's ``with`` block is fully contained in it on the trace timeline
+(``perf_counter_ns`` is monotonic per thread), which is exactly the
+nesting Perfetto renders — no explicit parent bookkeeping needed.
+
+The event buffer is bounded (:attr:`Registry.max_events`); once full,
+further spans are counted in ``dropped_events`` instead of growing
+memory without bound under a long soak.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+ENV_VAR = "TINA_TELEMETRY"
+
+
+def _env_enabled() -> bool:
+    v = os.environ.get(ENV_VAR, "off").strip().lower()
+    if v not in ("off", "on"):
+        raise ValueError(f"{ENV_VAR}={v!r}: expected off or on")
+    return v == "on"
+
+
+# ---------------------------------------------------------------------------
+# meters
+# ---------------------------------------------------------------------------
+class Counter:
+    """Monotonic (reset-able) integer counter; ``add`` is atomic."""
+
+    __slots__ = ("name", "_lock", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    inc = add
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
+
+class Gauge:
+    """Last-write-wins scalar (queue depth, deferred samples, ...)."""
+
+    __slots__ = ("name", "_lock", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def reset(self) -> None:
+        self.set(0.0)
+
+
+class Histogram:
+    """Streaming histogram: exact count/sum/min/max plus a bounded
+    ring-buffer sample for quantile export (p50/p95/p99).
+
+    The ring buffer keeps the most recent ``sample_size`` observations —
+    under steady-state serving that is a sliding window, which is what a
+    latency percentile should describe anyway.  O(1) per record; the
+    sort cost is paid at :meth:`summary` time, not on the hot path.
+    """
+
+    __slots__ = ("name", "unit", "sample_size", "_lock", "_count", "_sum",
+                 "_min", "_max", "_sample", "_idx")
+
+    def __init__(self, name: str, unit: str = "", sample_size: int = 4096):
+        self.name = name
+        self.unit = unit
+        self.sample_size = int(sample_size)
+        self._lock = threading.Lock()
+        self._count = 0
+        self._sum = 0.0
+        self._min = float("inf")
+        self._max = float("-inf")
+        self._sample: list[float] = []
+        self._idx = 0
+
+    def record(self, v: float) -> None:
+        v = float(v)
+        with self._lock:
+            self._count += 1
+            self._sum += v
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
+            if len(self._sample) < self.sample_size:
+                self._sample.append(v)
+            else:                      # overwrite oldest: sliding window
+                self._sample[self._idx] = v
+                self._idx = (self._idx + 1) % self.sample_size
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def quantile(self, q: float) -> float | None:
+        with self._lock:
+            sample = list(self._sample)
+        if not sample:
+            return None
+        sample.sort()
+        return sample[min(len(sample) - 1,
+                          max(0, round(q * (len(sample) - 1))))]
+
+    def summary(self) -> dict:
+        """count/mean/min/max + p50/p95/p99 (None when empty)."""
+        with self._lock:
+            n, s = self._count, self._sum
+            lo = self._min if n else None
+            hi = self._max if n else None
+            sample = list(self._sample)
+        out = {"count": n, "mean": (s / n if n else None),
+               "min": lo, "max": hi}
+        if sample:
+            sample.sort()
+            last = len(sample) - 1
+            for q, k in ((0.50, "p50"), (0.95, "p95"), (0.99, "p99")):
+                out[k] = sample[min(last, max(0, round(q * last)))]
+        else:
+            out.update(p50=None, p95=None, p99=None)
+        if self.unit:
+            out["unit"] = self.unit
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._count = 0
+            self._sum = 0.0
+            self._min = float("inf")
+            self._max = float("-inf")
+            self._sample = []
+            self._idx = 0
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+class _NullSpan:
+    """The disabled-mode span: one shared instance, no state, no clock
+    reads.  ``set`` swallows attribute updates so instrumented code
+    never branches on the telemetry mode."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> "_NullSpan":
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class Span:
+    """A timed region: records one Chrome ``"X"`` (complete) event on
+    exit — also on exception, so a failed batch still shows up on the
+    trace (the exception propagates; ``__exit__`` returns False)."""
+
+    __slots__ = ("name", "cat", "args", "_reg", "_t0")
+
+    def __init__(self, registry: "Registry", name: str, cat: str,
+                 args: dict):
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self._reg = registry
+        self._t0 = 0
+
+    def set(self, **args) -> "Span":
+        self.args.update(args)
+        return self
+
+    def __enter__(self) -> "Span":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._reg._record(self.name, self.cat, self._t0,
+                          time.perf_counter_ns(), self.args)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+class Registry:
+    """Named meters + the span/event buffer.  One process-global
+    instance (:data:`REGISTRY`) backs the module-level API; tests build
+    private ones."""
+
+    def __init__(self, enabled: bool | None = None,
+                 max_events: int = 500_000):
+        self._lock = threading.Lock()
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._histograms: dict[str, Histogram] = {}
+        self._events: list[dict] = []
+        self._dropped = 0
+        self.max_events = int(max_events)
+        self._t0_ns = time.perf_counter_ns()
+        self._on = _env_enabled() if enabled is None else bool(enabled)
+
+    # -- meters (get-or-create) ---------------------------------------------
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def histogram(self, name: str, unit: str = "",
+                  sample_size: int = 4096) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(
+                    name, unit=unit, sample_size=sample_size)
+            return h
+
+    # -- spans / events -----------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self._on
+
+    def enable(self) -> None:
+        self._on = True
+
+    def disable(self) -> None:
+        self._on = False
+
+    def span(self, name: str, cat: str = "span", **args):
+        """A context manager timing the enclosed region.  Disabled mode
+        returns the shared :data:`NULL_SPAN` — nothing is allocated."""
+        if not self._on:
+            return NULL_SPAN
+        return Span(self, name, cat, args)
+
+    def instant(self, name: str, cat: str = "span", **args) -> None:
+        """A zero-duration marker (Chrome ``"i"`` event) — autotune
+        winner records, downgrade notices, ..."""
+        if not self._on:
+            return
+        ts = (time.perf_counter_ns() - self._t0_ns) / 1e3
+        self._push({"name": name, "cat": cat, "ph": "i", "s": "t",
+                    "ts": ts, "pid": os.getpid(),
+                    "tid": threading.get_ident(),
+                    "args": {k: _jsonable(v) for k, v in args.items()}})
+
+    def complete(self, name: str, t0_ns: int, t1_ns: int,
+                 cat: str = "span", tid: int | str | None = None,
+                 **args) -> None:
+        """Record a complete ("X") span from explicit ``perf_counter_ns``
+        endpoints — for regions whose start and end are observed on
+        different threads or reconstructed after the fact (e.g. the
+        overlapped scheduler's device occupancy, which is dispatched on
+        the batcher thread but retired when the array is ready).  An
+        explicit ``tid`` places the span on a synthetic track (Chrome
+        accepts string tids) so it nests independently of any host
+        thread's spans."""
+        if not self._on:
+            return
+        self._push({"name": name, "cat": cat, "ph": "X",
+                    "ts": (t0_ns - self._t0_ns) / 1e3,
+                    "dur": max(0.0, (t1_ns - t0_ns) / 1e3),
+                    "pid": os.getpid(),
+                    "tid": threading.get_ident() if tid is None else tid,
+                    "args": {k: _jsonable(v) for k, v in args.items()}})
+
+    def _record(self, name: str, cat: str, t0_ns: int, t1_ns: int,
+                args: dict) -> None:
+        self._push({"name": name, "cat": cat, "ph": "X",
+                    "ts": (t0_ns - self._t0_ns) / 1e3,
+                    "dur": (t1_ns - t0_ns) / 1e3,
+                    "pid": os.getpid(), "tid": threading.get_ident(),
+                    "args": {k: _jsonable(v) for k, v in args.items()}})
+
+    def _push(self, event: dict) -> None:
+        with self._lock:
+            if len(self._events) >= self.max_events:
+                self._dropped += 1
+                return
+            self._events.append(event)
+
+    def events(self) -> list[dict]:
+        """A copy of the buffered trace events (chrome-trace dicts)."""
+        with self._lock:
+            return list(self._events)
+
+    @property
+    def dropped_events(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    # -- snapshot / reset ---------------------------------------------------
+    def snapshot(self) -> dict:
+        """Every meter's current value — counters and gauges as scalars,
+        histograms as their :meth:`Histogram.summary`."""
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = dict(self._histograms)
+        return {
+            "counters": {k: c.value for k, c in sorted(counters.items())},
+            "gauges": {k: g.value for k, g in sorted(gauges.items())},
+            "histograms": {k: h.summary()
+                           for k, h in sorted(hists.items())},
+        }
+
+    def reset(self) -> None:
+        """Zero every meter and drop buffered events (meters stay
+        registered — outstanding references keep working)."""
+        with self._lock:
+            meters = (list(self._counters.values())
+                      + list(self._gauges.values())
+                      + list(self._histograms.values()))
+            self._events = []
+            self._dropped = 0
+            self._t0_ns = time.perf_counter_ns()
+        for m in meters:
+            m.reset()
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    return str(v)
+
+
+REGISTRY = Registry()
+
+__all__ = ["Counter", "Gauge", "Histogram", "Span", "Registry",
+           "REGISTRY", "NULL_SPAN", "ENV_VAR"]

@@ -1,0 +1,105 @@
+"""Chrome trace-event export and validation.
+
+:func:`export_chrome_trace` writes the registry's buffered span events
+as a Chrome trace JSON file — open it at ``chrome://tracing``, or drag
+it into https://ui.perfetto.dev — with per-thread tracks and
+wall-relative microsecond timestamps.
+
+:func:`validate_nesting` is the structural check the test suite and the
+CI telemetry-smoke step share: the file must parse, and within every
+thread track the spans must nest monotonically (a span that starts
+inside another must also end inside it — the invariant Perfetto's flame
+view relies on, and which per-thread monotonic clocks guarantee by
+construction unless an instrumentation bug leaks a span across
+threads).
+
+CLI (the CI smoke step)::
+
+    python -m repro_torch.obs.trace /tmp/t.json \\
+        --require plan.compile plan.autotune \\
+                  service.dispatch service.device_run
+"""
+from __future__ import annotations
+
+import json
+from typing import Sequence
+
+from repro_torch.obs.telemetry import REGISTRY, Registry
+
+
+def chrome_trace(registry: Registry | None = None) -> dict:
+    """The registry's events as a chrome://tracing JSON document."""
+    reg = registry if registry is not None else REGISTRY
+    return {"traceEvents": reg.events(), "displayTimeUnit": "ms"}
+
+
+def export_chrome_trace(path: str,
+                        registry: Registry | None = None) -> int:
+    """Write the trace to ``path``; returns the number of events."""
+    doc = chrome_trace(registry)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return len(doc["traceEvents"])
+
+
+def validate_nesting(events: Sequence[dict]) -> int:
+    """Assert every thread's complete ("X") spans nest monotonically;
+    returns the number of spans checked.  Raises ValueError with the
+    offending pair otherwise."""
+    by_tid: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    checked = 0
+    for tid, spans in by_tid.items():
+        # start-ascending, longest-first on ties: a parent opens before
+        # (or exactly with) its children
+        spans.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: list[dict] = []
+        for e in spans:
+            end = e["ts"] + e["dur"]
+            while stack and e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]:
+                stack.pop()
+            if stack and end > stack[-1]["ts"] + stack[-1]["dur"]:
+                raise ValueError(
+                    f"span {e['name']!r} [{e['ts']:.1f}, {end:.1f}]us "
+                    f"overlaps but does not nest inside "
+                    f"{stack[-1]['name']!r} on thread {tid}")
+            stack.append(e)
+            checked += 1
+    return checked
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Validate a TINA chrome-trace JSON: parses, spans "
+                    "nest, required span names present.")
+    ap.add_argument("path")
+    ap.add_argument("--require", nargs="*", default=[],
+                    help="span names that must appear in the trace")
+    args = ap.parse_args(argv)
+    with open(args.path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    if not isinstance(events, list):
+        raise SystemExit(f"{args.path}: not a chrome trace document")
+    n = validate_nesting(events)
+    names = {e.get("name") for e in events}
+    missing = [r for r in args.require if r not in names]
+    if missing:
+        raise SystemExit(
+            f"{args.path}: missing required span(s) {missing}; "
+            f"present: {sorted(x for x in names if x)}")
+    print(f"[obs.trace] {args.path}: {len(events)} events, {n} spans "
+          f"nested OK" + (f", required {args.require} all present"
+                          if args.require else ""))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
+
+
+__all__ = ["chrome_trace", "export_chrome_trace", "validate_nesting",
+           "main"]

@@ -1,0 +1,266 @@
+"""The port's planner and the ``pfb_power`` slice end to end, against the
+JAX package's compiled plan and the numpy oracle, on the CPU.
+
+The JAX plan runs ``lowering="pallas"`` (Pallas in interpret mode
+off-TPU); the port runs ``lowering="kernel"`` with ``device="cpu"``, so
+its kernel wrappers take their plain torch versions.  Tolerance: the
+JAX suite's pipeline-vs-oracle 2e-3 (``tests/test_graph.py``).
+"""
+import ast
+import warnings
+import zlib
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import graph as jgraph
+from repro_torch import graph
+from repro_torch.core.pfb import pfb_window
+from repro_torch.graph import plan as plan_lib
+from repro_torch.kernels import elementwise as ewk
+from repro_torch.kernels import pfb as pfbk
+
+ROOT = Path(__file__).resolve().parents[1]
+P, M = 16, 8
+
+
+def _rng(*key):
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _spec_of(g) -> dict:
+    """A JAX-built graph as the plain dict ``load_graph`` takes."""
+    return {"name": g.name,
+            "nodes": [(n.name, n.op, n.inputs, n.attrs) for n in g.topo()],
+            "inputs": list(g.inputs), "outputs": list(g.outputs),
+            "consts": {k: np.asarray(v) for k, v in g.consts.items()}}
+
+
+def _jax_plan(g, shape):
+    return jgraph.compile(g, {g.inputs[0]: shape},
+                          options=jgraph.CompileOptions(lowering="pallas"))
+
+
+@pytest.mark.parametrize("shape", [(P * 40,), (3, P * 40)],
+                         ids=["1d", "batched"])
+def test_pfb_power_kernel_plan_matches_jax_and_oracle(shape):
+    x = _rng("pfb_power", shape).standard_normal(shape).astype(np.float32)
+    g = graph.build_pfb_power(P, M)
+    plan = graph.compile(g, {"x": shape}, lowering="kernel", device="cpu")
+    assert [n.op for n in plan.graph.topo()] == ["input", "const", "pfb",
+                                                 "abs2"]
+    assert set(plan.node_lowerings.values()) == {"kernel"}
+    assert plan.downgrades == {}
+    got = plan(torch.from_numpy(x)).numpy()
+    want_jax = np.asarray(_jax_plan(jgraph.build_pfb_power(P, M), shape)(
+        jnp.asarray(x)))
+    want = graph.pfb_power_oracle(P, M)(x)
+    assert got.shape == want.shape == want_jax.shape
+    np.testing.assert_allclose(got, want_jax, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("lowering", ["native", "conv", "reference"])
+def test_pfb_power_other_lowerings_match_oracle(lowering):
+    x = _rng("lw", lowering).standard_normal((2, P * 32)).astype(np.float32)
+    g = graph.build_pfb_power(P, M)
+    plan = graph.compile(g, {"x": x.shape}, lowering=lowering, device="cpu")
+    np.testing.assert_allclose(plan(x).numpy(),
+                               graph.pfb_power_oracle(P, M)(x),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_registered_pipelines_match_oracle_every_lowering():
+    """The registry sweep, as the JAX suite runs it over its own
+    registry: each registered pipeline at each of its lowerings."""
+    from repro_torch.core.registry import pipelines
+    specs = pipelines()
+    assert [s.name for s in specs] == list(graph.BUILTINS)
+    for spec in specs:
+        (x,) = spec.make_args(_rng("registry", spec.name), spec.valid_len(500))
+        g = spec.build()
+        want = spec.oracle(x)
+        for lw in spec.lowerings:
+            got = graph.compile(g, {g.inputs[0]: x.shape}, lowering=lw,
+                                device="cpu")(x).numpy()
+            np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3,
+                                       err_msg=f"{spec.name} {lw}")
+
+
+def test_kernel_plan_on_cpu_launches_no_kernel():
+    before = (pfbk.LAUNCHES, ewk.LAUNCHES)
+    g = graph.build_pfb_power(P, M)
+    plan = graph.compile(g, {"x": (P * 16,)}, lowering="kernel",
+                         device="cpu")
+    plan(torch.zeros(P * 16))
+    assert (pfbk.LAUNCHES, ewk.LAUNCHES) == before
+
+
+def test_second_compile_is_cache_hit():
+    g = graph.build_pfb_power(P, 4)
+    shapes = {"x": (2, P * 24)}
+    first = graph.compile(g, shapes, lowering="kernel", device="cpu")
+    hits = graph.cache_stats()["hits"]
+    again = graph.compile(graph.build_pfb_power(P, 4), shapes,
+                          options=graph.CompileOptions(lowering="kernel",
+                                                       device="cpu"))
+    assert again is first
+    assert graph.cache_stats()["hits"] == hits + 1
+    other = graph.compile(g, shapes, lowering="native", device="cpu")
+    assert other is not first
+
+
+def test_consts_become_device_tensors_at_compile():
+    g = graph.build_pfb_power(P, M)
+    plan = graph.compile(g, {"x": (P * 16,)}, lowering="kernel",
+                         device="cpu")
+    taps = plan.consts["taps"]
+    assert isinstance(taps, torch.Tensor) and taps.dtype == torch.float32
+    np.testing.assert_array_equal(taps.numpy(), g.consts["taps"])
+
+
+def test_plan_rejects_other_input_shape():
+    g = graph.build_pfb_power(P, M)
+    plan = graph.compile(g, {"x": (P * 16,)}, device="cpu")
+    with pytest.raises(ValueError, match="was compiled for"):
+        plan(torch.zeros(P * 32))
+
+
+def test_load_graph_signature_and_plan_equal_jax():
+    jg = jgraph.build_pfb_power(P, M)
+    g = graph.load_graph(_spec_of(jg))
+    assert g.signature == jg.signature
+    assert g.signature == graph.build_pfb_power(P, M).signature
+    x = _rng("load").standard_normal((2, P * 32)).astype(np.float32)
+    got = graph.compile(g, {"x": x.shape}, lowering="kernel",
+                        device="cpu")(x).numpy()
+    want = np.asarray(_jax_plan(jg, x.shape)(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_fused_chain_matches_jax():
+    """pfb -> abs2 -> scale fuses into one fused_ew node (one chain
+    kernel launch), as in the reference."""
+    def build(gmod):
+        g = gmod.Graph("pfb_power_scaled")
+        x = g.input("x")
+        t = g.const(pfb_window(P, M).astype(np.float32), "taps")
+        z = g.apply("pfb", x, t)
+        p2 = g.apply("abs2", z)
+        g.output(g.apply("scale", p2, factor=1.0 / P))
+        return g
+
+    x = _rng("fused").standard_normal((2, P * 24)).astype(np.float32)
+    g = build(graph)
+    plan = graph.compile(g, {"x": x.shape}, lowering="kernel", device="cpu")
+    fused = [n for n in plan.graph.topo() if n.op == "fused_ew"]
+    assert len(fused) == 1
+    assert fused[0].attr["steps"] == (("abs2",), ("scale", 1.0 / P))
+    assert plan.node_lowerings[fused[0].name] == "kernel"
+    jg = build(jgraph)
+    want = np.asarray(_jax_plan(jg, x.shape)(jnp.asarray(x)))
+    np.testing.assert_allclose(plan(x).numpy(), want, rtol=2e-3, atol=2e-3)
+    unfused = graph.compile(g, {"x": x.shape}, lowering="kernel",
+                            device="cpu", fuse=False)
+    assert "fused_ew" not in [n.op for n in unfused.graph.topo()]
+    np.testing.assert_allclose(unfused(x).numpy(), want, rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_block_configs_reach_the_kernel_boundary():
+    g = graph.build_pfb_power(P, M)
+    x = torch.zeros(P * 16)
+    ok = graph.compile(g, {"x": (P * 16,)}, lowering="kernel", device="cpu",
+                       block_configs={"pfb2": {"bt": 32, "bn": 32}})
+    assert ok.configs == {"pfb2": {"bt": 32, "bn": 32}}
+    ok(x)
+    bad = graph.compile(g, {"x": (P * 16,)}, lowering="kernel", device="cpu",
+                        block_configs={"pfb2": {"bt": 48}})
+    with pytest.raises(ValueError, match="invalid block config"):
+        bad(x)
+
+
+def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = graph.build_pfb_power(P, M)
+    with pytest.raises(RuntimeError, match="is_available"):
+        graph.compile(g, {"x": (P * 16,)}, lowering="kernel")
+    assert graph.CompileOptions().device is None
+
+
+@pytest.mark.parametrize("changes", [
+    {"precision": "int8"}, {"precision": "bf16"}, {"lowering": "auto"},
+    {"block_configs": "auto"}, {"fuse": "auto"}, {"mesh": 2}],
+    ids=["int8", "bf16", "lowering-auto", "blocks-auto", "fuse-auto",
+         "mesh"])
+def test_not_yet_ported_options_raise(changes):
+    g = graph.build_pfb_power(P, M)
+    with pytest.raises(ValueError, match="not yet ported"):
+        graph.compile(g, {"x": (P * 16,)}, device="cpu", **changes)
+
+
+def test_unknown_lowering_and_op_raise():
+    g = graph.build_pfb_power(P, M)
+    with pytest.raises(ValueError, match="'kernel' here"):
+        graph.compile(g, {"x": (P * 16,)}, lowering="pallas", device="cpu")
+    with pytest.raises(TypeError):
+        graph.compile(g, {"x": (P * 16,)}, backend="cpu")
+    jg = jgraph.build_spectrogram(window=16)
+    with pytest.raises(ValueError, match="unknown op 'unfold'"):
+        graph.compile(graph.load_graph(_spec_of(jg)), {"x": (256,)},
+                      device="cpu")
+
+
+def test_per_node_lowering_dict():
+    g = graph.build_pfb_power(P, M)
+    x = _rng("dict").standard_normal(P * 20).astype(np.float32)
+    plan = graph.compile(g, {"x": x.shape}, device="cpu",
+                         lowering={"pfb2": "kernel", "abs23": "conv"})
+    assert plan.node_lowerings == {"pfb2": "kernel", "abs23": "conv"}
+    np.testing.assert_allclose(plan(x).numpy(),
+                               graph.pfb_power_oracle(P, M)(x),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_downgrade_recorded_and_warned_once():
+    from repro_torch.core import opdefs
+    opdefs.register(opdefs.OpDef("negate_native_only",
+                                 lambda a, at, lw, b=None: -a[0]))
+    try:
+        g = graph.Graph("downgrade_probe")
+        g.output(g.apply("negate_native_only", g.input("x")))
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            plan = graph.compile(g, {"x": (4,)}, lowering="kernel",
+                                 device="cpu")
+            plan_lib.clear_cache()
+            graph.compile(g, {"x": (4,)}, lowering="kernel", device="cpu")
+        assert plan.downgrades == {"negate_native_only1": "lowering:kernel"}
+        assert plan.node_lowerings == {"negate_native_only1": "native"}
+        assert sum("fell back" in str(w.message) for w in rec) == 1
+        torch.testing.assert_close(plan(torch.ones(4)), -torch.ones(4))
+    finally:
+        del opdefs.OPDEFS["negate_native_only"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _imports(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
