@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: builds its kernels, holds each
-against its plain torch version, and drives the ``pfb_power`` pipeline
-end to end on one NVIDIA card.
+against its plain torch version, and drives the ``pfb_power``,
+``stft_overlap_add`` and ``spectrogram`` pipelines end to end on one
+NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -10,13 +11,22 @@ Prints one JSON line per phase:
   card      the card's name and power limit (``nvidia-smi``), versions
   build     seconds spent building ``src/repro_torch/csrc/*.cu`` with nvcc
   kernel    each kernel against its plain version at ragged shapes
-            (PFB: max|diff| <= 1e-4 * max|plain|, fp32 sums taken in
-            another order; chain: exact equality)
-  main      ``pfb_power`` through ``graph.compile(..., lowering="kernel")``
-            then ``plan(x)`` at the paper's Fig. 3 point and at full
-            width (16 x 2**22 samples, P = 1024, M = 8): launch counts
-            per call, agreement with the native plan and with a float64
-            numpy oracle on batch row 0, median times of 20 calls
+            (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
+            taken in another order; chain, binary, unfold and
+            overlap-add: exact equality)
+  main      each pipeline through ``graph.compile(..., lowering=
+            "kernel")`` then ``plan(x)``: ``pfb_power`` at the paper's
+            Fig. 3 point and at full width (16 x 2**22 samples, P = 1024,
+            M = 8); ``stft_overlap_add`` at full width (4 x 2**20
+            samples, J = 1024, hop 512); ``spectrogram`` at its registered
+            width (8 x 2**16 samples, J = 64).  For each: launch counts
+            per call (every count set to 0 just before the call, read
+            just after), agreement with the native plan and with the
+            numpy oracle on batch row 0, median times of 20 calls of the
+            plan, the native plan, each kernel alone at the shape the
+            path gives it, its plain version, and the one PyTorch call
+            that computes the same function (timed here only; the port
+            never calls it)
   kernels   the kernel table: launches, errors, times, bounds
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -40,8 +50,13 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 REPEATS = 20
+SPIN_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers a run's enqueue
 PFB_RTOL = 1e-4       # fp32 sums of P*M terms in another order
+DFT_RTOL = 1e-4       # fp32 sums of n terms in another order
+NATIVE_RTOL = 1e-4    # kernel plan vs native plan on the card
 ORACLE_RTOL = 2e-3    # the reference suite's pipeline-vs-oracle tolerance
+STFT_J, STFT_HOP, STFT_X = 1024, 512, (4, 2 ** 20)
+SPEC_J, SPEC_X = 64, (8, 2 ** 16)
 
 
 def emit(**kv) -> None:
@@ -71,6 +86,26 @@ def median_ms(torch, fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, repeats: int = REPEATS) -> float:
+    """Device time of one call: a run of ``repeats`` back-to-back calls
+    between two CUDA events, over the count, after two warm-up calls.  A
+    spin kernel queued first keeps the card busy while the host enqueues
+    the run, so the host's dispatch time opens no gaps between calls
+    (for a kernel of tens of microseconds it would otherwise dominate)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
 def rel_err(torch, got, want) -> tuple[float, float]:
     """(max|got - want|, max|want|) over real views of both."""
     if got.is_complex():
@@ -87,9 +122,27 @@ def pfb_cost(b, t, p, n, m) -> tuple[int, int]:
     return nbytes, flops
 
 
+def dft_cost(b, l, n, cplx) -> tuple[int, int]:
+    """(bytes, flops) of one 4mult DFT of b rows: x, fr and fi read once,
+    complex64 out written once; two real products for a real x, four for
+    a complex one."""
+    nbytes = (8 if cplx else 4) * b * l + 8 * l * n + 8 * b * n
+    return nbytes, 2 * (4 if cplx else 2) * b * l * n
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def add_cost(*costs) -> tuple[int, int]:
+    return (sum(c[0] for c in costs), sum(c[1] for c in costs))
+
+
+def max_err_rows(torch, got, want) -> float:
+    """max|got - want| taken one batch row at a time (the full-width
+    unfold output is 17 GB: a whole difference would not fit beside it)."""
+    return max(rel_err(torch, g, w)[0] for g, w in zip(got, want))
 
 
 def main() -> int:
@@ -106,11 +159,23 @@ def main() -> int:
         return 2
 
     from repro_torch import graph
-    from repro_torch.core import opdefs
+    from repro_torch.core import functions, opdefs
     from repro_torch.core.pfb import pfb_window
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import dft as dftk
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import pfb as pfbk
+    from repro_torch.kernels import unfold as unfk
+
+    def zero_counts() -> None:
+        pfbk.LAUNCHES = ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
+        dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
+
+    def counts() -> dict:
+        return {"pfb_fused": pfbk.LAUNCHES, "elementwise_chain": ew.LAUNCHES,
+                "elementwise_binary": ew.BINARY_LAUNCHES,
+                "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
+                "overlap_add": unfk.OLA_LAUNCHES}
 
     # -- card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -181,6 +246,68 @@ def main() -> int:
             fail(f"elementwise_chain {steps}: not bit-identical to plain "
                  f"(max |diff| {err})")
 
+    # unfold, overlap-add and binary: exact copies and one-rounding sums
+    for rows, n, j in ((3, 1000, 1), (3, 1000, 7), (3, 1000, 64),
+                       (2, 5000, 4096)):
+        x = randn(rows, n)
+        got = ops.unfold(x, j)
+        torch.cuda.synchronize()
+        want = unfk.unfold_plain(x, j)
+        ok = torch.equal(got, want)
+        emit(phase="kernel", kernel="unfold", shape=[rows, n], window=j,
+             max_abs_err=rel_err(torch, got, want)[0], exact=ok)
+        if not ok:
+            fail(f"unfold {(rows, n)} J={j}: not equal to plain")
+    for shape, hop in (((2, 37, 64), 64), ((2, 37, 64), 32),
+                       ((2, 37, 64), 16), ((2, 37, 64), 8),
+                       ((2, 8, 64), 8), ((1, 2047, 1024), 512)):
+        frames = randn(*shape)
+        got = ops.overlap_add(frames, hop)
+        torch.cuda.synchronize()
+        want = unfk.overlap_add_plain(frames, hop)
+        ok = torch.equal(got, want)
+        emit(phase="kernel", kernel="overlap_add", shape=list(shape),
+             hop=hop, max_abs_err=rel_err(torch, got, want)[0], exact=ok)
+        if not ok:
+            fail(f"overlap_add {shape} hop={hop}: not equal to plain")
+    xb = randn(3, 1001, 33)
+    for op, fn in (("mul", ops.elementwise_mult),
+                   ("add", ops.elementwise_add)):
+        for y in (randn(3, 1001, 33), randn(33)):
+            got = fn(xb, y)
+            torch.cuda.synchronize()
+            want = ew.elementwise_binary_plain(xb, y, op)
+            ok = torch.equal(got, want)
+            emit(phase="kernel", kernel="elementwise_binary", op=op,
+                 y=list(y.shape), max_abs_err=rel_err(torch, got, want)[0],
+                 exact=ok)
+            if not ok:
+                fail(f"elementwise_{op} y {tuple(y.shape)}: not bit-"
+                     "identical to plain")
+    # DFT: every ragged case, both variants, real and complex, both ways
+    for rows in (1, 37, 8188):
+        for n in (7, 64, 1024):
+            worst = 0.0
+            for cplx in (False, True):
+                x = randn(rows, n,
+                          dtype=torch.complex64 if cplx else torch.float32)
+                for inverse in (False, True):
+                    fr, fi = functions._dfm_tensors(n, inverse,
+                                                    torch.float32, str(dev))
+                    for variant in dftk.VARIANTS:
+                        got = ops.dft(x, fr, fi, variant=variant)
+                        torch.cuda.synchronize()
+                        want = dftk.dft_plain(x, fr, fi, variant)
+                        err, scale = rel_err(torch, got, want)
+                        worst = max(worst, err / scale)
+                        if err > DFT_RTOL * scale:
+                            fail(f"dft rows={rows} n={n} complex={cplx} "
+                                 f"inverse={inverse} {variant}: {err} > "
+                                 f"{DFT_RTOL} * {scale}")
+            emit(phase="kernel", kernel="dft", rows=rows, n=n,
+                 cases="real+complex x forward+inverse x 4mult+3mult",
+                 max_rel_err=worst, ok=True)
+
     # -- main path: pfb_power end to end -------------------------------------
     table = {}
     for label, b, n, p, m in (("fig3", 1, 2 ** 18, 32, 8),
@@ -194,14 +321,14 @@ def main() -> int:
                  f"{plan.downgrades}")
         x = torch.randn(b, n, device=dev, generator=gen)
         # the counted run: counts set to 0 just before, read just after
-        pfbk.LAUNCHES = 0
-        ew.LAUNCHES = 0
+        zero_counts()
         out = plan(x)
         torch.cuda.synchronize()
-        launches = {"pfb_fused": pfbk.LAUNCHES,
-                    "elementwise_chain": ew.LAUNCHES}
-        if launches != {"pfb_fused": 1, "elementwise_chain": 1}:
-            fail(f"{label}: launches per call {launches}, want 1 and 1")
+        launches = counts()
+        want = dict.fromkeys(launches, 0)
+        want.update(pfb_fused=1, elementwise_chain=1)
+        if launches != want:
+            fail(f"{label}: launches per call {launches}, want {want}")
         t = n // p
         tout = t - m + 1
         if tuple(out.shape) != (b, tout, p) or out.dtype != torch.float32 \
@@ -237,14 +364,14 @@ def main() -> int:
         ms = {
             "plan": median_ms(torch, lambda: plan(x)),
             "plan_native": median_ms(torch, lambda: native(x)),
-            "pfb_fused": median_ms(
+            "pfb_fused": device_ms(
                 torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi, **cfg)),
-            "pfb_fused_plain": median_ms(
+            "pfb_fused_plain": device_ms(
                 torch, lambda: pfbk.pfb_fused_plain(frames, taps_rev, fr, fi)),
-            "elementwise_chain": median_ms(
+            "elementwise_chain": device_ms(
                 torch, lambda: ew.elementwise_chain(zk, (), (),
                                                     abs2_head=True)),
-            "elementwise_chain_plain": median_ms(
+            "elementwise_chain_plain": device_ms(
                 torch, lambda: ew.elementwise_chain_plain(zk, (), (),
                                                           abs2_head=True)),
         }
@@ -275,22 +402,258 @@ def main() -> int:
                             chain_err=cerr)
         del zk, out, x, frames
 
-    full = table["full"]
+    # -- main paths: stft_overlap_add at full width, spectrogram ------------
+    def drive(label, g, shape, want, oracle, row_rtol):
+        """Compile the kernel plan, run it once with the counts at 0, and
+        hold it against the native plan and the oracle on row 0."""
+        torch.cuda.reset_peak_memory_stats()
+        plan = graph.compile(g, {"x": shape}, lowering="kernel")
+        agnostic = {"real", "frame_decimate"}
+        if plan.downgrades or any(
+                lw != ("native" if plan.graph.nodes[nd].op in agnostic
+                       else "kernel")
+                for nd, lw in plan.node_lowerings.items()):
+            fail(f"{label}: lowerings {plan.node_lowerings} downgrades "
+                 f"{plan.downgrades}")
+        x = torch.randn(*shape, device=dev, generator=gen)
+        zero_counts()
+        out = plan(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        full_want = dict.fromkeys(launches, 0)
+        full_want.update(want)
+        if launches != full_want:
+            fail(f"{label}: launches per call {launches}, want {full_want}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{label}: non-finite output")
+        plan_peak = torch.cuda.max_memory_allocated() / 1e9
+        native = graph.compile(g, {"x": shape}, lowering="native")
+        ref = native(x)
+        torch.cuda.synchronize()
+        if ref.shape != out.shape:
+            fail(f"{label}: shape {tuple(out.shape)} vs native "
+                 f"{tuple(ref.shape)}")
+        err_native, scale_native = rel_err(torch, out, ref)
+        del ref                          # free it before timing anything
+        if err_native > NATIVE_RTOL * scale_native:
+            fail(f"{label}: kernel plan vs native plan {err_native} > "
+                 f"{NATIVE_RTOL} * {scale_native}")
+        want0 = oracle(x[0].cpu().numpy())
+        got0 = out[0].double().cpu().numpy()
+        if got0.shape != want0.shape:
+            fail(f"{label}: row 0 {got0.shape} vs oracle {want0.shape}")
+        err_oracle = float(np.max(np.abs(got0 - want0)))
+        scale_oracle = float(np.max(np.abs(want0)))
+        if err_oracle > row_rtol * scale_oracle:
+            fail(f"{label}: row 0 vs oracle {err_oracle} > {row_rtol} * "
+                 f"{scale_oracle}")
+        info = dict(launches_per_call=launches, out=list(out.shape),
+                    max_abs_err_vs_native=err_native,
+                    max_abs_native=scale_native,
+                    max_abs_err_row0_vs_oracle=err_oracle,
+                    max_abs_oracle_row0=scale_oracle,
+                    plan_peak_memory_gb=plan_peak)
+        del out
+        return plan, native, x, info
+
+    def fold_ola(frames, hop):
+        """overlap-add as one F.fold (the library yardstick), sliced to
+        the valid region."""
+        r, t, j = frames.shape
+        k = j // hop
+        full = torch.nn.functional.fold(
+            frames.transpose(1, 2), output_size=(1, (t - 1) * hop + j),
+            kernel_size=(1, j), stride=(1, hop))
+        return full[:, 0, 0, (k - 1) * hop:(k - 1) * hop + (t - k + 1) * hop]
+
+    # stft_overlap_add: 4 channels of a 1024-point STFT at 50 % overlap
+    b, n = STFT_X
+    j, hop = STFT_J, STFT_HOP
+    g = graph.build_stft_overlap_add(j, hop)
+    plan, native, x, info = drive(
+        "stft_overlap_add", g, STFT_X,
+        {"unfold": 1, "elementwise_binary": 2, "dft": 2, "overlap_add": 1},
+        graph.stft_overlap_add_oracle(j, hop), ORACLE_RTOL)
+    # the shapes the path gives each kernel, made by the kernels themselves
+    win = plan.consts["win"]
+    fd = functions.unfold(x, j)[:, ::hop, :].contiguous()  # native view
+    t = fd.shape[1]
+    fw = ew.elementwise_mult(fd, win)
+    xr = fw.reshape(-1, j)
+    fr, fi = functions._dfm_tensors(j, False, torch.float32, str(dev))
+    ir, ii = functions._dfm_tensors(j, True, torch.float32, str(dev))
+    ucfg = ops._resolve(unfk.TUNE_SPACE, {"j": j, "n": n, "rows": b})
+    dcfg = ops._resolve(dftk.TUNE_SPACE, {"m": b * t, "n": j, "k": j})
+    ocfg = ops._resolve(unfk.OLA_TUNE_SPACE, {"j": j, "hop": hop,
+                                             "k": j // hop, "t": t,
+                                             "rows": b})
+    z = dftk.dft(xr, fr, fi, variant="4mult", **dcfg)
+    zinv = dftk.dft(z, ir, ii, variant="4mult", **dcfg)
+    r = zinv.real.contiguous().reshape(b, t, j)
+    rw = ew.elementwise_mult(r, win)
+    errs = {
+        "dft": max(
+            rel_err(torch, z, dftk.dft_plain(xr, fr, fi, "4mult"))[0],
+            rel_err(torch, zinv, dftk.dft_plain(z, ir, ii, "4mult"))[0]),
+        "elementwise_binary": max(
+            rel_err(torch, fw, fd * win)[0], rel_err(torch, rw, r * win)[0]),
+        "overlap_add": rel_err(torch, unfk.overlap_add(rw, hop, **ocfg),
+                               unfk.overlap_add_plain(rw, hop))[0],
+    }
+    big = unfk.unfold(x, j, **ucfg)
+    errs["unfold"] = max_err_rows(torch, big, unfk.unfold_plain(x, j))
+    del big
+    torch.cuda.synchronize()
+
+    def both(fn_a, fn_b):
+        return device_ms(torch, fn_a) + device_ms(torch, fn_b)
+
+    ms = {"plan": median_ms(torch, lambda: plan(x)),
+          "plan_native": median_ms(torch, lambda: native(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan(x))}
+    before = counts()
+    ms.update({
+        "unfold": device_ms(torch, lambda: unfk.unfold(x, j, **ucfg)),
+        "unfold_plain": device_ms(torch, lambda: unfk.unfold_plain(x, j)),
+        "unfold_library": device_ms(
+            torch, lambda: x.unfold(-1, j, 1).contiguous()),
+        "elementwise_binary": both(lambda: ew.elementwise_mult(fd, win),
+                                   lambda: ew.elementwise_mult(r, win)),
+        "elementwise_binary_plain": both(
+            lambda: ew.elementwise_binary_plain(fd, win, "mul"),
+            lambda: ew.elementwise_binary_plain(r, win, "mul")),
+        "elementwise_binary_library": both(lambda: torch.mul(fd, win),
+                                           lambda: torch.mul(r, win)),
+        "dft_forward": device_ms(
+            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", **dcfg)),
+        "dft_inverse": device_ms(
+            torch, lambda: dftk.dft(z, ir, ii, variant="4mult", **dcfg)),
+        "dft_plain": both(lambda: dftk.dft_plain(xr, fr, fi, "4mult"),
+                          lambda: dftk.dft_plain(z, ir, ii, "4mult")),
+        "dft_library": both(lambda: torch.fft.fft(xr),
+                            lambda: torch.fft.ifft(z)),
+        "overlap_add": device_ms(
+            torch, lambda: unfk.overlap_add(rw, hop, **ocfg)),
+        "overlap_add_plain": device_ms(
+            torch, lambda: unfk.overlap_add_plain(rw, hop)),
+        "overlap_add_library": device_ms(torch, lambda: fold_ola(rw, hop)),
+    })
+    ms["dft"] = ms["dft_forward"] + ms["dft_inverse"]
+    calls = REPEATS + 2
+    grew = {k: counts()[k] - before[k] for k in before}
+    if grew != {"pfb_fused": 0, "elementwise_chain": 0,
+                "elementwise_binary": 2 * calls, "dft": 2 * calls,
+                "unfold": calls, "overlap_add": calls}:
+        fail(f"stft_overlap_add: lone kernel launches grew by {grew}")
+    rows_f = b * t
+    nt = t - j // hop + 1
+    cost = {
+        "unfold": (4 * (b * n + b * (n - j + 1) * j), 0),
+        "elementwise_binary": (2 * 4 * (2 * rows_f * j + j), 2 * rows_f * j),
+        "dft": add_cost(dft_cost(rows_f, j, j, False),
+                        dft_cost(rows_f, j, j, True)),
+        "overlap_add": (4 * (b * t * j + b * nt * hop),
+                        b * nt * hop * (j // hop)),
+    }
+    emit(phase="main", path="stft_overlap_add", x=list(STFT_X), window=j,
+         hop=hop, frames=rows_f, tiles={"unfold": ucfg, "dft": dcfg,
+                                        "overlap_add": ocfg},
+         ms=ms, plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         plan_bound_ms=sum(bound(*c)[0] for c in cost.values()),
+         unfold_gb_s=cost["unfold"][0] / (ms["unfold"] * 1e-3) / 1e9,
+         dft_achieved_tflops=cost["dft"][1] / (ms["dft"] * 1e-3) / 1e12,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    table["stft"] = dict(launches=info["launches_per_call"], ms=ms,
+                         cost=cost, err=errs)
+    del plan, native, x, fd, fw, xr, z, zinv, r, rw
+
+    # spectrogram at its registered width
+    b, n = SPEC_X
+    j = SPEC_J
+    g = graph.build_spectrogram(j)
+    plan, native, x, info = drive(
+        "spectrogram", g, SPEC_X,
+        {"unfold": 1, "elementwise_binary": 1, "dft": 1,
+         "elementwise_chain": 1},
+        graph.spectrogram_oracle(j), ORACLE_RTOL)
+    win = plan.consts["win"]
+    ucfg = ops._resolve(unfk.TUNE_SPACE, {"j": j, "n": n, "rows": b})
+    frames = unfk.unfold(x, j, **ucfg)
+    fw = ew.elementwise_mult(frames, win)
+    xr = fw.reshape(-1, j)
+    fr, fi = functions._dfm_tensors(j, False, torch.float32, str(dev))
+    dcfg = ops._resolve(dftk.TUNE_SPACE, {"m": xr.shape[0], "n": j, "k": j})
+    z = dftk.dft(xr, fr, fi, variant="4mult", **dcfg)
+    steps = (("scale", 1.0 / j),)
+    ms = {
+        "plan": median_ms(torch, lambda: plan(x)),
+        "plan_native": median_ms(torch, lambda: native(x)),
+        "plan_back_to_back": device_ms(torch, lambda: plan(x)),
+        "unfold": device_ms(torch, lambda: unfk.unfold(x, j, **ucfg)),
+        "unfold_plain": device_ms(torch, lambda: unfk.unfold_plain(x, j)),
+        "unfold_library": device_ms(
+            torch, lambda: x.unfold(-1, j, 1).contiguous()),
+        "elementwise_binary": device_ms(
+            torch, lambda: ew.elementwise_mult(frames, win)),
+        "elementwise_binary_plain": device_ms(
+            torch, lambda: ew.elementwise_binary_plain(frames, win, "mul")),
+        "elementwise_binary_library": device_ms(
+            torch, lambda: torch.mul(frames, win)),
+        "dft": device_ms(
+            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", **dcfg)),
+        "dft_plain": device_ms(
+            torch, lambda: dftk.dft_plain(xr, fr, fi, "4mult")),
+        "dft_library": device_ms(torch, lambda: torch.fft.fft(xr)),
+        "elementwise_chain": device_ms(
+            torch, lambda: ew.elementwise_chain(z, (), steps,
+                                                abs2_head=True)),
+        "elementwise_chain_plain": device_ms(
+            torch, lambda: ew.elementwise_chain_plain(z, (), steps,
+                                                      abs2_head=True)),
+    }
+    nf = xr.shape[0]
+    emit(phase="main", path="spectrogram", x=list(SPEC_X), window=j,
+         frames=nf, tiles={"unfold": ucfg, "dft": dcfg}, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         plan_bound_ms=sum(bound(*c)[0] for c in (
+             (4 * (b * n + nf * j), 0), (4 * (2 * nf * j + j), nf * j),
+             dft_cost(nf, j, j, False), (12 * nf * j, 4 * nf * j))),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    del plan, native, x, frames, fw, xr, z
+
+    full, stft = table["full"], table["stft"]
     rows = []
-    for name, src, replaces, cost, err in (
+    for name, src, replaces, cost, err, launches, ms, lib in (
             ("pfb_fused", "src/repro_torch/csrc/pfb.cu",
-             "src/repro/kernels/pfb.py:144", full["pfb"], full["pfb_err"]),
+             "src/repro/kernels/pfb.py:144", full["pfb"], full["pfb_err"],
+             full["launches"], full["ms"], None),
             ("elementwise_chain", "src/repro_torch/csrc/elementwise.cu",
              "src/repro/kernels/elementwise.py:118", full["chain"],
-             full["chain_err"])):
+             full["chain_err"], full["launches"], full["ms"], None),
+            ("elementwise_binary", "src/repro_torch/csrc/elementwise.cu",
+             "src/repro/kernels/elementwise.py:65",
+             stft["cost"]["elementwise_binary"],
+             stft["err"]["elementwise_binary"], stft["launches"],
+             stft["ms"], "elementwise_binary_library"),
+            ("dft", "src/repro_torch/csrc/dft.cu",
+             "src/repro/kernels/dft.py:74", stft["cost"]["dft"],
+             stft["err"]["dft"], stft["launches"], stft["ms"],
+             "dft_library"),
+            ("unfold", "src/repro_torch/csrc/unfold.cu",
+             "src/repro/kernels/unfold.py:49", stft["cost"]["unfold"],
+             stft["err"]["unfold"], stft["launches"], stft["ms"],
+             "unfold_library"),
+            ("overlap_add", "src/repro_torch/csrc/unfold.cu",
+             "src/repro/kernels/unfold.py:111", stft["cost"]["overlap_add"],
+             stft["err"]["overlap_add"], stft["launches"], stft["ms"],
+             "overlap_add_library")):
         b_ms, b_by = bound(*cost)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
-                     "launches": full["launches"][name],
-                     "max_abs_err": err, "ms": full["ms"][name],
-                     "plain_ms": full["ms"][name + "_plain"],
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms[name],
+                     "plain_ms": ms[name + "_plain"],
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": ms[lib] if lib else None})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

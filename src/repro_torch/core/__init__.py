@@ -1,11 +1,13 @@
-"""TINA core in torch: the building blocks, the op mappings the PFB
-reaches, the PFB itself, the OpDef layer and the pipeline registry."""
+"""TINA core in torch: the building blocks, the op mappings the ported
+pipelines reach, the PFB itself, the OpDef layer and the pipeline
+registry."""
 from repro_torch.core import blocks, functions, pfb
 from repro_torch.core.blocks import (depthwise_conv, fully_connected,
                                      pointwise_conv, standard_conv,
                                      transposed_conv)
 from repro_torch.core.functions import (depthwise_fir, dft, elementwise_add,
-                                        elementwise_mult, idft, matmul)
+                                        elementwise_mult, idft, matmul,
+                                        overlap_add, unfold)
 from repro_torch.core.pfb import pfb as pfb_full
 from repro_torch.core.pfb import pfb_frontend, pfb_window
 
@@ -13,5 +15,5 @@ __all__ = [
     "blocks", "functions", "pfb",
     "standard_conv", "depthwise_conv", "pointwise_conv", "transposed_conv",
     "fully_connected", "elementwise_mult", "elementwise_add", "matmul",
-    "dft", "idft", "depthwise_fir", "pfb_full", "pfb_frontend", "pfb_window",
+    "dft", "idft", "depthwise_fir", "unfold", "overlap_add", "pfb_full", "pfb_frontend", "pfb_window",
 ]

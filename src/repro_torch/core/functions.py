@@ -1,12 +1,14 @@
 """TINA function mappings (paper §3 arithmetic + §4 signal processing),
-the part of them the PFB reaches.
+the part of them the ported pipelines reach.
 
 Each function expresses a non-NN operation through the building blocks
 of :mod:`repro_torch.core.blocks` (Table 1 of the paper) and takes
-``lowering=``: ``"conv"`` (paper-faithful NN layer) or ``"native"``
-(matmul / elementwise form).  The ``kernel`` lowering of these single
-ops (the reference's Pallas matmul, DFT and elementwise kernels) is not
-ported yet and raises.  ``fir``, ``unfold``, ``overlap_add`` and
+``lowering=``: ``"conv"`` (paper-faithful NN layer), ``"native"``
+(matmul / elementwise / data-movement form) or ``"kernel"`` (the
+hand-written CUDA kernels of :mod:`repro_torch.kernels.ops`, the
+reference's ``pallas``).  ``elementwise_mult``, ``elementwise_add``,
+``dft``, ``idft``, ``unfold`` and ``overlap_add`` have all three;
+``matmul``'s kernel lowering is not ported yet and raises.  ``fir`` and
 ``summation`` come with their slice.
 """
 from __future__ import annotations
@@ -20,11 +22,17 @@ import torch
 from repro_torch.core import blocks
 
 Tensor = torch.Tensor
-LOWERINGS = ("native", "conv")
+LOWERINGS = ("native", "conv", "kernel")
 
 
-def _check_lowering(fn: str, lowering: str) -> None:
-    if lowering == "kernel":
+def _kops():
+    # deferred import: core must not hard-depend on kernels at import time
+    from repro_torch.kernels import ops
+    return ops
+
+
+def _check_lowering(fn: str, lowering: str, *, kernel: bool = True) -> None:
+    if lowering == "kernel" and not kernel:
         raise ValueError(f"{fn}: the kernel lowering is not yet ported")
     if lowering not in LOWERINGS:
         raise ValueError(f"{fn}: unknown lowering {lowering!r}")
@@ -36,12 +44,17 @@ def _check_lowering(fn: str, lowering: str) -> None:
 def elementwise_mult(x: Tensor, y: Tensor, *, lowering: str = "native",
                      block: Optional[dict] = None) -> Tensor:
     """Elementwise x*y of same-shape tensors via a depthwise conv whose
-    H = W = 1 and C_out = H*W (paper Eq. 6).  Batched over x.shape[:-2]."""
-    del block
+    H = W = 1 and C_out = H*W (paper Eq. 6).  Batched over x.shape[:-2].
+
+    ``block``: optional kernel block-size overrides (``{"threads": 512}``)
+    forwarded to :mod:`repro_torch.kernels.ops`; ignored by the other
+    lowerings.  Same for every ``block=`` below."""
     if x.shape[-2:] != y.shape[-2:]:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     _check_lowering("elementwise_mult", lowering)
+    if lowering == "kernel":
+        return _kops().elementwise_mult(x, y, **(block or {}))
     h, w = x.shape[-2:]
     batch = x.shape[:-2]
     c = h * w
@@ -62,11 +75,12 @@ def elementwise_mult(x: Tensor, y: Tensor, *, lowering: str = "native",
 # ---------------------------------------------------------------------------
 def elementwise_add(x: Tensor, y: Tensor, *, lowering: str = "native",
                     block: Optional[dict] = None) -> Tensor:
-    del block
     if x.shape[-2:] != y.shape[-2:]:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     _check_lowering("elementwise_add", lowering)
+    if lowering == "kernel":
+        return _kops().elementwise_add(x, y, **(block or {}))
     h, w = x.shape[-2:]
     batch = x.shape[:-2]
     c = h * w
@@ -90,7 +104,7 @@ def matmul(x: Tensor, y: Tensor, *, lowering: str = "native",
     """Z = X @ Y via pointwise conv: X (.., M, L) becomes the conv input
     (T, C_in=L, 1, W=M); the kernel is Y (L, N) (paper Eq. 9)."""
     del block
-    _check_lowering("matmul", lowering)
+    _check_lowering("matmul", lowering, kernel=False)
     if y.ndim != 2:
         raise ValueError("TINA matmul kernel (conv weight) must be 2-D")
     if lowering == "native":
@@ -118,6 +132,17 @@ def _dfm(n: int, inverse: bool, dtype: str) -> tuple[np.ndarray, np.ndarray]:
     return f.real.astype(dtype), f.imag.astype(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _dfm_tensors(n: int, inverse: bool, dtype: torch.dtype,
+                 device: str) -> tuple[Tensor, Tensor]:
+    """The (I)DFM as tensors on ``device``, made once per (n, inverse,
+    dtype, device): under ``jit`` the reference folds it into a
+    constant, and uploading it per call would copy 8 MB at n = 1024."""
+    fr, fi = _dfm(n, inverse, str(dtype).removeprefix("torch."))
+    return (torch.as_tensor(fr, device=device),
+            torch.as_tensor(fi, device=device))
+
+
 def _split(x: Tensor) -> tuple[Tensor, Tensor]:
     if x.is_complex():
         return x.real, x.imag
@@ -135,13 +160,15 @@ def dft(x: Tensor, *, inverse: bool = False, lowering: str = "native",
       4mult (paper-faithful):  Zr = Xr Fr - Xi Fi ; Zi = Xr Fi + Xi Fr
       3mult (beyond-paper):    Karatsuba -- 3 real matmuls instead of 4.
     """
-    del block
     _check_lowering("dft", lowering)
     n = x.shape[-1]
     rdt = _REAL_OF.get(x.dtype, x.dtype)
-    fr_np, fi_np = _dfm(n, inverse, str(rdt).removeprefix("torch."))
-    fr = torch.as_tensor(fr_np, device=x.device)
-    fi = torch.as_tensor(fi_np, device=x.device)
+    fr, fi = _dfm_tensors(n, inverse, rdt, str(x.device))
+    if lowering == "kernel":
+        # a real signal goes in as it is: the kernel forms no zero plane
+        z = _kops().dft(x.reshape((-1, n)), fr, fi, variant=variant,
+                        **(block or {}))
+        return z.reshape(x.shape[:-1] + (n,))
     xr, xi = _split(x)
     shp = xr.shape
     xr = xr.reshape((-1, n))
@@ -189,5 +216,85 @@ def depthwise_fir(x: Tensor, taps: Tensor, *, causal: bool = True,
     return out[:, :, 0, :].transpose(1, 2).reshape(batch + (t, c))
 
 
+# ---------------------------------------------------------------------------
+# overlap-add synthesis -- transposed conv with identity kernel
+# (beyond paper: the inverse of §4.4 unfolding, what ISTFT needs)
+# ---------------------------------------------------------------------------
+def overlap_add(frames: Tensor, hop: int, *, lowering: str = "native",
+                block: Optional[dict] = None) -> Tensor:
+    """Valid-mode overlap-add: frames (..., T, J) at stride ``hop`` back
+    onto the time axis, emitting only the output samples covered by all
+    K = J/hop overlapping frames.  Returns (..., (T − K + 1)·hop); output
+    sample s is Σ_m frames[s//hop + m, J − (m+1)·hop + s%hop].
+
+    ``conv`` is a transposed standard conv whose identity kernel scatters
+    each frame at its hop offset, sliced to the valid region; ``native``
+    sums the K diagonal sub-blocks directly; ``kernel`` is the CUDA
+    kernel's form of the same sum, bit-identical to ``native`` (the adds
+    run in the same ascending-m order).  Complex frames go through
+    ``kernel`` and ``conv`` as real and imaginary parts (pure adds: the
+    recombination is exact)."""
+    t, j = frames.shape[-2], frames.shape[-1]
+    h = int(hop)
+    if h <= 0 or j % h:
+        raise ValueError(f"hop {h} must divide the frame length {j}")
+    k = j // h
+    if t < k:
+        raise ValueError(f"overlap_add needs >= {k} frames of length {j} "
+                         f"at hop {h}, got {t}")
+    _check_lowering("overlap_add", lowering)
+    nt = t - k + 1
+    batch = frames.shape[:-2]
+    if lowering != "native" and frames.is_complex():
+        return torch.complex(
+            overlap_add(frames.real, h, lowering=lowering, block=block),
+            overlap_add(frames.imag, h, lowering=lowering, block=block))
+    if lowering == "kernel":
+        return _kops().overlap_add(frames, h, **(block or {}))
+    if lowering == "conv":
+        xi = frames.reshape((-1, t, j))
+        eye = torch.eye(j, dtype=frames.dtype,
+                        device=frames.device)[:, :, None]   # (K=J, I=J, O=1)
+        full = blocks.transposed_conv(xi, eye, stride=h, lowering="conv")
+        out = full[:, (k - 1) * h:(k - 1) * h + nt * h, 0]
+        return out.reshape(batch + (nt * h,))
+    # native: o_t = Σ_m f_{t+m}[(K−1−m)·h : (K−m)·h], ascending m
+    fk = frames.reshape(batch + (t, k, h))
+    acc = fk[..., 0:nt, k - 1, :]
+    for m in range(1, k):
+        acc = acc + fk[..., m:m + nt, k - 1 - m, :]
+    return acc.reshape(batch + (nt * h,))
+
+
+# ---------------------------------------------------------------------------
+# §4.4 unfolding -- standard conv with identity kernel, Eq. (19)
+# ---------------------------------------------------------------------------
+def unfold(x: Tensor, window: int, *, lowering: str = "native",
+           block: Optional[dict] = None) -> Tensor:
+    """Y(i, j) = X(i + j): (.., N) -> (.., N-J+1, J).
+
+    ``conv`` is the paper-faithful identity-kernel conv (N·J² MACs);
+    ``native`` is a strided view of the input, the way XLA fuses the
+    reference's gather into its consumer; ``kernel`` writes the whole
+    window tensor with the CUDA kernel, as the reference's Pallas kernel
+    does."""
+    n = x.shape[-1]
+    j = int(window)
+    if not 1 <= j <= n:
+        raise ValueError(f"window {j} outside [1, length {n}]")
+    _check_lowering("unfold", lowering)
+    if lowering == "kernel":
+        return _kops().unfold(x, j, **(block or {}))
+    batch = x.shape[:-1]
+    if lowering == "native":
+        xc = x.contiguous()
+        return xc.as_strided(batch + (n - j + 1, j),
+                             tuple(xc.stride()[:-1]) + (1, 1))
+    xi = x.reshape((-1, 1, 1, n))
+    eye = torch.eye(j, dtype=x.dtype, device=x.device).reshape(j, 1, 1, j)
+    out = blocks.standard_conv(xi, eye, lowering=lowering)  # (T, J, 1, N-J+1)
+    return out[:, :, 0, :].transpose(1, 2).reshape(batch + (n - j + 1, j))
+
+
 __all__ = ["elementwise_mult", "elementwise_add", "matmul", "dft", "idft",
-           "depthwise_fir"]
+           "depthwise_fir", "overlap_add", "unfold"]

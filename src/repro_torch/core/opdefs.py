@@ -10,11 +10,14 @@ planner, the fuser and the kernels' tune spaces all derive from.
     :class:`repro_torch.kernels.tune.TuneSpace`; ``tune_ctx`` extracts the
     shape facts the space needs.
 
-This slice of the port declares the ops of the ``pfb_power`` path:
-``pfb``, ``pfb_frontend``, ``abs2``, ``scale`` and ``fused_ew``.  The
-reference's precision, streaming and remaining ops come with their
-slices; a graph naming an op missing here fails to compile with the
-reference's "unknown op" error.
+The port declares the ops of its three pipelines: ``pfb``,
+``pfb_frontend``, ``abs2``, ``scale`` and ``fused_ew`` (``pfb_power``);
+``unfold``, ``window``, ``dft`` (``spectrogram``); ``frame_decimate``,
+``idft``, ``real`` and ``overlap_add`` (``stft_overlap_add``); and the
+Table-1 ``ew_mul`` / ``ew_add``.  The reference's precision and
+streaming fields, and its ``matmul``, ``fir``, ``downsample`` and
+``summation`` ops, come with their slices; a graph naming an op missing
+here fails to compile with the reference's "unknown op" error.
 """
 from __future__ import annotations
 
@@ -108,9 +111,52 @@ def _np_pfb(x, taps):
     return np.fft.fft(_np_pfb_frontend(x, taps), axis=-1)
 
 
+def _np_unfold(x, j):
+    n = x.shape[-1]
+    idx = np.arange(n - j + 1)[:, None] + np.arange(j)[None, :]
+    return x[..., idx]
+
+
+def _np_overlap_add(frames, hop):
+    t, j = frames.shape[-2], frames.shape[-1]
+    k = j // hop
+    nt = t - k + 1
+    fk = frames.reshape(frames.shape[:-2] + (t, k, hop))
+    acc = sum(fk[..., m:m + nt, k - 1 - m, :] for m in range(k))
+    return acc.reshape(frames.shape[:-2] + (nt * hop,))
+
+
 # ---------------------------------------------------------------------------
 # graph implementations
 # ---------------------------------------------------------------------------
+def _ew_binary(kind: str):
+    """window / ew_mul / ew_add: broadcast the operand, then dispatch."""
+    fn_conv = (functions.elementwise_mult if kind == "mul"
+               else functions.elementwise_add)
+
+    def impl(args, at, lowering, block=None):
+        x, y = args
+        if lowering == "kernel":
+            k = _kops()
+            fn = k.elementwise_mult if kind == "mul" else k.elementwise_add
+            return fn(x, y, **(block or {}))
+        yb = y.expand(x.shape)
+        if lowering == "conv" and x.ndim >= 2:
+            return fn_conv(x, yb, lowering="conv")
+        return x * yb if kind == "mul" else x + yb
+    return impl
+
+
+def _impl_overlap_add(args, at, lowering, block=None):
+    (frames,) = args
+    if at["window"] and frames.shape[-1] != at["window"]:
+        raise ValueError(
+            f"overlap_add: frames have length {frames.shape[-1]} but the "
+            f"window attr says {at['window']}")
+    return functions.overlap_add(frames, at["hop"], lowering=lowering,
+                                 block=block)
+
+
 def _impl_abs2(args, at, lowering, block=None):
     (x,) = args
     if lowering == "kernel":
@@ -164,6 +210,28 @@ def _ctx_pfb(at, shapes):
     return {"m": m, "p": p, "t": int(shapes[0][-1]) // p}
 
 
+def _ctx_unfold(at, shapes):
+    return {"j": int(at["window"]), "n": int(shapes[0][-1]),
+            "rows": _rows(shapes[0])}
+
+
+def _ctx_dft(at, shapes):
+    n = int(shapes[0][-1])
+    return {"m": _rows(shapes[0]), "n": n, "k": n}
+
+
+def _ctx_overlap_add(at, shapes):
+    j = int(shapes[0][-1])
+    hop = int(at["hop"])
+    return {"j": j, "hop": hop, "k": j // hop, "t": int(shapes[0][-2]),
+            "rows": _rows(shapes[0][:-1])}
+
+
+def _ctx_ew_binary(at, shapes):
+    shape = np.broadcast_shapes(tuple(shapes[0]), tuple(shapes[1]))
+    return {"rows": _rows(shape), "cols": int(shape[-1]), "n_in": 2}
+
+
 def _ctx_abs2(at, shapes):
     return {"rows": _rows(shapes[0]), "cols": int(shapes[0][-1]), "n_in": 2}
 
@@ -178,6 +246,57 @@ def _ctx_fused(at, shapes):
 # ---------------------------------------------------------------------------
 # the declarations
 # ---------------------------------------------------------------------------
+register(OpDef(
+    "ew_mul", _ew_binary("mul"), ("native", "conv", "kernel"),
+    elementwise=True, fuse_step=lambda at: ("mul",),
+    section="3.1", building_block="depthwise conv",
+    eager=functions.elementwise_mult, oracle=lambda x, y: x * y,
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+
+register(OpDef(
+    "ew_add", _ew_binary("add"), ("native", "conv", "kernel"),
+    elementwise=True, fuse_step=lambda at: ("add",),
+    section="3.3", building_block="depthwise conv",
+    eager=functions.elementwise_add, oracle=lambda x, y: x + y,
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+
+register(OpDef(
+    "dft",
+    lambda a, at, lw, b=None: functions.dft(
+        a[0], lowering=lw, variant=at["variant"], block=b),
+    ("native", "conv", "kernel"),
+    attrs=(Attr("variant", "4mult"),),
+    section="4.1", building_block="pointwise conv",
+    eager=functions.dft, oracle=lambda x: np.fft.fft(x),
+    tune_space="dft", tune_ctx=_ctx_dft))
+
+register(OpDef(
+    "idft",
+    lambda a, at, lw, b=None: functions.idft(
+        a[0], lowering=lw, variant=at["variant"], block=b),
+    ("native", "conv", "kernel"),
+    attrs=(Attr("variant", "4mult"),),
+    section="4.2", building_block="pointwise conv",
+    eager=functions.idft, oracle=lambda z: np.fft.ifft(z),
+    tune_space="dft", tune_ctx=_ctx_dft))
+
+register(OpDef(
+    "unfold",
+    lambda a, at, lw, b=None: functions.unfold(
+        a[0], at["window"], lowering=lw, block=b),
+    ("native", "conv", "kernel"),
+    attrs=(Attr("window"),),
+    section="4.4", building_block="standard conv",
+    eager=functions.unfold, oracle=_np_unfold,
+    tune_space="unfold", tune_ctx=_ctx_unfold))
+
+register(OpDef(
+    "overlap_add", _impl_overlap_add, ("native", "conv", "kernel"),
+    attrs=(Attr("hop"), Attr("window", 0)),
+    section="4.4 (inverse)", building_block="transposed conv",
+    eager=functions.overlap_add, oracle=_np_overlap_add,
+    tune_space="overlap_add", tune_ctx=_ctx_overlap_add))
+
 register(OpDef(
     "pfb_frontend",
     lambda a, at, lw, b=None: pfb.pfb_frontend(a[0], a[1], lowering=lw,
@@ -198,6 +317,14 @@ register(OpDef(
     tune_space="pfb", tune_ctx=_ctx_pfb))
 
 register(OpDef(
+    # multiply by a const vector along the last axis (same impl as
+    # ew_mul; a distinct name keeps pipeline intent readable)
+    "window", _ew_binary("mul"), ("native", "conv", "kernel"),
+    elementwise=True, fuse_step=lambda at: ("mul",),
+    section="3.1", building_block="depthwise conv",
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+
+register(OpDef(
     "abs2", _impl_abs2, ("native", "conv", "kernel"),
     elementwise=True, fuse_step=lambda at: ("abs2",),
     section="3.1+3.3", building_block="depthwise conv",
@@ -209,6 +336,16 @@ register(OpDef(
     ("native",), elementwise=True,
     fuse_step=lambda at: ("scale", at["factor"]),
     lowering_agnostic=True, attrs=(Attr("factor"),)))
+
+register(OpDef(
+    "real",
+    lambda a, at, lw, b=None: a[0].real,
+    ("native",), lowering_agnostic=True))
+
+register(OpDef(
+    "frame_decimate",  # keep every factor-th frame (hop on a framed axis)
+    lambda a, at, lw, b=None: a[0][..., ::at["factor"], :],
+    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),)))
 
 register(OpDef(
     "fused_ew", _impl_fused, ("native", "conv", "kernel"),

@@ -1,8 +1,10 @@
 // Fused elementwise chain for Hopper (sm_90a): one pass over the flat
-// elements applying a whole run of elementwise graph nodes.
+// elements applying a whole run of elementwise graph nodes; and the
+// plain binary x*y / x+y.
 //
 // Replaces: src/repro/kernels/elementwise.py:elementwise_chain (Pallas,
-// TPU).
+// TPU), and, in tina_binary, elementwise.py:_binary behind
+// elementwise_mult and elementwise_add.
 //
 // What it computes: acc = re^2 + im^2 of an interleaved complex head (the
 // `abs2` head, read straight from torch.view_as_real(z)) or the real head
@@ -19,6 +21,14 @@
 // kernel was specialised per static step tuple.  The arithmetic uses
 // __fmul_rn / __fadd_rn so nvcc cannot contract re*re + im*im into an
 // FMA: the kernel then matches the plain torch version bit for bit.
+//
+// tina_binary: out = x * y or x + y, bound by bytes (12 per element, or
+// 8 when y is a broadcast row that stays in L1/L2).  y is either x's
+// shape or one row of `cols` values broadcast over the rows, as a window
+// constant is: the kernel indexes it at i % cols, carried from one step
+// of the grid-stride loop to the next without a division, so the
+// broadcast is never materialised.  __fmul_rn / __fadd_rn: bit-exact
+// against the plain version.
 
 #include <cuda_runtime.h>
 
@@ -59,6 +69,25 @@ __global__ void chain_kernel(const float* __restrict__ head, long long n,
       }
     }
     out[i] = acc;
+  }
+}
+
+template <bool ADD, bool ROW>
+__global__ void binary_kernel(const float* __restrict__ x,
+                              const float* __restrict__ y,
+                              float* __restrict__ out, long long n, int cols) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int j = ROW ? (int)(i % cols) : 0;             // y's index when ROW
+  const int dj = ROW ? (int)(stride % cols) : 0;
+  for (; i < n; i += stride) {
+    const float a = __ldg(x + i);
+    const float b = __ldg(y + (ROW ? (long long)j : i));
+    out[i] = ADD ? __fadd_rn(a, b) : __fmul_rn(a, b);
+    if (ROW) {
+      j += dj;
+      if (j >= cols) j -= cols;
+    }
   }
 }
 
@@ -111,5 +140,37 @@ extern "C" int tina_chain(const void* head, int head_is_complex, long long n,
     chain_kernel<true><<<blocks, threads, 0, s>>>(h, n, ch, o);
   else
     chain_kernel<false><<<blocks, threads, 0, s>>>(h, n, ch, o);
+  return cudaGetLastError();
+}
+
+// x: n f32 values; y: n f32 values, or `cols` values broadcast along rows
+// (y_is_row; n a multiple of cols); out: n f32.  op 0 = x * y, 1 = x + y.
+// Returns cudaError_t.
+extern "C" int tina_binary(const void* x, const void* y, void* out,
+                           long long n, int cols, int y_is_row, int op,
+                           int threads, void* stream) {
+  if (n < 0 || cols <= 0 || (op != 0 && op != 1) || threads <= 0 ||
+      threads > 1024 || threads % 32 != 0 || (y_is_row && n % cols != 0))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const long long want = (n + threads - 1) / threads;
+  const long long cap = (long long)sm_count() * (2048 / threads) * 4;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(x);
+  const auto* b = static_cast<const float*>(y);
+  auto* o = static_cast<float*>(out);
+  if (op == 1) {
+    if (y_is_row)
+      binary_kernel<true, true><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
+    else
+      binary_kernel<true, false><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
+  } else {
+    if (y_is_row)
+      binary_kernel<false, true><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
+    else
+      binary_kernel<false, false><<<blocks, threads, 0, s>>>(a, b, o, n,
+                                                             cols);
+  }
   return cudaGetLastError();
 }

@@ -5,7 +5,8 @@ cached plans that run on the card.
                 signatures hash the same) and ``load_graph``
   plan.py       planner: shape specialization, elementwise fusion,
                 lowering selection, memoized plans
-  pipelines.py  built-in workloads (``pfb_power`` so far)
+  pipelines.py  built-in workloads (``spectrogram``, ``pfb_power``,
+                ``stft_overlap_add``)
 
 Quick use::
 
@@ -18,12 +19,17 @@ from repro_torch.core.opdefs import OPDEFS, OpDef
 from repro_torch.graph import pipelines, plan
 from repro_torch.graph.graph import Graph, Node, load_graph
 from repro_torch.graph.pipelines import (BUILTINS, build_pfb_power,
-                                         pfb_power_oracle)
+                                         build_spectrogram,
+                                         build_stft_overlap_add,
+                                         pfb_power_oracle, spectrogram_oracle,
+                                         stft_overlap_add_oracle)
 from repro_torch.graph.plan import (CompileOptions, Plan, cache_stats,
                                     clear_cache, compile)
 
 __all__ = [
     "Graph", "Node", "load_graph", "OpDef", "OPDEFS", "Plan",
     "CompileOptions", "compile", "cache_stats", "clear_cache", "BUILTINS",
-    "build_pfb_power", "pfb_power_oracle", "pipelines", "plan",
+    "build_pfb_power", "pfb_power_oracle", "build_spectrogram",
+    "spectrogram_oracle", "build_stft_overlap_add", "stft_overlap_add_oracle",
+    "pipelines", "plan",
 ]

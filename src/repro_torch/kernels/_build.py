@@ -40,6 +40,14 @@ SIGNATURES = {
     # out, threads, stream
     "tina_chain": [_P, _I, ctypes.c_longlong, ctypes.POINTER(_I),
                    ctypes.POINTER(_F), ctypes.POINTER(_P), _I, _P, _I, _P],
+    # x, y, out, n, cols, y_is_row, op (0 mul, 1 add), threads, stream
+    "tina_binary": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    # x, x_is_complex, fr, fi, out, B, L, N, karatsuba, bm, bn, stream
+    "tina_dft": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, y, rows, n, J, bt, bj, stream
+    "tina_unfold": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # frames, out, rows, T, J, hop, threads, stream
+    "tina_overlap_add": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

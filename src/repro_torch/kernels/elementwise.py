@@ -1,10 +1,16 @@
-"""Fused elementwise chain kernel: a whole run of adjacent elementwise
-graph nodes in one pass over memory.
+"""Elementwise kernels: the fused chain (a whole run of adjacent
+elementwise graph nodes in one pass over memory) and the plain binary
+x*y / x+y.
 
-The CUDA kernel is ``csrc/elementwise.cu`` (it replaces the JAX
-reference's ``kernels/elementwise.py:elementwise_chain``; the source says
-what bounds it and how).  :func:`elementwise_chain` launches it for a
-CUDA tensor and runs :func:`elementwise_chain_plain` for a CPU tensor.
+The CUDA kernels are in ``csrc/elementwise.cu``: ``tina_chain`` replaces
+the JAX reference's ``kernels/elementwise.py:elementwise_chain`` and
+``tina_binary`` its ``_binary`` (behind ``elementwise_mult`` and
+``elementwise_add``); the source says what bounds them and how.
+:func:`elementwise_chain`, :func:`elementwise_mult` and
+:func:`elementwise_add` launch them for a CUDA tensor and run their
+plain versions for a CPU tensor.  Both kernels share the one
+``"elementwise"`` tune space (threads per block), as the reference's
+binary and chain kernels share theirs.
 
 ``steps`` is a tuple of tags applied in order to an accumulator:
   ("mul",)        acc *= next operand
@@ -25,7 +31,9 @@ from repro_torch.kernels import _build, tune
 MAX_STEPS = 8                        # csrc/elementwise.cu: MAX_STEPS
 _CODES = {"mul": 0, "add": 1, "scale": 2}
 
-LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
+LAUNCHES = 0         # chain launches since the last reset (plain excluded)
+BINARY_LAUNCHES = 0  # binary (mult / add) launches since the last reset
+_BINARY_CODES = {"mul": 0, "add": 1}
 
 # ctx: {"rows", "cols", "n_in"}.  The kernel walks the flat elements in a
 # grid-stride loop, so the one tunable is the threads per block: a
@@ -110,8 +118,7 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
             raise ValueError(
                 f"elementwise_chain: operand {o.dtype}{tuple(o.shape)} must "
                 f"be float32{tuple(head.shape)}")
-    if not (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0):
-        raise ValueError(f"elementwise_chain: threads={threads}")
+    _check_threads("elementwise_chain", threads)
     out = torch.empty(head.shape, device=dev, dtype=torch.float32)
     n = head.numel()
     codes = (ctypes.c_int * MAX_STEPS)(*(_CODES[s[0]] for s in steps))
@@ -128,5 +135,71 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
     return out
 
 
-__all__ = ["elementwise_chain", "elementwise_chain_plain", "TUNE_SPACE",
-           "LAUNCHES", "MAX_STEPS"]
+def _check_threads(what: str, threads: int) -> None:
+    if not (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0):
+        raise ValueError(f"{what}: threads={threads}")
+
+
+def elementwise_binary_plain(x: torch.Tensor, y: torch.Tensor,
+                             op: str) -> torch.Tensor:
+    """The binary kernel's arithmetic in plain torch: x*y or x+y, with
+    y broadcast over x."""
+    if op not in _BINARY_CODES:
+        raise ValueError(f"unknown binary op {op!r}")
+    return x * y if op == "mul" else x + y
+
+
+def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
+            threads: int) -> torch.Tensor:
+    """x (..., C) float32, y of x's shape or a row of C values -> x op y.
+    A CPU tensor runs :func:`elementwise_binary_plain`; a CUDA tensor
+    launches ``tina_binary`` on the current stream or raises.  Both must
+    be contiguous: a caller holding a strided view makes it contiguous
+    first (``kernels.ops`` does)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return elementwise_binary_plain(x, y, op)
+    if dev.type != "cuda":
+        raise ValueError(f"elementwise_{op}: no kernel for device {dev}")
+    for name, t in (("x", x), ("y", y)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"elementwise_{op}: {name} must be float32, got "
+                            f"{t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"elementwise_{op}: {name} on {t.device}, x on "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"elementwise_{op}: {name} must be contiguous")
+    cols = x.shape[-1] if x.ndim else 1
+    row = tuple(y.shape) != tuple(x.shape)
+    if row and (y.numel() != cols
+                or torch.broadcast_shapes(x.shape, y.shape) != x.shape):
+        raise ValueError(f"elementwise_{op}: y {tuple(y.shape)} is neither "
+                         f"x's shape {tuple(x.shape)} nor a row of {cols}")
+    _check_threads(f"elementwise_{op}", threads)
+    out = torch.empty(x.shape, device=dev, dtype=torch.float32)
+    code = _build.lib().tina_binary(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), max(cols, 1),
+        int(row), _BINARY_CODES[op], threads,
+        torch.cuda.current_stream(dev).cuda_stream)
+    global BINARY_LAUNCHES
+    BINARY_LAUNCHES += 1
+    _build.check(code, f"elementwise_{op}")
+    return out
+
+
+def elementwise_mult(x: torch.Tensor, y: torch.Tensor, *,
+                     threads: int = 256) -> torch.Tensor:
+    """x * y in one launch of the binary kernel (see :func:`_binary`)."""
+    return _binary(x, y, "mul", threads)
+
+
+def elementwise_add(x: torch.Tensor, y: torch.Tensor, *,
+                    threads: int = 256) -> torch.Tensor:
+    """x + y in one launch of the binary kernel (see :func:`_binary`)."""
+    return _binary(x, y, "add", threads)
+
+
+__all__ = ["elementwise_chain", "elementwise_chain_plain",
+           "elementwise_mult", "elementwise_add", "elementwise_binary_plain",
+           "TUNE_SPACE", "LAUNCHES", "BINARY_LAUNCHES", "MAX_STEPS"]

@@ -11,6 +11,11 @@ CUDA tensor.
 The P x P Fourier matrix is built once per (P, device) and kept: under
 ``jit`` the reference folded it into a constant, and rebuilding it per
 call here would be a host-to-device copy of 8 MB at P = 1024.
+
+Unlike the reference's wrappers these do not pad to block multiples:
+the kernels mask their own ragged edges.  A kernel takes contiguous
+inputs, so a wrapper handed a strided view (``frame_decimate`` after
+``unfold``, ``real`` after ``idft``) makes it contiguous first, a copy.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels import dft as dft_kernel
 from repro_torch.kernels import elementwise as ew_kernel
 from repro_torch.kernels import pfb as pfb_kernel
 from repro_torch.kernels import tune
+from repro_torch.kernels import unfold as unfold_kernel
 
 
 def _resolve(space: tune.TuneSpace, ctx: dict, **explicit) -> dict:
@@ -88,6 +95,39 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
     return z.reshape(batch + (t - m + 1, p))
 
 
+def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
+            threads: int | None) -> torch.Tensor:
+    """x op y with y broadcast to x's shape: y either of the result's
+    shape or one row along the last axis goes to the kernel as it is;
+    any other broadcast is materialised first."""
+    shape = torch.broadcast_shapes(x.shape, y.shape)
+    cols = shape[-1] if len(shape) else 1
+    cfg = _resolve(ew_kernel.TUNE_SPACE,
+                   {"rows": tune.leading_rows(shape), "cols": cols,
+                    "n_in": 2}, threads=threads)
+    x = x.expand(shape).contiguous()
+    if (tuple(y.shape) != tuple(shape) and y.ndim
+            and y.shape[-1] == cols and y.numel() == cols):
+        y = y.reshape(cols).contiguous()          # a row: the kernel's i % C
+    else:
+        y = y.expand(shape).contiguous()
+    fn = (ew_kernel.elementwise_mult if op == "mul"
+          else ew_kernel.elementwise_add)
+    return fn(x, y, **cfg)
+
+
+def elementwise_mult(x: torch.Tensor, y: torch.Tensor, *,
+                     threads: int | None = None) -> torch.Tensor:
+    """x * y (broadcast) in one launch of the binary kernel."""
+    return _binary(x, y, "mul", threads)
+
+
+def elementwise_add(x: torch.Tensor, y: torch.Tensor, *,
+                    threads: int | None = None) -> torch.Tensor:
+    """x + y (broadcast) in one launch of the binary kernel."""
+    return _binary(x, y, "add", threads)
+
+
 def fused_elementwise(x: torch.Tensor, operands: tuple, steps: tuple, *,
                       threads: int | None = None) -> torch.Tensor:
     """Fused elementwise chain -- the planner's entry point (one kernel
@@ -126,4 +166,48 @@ def abs2(x: torch.Tensor, *, threads: int | None = None) -> torch.Tensor:
     return fused_elementwise(x, (), (("abs2",),), threads=threads)
 
 
-__all__ = ["pfb_fir", "pfb", "fused_elementwise", "abs2"]
+def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
+        variant: str = "3mult", bm: int | None = None,
+        bn: int | None = None) -> torch.Tensor:
+    """(B, L) complex or real signal rows through the blocked DFT kernel
+    against fr + i fi (L, N) -> complex64 (B, N).  The reference's
+    ``ops.dft`` takes and returns (re, im) planes; here a complex64 input
+    is read interleaved and a real one has no imaginary plane at all."""
+    b, l = x.shape
+    n = fr.shape[1]
+    cfg = _resolve(dft_kernel.TUNE_SPACE, {"m": b, "n": n, "k": l},
+                   bm=bm, bn=bn)
+    return dft_kernel.dft(x.contiguous(), fr, fi, variant=variant, **cfg)
+
+
+def unfold(x: torch.Tensor, window: int, *, bt: int | None = None,
+           bj: int | None = None) -> torch.Tensor:
+    """(..., N) -> (..., N − J + 1, J), y[.., t, j] = x[.., t + j]: the
+    whole window tensor written by the unfold kernel."""
+    batch = x.shape[:-1]
+    n = x.shape[-1]
+    cfg = _resolve(unfold_kernel.TUNE_SPACE,
+                   {"j": window, "n": n, "rows": tune.leading_rows(x.shape)},
+                   bt=bt, bj=bj)
+    out = unfold_kernel.unfold(x.reshape((-1, n)).contiguous(), window,
+                               **cfg)
+    return out.reshape(batch + (n - window + 1, window))
+
+
+def overlap_add(frames: torch.Tensor, hop: int, *,
+                threads: int | None = None) -> torch.Tensor:
+    """frames (..., T, J) with hop | J -> (..., (T − J/hop + 1) · hop)
+    through the overlap-add kernel (unfold's adjoint)."""
+    t, j = frames.shape[-2], frames.shape[-1]
+    batch = frames.shape[:-2]
+    rows = tune.leading_rows(frames.shape[:-1])   # prod(batch)
+    cfg = _resolve(unfold_kernel.OLA_TUNE_SPACE,
+                   {"j": j, "hop": hop, "k": j // hop, "t": t, "rows": rows},
+                   threads=threads)
+    out = unfold_kernel.overlap_add(frames.reshape((-1, t, j)).contiguous(),
+                                    hop, **cfg)
+    return out.reshape(batch + (out.shape[-1],))
+
+
+__all__ = ["pfb_fir", "pfb", "fused_elementwise", "abs2", "elementwise_mult",
+           "elementwise_add", "dft", "unfold", "overlap_add"]

@@ -16,6 +16,19 @@ def ref_elementwise_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x + y
 
 
+def ref_dft(xr: torch.Tensor, xi: torch.Tensor, fr: torch.Tensor,
+            fi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Complex matmul (Xr + iXi)(Fr + iFi) as the real/imag pair."""
+    return xr @ fr - xi @ fi, xr @ fi + xi @ fr
+
+
+def ref_unfold(x: torch.Tensor, window: int) -> torch.Tensor:
+    n = x.shape[-1]
+    idx = (torch.arange(n - window + 1, device=x.device)[:, None]
+           + torch.arange(window, device=x.device)[None, :])
+    return x[..., idx]
+
+
 def ref_pfb_fir(frames: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """frames (..., n', P), taps (M, P) -> (..., n'-M+1, P):
     y[.., t, p] = sum_m taps[M-1-m, p] * frames[.., t+m, p]  (true FIR)."""
@@ -39,5 +52,5 @@ def ref_pfb(x: torch.Tensor, taps: torch.Tensor
     return z.real, z.imag
 
 
-__all__ = ["ref_elementwise_mult", "ref_elementwise_add", "ref_pfb_fir",
-           "ref_pfb"]
+__all__ = ["ref_elementwise_mult", "ref_elementwise_add", "ref_dft",
+           "ref_unfold", "ref_pfb_fir", "ref_pfb"]

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from repro_torch import graph
+from repro_torch.core import functions
+from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
 from repro_torch.kernels import ops
 from repro_torch.kernels import pfb as pfbk
+from repro_torch.kernels import unfold as unfk
 
 pytestmark = pytest.mark.cuda
 
@@ -91,4 +94,92 @@ def test_pfb_power_plan_launches_each_kernel_once(dev):
     torch.cuda.synchronize()
     assert (pfbk.LAUNCHES, ewk.LAUNCHES) == (1, 1)
     ref = graph.compile(g, {"x": tuple(x.shape)}, lowering="native")(x)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("rows,n,j", [(3, 1000, 1), (3, 1000, 7),
+                                      (3, 1000, 64), (2, 5000, 4096)])
+def test_unfold_exact(dev, rows, n, j):
+    x = torch.randn(rows, n, device=dev)
+    got = ops.unfold(x, j)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfk.unfold_plain(x, j))
+
+
+@pytest.mark.parametrize("shape,hop", [((2, 37, 64), 64), ((2, 37, 64), 32),
+                                       ((2, 37, 64), 16), ((2, 37, 64), 8),
+                                       ((2, 8, 64), 8),   # T = K exactly
+                                       ((1, 2047, 1024), 512)])
+def test_overlap_add_exact(dev, shape, hop):
+    frames = torch.randn(*shape, device=dev)
+    got = ops.overlap_add(frames, hop)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfk.overlap_add_plain(frames, hop))
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("row", [False, True], ids=["full", "row"])
+def test_binary_exact(dev, op, row):
+    x = torch.randn(3, 1001, 33, device=dev)
+    y = torch.randn(33 if row else (3, 1001, 33), device=dev)
+    fn = ops.elementwise_mult if op == "mul" else ops.elementwise_add
+    got = fn(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ewk.elementwise_binary_plain(x, y, op))
+
+
+@pytest.mark.parametrize("rows", [1, 37, 8188])
+@pytest.mark.parametrize("n", [7, 64, 1024])
+@pytest.mark.parametrize("variant", dftk.VARIANTS)
+def test_dft_matches_plain(dev, rows, n, variant):
+    for cplx in (False, True):
+        x = torch.randn(rows, n, device=dev,
+                        dtype=torch.complex64 if cplx else torch.float32)
+        for inverse in (False, True):
+            fr, fi = functions._dfm_tensors(n, inverse, torch.float32,
+                                            str(dev))
+            got = ops.dft(x, fr, fi, variant=variant)
+            torch.cuda.synchronize()
+            want = dftk.dft_plain(x, fr, fi, variant)
+            g, w = torch.view_as_real(got), torch.view_as_real(want)
+            # fp32 sums of n terms taken in another order
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("tile", dftk.TILES)
+def test_dft_every_tile(dev, tile):
+    x = torch.randn(37, 100, device=dev, dtype=torch.complex64)
+    fr, fi = functions._dfm_tensors(100, False, torch.float32, str(dev))
+    bm, bn = tile
+    for variant in dftk.VARIANTS:
+        got = dftk.dft(x, fr, fi, variant=variant, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        want = dftk.dft_plain(x, fr, fi, variant)
+        g, w = torch.view_as_real(got), torch.view_as_real(want)
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+def _counts():
+    return {"unfold": unfk.LAUNCHES, "overlap_add": unfk.OLA_LAUNCHES,
+            "binary": ewk.BINARY_LAUNCHES, "dft": dftk.LAUNCHES,
+            "chain": ewk.LAUNCHES, "pfb": pfbk.LAUNCHES}
+
+
+@pytest.mark.parametrize("name,g,shape,want", [
+    ("stft_overlap_add", graph.build_stft_overlap_add(64, 32), (2, 4000),
+     {"unfold": 1, "overlap_add": 1, "binary": 2, "dft": 2, "chain": 0,
+      "pfb": 0}),
+    ("spectrogram", graph.build_spectrogram(64), (2, 4000),
+     {"unfold": 1, "overlap_add": 0, "binary": 1, "dft": 1, "chain": 1,
+      "pfb": 0})], ids=["stft_overlap_add", "spectrogram"])
+def test_spectral_plans_launch_their_kernels(dev, name, g, shape, want):
+    x = torch.randn(*shape, device=dev)
+    plan = graph.compile(g, {"x": shape}, lowering="kernel")
+    for mod in (unfk, ewk, dftk, pfbk):
+        mod.LAUNCHES = 0
+    unfk.OLA_LAUNCHES = ewk.BINARY_LAUNCHES = 0
+    out = plan(x)
+    torch.cuda.synchronize()
+    assert _counts() == want
+    ref = graph.compile(g, {"x": shape}, lowering="native")(x)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()

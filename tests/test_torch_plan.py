@@ -208,8 +208,8 @@ def test_unknown_lowering_and_op_raise():
         graph.compile(g, {"x": (P * 16,)}, lowering="pallas", device="cpu")
     with pytest.raises(TypeError):
         graph.compile(g, {"x": (P * 16,)}, backend="cpu")
-    jg = jgraph.build_spectrogram(window=16)
-    with pytest.raises(ValueError, match="unknown op 'unfold'"):
+    jg = jgraph.build_fir_decimate()
+    with pytest.raises(ValueError, match="unknown op 'fir'"):
         graph.compile(graph.load_graph(_spec_of(jg)), {"x": (256,)},
                       device="cpu")
 
