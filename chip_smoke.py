@@ -22,7 +22,9 @@ Prints one JSON line per phase:
             width (8 x 2**16 samples, J = 64).  For each: launch counts
             per call (every count set to 0 just before the call, read
             just after), agreement with the native plan and with the
-            numpy oracle on batch row 0, median times of 20 calls of the
+            numpy oracle on batch row 0, each kernel held against its
+            plain version at the shape the path gives it (the kernel
+            phase's tolerances), median times of 20 calls of the
             plan, the native plan, each kernel alone at the shape the
             path gives it, its plain version, and the one PyTorch call
             that computes the same function (timed here only; the port
@@ -139,10 +141,27 @@ def add_cost(*costs) -> tuple[int, int]:
     return (sum(c[0] for c in costs), sum(c[1] for c in costs))
 
 
-def max_err_rows(torch, got, want) -> float:
-    """max|got - want| taken one batch row at a time (the full-width
-    unfold output is 17 GB: a whole difference would not fit beside it)."""
-    return max(rel_err(torch, g, w)[0] for g, w in zip(got, want))
+def hold(torch, what, got, want, rtol=None) -> float:
+    """Hold a kernel's output against its plain version on the same
+    inputs, a slice of dim 0 at a time (the full-width unfold output is
+    17 GB: a whole difference would not fit beside it).  ``rtol`` None:
+    bit-exact; else max|diff| <= rtol * max|plain|.  Fails otherwise;
+    returns max|diff|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {got.dtype}{tuple(got.shape)} vs plain "
+             f"{want.dtype}{tuple(want.shape)}")
+    step = max(1, (1 << 28) // max(1, got[0].numel()))
+    err = scale = 0.0
+    exact = True
+    for g, w in zip(got.split(step), want.split(step)):
+        e, s = rel_err(torch, g, w)
+        err, scale = max(err, e), max(scale, s)
+        exact = exact and torch.equal(g, w)
+    if rtol is None and not exact:
+        fail(f"{what}: not bit-identical to plain (max |diff| {err})")
+    if rtol is not None and not err <= rtol * scale:
+        fail(f"{what}: {err} > {rtol} * {scale}")
+    return err
 
 
 def main() -> int:
@@ -491,17 +510,24 @@ def main() -> int:
     zinv = dftk.dft(z, ir, ii, variant="4mult", **dcfg)
     r = zinv.real.contiguous().reshape(b, t, j)
     rw = ew.elementwise_mult(r, win)
+    # each kernel against its plain version at these shapes, before timing
     errs = {
         "dft": max(
-            rel_err(torch, z, dftk.dft_plain(xr, fr, fi, "4mult"))[0],
-            rel_err(torch, zinv, dftk.dft_plain(z, ir, ii, "4mult"))[0]),
+            hold(torch, "stft dft", z, dftk.dft_plain(xr, fr, fi, "4mult"),
+                 DFT_RTOL),
+            hold(torch, "stft idft", zinv,
+                 dftk.dft_plain(z, ir, ii, "4mult"), DFT_RTOL)),
         "elementwise_binary": max(
-            rel_err(torch, fw, fd * win)[0], rel_err(torch, rw, r * win)[0]),
-        "overlap_add": rel_err(torch, unfk.overlap_add(rw, hop, **ocfg),
-                               unfk.overlap_add_plain(rw, hop))[0],
+            hold(torch, "stft window (frames)", fw,
+                 ew.elementwise_binary_plain(fd, win, "mul")),
+            hold(torch, "stft window (idft)", rw,
+                 ew.elementwise_binary_plain(r, win, "mul"))),
+        "overlap_add": hold(torch, "stft overlap_add",
+                            unfk.overlap_add(rw, hop, **ocfg),
+                            unfk.overlap_add_plain(rw, hop)),
     }
     big = unfk.unfold(x, j, **ucfg)
-    errs["unfold"] = max_err_rows(torch, big, unfk.unfold_plain(x, j))
+    errs["unfold"] = hold(torch, "stft unfold", big, unfk.unfold_plain(x, j))
     del big
     torch.cuda.synchronize()
 
@@ -558,7 +584,7 @@ def main() -> int:
     emit(phase="main", path="stft_overlap_add", x=list(STFT_X), window=j,
          hop=hop, frames=rows_f, tiles={"unfold": ucfg, "dft": dcfg,
                                         "overlap_add": ocfg},
-         ms=ms, plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         max_abs_err_vs_plain=errs, ms=ms, plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          plan_bound_ms=sum(bound(*c)[0] for c in cost.values()),
          unfold_gb_s=cost["unfold"][0] / (ms["unfold"] * 1e-3) / 1e9,
          dft_achieved_tflops=cost["dft"][1] / (ms["dft"] * 1e-3) / 1e12,
@@ -585,6 +611,20 @@ def main() -> int:
     dcfg = ops._resolve(dftk.TUNE_SPACE, {"m": xr.shape[0], "n": j, "k": j})
     z = dftk.dft(xr, fr, fi, variant="4mult", **dcfg)
     steps = (("scale", 1.0 / j),)
+    # each kernel against its plain version at these shapes, before timing
+    spec_errs = {
+        "unfold": hold(torch, "spectrogram unfold", frames,
+                       unfk.unfold_plain(x, j)),
+        "elementwise_binary": hold(
+            torch, "spectrogram window", fw,
+            ew.elementwise_binary_plain(frames, win, "mul")),
+        "dft": hold(torch, "spectrogram dft", z,
+                    dftk.dft_plain(xr, fr, fi, "4mult"), DFT_RTOL),
+        "elementwise_chain": hold(
+            torch, "spectrogram abs2+scale",
+            ew.elementwise_chain(z, (), steps, abs2_head=True),
+            ew.elementwise_chain_plain(z, (), steps, abs2_head=True)),
+    }
     ms = {
         "plan": median_ms(torch, lambda: plan(x)),
         "plan_native": median_ms(torch, lambda: native(x)),
@@ -613,7 +653,8 @@ def main() -> int:
     }
     nf = xr.shape[0]
     emit(phase="main", path="spectrogram", x=list(SPEC_X), window=j,
-         frames=nf, tiles={"unfold": ucfg, "dft": dcfg}, ms=ms,
+         frames=nf, tiles={"unfold": ucfg, "dft": dcfg},
+         max_abs_err_vs_plain=spec_errs, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          plan_bound_ms=sum(bound(*c)[0] for c in (
              (4 * (b * n + nf * j), 0), (4 * (2 * nf * j + j), nf * j),

@@ -185,10 +185,6 @@ cudaError_t dispatch(int bm, int bn, const float* x, const float* fr,
     return launch<64, 64, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
   if (bm == 64 && bn == 32)
     return launch<64, 32, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
-  if (bm == 32 && bn == 64)
-    return launch<32, 64, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
-  if (bm == 32 && bn == 32)
-    return launch<32, 32, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
   return cudaErrorInvalidValue;
 }
 

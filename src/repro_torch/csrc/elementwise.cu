@@ -32,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int MAX_STEPS = 8;
@@ -91,18 +93,6 @@ __global__ void binary_kernel(const float* __restrict__ x,
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 }  // namespace
 
 // head: n f32 values, or n interleaved complex64 values (head_is_complex);
@@ -130,9 +120,7 @@ extern "C" int tina_chain(const void* head, int head_is_complex, long long n,
       ++k;
     }
   }
-  const long long want = (n + threads - 1) / threads;
-  const long long cap = (long long)sm_count() * (2048 / threads) * 4;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const unsigned blocks = tina::grid_stride_blocks(n, threads);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const float*>(head);
   auto* o = static_cast<float*>(out);
@@ -153,9 +141,7 @@ extern "C" int tina_binary(const void* x, const void* y, void* out,
       threads > 1024 || threads % 32 != 0 || (y_is_row && n % cols != 0))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const long long want = (n + threads - 1) / threads;
-  const long long cap = (long long)sm_count() * (2048 / threads) * 4;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const unsigned blocks = tina::grid_stride_blocks(n, threads);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(x);
   const auto* b = static_cast<const float*>(y);

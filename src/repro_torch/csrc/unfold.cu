@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int UNFOLD_THREADS = 256;
@@ -86,18 +88,6 @@ __global__ void overlap_add_kernel(const float* __restrict__ f,
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
-}
-
 }  // namespace
 
 // x (rows, n) f32 contiguous -> y (rows, n - J + 1, J) f32 contiguous.
@@ -137,9 +127,7 @@ extern "C" int tina_overlap_add(const void* frames, void* out, int rows,
   const int K = J / hop;
   const long long per_row = (long long)(T - K + 1) * hop;
   const long long total = per_row * rows;
-  const long long want = (total + threads - 1) / threads;
-  const long long cap = (long long)sm_count() * (2048 / threads) * 4;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const unsigned blocks = tina::grid_stride_blocks(total, threads);
   overlap_add_kernel<<<blocks, threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(frames), static_cast<float*>(out), total,

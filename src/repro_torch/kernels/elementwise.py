@@ -151,11 +151,18 @@ def elementwise_binary_plain(x: torch.Tensor, y: torch.Tensor,
 
 def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
             threads: int) -> torch.Tensor:
-    """x (..., C) float32, y of x's shape or a row of C values -> x op y.
-    A CPU tensor runs :func:`elementwise_binary_plain`; a CUDA tensor
-    launches ``tina_binary`` on the current stream or raises.  Both must
-    be contiguous: a caller holding a strided view makes it contiguous
-    first (``kernels.ops`` does)."""
+    """x (..., C) float32, y of x's shape or a 1-D row of C values ->
+    x op y; any other y raises on either device (``kernels.ops`` makes
+    every broadcast one of these two).  A CPU tensor runs
+    :func:`elementwise_binary_plain`; a CUDA tensor launches
+    ``tina_binary`` on the current stream or raises.  Both must be
+    contiguous: a caller holding a strided view makes it contiguous first
+    (``kernels.ops`` does)."""
+    cols = x.shape[-1] if x.ndim else 1
+    row = tuple(y.shape) != tuple(x.shape)
+    if row and (y.ndim != 1 or y.numel() != cols):
+        raise ValueError(f"elementwise_{op}: y {tuple(y.shape)} is neither "
+                         f"x's shape {tuple(x.shape)} nor a row of {cols}")
     dev = x.device
     if dev.type == "cpu":
         return elementwise_binary_plain(x, y, op)
@@ -170,12 +177,6 @@ def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
                              f"{dev}")
         if not t.is_contiguous():
             raise ValueError(f"elementwise_{op}: {name} must be contiguous")
-    cols = x.shape[-1] if x.ndim else 1
-    row = tuple(y.shape) != tuple(x.shape)
-    if row and (y.numel() != cols
-                or torch.broadcast_shapes(x.shape, y.shape) != x.shape):
-        raise ValueError(f"elementwise_{op}: y {tuple(y.shape)} is neither "
-                         f"x's shape {tuple(x.shape)} nor a row of {cols}")
     _check_threads(f"elementwise_{op}", threads)
     out = torch.empty(x.shape, device=dev, dtype=torch.float32)
     code = _build.lib().tina_binary(

@@ -128,6 +128,20 @@ def test_binary_exact(dev, op, row):
     assert torch.equal(got, ewk.elementwise_binary_plain(x, y, op))
 
 
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_binary_column_is_no_row(dev, op):
+    # y (C, 1) against x (C, C): a column, though it has C entries
+    x = torch.randn(33, 33, device=dev)
+    y = torch.randn(33, 1, device=dev)
+    fn = ops.elementwise_mult if op == "mul" else ops.elementwise_add
+    got = fn(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ewk.elementwise_binary_plain(x, y, op))
+    kernel = ewk.elementwise_mult if op == "mul" else ewk.elementwise_add
+    with pytest.raises(ValueError, match="nor a row"):
+        kernel(x, y)
+
+
 @pytest.mark.parametrize("rows", [1, 37, 8188])
 @pytest.mark.parametrize("n", [7, 64, 1024])
 @pytest.mark.parametrize("variant", dftk.VARIANTS)

@@ -132,6 +132,25 @@ def test_elementwise_vs_jax(name, row):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["mult", "add"])
+@pytest.mark.parametrize("xs,ys", [((33, 33), (33, 1)),
+                                   ((2, 16, 16), (16, 1))],
+                         ids=["square", "t_equals_j"])
+def test_elementwise_column_broadcast(name, xs, ys):
+    """A column y with as many entries as x has columns is no row: the
+    wrapper broadcasts it down the columns, as JAX does, and the kernel
+    wrapper refuses it on either device rather than read it as a row."""
+    rng = _rng("ewcol", name, xs)
+    x = rng.standard_normal(xs).astype(np.float32)
+    y = rng.standard_normal(ys).astype(np.float32)
+    want = np.asarray(getattr(jops, f"elementwise_{name}")(jnp.asarray(x),
+                                                          jnp.asarray(y)))
+    got = getattr(ops, f"elementwise_{name}")(_t(x), _t(y)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="nor a row"):
+        getattr(ewk, f"elementwise_{name}")(_t(x), _t(y))
+
+
 def test_ref_dft_and_unfold_twins_match_jax():
     rng = _rng("ref")
     xr, xi = (rng.standard_normal((5, 24)).astype(np.float32)
