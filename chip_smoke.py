@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Card check of the PyTorch/CUDA port: builds its kernels, holds each
 against its plain torch version, and drives the ``pfb_power``,
-``stft_overlap_add`` and ``spectrogram`` pipelines end to end on one
-NVIDIA card.
+``stft_overlap_add``, ``spectrogram``, ``fir_decimate``, ``correlate``
+and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
+4096-cubed matmul end to end on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -12,23 +13,38 @@ Prints one JSON line per phase:
   build     seconds spent building ``src/repro_torch/csrc/*.cu`` with nvcc
   kernel    each kernel against its plain version at ragged shapes
             (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
-            taken in another order; chain, binary, unfold and
-            overlap-add: exact equality)
+            taken in another order; matmul the same, at the JAX suite's
+            shapes, every compiled tile and both grid orders; chain
+            (complex and real abs2 heads), binary, unfold, overlap-add
+            and FIR: exact equality -- the FIR at K = 1 to 4097, with
+            implicit padding and on strided rows)
   main      each pipeline through ``graph.compile(..., lowering=
             "kernel")`` then ``plan(x)``: ``pfb_power`` at the paper's
             Fig. 3 point and at full width (16 x 2**22 samples, P = 1024,
             M = 8); ``stft_overlap_add`` at full width (4 x 2**20
             samples, J = 1024, hop 512); ``spectrogram`` at its registered
-            width (8 x 2**16 samples, J = 64).  For each: launch counts
-            per call (every count set to 0 just before the call, read
-            just after), agreement with the native plan and with the
-            numpy oracle on batch row 0, each kernel held against its
-            plain version at the shape the path gives it (the kernel
-            phase's tolerances), median times of 20 calls of the
+            width (8 x 2**16 samples, J = 64); ``fir_decimate`` (31 and
+            15 taps) and ``correlate`` (63-tap template) at 16 x 2**22;
+            ``cascaded_channelizer`` (31 taps, P = 16, M = 4) at
+            16 x 4,194,333; ``matmul`` 4096 x 4096 @ 4096 x 4096 as a
+            one-node plan.  For each: launch counts per call (every count
+            set to 0 just before the call, read just after), agreement
+            with the native plan (1e-4 of its max) and with the numpy
+            oracle on batch row 0 (2e-3 of its max), each kernel held
+            against its plain version at the shape the path gives it (the
+            kernel phase's tolerances), median times of 20 calls of the
             plan, the native plan, each kernel alone at the shape the
             path gives it, its plain version, and the one PyTorch call
-            that computes the same function (timed here only; the port
-            never calls it)
+            that computes the same function (``F.conv1d`` without TF32
+            for the FIR, ``torch.matmul``, ``torch.add``; timed here
+            only, the port never calls them); ``fir_decimate``'s first
+            FIR and the matmul also at every tile of their tune spaces.
+            Path ``table1``: every row of the Table-1 registry at the
+            ``kernel`` lowering (its one lowering for ``summation``) on
+            the row's own inputs at size 2048, with the launches of that
+            call, against the numpy oracle (|diff| <= 2e-3 + 2e-3
+            |oracle|) and against its single-node plan (1e-5 + 1e-5
+            |eager|)
   kernels   the kernel table: launches, errors, times, bounds
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -57,8 +73,15 @@ PFB_RTOL = 1e-4       # fp32 sums of P*M terms in another order
 DFT_RTOL = 1e-4       # fp32 sums of n terms in another order
 NATIVE_RTOL = 1e-4    # kernel plan vs native plan on the card
 ORACLE_RTOL = 2e-3    # the reference suite's pipeline-vs-oracle tolerance
+MM_RTOL = 1e-4        # fp32 sums of K terms in another order
+SWEEP_TOL = 2e-3      # Table-1 row vs numpy oracle (tests/test_opdefs.py)
+PLAN_TOL = 1e-5       # Table-1 row eager vs its single-node plan
 STFT_J, STFT_HOP, STFT_X = 1024, 512, (4, 2 ** 20)
 SPEC_J, SPEC_X = 64, (8, 2 ** 16)
+FIR_X = (16, 2 ** 22)
+CHAN_X = (16, 4_194_333)     # pipelines._chan_len(2 ** 22, 31, 16, 4)
+MM_N = 4096
+SWEEP_N = 2048
 
 
 def emit(**kv) -> None:
@@ -132,6 +155,12 @@ def dft_cost(b, l, n, cplx) -> tuple[int, int]:
     return nbytes, 2 * (4 if cplx else 2) * b * l * n
 
 
+def fir_cost(rows, n_in, n_out, k) -> tuple[int, int]:
+    """(bytes, flops) of one 'valid' FIR: the rows and the taps read once,
+    the output written once; a multiply and an add per tap and output."""
+    return 4 * (rows * n_in + k + rows * n_out), 2 * k * rows * n_out
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
@@ -179,22 +208,27 @@ def main() -> int:
 
     from repro_torch import graph
     from repro_torch.core import functions, opdefs
+    from repro_torch.core.blocks import fp32_convs
     from repro_torch.core.pfb import pfb_window
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import dft as dftk
     from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import fir as firk
+    from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import pfb as pfbk
     from repro_torch.kernels import unfold as unfk
 
     def zero_counts() -> None:
         pfbk.LAUNCHES = ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
         dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
+        firk.LAUNCHES = mmk.LAUNCHES = 0
 
     def counts() -> dict:
         return {"pfb_fused": pfbk.LAUNCHES, "elementwise_chain": ew.LAUNCHES,
                 "elementwise_binary": ew.BINARY_LAUNCHES,
                 "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
-                "overlap_add": unfk.OLA_LAUNCHES}
+                "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
+                "matmul": mmk.LAUNCHES}
 
     # -- card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -251,6 +285,7 @@ def main() -> int:
         randn(3, 1001, 33)
     for head, operands, steps, abs2_head in (
             (z, (), (), True), (z, (), (("scale", 0.37),), True),
+            (a, (), (), True), (a, (), (("scale", 0.37),), True),
             (a, (c, a), (("mul",), ("add",), ("scale", 1.7)), False)):
         got = ew.elementwise_chain(head, operands, steps, abs2_head=abs2_head)
         torch.cuda.synchronize()
@@ -260,7 +295,7 @@ def main() -> int:
         ok = torch.equal(got, want)
         emit(phase="kernel", kernel="elementwise_chain",
              steps=[list(s) for s in steps], abs2_head=abs2_head,
-             max_abs_err=err, exact=ok)
+             head=str(head.dtype), max_abs_err=err, exact=ok)
         if not ok:
             fail(f"elementwise_chain {steps}: not bit-identical to plain "
                  f"(max |diff| {err})")
@@ -326,6 +361,57 @@ def main() -> int:
             emit(phase="kernel", kernel="dft", rows=rows, n=n,
                  cases="real+complex x forward+inverse x 4mult+3mult",
                  max_rel_err=worst, ok=True)
+    # FIR: the plain version's ascending-k sum, bit for bit; K = 1 to more
+    # than a tap chunk, ragged rows and lengths, implicit 'same'/'full' pads
+    for rows, n, k in ((3, 1000, 1), (2, 999, 8), (5, 4099, 15),
+                       (1, 70001, 31), (7, 3000, 63), (2, 5003, 129),
+                       (2, 9001, 4097)):
+        x, kern = randn(rows, n), randn(k)
+        for pads in ((0, 0), (k // 2, (k - 1) // 2), (k - 1, k - 1)):
+            got = firk.fir_valid(x, kern, pad_left=pads[0],
+                                 pad_right=pads[1])
+            torch.cuda.synchronize()
+            want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
+                                        pad_right=pads[1])
+            ok = torch.equal(got, want)
+            emit(phase="kernel", kernel="fir_valid", shape=[rows, n], k=k,
+                 pads=list(pads), max_abs_err=rel_err(torch, got, want)[0],
+                 exact=ok)
+            if not ok:
+                fail(f"fir_valid {(rows, n)} K={k} pads {pads}: not "
+                     "bit-identical to plain")
+    xs, kern = randn(6, 5001)[::2], randn(31)       # strided rows
+    for cfg in firk.TUNE_SPACE.configs({"k": 31}):
+        got = ops.fir(xs, kern, mode="same", **cfg)
+        torch.cuda.synchronize()
+        want = firk.fir_valid_plain(xs.contiguous(), kern, pad_left=15,
+                                    pad_right=15)
+        ok = torch.equal(got, want)
+        emit(phase="kernel", kernel="fir_valid", shape=list(xs.shape),
+             strided=True, tile=cfg, max_abs_err=rel_err(torch, got, want)[0],
+             exact=ok)
+        if not ok:
+            fail(f"fir_valid strided rows tile {cfg}: not bit-identical")
+    # matmul: the JAX suite's shapes (m, l, n), batched, every tile x order
+    for xs_shape, ys_shape in (((1, 1), (1, 1)), ((257, 129), (129, 255)),
+                               ((300, 100), (100, 50)),
+                               ((3, 5, 40, 24), (24, 17))):
+        x, y = randn(*xs_shape), randn(*ys_shape)
+        want = mmk.matmul_plain(x.reshape(-1, xs_shape[-1]), y)
+        worst = 0.0
+        for bm, bn, bk in mmk.TILES:
+            for order in mmk.ORDERS:
+                got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, order=order)
+                torch.cuda.synchronize()
+                err, scale = rel_err(torch, got.reshape(want.shape), want)
+                worst = max(worst, err / scale)
+                if err > MM_RTOL * scale:
+                    fail(f"matmul {xs_shape} @ {ys_shape} tile "
+                         f"{(bm, bn, bk)} {order}: {err} > {MM_RTOL} * "
+                         f"{scale}")
+        emit(phase="kernel", kernel="matmul", x=list(xs_shape),
+             y=list(ys_shape), cases="every tile x both orders",
+             max_rel_err=worst, ok=True)
 
     # -- main path: pfb_power end to end -------------------------------------
     table = {}
@@ -427,7 +513,7 @@ def main() -> int:
         hold it against the native plan and the oracle on row 0."""
         torch.cuda.reset_peak_memory_stats()
         plan = graph.compile(g, {"x": shape}, lowering="kernel")
-        agnostic = {"real", "frame_decimate"}
+        agnostic = {"real", "frame_decimate", "downsample"}
         if plan.downgrades or any(
                 lw != ("native" if plan.graph.nodes[nd].op in agnostic
                        else "kernel")
@@ -568,8 +654,8 @@ def main() -> int:
     calls = REPEATS + 2
     grew = {k: counts()[k] - before[k] for k in before}
     if grew != {"pfb_fused": 0, "elementwise_chain": 0,
-                "elementwise_binary": 2 * calls, "dft": 2 * calls,
-                "unfold": calls, "overlap_add": calls}:
+                "elementwise_binary": 2 * calls, "dft": 2 * calls, "unfold": calls, "overlap_add": calls,
+                "fir_valid": 0, "matmul": 0}:
         fail(f"stft_overlap_add: lone kernel launches grew by {grew}")
     rows_f = b * t
     nt = t - j // hop + 1
@@ -662,7 +748,318 @@ def main() -> int:
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     del plan, native, x, frames, fw, xr, z
 
+    # -- main paths: the three FIR pipelines at full width -------------------
+    def conv1d(sig, kern):
+        """The FIR as one F.conv1d (the library yardstick); call it under
+        fp32_convs() so cuDNN runs full fp32, not TF32."""
+        return torch.nn.functional.conv1d(sig[:, None], kern[None, None])[:, 0]
+
+    def fir_cfg(k, n_in, rows_in):
+        return ops._resolve(firk.TUNE_SPACE,
+                            {"k": k, "n": n_in, "rows": rows_in})
+
+    def check_grew(label, before, want):
+        grew = {k: counts()[k] - before[k] for k in before}
+        full_want = dict.fromkeys(grew, 0)
+        full_want.update({k: v * calls for k, v in want.items()})
+        if grew != full_want:
+            fail(f"{label}: lone kernel launches grew by {grew}, want "
+                 f"{full_want}")
+
+    # fir_decimate: FIR (31 taps) -> ↓2 -> FIR (15 taps) -> ↓2
+    b, n = FIR_X
+    g = graph.build_fir_decimate(31, 15)
+    plan, native, x, info = drive(
+        "fir_decimate", g, FIR_X, {"fir_valid": 2},
+        graph.fir_decimate_oracle(31, 15), ORACLE_RTOL)
+    h1 = plan.consts["taps1"].flip(0).contiguous()   # flip=True: true FIR
+    h2 = plan.consts["taps2"].flip(0).contiguous()
+    c1 = fir_cfg(31, n, b)
+    y1 = firk.fir_valid(x, h1, **c1)
+    x2 = y1[:, ::2].contiguous()      # the ↓2 view the wrapper makes whole
+    c2 = fir_cfg(15, x2.shape[1], b)
+    y2 = firk.fir_valid(x2, h2, **c2)
+    dec_err = max(
+        hold(torch, "fir_decimate fir 1", y1, firk.fir_valid_plain(x, h1)),
+        hold(torch, "fir_decimate fir 2", y2, firk.fir_valid_plain(x2, h2)))
+    ms = {"plan": median_ms(torch, lambda: plan(x)),
+          "plan_native": median_ms(torch, lambda: native(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan(x))}
+    before = counts()
+    ms.update({
+        "fir_1": device_ms(torch, lambda: firk.fir_valid(x, h1, **c1)),
+        "fir_2": device_ms(torch, lambda: firk.fir_valid(x2, h2, **c2)),
+        "fir_valid_plain": both(lambda: firk.fir_valid_plain(x, h1),
+                                lambda: firk.fir_valid_plain(x2, h2)),
+        "downsample_copy": device_ms(torch,
+                                     lambda: y1[:, ::2].contiguous()),
+    })
+    with fp32_convs():
+        ms["fir_valid_library"] = both(lambda: conv1d(x, h1),
+                                       lambda: conv1d(x2, h2))
+    ms["fir_valid"] = ms["fir_1"] + ms["fir_2"]
+    check_grew("fir_decimate", before, {"fir_valid": 2})
+    # FIR 1 at every tile of its tune space (for the next tuning PR)
+    fir_1_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
+        torch, lambda c=c: firk.fir_valid(x, h1, **c))
+        for c in firk.TUNE_SPACE.configs({"k": 31})}
+    cost1 = fir_cost(b, n, y1.shape[1], 31)
+    cost2 = fir_cost(b, x2.shape[1], y2.shape[1], 15)
+    emit(phase="main", path="fir_decimate", x=list(FIR_X), taps=[31, 15],
+         tiles={"fir_1": c1, "fir_2": c2},
+         max_abs_err_vs_plain={"fir_valid": dec_err}, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"fir_1": bound(*cost1)[0], "fir_2": bound(*cost2)[0]},
+         plan_bound_ms=bound(*cost1)[0] + bound(*cost2)[0],
+         fir_1_gb_s=cost1[0] / (ms["fir_1"] * 1e-3) / 1e9,
+         fir_1_ms_per_tile=fir_1_tiles,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    table["fir_decimate"] = dict(launches=info["launches_per_call"], ms=ms,
+                                 cost=add_cost(cost1, cost2), err=dec_err)
+    del plan, native, x, y1, x2, y2
+
+    # correlate: FIR with the 63-tap template (no flip) -> abs2 -> scale
+    g = graph.build_correlate(63)
+    plan, native, x, info = drive(
+        "correlate", g, FIR_X, {"fir_valid": 1, "elementwise_chain": 1},
+        graph.correlate_oracle(63), ORACLE_RTOL)
+    tmpl = plan.consts["template"]                 # flip=False: as it is
+    cc = fir_cfg(63, n, b)
+    y = firk.fir_valid(x, tmpl, **cc)
+    (fused,) = [nd for nd in plan.graph.topo() if nd.op == "fused_ew"]
+    if fused.attr["steps"][0] != ("abs2",):
+        fail(f"correlate: fused chain {fused.attr['steps']}")
+    steps = fused.attr["steps"][1:]                # after the abs2 head
+    pw = ew.elementwise_chain(y, (), steps, abs2_head=True)
+    cor_errs = {
+        "fir_valid": hold(torch, "correlate fir", y,
+                          firk.fir_valid_plain(x, tmpl)),
+        "elementwise_chain": hold(
+            torch, "correlate abs2*scale (real head)", pw,
+            ew.elementwise_chain_plain(y, (), steps, abs2_head=True)),
+    }
+    ms = {"plan": median_ms(torch, lambda: plan(x)),
+          "plan_native": median_ms(torch, lambda: native(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan(x))}
+    before = counts()
+    ms.update({
+        "fir_valid": device_ms(torch, lambda: firk.fir_valid(x, tmpl, **cc)),
+        "fir_valid_plain": device_ms(torch,
+                                     lambda: firk.fir_valid_plain(x, tmpl)),
+        "elementwise_chain": device_ms(
+            torch, lambda: ew.elementwise_chain(y, (), steps,
+                                                abs2_head=True)),
+        "elementwise_chain_plain": device_ms(
+            torch, lambda: ew.elementwise_chain_plain(y, (), steps,
+                                                      abs2_head=True)),
+    })
+    with fp32_convs():
+        ms["fir_valid_library"] = device_ms(torch, lambda: conv1d(x, tmpl))
+    check_grew("correlate", before, {"fir_valid": 1, "elementwise_chain": 1})
+    nout = y.numel()
+    cor_cost = {"fir_valid": fir_cost(b, n, y.shape[1], 63),
+                "elementwise_chain": (8 * nout, 2 * nout)}
+    emit(phase="main", path="correlate", x=list(FIR_X), taps=63, tiles=cc,
+         max_abs_err_vs_plain=cor_errs, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={k: bound(*c)[0] for k, c in cor_cost.items()},
+         plan_bound_ms=sum(bound(*c)[0] for c in cor_cost.values()),
+         fir_gb_s=cor_cost["fir_valid"][0] / (ms["fir_valid"] * 1e-3) / 1e9,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    del plan, native, x, y, pw
+
+    # cascaded_channelizer: FIR (31 taps) -> ↓2 -> PFB (P = 16, M = 4) -> abs2
+    if CHAN_X[1] != graph.pipelines._chan_len(2 ** 22, 31, 16, 4):
+        fail(f"cascaded_channelizer: {CHAN_X} is no valid length")
+    b, n = CHAN_X
+    p, m = 16, 4
+    g = graph.build_cascaded_channelizer(31, p, m)
+    plan, native, x, info = drive(
+        "cascaded_channelizer", g, CHAN_X,
+        {"fir_valid": 1, "pfb_fused": 1, "elementwise_chain": 1},
+        graph.cascaded_channelizer_oracle(31, p, m), ORACLE_RTOL)
+    h = plan.consts["lowpass"].flip(0).contiguous()
+    cc = fir_cfg(31, n, b)
+    y = firk.fir_valid(x, h, **cc)
+    frames = y[:, ::2].reshape(b, -1, p).contiguous()   # ↓2, then frames
+    t = frames.shape[1]
+    taps_rev = plan.consts["taps"].flip(0).contiguous()
+    fr, fi = ops._fourier(p, str(dev))
+    pcfg = ops._resolve(pfbk.TUNE_SPACE, {"m": m, "p": p, "t": t})
+    zk = pfbk.pfb_fused(frames, taps_rev, fr, fi, **pcfg)
+    pw = ew.elementwise_chain(zk, (), (), abs2_head=True)
+    chan_errs = {
+        "fir_valid": hold(torch, "cascaded fir", y,
+                          firk.fir_valid_plain(x, h)),
+        "pfb_fused": hold(torch, "cascaded pfb", zk,
+                          pfbk.pfb_fused_plain(frames, taps_rev, fr, fi),
+                          PFB_RTOL),
+        "elementwise_chain": hold(
+            torch, "cascaded abs2", pw,
+            ew.elementwise_chain_plain(zk, (), (), abs2_head=True)),
+    }
+    ms = {"plan": median_ms(torch, lambda: plan(x)),
+          "plan_native": median_ms(torch, lambda: native(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan(x))}
+    before = counts()
+    ms.update({
+        "fir_valid": device_ms(torch, lambda: firk.fir_valid(x, h, **cc)),
+        "fir_valid_plain": device_ms(torch,
+                                     lambda: firk.fir_valid_plain(x, h)),
+        "downsample_copy": device_ms(
+            torch, lambda: y[:, ::2].reshape(b, -1, p).contiguous()),
+        "pfb_fused": device_ms(
+            torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi, **pcfg)),
+        "pfb_fused_plain": device_ms(
+            torch, lambda: pfbk.pfb_fused_plain(frames, taps_rev, fr, fi)),
+        "elementwise_chain": device_ms(
+            torch, lambda: ew.elementwise_chain(zk, (), (), abs2_head=True)),
+        "elementwise_chain_plain": device_ms(
+            torch, lambda: ew.elementwise_chain_plain(zk, (), (),
+                                                      abs2_head=True)),
+    })
+    with fp32_convs():
+        ms["fir_valid_library"] = device_ms(torch, lambda: conv1d(x, h))
+    check_grew("cascaded_channelizer", before,
+               {"fir_valid": 1, "pfb_fused": 1, "elementwise_chain": 1})
+    n_out = pw.numel()
+    chan_cost = {"fir_valid": fir_cost(b, n, y.shape[1], 31),
+                 "pfb_fused": pfb_cost(b, t, p, p, m),
+                 "elementwise_chain": (12 * n_out, 3 * n_out)}
+    emit(phase="main", path="cascaded_channelizer", x=list(CHAN_X), taps=31,
+         p=p, m=m, tiles={"fir_valid": cc, "pfb_fused": pcfg},
+         max_abs_err_vs_plain=chan_errs, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={k: bound(*c)[0] for k, c in chan_cost.items()},
+         plan_bound_ms=sum(bound(*c)[0] for c in chan_cost.values()),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    del plan, native, x, y, frames, zk, pw
+
+    # -- main path: the Table-1 sweep at the kernel lowering -----------------
+    def one_node(d, args):
+        """A one-node graph from an OpDef's make_args tuple: the first
+        array is the input, later arrays consts, non-arrays arg_attrs."""
+        og = graph.Graph(f"one_{d.name}")
+        refs, attrs = [], {}
+        names = list(d.arg_attrs)
+        for i, a in enumerate(args):
+            if isinstance(a, np.ndarray):
+                refs.append(og.input("x") if not refs
+                            else og.const(a, f"c{i}"))
+            else:
+                attrs[names.pop(0)] = a
+        og.output(og.apply(d.name, *refs, **attrs))
+        return og
+
+    def excess(got, want, tol):
+        """max(|got - want| - tol (1 + |want|)): above 0 fails."""
+        return float(np.max(np.abs(got - want) - tol * (1 + np.abs(want))))
+
+    sweep_launches = {
+        "ew_mul": {"elementwise_binary": 1},
+        "ew_add": {"elementwise_binary": 1},
+        "matmul": {"matmul": 1}, "summation": {}, "dft": {"dft": 1},
+        "idft": {"dft": 1}, "fir": {"fir_valid": 1}, "unfold": {"unfold": 1},
+        "overlap_add": {"overlap_add": 1}, "pfb_frontend": {"pfb_fused": 1},
+        "pfb": {"pfb_fused": 1}}
+    rng = np.random.default_rng(1234)
+    sweep = {}
+    for d in opdefs.table_ops():
+        args = d.make_args(rng, SWEEP_N)
+        targs = [torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray)
+                 else a for a in args]
+        lw = "kernel" if "kernel" in d.lowerings else d.lowerings[0]
+        zero_counts()
+        eager = d.eager(*targs, lowering=lw)
+        torch.cuda.synchronize()
+        launches = counts()
+        want_launches = dict.fromkeys(launches, 0)
+        want_launches.update(sweep_launches[d.name])
+        if launches != want_launches:
+            fail(f"table1 {d.table_name}: launches {launches}, want "
+                 f"{want_launches}")
+        oplan = graph.compile(one_node(d, args),
+                              {"x": (args[0].shape, args[0].dtype)},
+                              lowering=lw)
+        if oplan.downgrades:
+            fail(f"table1 {d.table_name}: downgrades {oplan.downgrades}")
+        planned = oplan(targs[0]).cpu().numpy()
+        got = eager.cpu().numpy()
+        want = np.asarray(d.oracle(*args))
+        if got.shape != want.shape or planned.shape != got.shape:
+            fail(f"table1 {d.table_name}: {got.shape} vs oracle "
+                 f"{want.shape}, plan {planned.shape}")
+        ex_plan, ex_oracle = excess(planned, got, PLAN_TOL), \
+            excess(got, want, SWEEP_TOL)
+        if ex_plan > 0 or ex_oracle > 0:
+            fail(f"table1 {d.table_name}: eager vs plan over 1e-5 by "
+                 f"{ex_plan}, vs oracle over 2e-3 by {ex_oracle}")
+        emit(phase="main", path="table1", op=d.table_name, lowering=lw,
+             args=[list(a.shape) if isinstance(a, np.ndarray) else a
+                   for a in args],
+             launches_per_call={k: v for k, v in launches.items() if v},
+             max_abs_err_vs_oracle=float(np.max(np.abs(got - want))),
+             max_abs_oracle=float(np.max(np.abs(want))),
+             max_abs_err_vs_plan=float(np.max(np.abs(planned - got))),
+             ok=True)
+        sweep[d.name] = (targs, launches)
+        del eager, oplan, planned, got, want
+    (xa, ya), add_launches = sweep["ew_add"]
+    add_err = hold(torch, "table1 elementwise_add", ew.elementwise_add(xa, ya),
+                   ew.elementwise_binary_plain(xa, ya, "add"))
+    add_ms = {
+        "elementwise_add": device_ms(torch,
+                                     lambda: ew.elementwise_add(xa, ya)),
+        "elementwise_add_plain": device_ms(
+            torch, lambda: ew.elementwise_binary_plain(xa, ya, "add")),
+        "elementwise_add_library": device_ms(torch,
+                                             lambda: torch.add(xa, ya)),
+    }
+    emit(phase="main", path="table1", op="elementwise_add",
+         x=list(xa.shape), ms=add_ms, max_abs_err_vs_plain=add_err)
+    # the binary kernel's launches in the elementwise_add row's counted run
+    table["add"] = dict(
+        launches={"elementwise_add": add_launches["elementwise_binary"]},
+        ms=add_ms, err=add_err, cost=(12 * xa.numel(), xa.numel()))
+    del sweep, xa, ya
+
+    # -- main path: matmul, 4096 x 4096 @ 4096 x 4096, as a one-node plan ---
+    g = graph.Graph(f"matmul_{MM_N}")
+    y_np = rng.standard_normal((MM_N, MM_N), dtype=np.float32)
+    g.output(g.apply("matmul", g.input("x"), g.const(y_np, "y")))
+    y64 = y_np.astype(np.float64)
+    plan, native, x, info = drive(
+        "matmul", g, (MM_N, MM_N), {"matmul": 1},
+        lambda x0: x0.astype(np.float64) @ y64, ORACLE_RTOL)
+    yd = plan.consts["y"]
+    mcfg = ops._resolve(mmk.TUNE_SPACE, {"m": MM_N, "n": MM_N, "k": MM_N})
+    mm_err = hold(torch, "matmul 4096", mmk.matmul(x, yd, **mcfg),
+                  mmk.matmul_plain(x, yd), MM_RTOL)
+    ms = {"plan": median_ms(torch, lambda: plan(x)),
+          "plan_native": median_ms(torch, lambda: native(x))}
+    before = counts()
+    ms.update({
+        "matmul": device_ms(torch, lambda: mmk.matmul(x, yd, **mcfg)),
+        "matmul_plain": device_ms(torch, lambda: mmk.matmul_plain(x, yd)),
+        "matmul_library": device_ms(torch, lambda: torch.matmul(x, yd)),
+    })
+    check_grew("matmul", before, {"matmul": 1})
+    mm_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}/{c['order']}": device_ms(
+        torch, lambda c=c: mmk.matmul(x, yd, **c), repeats=5)
+        for c in mmk.TUNE_SPACE.configs({"m": MM_N, "n": MM_N, "k": MM_N})}
+    mm_cost = (4 * 3 * MM_N * MM_N, 2 * MM_N ** 3)
+    emit(phase="main", path="matmul", x=[MM_N, MM_N], y=[MM_N, MM_N],
+         tile=mcfg, max_abs_err_vs_plain=mm_err, ms=ms,
+         bound_ms=bound(*mm_cost)[0],
+         achieved_tflops=mm_cost[1] / (ms["matmul"] * 1e-3) / 1e12,
+         ms_per_tile=mm_tiles,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
+    table["matmul"] = dict(launches=info["launches_per_call"], ms=ms,
+                           cost=mm_cost, err=mm_err)
+    del plan, native, x, yd
+
     full, stft = table["full"], table["stft"]
+    dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
     rows = []
     for name, src, replaces, cost, err, launches, ms, lib in (
             ("pfb_fused", "src/repro_torch/csrc/pfb.cu",
@@ -687,7 +1084,16 @@ def main() -> int:
             ("overlap_add", "src/repro_torch/csrc/unfold.cu",
              "src/repro/kernels/unfold.py:111", stft["cost"]["overlap_add"],
              stft["err"]["overlap_add"], stft["launches"], stft["ms"],
-             "overlap_add_library")):
+             "overlap_add_library"),
+            ("fir_valid", "src/repro_torch/csrc/fir.cu",
+             "src/repro/kernels/fir.py:59", dec["cost"], dec["err"],
+             dec["launches"], dec["ms"], "fir_valid_library"),
+            ("matmul", "src/repro_torch/csrc/matmul.cu",
+             "src/repro/kernels/matmul.py:122", mm["cost"], mm["err"],
+             mm["launches"], mm["ms"], "matmul_library"),
+            ("elementwise_add", "src/repro_torch/csrc/elementwise.cu",
+             "src/repro/kernels/elementwise.py:71", add["cost"], add["err"],
+             add["launches"], add["ms"], "elementwise_add_library")):
         b_ms, b_by = bound(*cost)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],

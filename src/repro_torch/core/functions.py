@@ -7,9 +7,9 @@ of :mod:`repro_torch.core.blocks` (Table 1 of the paper) and takes
 (matmul / elementwise / data-movement form) or ``"kernel"`` (the
 hand-written CUDA kernels of :mod:`repro_torch.kernels.ops`, the
 reference's ``pallas``).  ``elementwise_mult``, ``elementwise_add``,
-``dft``, ``idft``, ``unfold`` and ``overlap_add`` have all three;
-``matmul``'s kernel lowering is not ported yet and raises.  ``fir`` and
-``summation`` come with their slice.
+``matmul``, ``dft``, ``idft``, ``fir``, ``unfold`` and ``overlap_add``
+have all three; ``summation`` is one fully connected layer whatever
+the lowering, and ``depthwise_fir`` has ``native`` and ``conv``.
 """
 from __future__ import annotations
 
@@ -31,9 +31,7 @@ def _kops():
     return ops
 
 
-def _check_lowering(fn: str, lowering: str, *, kernel: bool = True) -> None:
-    if lowering == "kernel" and not kernel:
-        raise ValueError(f"{fn}: the kernel lowering is not yet ported")
+def _check_lowering(fn: str, lowering: str) -> None:
     if lowering not in LOWERINGS:
         raise ValueError(f"{fn}: unknown lowering {lowering!r}")
 
@@ -102,11 +100,13 @@ def elementwise_add(x: Tensor, y: Tensor, *, lowering: str = "native",
 def matmul(x: Tensor, y: Tensor, *, lowering: str = "native",
            block: Optional[dict] = None) -> Tensor:
     """Z = X @ Y via pointwise conv: X (.., M, L) becomes the conv input
-    (T, C_in=L, 1, W=M); the kernel is Y (L, N) (paper Eq. 9)."""
-    del block
-    _check_lowering("matmul", lowering, kernel=False)
+    (T, C_in=L, 1, W=M); the kernel is Y (L, N) (paper Eq. 9).  ``kernel``
+    runs the fp32 GEMM kernel."""
+    _check_lowering("matmul", lowering)
     if y.ndim != 2:
         raise ValueError("TINA matmul kernel (conv weight) must be 2-D")
+    if lowering == "kernel":
+        return _kops().matmul(x, y, **(block or {}))
     if lowering == "native":
         return torch.matmul(x, y)
     m, l = x.shape[-2], x.shape[-1]
@@ -115,6 +115,18 @@ def matmul(x: Tensor, y: Tensor, *, lowering: str = "native",
     out = blocks.pointwise_conv(xi, y, lowering=lowering)
     out = out[:, :, 0, :].transpose(1, 2)                        # (T, M, N)
     return out.reshape(batch + (m, y.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# §3.4 summation -- fully connected, ones weights, Eq. (11)
+# ---------------------------------------------------------------------------
+def summation(x: Tensor, *, lowering: str = "native") -> Tensor:
+    """sum(x) over the last axis via a dense layer with all-ones weights,
+    zero bias, C_out = 1 (paper Eq. 11).  Leading dims are batch; the one
+    layer is the same code whatever the lowering."""
+    _check_lowering("summation", lowering)
+    ones = torch.ones((x.shape[-1], 1), dtype=x.dtype, device=x.device)
+    return blocks.fully_connected(x, ones, lowering=lowering)[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +205,39 @@ def idft(z: Tensor, *, lowering: str = "native", variant: str = "4mult",
          block: Optional[dict] = None) -> Tensor:
     return dft(z, inverse=True, lowering=lowering, variant=variant,
                block=block)
+
+
+# ---------------------------------------------------------------------------
+# §4.3 FIR filter -- standard conv with taps as weights, Eq. (16)
+# ---------------------------------------------------------------------------
+def fir(x: Tensor, taps: Tensor, *, mode: str = "valid",
+        lowering: str = "native", flip: bool = True,
+        block: Optional[dict] = None) -> Tensor:
+    """FIR filter y(i) = Σ_k a(k) x(i−k) over the last axis.
+
+    The paper's Eq. (16) is a cross-correlation; a true FIR convolution
+    needs the taps reversed, which ``flip=True`` (default) does --
+    ``flip=False`` is the literal Eq. (16).  ``mode`` follows scipy:
+    "valid" (paper), "same", "full".  An even K's extra 'same' sample
+    goes left for a convolution and right for a correlation on every
+    lowering, as ``np.convolve`` and the reference's native/conv do
+    (:func:`repro_torch.kernels.fir.mode_pads`).  ``kernel`` pads
+    implicitly inside the FIR kernel; ``native`` and ``conv`` pad and run
+    the TINA standard conv."""
+    from repro_torch.kernels import fir as fir_kernel
+    _check_lowering("fir", lowering)
+    k = taps.shape[-1]
+    kern = taps.flip(-1) if flip else taps
+    pad_left, pad_right = fir_kernel.mode_pads(k, mode, flip)
+    if lowering == "kernel":
+        return _kops().fir(x, kern, mode=mode, flip=flip, **(block or {}))
+    w = x.shape[-1]
+    xi = x.reshape((-1, 1, 1, w))                          # (T, 1, 1, W)
+    k4 = kern.reshape(1, 1, 1, k)                          # OIHW
+    pad = ("VALID" if mode == "valid"
+           else ((0, 0), (pad_left, pad_right)))
+    out = blocks.standard_conv(xi, k4, padding=pad, lowering=lowering)
+    return out.reshape(x.shape[:-1] + (out.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -296,5 +341,5 @@ def unfold(x: Tensor, window: int, *, lowering: str = "native",
     return out[:, :, 0, :].transpose(1, 2).reshape(batch + (n - j + 1, j))
 
 
-__all__ = ["elementwise_mult", "elementwise_add", "matmul", "dft", "idft",
-           "depthwise_fir", "overlap_add", "unfold"]
+__all__ = ["elementwise_mult", "elementwise_add", "matmul", "summation",
+           "dft", "idft", "fir", "depthwise_fir", "overlap_add", "unfold"]

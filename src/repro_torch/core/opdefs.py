@@ -4,20 +4,21 @@ planner, the fuser and the kernels' tune spaces all derive from.
   * graph view -- ``impl`` (``(args, attrs, lowering, block)`` -> Tensor),
     ``lowerings``, the ``attrs`` schema and the ``elementwise`` fuser
     trait with its ``fuse_step``.
-  * eager view -- ``eager`` (the user-facing function) and ``oracle``
-    (pure numpy).
+  * eager / Table-1 view -- ``eager`` (the user-facing function),
+    ``oracle`` (pure numpy), ``make_args`` (sweep inputs) and
+    ``table_name`` generate :data:`repro_torch.core.registry.REGISTRY`.
   * tuning view -- ``tune_space`` names the kernel's
     :class:`repro_torch.kernels.tune.TuneSpace`; ``tune_ctx`` extracts the
     shape facts the space needs.
 
-The port declares the ops of its three pipelines: ``pfb``,
-``pfb_frontend``, ``abs2``, ``scale`` and ``fused_ew`` (``pfb_power``);
-``unfold``, ``window``, ``dft`` (``spectrogram``); ``frame_decimate``,
-``idft``, ``real`` and ``overlap_add`` (``stft_overlap_add``); and the
-Table-1 ``ew_mul`` / ``ew_add``.  The reference's precision and
-streaming fields, and its ``matmul``, ``fir``, ``downsample`` and
-``summation`` ops, come with their slices; a graph naming an op missing
-here fails to compile with the reference's "unknown op" error.
+The port declares every op of the reference: the eleven Table-1 ops
+(``ew_mul``, ``ew_add``, ``matmul``, ``summation``, ``dft``, ``idft``,
+``fir``, ``unfold``, ``overlap_add``, ``pfb_frontend``, ``pfb``) and the
+graph-only glue (``window``, ``abs2``, ``scale``, ``real``,
+``downsample``, ``frame_decimate``, ``fused_ew``), in the reference's
+order.  The reference's precision and streaming fields come with their
+slices; a graph naming an op missing here fails to compile with the
+reference's "unknown op" error.
 """
 from __future__ import annotations
 
@@ -62,7 +63,11 @@ class OpDef:
     section: str = ""                          # paper section
     building_block: str = ""                   # paper Table 1 column
     eager: Callable | None = None              # user-facing fn(*args, lowering=)
-    oracle: Callable | None = None             # numpy reference
+    oracle: Callable | None = None             # numpy ref over make_args
+    make_args: Callable | None = None          # rng, n -> args tuple
+    table_name: str | None = None              # name in the Table-1 view
+    arg_attrs: tuple[str, ...] = ()            # attrs bound to trailing
+                                               # non-array make_args entries
     tune_space: str | None = None              # kernels.tune space key
     tune_ctx: Callable | None = None           # (attrs, in_shapes) -> dict
 
@@ -99,6 +104,12 @@ def register(op: OpDef) -> OpDef:
 # ---------------------------------------------------------------------------
 # numpy oracles
 # ---------------------------------------------------------------------------
+def _np_fir_valid(x, taps):
+    return np.stack([np.convolve(row, taps, mode="valid")
+                     for row in np.atleast_2d(x)]).reshape(
+        x.shape[:-1] + (x.shape[-1] - taps.shape[0] + 1,))
+
+
 def _np_pfb_frontend(x, taps):
     m, p = taps.shape
     frames = x.reshape(x.shape[:-1] + (-1, p))
@@ -161,6 +172,11 @@ def _impl_abs2(args, at, lowering, block=None):
     (x,) = args
     if lowering == "kernel":
         return _kops().abs2(x, **(block or {}))
+    if not x.is_complex():
+        # the reference's re² + 0² is x·x exactly (a matched filter's power)
+        if lowering == "conv" and x.ndim >= 2:
+            return functions.elementwise_mult(x, x, lowering="conv")
+        return x * x
     re, im = x.real, x.imag
     if lowering == "conv" and re.ndim >= 2:
         return functions.elementwise_add(
@@ -210,6 +226,16 @@ def _ctx_pfb(at, shapes):
     return {"m": m, "p": p, "t": int(shapes[0][-1]) // p}
 
 
+def _ctx_fir(at, shapes):
+    return {"k": int(shapes[1][-1]), "n": int(shapes[0][-1]),
+            "rows": _rows(shapes[0])}
+
+
+def _ctx_matmul(at, shapes):
+    return {"m": _rows(shapes[0]), "n": int(shapes[1][-1]),
+            "k": int(shapes[0][-1])}
+
+
 def _ctx_unfold(at, shapes):
     return {"j": int(at["window"]), "n": int(shapes[0][-1]),
             "rows": _rows(shapes[0])}
@@ -244,13 +270,24 @@ def _ctx_fused(at, shapes):
 
 
 # ---------------------------------------------------------------------------
-# the declarations
+# the declarations -- Table-1 ops (make_args as the reference's, so a test
+# feeds both packages the same inputs)
 # ---------------------------------------------------------------------------
+def _NN(rng, n):
+    return (rng.standard_normal((n, n), dtype=np.float32),
+            rng.standard_normal((n, n), dtype=np.float32))
+
+
+def _signal(rng, n):
+    return rng.standard_normal((n * n,), dtype=np.float32)
+
+
 register(OpDef(
     "ew_mul", _ew_binary("mul"), ("native", "conv", "kernel"),
     elementwise=True, fuse_step=lambda at: ("mul",),
     section="3.1", building_block="depthwise conv",
     eager=functions.elementwise_mult, oracle=lambda x, y: x * y,
+    make_args=_NN, table_name="elementwise_mult",
     tune_space="elementwise", tune_ctx=_ctx_ew_binary))
 
 register(OpDef(
@@ -258,7 +295,27 @@ register(OpDef(
     elementwise=True, fuse_step=lambda at: ("add",),
     section="3.3", building_block="depthwise conv",
     eager=functions.elementwise_add, oracle=lambda x, y: x + y,
+    make_args=_NN, table_name="elementwise_add",
     tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+
+register(OpDef(
+    "matmul",
+    lambda a, at, lw, b=None: functions.matmul(a[0], a[1], lowering=lw,
+                                               block=b),
+    ("native", "conv", "kernel"),
+    section="3.2", building_block="pointwise conv",
+    eager=functions.matmul, oracle=lambda x, y: x @ y,
+    make_args=_NN, table_name="matmul",
+    tune_space="matmul", tune_ctx=_ctx_matmul))
+
+register(OpDef(
+    "summation",
+    lambda a, at, lw, b=None: functions.summation(a[0], lowering=lw),
+    ("native",), lowering_agnostic=True,   # the FC block has one code path
+    section="3.4", building_block="fully connected",
+    eager=functions.summation, oracle=lambda x: x.sum(-1),
+    make_args=lambda rng, n: (_signal(rng, n),),
+    table_name="summation"))
 
 register(OpDef(
     "dft",
@@ -268,7 +325,9 @@ register(OpDef(
     attrs=(Attr("variant", "4mult"),),
     section="4.1", building_block="pointwise conv",
     eager=functions.dft, oracle=lambda x: np.fft.fft(x),
-    tune_space="dft", tune_ctx=_ctx_dft))
+    make_args=lambda rng, n: (
+        rng.standard_normal((max(1, n // 8), n), dtype=np.float32),),
+    table_name="dft", tune_space="dft", tune_ctx=_ctx_dft))
 
 register(OpDef(
     "idft",
@@ -278,7 +337,23 @@ register(OpDef(
     attrs=(Attr("variant", "4mult"),),
     section="4.2", building_block="pointwise conv",
     eager=functions.idft, oracle=lambda z: np.fft.ifft(z),
-    tune_space="dft", tune_ctx=_ctx_dft))
+    make_args=lambda rng, n: ((
+        rng.standard_normal((max(1, n // 8), n))
+        + 1j * rng.standard_normal((max(1, n // 8), n))
+    ).astype(np.complex64),),
+    table_name="idft", tune_space="dft", tune_ctx=_ctx_dft))
+
+register(OpDef(
+    "fir",
+    lambda a, at, lw, b=None: functions.fir(
+        a[0], a[1], mode=at["mode"], flip=at["flip"], lowering=lw, block=b),
+    ("native", "conv", "kernel"),
+    attrs=(Attr("mode", "valid"), Attr("flip", True)),
+    section="4.3", building_block="standard conv",
+    eager=functions.fir, oracle=_np_fir_valid,
+    make_args=lambda rng, n: (_signal(rng, n),
+                              rng.standard_normal((31,), dtype=np.float32)),
+    table_name="fir", tune_space="fir", tune_ctx=_ctx_fir))
 
 register(OpDef(
     "unfold",
@@ -288,6 +363,8 @@ register(OpDef(
     attrs=(Attr("window"),),
     section="4.4", building_block="standard conv",
     eager=functions.unfold, oracle=_np_unfold,
+    make_args=lambda rng, n: (_signal(rng, n), 16),
+    table_name="unfold", arg_attrs=("window",),
     tune_space="unfold", tune_ctx=_ctx_unfold))
 
 register(OpDef(
@@ -295,6 +372,9 @@ register(OpDef(
     attrs=(Attr("hop"), Attr("window", 0)),
     section="4.4 (inverse)", building_block="transposed conv",
     eager=functions.overlap_add, oracle=_np_overlap_add,
+    make_args=lambda rng, n: (
+        rng.standard_normal((max(2, n // 8), 64), dtype=np.float32), 32),
+    table_name="overlap_add", arg_attrs=("hop",),
     tune_space="overlap_add", tune_ctx=_ctx_overlap_add))
 
 register(OpDef(
@@ -304,7 +384,9 @@ register(OpDef(
     ("native", "conv", "kernel"),
     section="5.2", building_block="standard conv bank",
     eager=pfb.pfb_frontend, oracle=_np_pfb_frontend,
-    tune_space="pfb", tune_ctx=_ctx_pfb))
+    make_args=lambda rng, n: (_signal(rng, n),
+                              pfb.pfb_window(16, 8).astype(np.float32)),
+    table_name="pfb_frontend", tune_space="pfb", tune_ctx=_ctx_pfb))
 
 register(OpDef(
     "pfb",
@@ -314,7 +396,13 @@ register(OpDef(
     attrs=(Attr("variant", "4mult"),),
     section="5.2", building_block="conv bank + pointwise conv",
     eager=pfb.pfb, oracle=_np_pfb,
-    tune_space="pfb", tune_ctx=_ctx_pfb))
+    make_args=lambda rng, n: (_signal(rng, n),
+                              pfb.pfb_window(16, 8).astype(np.float32)),
+    table_name="pfb", tune_space="pfb", tune_ctx=_ctx_pfb))
+
+# ---------------------------------------------------------------------------
+# glue primitives (graph-only: no Table-1 row)
+# ---------------------------------------------------------------------------
 
 register(OpDef(
     # multiply by a const vector along the last axis (same impl as
@@ -343,6 +431,11 @@ register(OpDef(
     ("native",), lowering_agnostic=True))
 
 register(OpDef(
+    "downsample",     # pure data movement: the same view every lowering
+    lambda a, at, lw, b=None: a[0][..., ::at["factor"]],
+    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),)))
+
+register(OpDef(
     "frame_decimate",  # keep every factor-th frame (hop on a framed axis)
     lambda a, at, lw, b=None: a[0][..., ::at["factor"], :],
     ("native",), lowering_agnostic=True, attrs=(Attr("factor"),)))
@@ -353,4 +446,12 @@ register(OpDef(
     tune_space="elementwise", tune_ctx=_ctx_fused))
 
 
-__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register"]
+# ---------------------------------------------------------------------------
+# derived views
+# ---------------------------------------------------------------------------
+def table_ops() -> list[OpDef]:
+    """OpDefs with a Table-1 registry row (eager + oracle + make_args)."""
+    return [d for d in OPDEFS.values() if d.table_name is not None]
+
+
+__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register", "table_ops"]

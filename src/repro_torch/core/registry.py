@@ -1,15 +1,59 @@
-"""Pipeline registry: whole multi-op graphs with their numpy oracles.
+"""TINA op registry: the Table-1 view over :mod:`repro_torch.core.opdefs`
+-- one row per paper mapping with its eager function, lowerings, numpy
+oracle and sweep inputs -- and the pipeline registry.
 
-The graph subsystem (:mod:`repro_torch.graph`) registers its built-ins
-here at import time; this module stays import-light (no graph
-dependency) so core can be used without the planner.  The reference's
-Table-1 single-op view comes with the slice that ports the remaining
-ops.
+``REGISTRY`` is generated: every op is declared once in
+``core/opdefs.py``, and the OpDefs carrying ``table_name`` + ``eager`` +
+``oracle`` + ``make_args`` are its rows, in the reference's order.  Do
+not add entries here; declare an OpDef instead.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Sequence
+
+from repro_torch.core import opdefs
+
+
+@dataclasses.dataclass(frozen=True)
+class TinaOp:
+    name: str
+    section: str                 # paper section
+    building_block: str          # paper Table 1 column
+    fn: Callable                 # fn(*args, lowering=...)
+    oracle: Callable             # pure-numpy reference
+    lowerings: tuple[str, ...]   # supported lowerings
+    make_args: Callable          # rng, size -> args tuple (for sweeps)
+
+
+def _generate() -> dict[str, TinaOp]:
+    out: dict[str, TinaOp] = {}
+    for d in opdefs.table_ops():
+        if d.eager is None or d.oracle is None or d.make_args is None:
+            raise ValueError(
+                f"OpDef {d.name!r} declares table_name={d.table_name!r} "
+                "but is missing eager/oracle/make_args")
+        out[d.table_name] = TinaOp(
+            d.table_name, d.section, d.building_block, d.eager, d.oracle,
+            d.lowerings, d.make_args)
+    return out
+
+
+REGISTRY: dict[str, TinaOp] = _generate()
+
+
+def ops(names: Sequence[str] | None = None) -> list[TinaOp]:
+    if names is None:
+        return list(REGISTRY.values())
+    return [REGISTRY[n] for n in names]
+
+
+# ---------------------------------------------------------------------------
+# Pipelines: whole multi-op graphs registered alongside the single ops.  The
+# graph subsystem (repro_torch.graph) registers its built-ins here at import
+# time; this module stays import-light (no graph dependency) so core can be
+# used without the planner.
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,4 +87,5 @@ def pipelines(names: Sequence[str] | None = None) -> list[TinaPipeline]:
     return [PIPELINES[n] for n in names]
 
 
-__all__ = ["TinaPipeline", "PIPELINES", "register_pipeline", "pipelines"]
+__all__ = ["TinaOp", "REGISTRY", "ops",
+           "TinaPipeline", "PIPELINES", "register_pipeline", "pipelines"]

@@ -6,13 +6,16 @@
 // TPU), and, in tina_binary, elementwise.py:_binary behind
 // elementwise_mult and elementwise_add.
 //
-// What it computes: acc = re^2 + im^2 of an interleaved complex head (the
-// `abs2` head, read straight from torch.view_as_real(z)) or the real head
-// value, then in order: acc *= operand, acc += operand, acc *= constant.
+// What it computes: the accumulator starts from the head, in one of three
+// modes: the real head value; re^2 + im^2 of an interleaved complex head
+// (the `abs2` head, read straight from torch.view_as_real(z)); or x * x
+// of a real head (`abs2` of a real signal, as a matched filter's power
+// needs: the reference's re^2 + 0^2, read once).  Then, in order:
+// acc *= operand, acc += operand, acc *= constant.
 //
-// What bounds it on this card: memory.  An abs2 chain moves 12 bytes per
-// element (8 in, 4 out) for 3 flops; at 3.35 TB/s that is the whole
-// story.  The design reads each input once and writes the output once
+// What bounds it on this card: memory.  A complex abs2 chain moves 12
+// bytes per element (8 in, 4 out) for 3 flops, a real one 8 bytes; at
+// 3.35 TB/s that is the whole story.  The design reads each input once and writes the output once
 // in a grid-stride loop with neighbouring threads on neighbouring
 // elements, and keeps every intermediate of the chain in a register.
 //
@@ -38,6 +41,8 @@ namespace {
 
 constexpr int MAX_STEPS = 8;
 enum : int { STEP_MUL = 0, STEP_ADD = 1, STEP_SCALE = 2 };
+// head modes of tina_chain
+enum : int { HEAD_REAL = 0, HEAD_ABS2_COMPLEX = 1, HEAD_ABS2_REAL = 2 };
 
 struct Chain {
   int n_steps;
@@ -46,16 +51,19 @@ struct Chain {
   const float* operand[MAX_STEPS];       // operands of mul/add steps, in order
 };
 
-template <bool ABS2>
+template <int HEAD>
 __global__ void chain_kernel(const float* __restrict__ head, long long n,
                              const Chain ch, float* __restrict__ out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     float acc;
-    if (ABS2) {
+    if (HEAD == HEAD_ABS2_COMPLEX) {
       const float2 z = __ldg(reinterpret_cast<const float2*>(head) + i);
       acc = __fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y));
+    } else if (HEAD == HEAD_ABS2_REAL) {
+      const float v = __ldg(head + i);
+      acc = __fmul_rn(v, v);
     } else {
       acc = __ldg(head + i);
     }
@@ -95,15 +103,17 @@ __global__ void binary_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// head: n f32 values, or n interleaved complex64 values (head_is_complex);
+// head: n f32 values (head_mode 0: the value, 2: its square), or n
+// interleaved complex64 values (head_mode 1: re^2 + im^2);
 // codes/consts: n_steps host values; operands: one device pointer of n f32
 // per mul/add step, in step order; out: n f32.  Returns cudaError_t.
-extern "C" int tina_chain(const void* head, int head_is_complex, long long n,
+extern "C" int tina_chain(const void* head, int head_mode, long long n,
                           const int* codes, const float* consts,
                           const void* const* operands, int n_steps, void* out,
                           int threads, void* stream) {
   if (n_steps < 0 || n_steps > MAX_STEPS || n < 0 || threads <= 0 ||
-      threads > 1024 || threads % 32 != 0)
+      threads > 1024 || threads % 32 != 0 || head_mode < HEAD_REAL ||
+      head_mode > HEAD_ABS2_REAL)
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   Chain ch{};
@@ -124,10 +134,12 @@ extern "C" int tina_chain(const void* head, int head_is_complex, long long n,
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* h = static_cast<const float*>(head);
   auto* o = static_cast<float*>(out);
-  if (head_is_complex)
-    chain_kernel<true><<<blocks, threads, 0, s>>>(h, n, ch, o);
+  if (head_mode == HEAD_ABS2_COMPLEX)
+    chain_kernel<HEAD_ABS2_COMPLEX><<<blocks, threads, 0, s>>>(h, n, ch, o);
+  else if (head_mode == HEAD_ABS2_REAL)
+    chain_kernel<HEAD_ABS2_REAL><<<blocks, threads, 0, s>>>(h, n, ch, o);
   else
-    chain_kernel<false><<<blocks, threads, 0, s>>>(h, n, ch, o);
+    chain_kernel<HEAD_REAL><<<blocks, threads, 0, s>>>(h, n, ch, o);
   return cudaGetLastError();
 }
 

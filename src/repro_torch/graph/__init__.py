@@ -6,7 +6,8 @@ cached plans that run on the card.
   plan.py       planner: shape specialization, elementwise fusion,
                 lowering selection, memoized plans
   pipelines.py  built-in workloads (``spectrogram``, ``pfb_power``,
-                ``stft_overlap_add``)
+                ``fir_decimate``, ``stft_overlap_add``, ``correlate``,
+                ``cascaded_channelizer``)
 
 Quick use::
 
@@ -18,9 +19,14 @@ Quick use::
 from repro_torch.core.opdefs import OPDEFS, OpDef
 from repro_torch.graph import pipelines, plan
 from repro_torch.graph.graph import Graph, Node, load_graph
-from repro_torch.graph.pipelines import (BUILTINS, build_pfb_power,
-                                         build_spectrogram,
+from repro_torch.graph.pipelines import (BUILTINS,
+                                         build_cascaded_channelizer,
+                                         build_correlate, build_fir_decimate,
+                                         build_pfb_power, build_spectrogram,
                                          build_stft_overlap_add,
+                                         cascaded_channelizer_oracle,
+                                         correlate_oracle,
+                                         fir_decimate_oracle,
                                          pfb_power_oracle, spectrogram_oracle,
                                          stft_overlap_add_oracle)
 from repro_torch.graph.plan import (CompileOptions, Plan, cache_stats,
@@ -30,6 +36,8 @@ __all__ = [
     "Graph", "Node", "load_graph", "OpDef", "OPDEFS", "Plan",
     "CompileOptions", "compile", "cache_stats", "clear_cache", "BUILTINS",
     "build_pfb_power", "pfb_power_oracle", "build_spectrogram",
-    "spectrogram_oracle", "build_stft_overlap_add", "stft_overlap_add_oracle",
-    "pipelines", "plan",
+    "spectrogram_oracle", "build_fir_decimate", "fir_decimate_oracle",
+    "build_stft_overlap_add", "stft_overlap_add_oracle", "build_correlate",
+    "correlate_oracle", "build_cascaded_channelizer",
+    "cascaded_channelizer_oracle", "pipelines", "plan",
 ]

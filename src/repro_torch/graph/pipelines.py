@@ -3,13 +3,17 @@ registered in :data:`repro_torch.core.registry.PIPELINES`.
 
   * ``spectrogram``      unfold -> window mult -> DFT -> |·|² -> 1/J scale
   * ``pfb_power``        polyphase filter bank -> |·|² (paper §5.2 + power)
+  * ``fir_decimate``     FIR -> ↓2 -> FIR -> ↓2 multi-stage decimation chain
   * ``stft_overlap_add`` windowed STFT analysis -> ISTFT overlap-add
                          synthesis (unfold -> hop -> window -> DFT ->
                          IDFT -> window -> overlap-add)
+  * ``correlate``        matched filter: cross-correlation with a baked
+                         template -> |·|² power, energy-normalized
+  * ``cascaded_channelizer`` two-stage channelizer: half-band FIR ↓2
+                         stage cascaded into a polyphase filter bank
+                         -> |·|²
 
 Each entry carries a pure-numpy oracle over the same baked constants.
-The reference's other three pipelines (``fir_decimate``, ``correlate``,
-``cascaded_channelizer``) come with the FIR slice.
 """
 from __future__ import annotations
 
@@ -78,6 +82,45 @@ def pfb_power_oracle(n_branches: int = 16, n_taps: int = 8):
 
 
 # ---------------------------------------------------------------------------
+# multi-stage FIR decimation chain
+# ---------------------------------------------------------------------------
+def _lowpass(k: int) -> np.ndarray:
+    """Windowed-sinc half-band lowpass (cutoff 0.25 fs) for decimate-by-2."""
+    n = np.arange(k) - (k - 1) / 2.0
+    h = np.sinc(n / 2.0) * np.hamming(k)
+    return (h / h.sum()).astype(np.float32)
+
+
+def build_fir_decimate(taps1: int = 31, taps2: int = 15) -> Graph:
+    g = Graph(f"fir_decimate_k{taps1}_{taps2}")
+    x = g.input("x")
+    t1 = g.const(_lowpass(taps1), "taps1")
+    t2 = g.const(_lowpass(taps2), "taps2")
+    y = g.apply("fir", x, t1)
+    y = g.apply("downsample", y, factor=2)
+    y = g.apply("fir", y, t2)
+    y = g.apply("downsample", y, factor=2)
+    g.output(y)
+    return g
+
+
+def _conv_rows(x: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """np.convolve(row, h, 'valid') of every row of x."""
+    out = np.stack([np.convolve(r, h, mode="valid") for r in np.atleast_2d(x)])
+    return out.reshape(x.shape[:-1] + (out.shape[-1],))
+
+
+def fir_decimate_oracle(taps1: int = 31, taps2: int = 15):
+    h1, h2 = _lowpass(taps1), _lowpass(taps2)
+
+    def oracle(x):
+        x = np.asarray(x, np.float32)
+        y = _conv_rows(x, h1)[..., ::2]
+        return _conv_rows(y, h2)[..., ::2]
+    return oracle
+
+
+# ---------------------------------------------------------------------------
 # STFT analysis -> overlap-add synthesis (windowed resynthesis)
 # ---------------------------------------------------------------------------
 def _sqrt_hann(j: int) -> np.ndarray:
@@ -119,6 +162,83 @@ def stft_overlap_add_oracle(window: int = 64, hop: int = 32):
 
 
 # ---------------------------------------------------------------------------
+# matched filter: cross-correlation power against a baked template
+# ---------------------------------------------------------------------------
+def _template(k: int) -> np.ndarray:
+    """Gaussian-windowed chirp -- a deterministic matched-filter target."""
+    n = np.arange(k, dtype=np.float64)
+    t = (n - (k - 1) / 2.0) / (k / 4.0)
+    tmpl = np.exp(-0.5 * t * t) * np.cos(2 * np.pi * (0.05 + 0.15 * n / k) * n)
+    return tmpl.astype(np.float32)
+
+
+def build_correlate(taps: int = 63) -> Graph:
+    tmpl = _template(taps)
+    energy = float(np.sum(tmpl.astype(np.float64) ** 2))
+    g = Graph(f"correlate_k{taps}")
+    x = g.input("x")
+    t = g.const(tmpl, "template")
+    # flip=False: the paper's literal Eq. (16) cross-correlation, the
+    # matched-filter form
+    y = g.apply("fir", x, t, flip=False)
+    p = g.apply("abs2", y)                      # correlation power ...
+    out = g.apply("scale", p, factor=1.0 / (energy * energy))
+    g.output(out)                               # ... normalized to ‖h‖⁴
+    return g
+
+
+def correlate_oracle(taps: int = 63):
+    tmpl = _template(taps)
+    energy = float(np.sum(tmpl.astype(np.float64) ** 2))
+
+    def oracle(x):
+        x2 = np.atleast_2d(np.asarray(x, np.float32))
+        c = np.stack([np.correlate(r, tmpl, mode="valid") for r in x2])
+        c = c.reshape(np.asarray(x).shape[:-1] + (c.shape[-1],))
+        return (c * c) / (energy * energy)
+    return oracle
+
+
+# ---------------------------------------------------------------------------
+# cascaded two-stage channelizer: half-band decimation -> PFB power
+# ---------------------------------------------------------------------------
+def _chan_len(n: int, taps1: int, n_branches: int, n_taps: int) -> int:
+    """Smallest valid signal length >= ~n: the stage-1 (FIR k1 + ↓2)
+    output must split into whole PFB frames with at least one output
+    frame."""
+    p = n_branches
+    t = max(n_taps + 1, -(-(n - taps1 + 2) // (2 * p)))   # ceil-div
+    return taps1 - 2 + 2 * p * t
+
+
+def build_cascaded_channelizer(taps1: int = 31, n_branches: int = 16,
+                               n_taps: int = 4) -> Graph:
+    taps = pfb_lib.pfb_window(n_branches, n_taps).astype(np.float32)
+    g = Graph(f"cascaded_chan_k{taps1}_p{n_branches}m{n_taps}")
+    x = g.input("x")
+    h = g.const(_lowpass(taps1), "lowpass")
+    t = g.const(taps, "taps")
+    y = g.apply("fir", x, h)                    # stage 1: anti-alias FIR
+    y = g.apply("downsample", y, factor=2)      #          ↓2
+    z = g.apply("pfb", y, t)                    # stage 2: polyphase bank
+    out = g.apply("abs2", z)
+    g.output(out)
+    return g
+
+
+def cascaded_channelizer_oracle(taps1: int = 31, n_branches: int = 16,
+                                n_taps: int = 4):
+    h1 = _lowpass(taps1)
+    taps = pfb_lib.pfb_window(n_branches, n_taps).astype(np.float32)
+
+    def oracle(x):
+        x = np.asarray(x, np.float32)
+        y = _conv_rows(x, h1)[..., ::2]
+        return np.abs(opdefs._np_pfb(y, taps)) ** 2   # canonical PFB oracle
+    return oracle
+
+
+# ---------------------------------------------------------------------------
 # registration, in the reference's order
 # ---------------------------------------------------------------------------
 register_pipeline(TinaPipeline(
@@ -136,6 +256,12 @@ register_pipeline(TinaPipeline(
     round_len=lambda n: 16 * max(16, n // 16)))
 
 register_pipeline(TinaPipeline(
+    "fir_decimate", "4.3",
+    build=build_fir_decimate, oracle=fir_decimate_oracle(),
+    lowerings=("native", "conv", "kernel"),
+    make_args=lambda rng, n: (rng.standard_normal(n).astype(np.float32),)))
+
+register_pipeline(TinaPipeline(
     "stft_overlap_add", "4.4+4.1+4.2",
     build=build_stft_overlap_add, oracle=stft_overlap_add_oracle(),
     lowerings=("native", "conv", "kernel"),
@@ -143,9 +269,29 @@ register_pipeline(TinaPipeline(
         rng.standard_normal(max(n, 128)).astype(np.float32),),
     round_len=lambda n: max(n, 128)))      # >= receptive field 2J - H
 
+register_pipeline(TinaPipeline(
+    "correlate", "4.3",
+    build=build_correlate, oracle=correlate_oracle(),
+    lowerings=("native", "conv", "kernel"),
+    make_args=lambda rng, n: (
+        rng.standard_normal(max(n, 128)).astype(np.float32),),
+    round_len=lambda n: max(n, 128)))      # >= template length 63
 
-BUILTINS = ("spectrogram", "pfb_power", "stft_overlap_add")
+register_pipeline(TinaPipeline(
+    "cascaded_channelizer", "4.3+5.2",
+    build=build_cascaded_channelizer, oracle=cascaded_channelizer_oracle(),
+    lowerings=("native", "conv", "kernel"),
+    make_args=lambda rng, n: (
+        rng.standard_normal(_chan_len(n, 31, 16, 4)).astype(np.float32),),
+    round_len=lambda n: _chan_len(n, 31, 16, 4)))
 
-__all__ = ["BUILTINS", "build_spectrogram", "spectrogram_oracle",
-           "build_pfb_power", "pfb_power_oracle", "build_stft_overlap_add",
-           "stft_overlap_add_oracle"]
+
+BUILTINS = ("spectrogram", "pfb_power", "fir_decimate",
+            "stft_overlap_add", "correlate", "cascaded_channelizer")
+
+__all__ = ["BUILTINS", "build_spectrogram", "build_pfb_power",
+           "build_fir_decimate", "build_stft_overlap_add",
+           "build_correlate", "build_cascaded_channelizer",
+           "spectrogram_oracle", "pfb_power_oracle", "fir_decimate_oracle",
+           "stft_overlap_add_oracle", "correlate_oracle",
+           "cascaded_channelizer_oracle"]

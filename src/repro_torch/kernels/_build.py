@@ -36,8 +36,8 @@ SIGNATURES = {
     # x, taps_rev, fr, fi (nullable), out, B, T, P, N, M, bt, bn,
     # complex_out, stream
     "tina_pfb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # head, head_is_complex, n, codes*, consts*, operands**, n_steps,
-    # out, threads, stream
+    # head, head_mode (0 real, 1 complex abs2, 2 real abs2), n, codes*,
+    # consts*, operands**, n_steps, out, threads, stream
     "tina_chain": [_P, _I, ctypes.c_longlong, ctypes.POINTER(_I),
                    ctypes.POINTER(_F), ctypes.POINTER(_P), _I, _P, _I, _P],
     # x, y, out, n, cols, y_is_row, op (0 mul, 1 add), threads, stream
@@ -48,6 +48,10 @@ SIGNATURES = {
     "tina_unfold": [_P, _P, _I, _I, _I, _I, _I, _P],
     # frames, out, rows, T, J, hop, threads, stream
     "tina_overlap_add": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # x, kern, out, rows, n, K, pad_left, pad_right, bn, threads, stream
+    "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, y, out, M, N, K, bm, bn, bk, order_nm, stream
+    "tina_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -16,9 +16,10 @@ binary and chain kernels share theirs.
   ("mul",)        acc *= next operand
   ("add",)        acc += next operand
   ("scale", c)    acc *= c
-``abs2_head=True``: the head is complex and the chain starts from
-acc = re² + im².  The chain reaches the kernel as data, so a new chain
-needs no recompile.
+``abs2_head=True``: the chain starts from acc = re² + im² of a complex
+head, or x·x of a real one (the reference's re² + 0², bit for bit).
+The chain reaches the kernel as data, so a new chain needs no
+recompile.
 """
 from __future__ import annotations
 
@@ -63,10 +64,12 @@ def elementwise_chain_plain(head: torch.Tensor, operands, steps, *,
                             abs2_head: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain torch, one rounding per step."""
     _check_steps(steps)
-    if abs2_head:
+    if abs2_head and head.is_complex():
         v = torch.view_as_real(head)
         re, im = v[..., 0], v[..., 1]
         acc = re * re + im * im
+    elif abs2_head:
+        acc = head * head
     else:
         acc = head
     k = 0
@@ -87,8 +90,9 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
                       threads: int = 256) -> torch.Tensor:
     """Apply a fused chain in one kernel launch.
 
-    ``head``: complex64 (``abs2_head``) or float32; ``operands``: one
-    float32 tensor of the head's shape per mul/add step.  All contiguous.
+    ``head``: float32, or complex64 with ``abs2_head``; ``operands``:
+    one float32 tensor of the head's shape per mul/add step.  All
+    contiguous.
     A CPU tensor runs :func:`elementwise_chain_plain`; a CUDA tensor
     launches the kernel on the current stream or raises."""
     operands = tuple(operands)
@@ -99,10 +103,14 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
     if dev.type != "cuda":
         raise ValueError(f"elementwise_chain: no kernel for device {dev}")
     _check_steps(steps)
-    want = torch.complex64 if abs2_head else torch.float32
-    if head.dtype != want:
-        raise TypeError(f"elementwise_chain: head must be {want}, got "
-                        f"{head.dtype}")
+    if head.dtype == torch.complex64 and abs2_head:
+        mode = 1                                  # re² + im²
+    elif head.dtype == torch.float32:
+        mode = 2 if abs2_head else 0              # x·x, or x
+    else:
+        raise TypeError(
+            f"elementwise_chain: head must be float32"
+            f"{' or complex64' if abs2_head else ''}, got {head.dtype}")
     n_ops = sum(1 for s in steps if s[0] in ("mul", "add"))
     if len(operands) != n_ops:
         raise ValueError(f"elementwise_chain: {n_ops} mul/add steps but "
@@ -127,7 +135,7 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
     ptrs = (ctypes.c_void_p * MAX_STEPS)(*(o.data_ptr() for o in operands))
     lib = _build.lib()
     code = lib.tina_chain(
-        head.data_ptr(), int(abs2_head), n, codes, consts, ptrs, len(steps),
+        head.data_ptr(), mode, n, codes, consts, ptrs, len(steps),
         out.data_ptr(), threads, torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1

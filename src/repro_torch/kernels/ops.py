@@ -15,7 +15,8 @@ call here would be a host-to-device copy of 8 MB at P = 1024.
 Unlike the reference's wrappers these do not pad to block multiples:
 the kernels mask their own ragged edges.  A kernel takes contiguous
 inputs, so a wrapper handed a strided view (``frame_decimate`` after
-``unfold``, ``real`` after ``idft``) makes it contiguous first, a copy.
+``unfold``, ``real`` after ``idft``, ``downsample`` before a FIR or a
+PFB) makes it contiguous first, a copy.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 
 from repro_torch.kernels import dft as dft_kernel
 from repro_torch.kernels import elementwise as ew_kernel
+from repro_torch.kernels import fir as fir_kernel
+from repro_torch.kernels import matmul as mm_kernel
 from repro_torch.kernels import pfb as pfb_kernel
 from repro_torch.kernels import tune
 from repro_torch.kernels import unfold as unfold_kernel
@@ -95,6 +98,44 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
     return z.reshape(batch + (t - m + 1, p))
 
 
+def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
+           bn: int | None = None, bk: int | None = None,
+           order: str | None = None) -> torch.Tensor:
+    """x (..., M, L) @ y (L, N) through the fp32 GEMM kernel, the leading
+    dims of x flattened into rows."""
+    if x.ndim < 2 or y.ndim != 2:
+        raise ValueError(f"matmul: x {tuple(x.shape)} must be (..., M, L) "
+                         f"and y {tuple(y.shape)} (L, N)")
+    m, l = x.shape[-2], x.shape[-1]
+    n = y.shape[1]
+    cfg = _resolve(mm_kernel.TUNE_SPACE,
+                   {"m": tune.leading_rows(x.shape), "n": n, "k": l},
+                   bm=bm, bn=bn, bk=bk, order=order)
+    out = mm_kernel.matmul(x.reshape((-1, l)).contiguous(), y.contiguous(),
+                           **cfg)
+    return out.reshape(x.shape[:-2] + (m, n))
+
+
+def fir(x: torch.Tensor, kern: torch.Tensor, *, mode: str = "valid",
+        flip: bool = True, bn: int | None = None,
+        threads: int | None = None) -> torch.Tensor:
+    """Cross-correlation of the rows of x (..., N) with ``kern`` (K,) in
+    scipy's ``mode``, through the FIR kernel.  The caller flips the taps
+    for a true FIR and says so with ``flip``, which places an even K's
+    extra 'same' sample (:func:`repro_torch.kernels.fir.mode_pads`).  The
+    padding is implicit in the kernel: no padded copy of x is made."""
+    k = kern.shape[0]
+    pad_left, pad_right = fir_kernel.mode_pads(k, mode, flip)
+    n = x.shape[-1]
+    cfg = _resolve(fir_kernel.TUNE_SPACE,
+                   {"k": k, "n": n, "rows": tune.leading_rows(x.shape)},
+                   bn=bn, threads=threads)
+    out = fir_kernel.fir_valid(x.reshape((-1, n)).contiguous(),
+                               kern.contiguous(), pad_left=pad_left,
+                               pad_right=pad_right, **cfg)
+    return out.reshape(x.shape[:-1] + (out.shape[-1],))
+
+
 def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
             threads: int | None) -> torch.Tensor:
     """x op y with y broadcast to x's shape: y either of the result's
@@ -134,16 +175,14 @@ def fused_elementwise(x: torch.Tensor, operands: tuple, steps: tuple, *,
     launch for a whole run of adjacent elementwise graph nodes).
 
     ``steps``, in order:
-      ("abs2",)     only as first step; x must be complex, out = re²+im²
+      ("abs2",)     only as first step: re² + im² of a complex x, x·x of
+                    a real one
       ("mul",) / ("add",) -- consumes the next array from ``operands``
       ("scale", c)  multiply by a python scalar
     Operands are broadcast to x's shape."""
     abs2_head = bool(steps) and steps[0][0] == "abs2"
     rest = tuple(steps[1:] if abs2_head else steps)
     if abs2_head:
-        if not x.is_complex():
-            raise ValueError("fused_elementwise: abs2 head needs a complex "
-                             "input")
         shape = x.shape
         head = x.contiguous()
     else:
@@ -155,14 +194,15 @@ def fused_elementwise(x: torch.Tensor, operands: tuple, steps: tuple, *,
     ops = tuple(o.expand(shape).contiguous() for o in operands)
     ctx = {"rows": tune.leading_rows(shape),
            "cols": shape[-1] if len(shape) else 1,
-           "n_in": (2 if abs2_head else 1) + len(ops)}
+           "n_in": (2 if x.is_complex() else 1) + len(ops)}
     cfg = _resolve(ew_kernel.TUNE_SPACE, ctx, threads=threads)
     return ew_kernel.elementwise_chain(head, ops, rest, abs2_head=abs2_head,
                                        **cfg)
 
 
 def abs2(x: torch.Tensor, *, threads: int | None = None) -> torch.Tensor:
-    """|x|² of a complex tensor in one fused kernel (re² + im²)."""
+    """|x|² in one fused kernel: re² + im² of a complex x, x·x of a real
+    one."""
     return fused_elementwise(x, (), (("abs2",),), threads=threads)
 
 
@@ -209,5 +249,6 @@ def overlap_add(frames: torch.Tensor, hop: int, *,
     return out.reshape(batch + (out.shape[-1],))
 
 
-__all__ = ["pfb_fir", "pfb", "fused_elementwise", "abs2", "elementwise_mult",
-           "elementwise_add", "dft", "unfold", "overlap_add"]
+__all__ = ["matmul", "fir", "pfb_fir", "pfb", "fused_elementwise", "abs2",
+           "elementwise_mult", "elementwise_add", "dft", "unfold",
+           "overlap_add"]

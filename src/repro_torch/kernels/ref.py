@@ -8,6 +8,10 @@ from __future__ import annotations
 import torch
 
 
+def ref_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, y)
+
+
 def ref_elementwise_mult(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x * y
 
@@ -20,6 +24,15 @@ def ref_dft(xr: torch.Tensor, xi: torch.Tensor, fr: torch.Tensor,
             fi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Complex matmul (Xr + iXi)(Fr + iFi) as the real/imag pair."""
     return xr @ fr - xi @ fi, xr @ fi + xi @ fr
+
+
+def ref_fir_valid(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """Cross-correlation, 'valid': out[.., t] = sum_k x[.., t+k] kern[k]."""
+    k = kern.shape[0]
+    n = x.shape[-1]
+    idx = (torch.arange(n - k + 1, device=x.device)[:, None]
+           + torch.arange(k, device=x.device)[None, :])
+    return torch.einsum("...tk,k->...t", x[..., idx], kern)
 
 
 def ref_unfold(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -52,5 +65,6 @@ def ref_pfb(x: torch.Tensor, taps: torch.Tensor
     return z.real, z.imag
 
 
-__all__ = ["ref_elementwise_mult", "ref_elementwise_add", "ref_dft",
-           "ref_unfold", "ref_pfb_fir", "ref_pfb"]
+__all__ = ["ref_matmul", "ref_elementwise_mult", "ref_elementwise_add",
+           "ref_dft", "ref_fir_valid", "ref_unfold", "ref_pfb_fir",
+           "ref_pfb"]

@@ -87,7 +87,8 @@ def register(sp: TuneSpace) -> TuneSpace:
 def space(kernel: str) -> TuneSpace | None:
     """Look up a kernel's TuneSpace (importing the kernel modules so
     their declarations have run)."""
-    from repro_torch.kernels import dft, elementwise, pfb, unfold  # noqa: F401
+    from repro_torch.kernels import (dft, elementwise, fir,  # noqa: F401
+                                     matmul, pfb, unfold)
     return SPACES.get(kernel)
 
 

@@ -132,11 +132,14 @@ def test_depthwise_fir_matches_jax(lw, k):
 
 
 def test_single_op_kernel_lowering_not_yet_ported():
-    """Of the single ops only matmul's kernel lowering is still unported
-    (the reference's Pallas GEMM); the DFT and elementwise ops have it."""
+    """No single op's kernel lowering is left unported: matmul's (the
+    reference's Pallas GEMM) was the last; the DFT and elementwise ops
+    have theirs.  An unknown lowering still raises."""
     x = torch.ones(4, 4)
-    with pytest.raises(ValueError, match="not yet ported"):
-        functions.matmul(x, x, lowering="kernel")
+    torch.testing.assert_close(functions.matmul(x, x, lowering="kernel"),
+                               functions.matmul(x, x, lowering="native"))
+    with pytest.raises(ValueError, match="unknown lowering"):
+        functions.matmul(x, x, lowering="pallas")
     torch.testing.assert_close(
         functions.elementwise_mult(x, x, lowering="kernel"), x)
     torch.testing.assert_close(

@@ -12,6 +12,8 @@ from repro_torch import graph
 from repro_torch.core import functions
 from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
+from repro_torch.kernels import fir as firk
+from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops
 from repro_torch.kernels import pfb as pfbk
 from repro_torch.kernels import unfold as unfk
@@ -82,7 +84,12 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError, match="on cpu"):
         pfbk.pfb_fused(x, taps.cpu(), fr, fi)
     with pytest.raises(TypeError, match="complex64"):
-        ewk.elementwise_chain(x, (), (), abs2_head=True)
+        ewk.elementwise_chain(x.double(), (), (), abs2_head=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        firk.fir_valid(torch.randn(2, 80, device=dev)[:, ::2],
+                       torch.randn(5, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        mmk.matmul(x[0].double(), x[0].T.double())
 
 
 def test_pfb_power_plan_launches_each_kernel_once(dev):
@@ -195,5 +202,90 @@ def test_spectral_plans_launch_their_kernels(dev, name, g, shape, want):
     out = plan(x)
     torch.cuda.synchronize()
     assert _counts() == want
+    ref = graph.compile(g, {"x": shape}, lowering="native")(x)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_chain_real_abs2_head_bit_exact(dev):
+    """abs2 of a real signal: the chain's real head squares it, x·x."""
+    x = torch.randn(3, 1001, 33, device=dev)
+    for steps in ((), (("scale", 0.37),)):
+        got = ewk.elementwise_chain(x, (), steps, abs2_head=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ewk.elementwise_chain_plain(
+            x, (), steps, abs2_head=True))
+    assert torch.equal(ops.abs2(x), x * x)
+
+
+# K = 1 to K > TAP_CHUNK (4097), ragged rows and lengths
+FIR_CASES = [(3, 1000, 1), (2, 999, 8), (5, 4099, 15), (1, 70001, 31),
+             (7, 3000, 63), (2, 5003, 129), (2, 9001, 4097)]
+
+
+@pytest.mark.parametrize("rows,n,k", FIR_CASES)
+def test_fir_valid_bit_exact(dev, rows, n, k):
+    x = torch.randn(rows, n, device=dev)
+    kern = torch.randn(k, device=dev)
+    for pads in ((0, 0), (k // 2, (k - 1) // 2), (k - 1, k - 1), (3, 0)):
+        got = firk.fir_valid(x, kern, pad_left=pads[0], pad_right=pads[1])
+        torch.cuda.synchronize()
+        want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
+                                    pad_right=pads[1])
+        assert torch.equal(got, want), pads
+
+
+FIR_TILES = [(c["bn"], c["threads"])
+             for c in firk.TUNE_SPACE.configs({"k": 31})]
+
+
+@pytest.mark.parametrize("tile", FIR_TILES)
+def test_fir_every_tile_and_strided_rows(dev, tile):
+    bn, threads = tile
+    x = torch.randn(6, 5001, device=dev)[::2]          # strided rows
+    kern = torch.randn(31, device=dev)
+    got = ops.fir(x, kern, mode="same", bn=bn, threads=threads)
+    torch.cuda.synchronize()
+    want = firk.fir_valid_plain(x.contiguous(), kern, pad_left=15,
+                                pad_right=15)
+    assert torch.equal(got, want)
+
+
+MM_CASES = [((1, 1), (1, 1)), ((257, 255), (255, 129)),
+            ((300, 50), (50, 100)), ((3, 5, 40, 24), (24, 17)),
+            ((1024, 512), (512, 768))]
+
+
+@pytest.mark.parametrize("xs,ys", MM_CASES)
+@pytest.mark.parametrize("tile", mmk.TILES)
+@pytest.mark.parametrize("order", mmk.ORDERS)
+def test_matmul_matches_plain(dev, xs, ys, tile, order):
+    x = torch.randn(*xs, device=dev)
+    y = torch.randn(*ys, device=dev)
+    bm, bn, bk = tile
+    got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, order=order)
+    torch.cuda.synchronize()
+    want = mmk.matmul_plain(x.reshape(-1, xs[-1]), y).reshape(got.shape)
+    # fp32 sums of K terms taken in another order
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("name,g,shape,want", [
+    ("fir_decimate", graph.build_fir_decimate(), (2, 5000),
+     {"fir": 2, "chain": 0, "pfb": 0}),
+    ("correlate", graph.build_correlate(), (2, 5000),
+     {"fir": 1, "chain": 1, "pfb": 0}),
+    ("cascaded_channelizer", graph.build_cascaded_channelizer(),
+     (2, graph.pipelines._chan_len(5000, 31, 16, 4)),
+     {"fir": 1, "chain": 1, "pfb": 1})],
+    ids=["fir_decimate", "correlate", "cascaded_channelizer"])
+def test_fir_plans_launch_their_kernels(dev, name, g, shape, want):
+    x = torch.randn(*shape, device=dev)
+    plan = graph.compile(g, {"x": shape}, lowering="kernel")
+    assert plan.downgrades == {}
+    firk.LAUNCHES = ewk.LAUNCHES = pfbk.LAUNCHES = 0
+    out = plan(x)
+    torch.cuda.synchronize()
+    assert {"fir": firk.LAUNCHES, "chain": ewk.LAUNCHES,
+            "pfb": pfbk.LAUNCHES} == want
     ref = graph.compile(g, {"x": shape}, lowering="native")(x)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()

@@ -208,10 +208,11 @@ def test_unknown_lowering_and_op_raise():
         graph.compile(g, {"x": (P * 16,)}, lowering="pallas", device="cpu")
     with pytest.raises(TypeError):
         graph.compile(g, {"x": (P * 16,)}, backend="cpu")
-    jg = jgraph.build_fir_decimate()
-    with pytest.raises(ValueError, match="unknown op 'fir'"):
-        graph.compile(graph.load_graph(_spec_of(jg)), {"x": (256,)},
-                      device="cpu")
+    spec = _spec_of(jgraph.build_fir_decimate())
+    spec["nodes"] = [(name, "fir_int8" if op == "fir" else op, inputs,
+                      attrs) for name, op, inputs, attrs in spec["nodes"]]
+    with pytest.raises(ValueError, match="unknown op 'fir_int8'"):
+        graph.compile(graph.load_graph(spec), {"x": (256,)}, device="cpu")
 
 
 def test_per_node_lowering_dict():
