@@ -17,7 +17,8 @@ Prints one JSON line per phase:
             shapes, every compiled tile and both grid orders; chain
             (complex and real abs2 heads), binary, unfold, overlap-add
             and FIR: exact equality -- the FIR at K = 1 to 4097, with
-            implicit padding and on strided rows)
+            implicit padding, with the taps as given and reversed
+            (``flip``), and on strided rows)
   main      each pipeline through ``graph.compile(..., lowering=
             "kernel")`` then ``plan(x)``: ``pfb_power`` at the paper's
             Fig. 3 point and at full width (16 x 2**22 samples, P = 1024,
@@ -42,9 +43,14 @@ Prints one JSON line per phase:
             Path ``table1``: every row of the Table-1 registry at the
             ``kernel`` lowering (its one lowering for ``summation``) on
             the row's own inputs at size 2048, with the launches of that
-            call, against the numpy oracle (|diff| <= 2e-3 + 2e-3
-            |oracle|) and against its single-node plan (1e-5 + 1e-5
-            |eager|)
+            call, each kernel that call launched run again on the same
+            inputs and held against its plain version (the kernel
+            phase's tolerances), the row against its native single-node
+            plan on the card (1e-4 of its max), the numpy oracle (|diff|
+            <= 2e-3 + 2e-3 |oracle|) and its kernel single-node plan
+            (1e-5 + 1e-5 |eager|); once every row passed, the median
+            times of both plans and the device times of each kernel and
+            its plain version on the row's inputs
   kernels   the kernel table: launches, errors, times, bounds
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -362,30 +368,32 @@ def main() -> int:
                  cases="real+complex x forward+inverse x 4mult+3mult",
                  max_rel_err=worst, ok=True)
     # FIR: the plain version's ascending-k sum, bit for bit; K = 1 to more
-    # than a tap chunk, ragged rows and lengths, implicit 'same'/'full' pads
+    # than a tap chunk, ragged rows and lengths, implicit 'same'/'full'
+    # pads, taps as given and reversed (flip)
     for rows, n, k in ((3, 1000, 1), (2, 999, 8), (5, 4099, 15),
                        (1, 70001, 31), (7, 3000, 63), (2, 5003, 129),
                        (2, 9001, 4097)):
         x, kern = randn(rows, n), randn(k)
         for pads in ((0, 0), (k // 2, (k - 1) // 2), (k - 1, k - 1)):
-            got = firk.fir_valid(x, kern, pad_left=pads[0],
-                                 pad_right=pads[1])
-            torch.cuda.synchronize()
-            want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
-                                        pad_right=pads[1])
-            ok = torch.equal(got, want)
-            emit(phase="kernel", kernel="fir_valid", shape=[rows, n], k=k,
-                 pads=list(pads), max_abs_err=rel_err(torch, got, want)[0],
-                 exact=ok)
-            if not ok:
-                fail(f"fir_valid {(rows, n)} K={k} pads {pads}: not "
-                     "bit-identical to plain")
+            for flip in (False, True):
+                got = firk.fir_valid(x, kern, pad_left=pads[0],
+                                     pad_right=pads[1], flip=flip)
+                torch.cuda.synchronize()
+                want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
+                                            pad_right=pads[1], flip=flip)
+                ok = torch.equal(got, want)
+                emit(phase="kernel", kernel="fir_valid", shape=[rows, n],
+                     k=k, pads=list(pads), flip=flip,
+                     max_abs_err=rel_err(torch, got, want)[0], exact=ok)
+                if not ok:
+                    fail(f"fir_valid {(rows, n)} K={k} pads {pads} flip "
+                         f"{flip}: not bit-identical to plain")
     xs, kern = randn(6, 5001)[::2], randn(31)       # strided rows
     for cfg in firk.TUNE_SPACE.configs({"k": 31}):
-        got = ops.fir(xs, kern, mode="same", **cfg)
+        got = ops.fir(xs, kern, pad_left=15, pad_right=15, flip=True, **cfg)
         torch.cuda.synchronize()
         want = firk.fir_valid_plain(xs.contiguous(), kern, pad_left=15,
-                                    pad_right=15)
+                                    pad_right=15, flip=True)
         ok = torch.equal(got, want)
         emit(phase="kernel", kernel="fir_valid", shape=list(xs.shape),
              strided=True, tile=cfg, max_abs_err=rel_err(torch, got, want)[0],
@@ -772,25 +780,30 @@ def main() -> int:
     plan, native, x, info = drive(
         "fir_decimate", g, FIR_X, {"fir_valid": 2},
         graph.fir_decimate_oracle(31, 15), ORACLE_RTOL)
-    h1 = plan.consts["taps1"].flip(0).contiguous()   # flip=True: true FIR
-    h2 = plan.consts["taps2"].flip(0).contiguous()
+    t1, t2 = plan.consts["taps1"], plan.consts["taps2"]  # flip=True
+    h1, h2 = t1.flip(0), t2.flip(0)   # reversed, for the F.conv1d yardstick
     c1 = fir_cfg(31, n, b)
-    y1 = firk.fir_valid(x, h1, **c1)
+    y1 = firk.fir_valid(x, t1, flip=True, **c1)
     x2 = y1[:, ::2].contiguous()      # the ↓2 view the wrapper makes whole
     c2 = fir_cfg(15, x2.shape[1], b)
-    y2 = firk.fir_valid(x2, h2, **c2)
+    y2 = firk.fir_valid(x2, t2, flip=True, **c2)
     dec_err = max(
-        hold(torch, "fir_decimate fir 1", y1, firk.fir_valid_plain(x, h1)),
-        hold(torch, "fir_decimate fir 2", y2, firk.fir_valid_plain(x2, h2)))
+        hold(torch, "fir_decimate fir 1", y1,
+             firk.fir_valid_plain(x, t1, flip=True)),
+        hold(torch, "fir_decimate fir 2", y2,
+             firk.fir_valid_plain(x2, t2, flip=True)))
     ms = {"plan": median_ms(torch, lambda: plan(x)),
           "plan_native": median_ms(torch, lambda: native(x)),
           "plan_back_to_back": device_ms(torch, lambda: plan(x))}
     before = counts()
     ms.update({
-        "fir_1": device_ms(torch, lambda: firk.fir_valid(x, h1, **c1)),
-        "fir_2": device_ms(torch, lambda: firk.fir_valid(x2, h2, **c2)),
-        "fir_valid_plain": both(lambda: firk.fir_valid_plain(x, h1),
-                                lambda: firk.fir_valid_plain(x2, h2)),
+        "fir_1": device_ms(
+            torch, lambda: firk.fir_valid(x, t1, flip=True, **c1)),
+        "fir_2": device_ms(
+            torch, lambda: firk.fir_valid(x2, t2, flip=True, **c2)),
+        "fir_valid_plain": both(
+            lambda: firk.fir_valid_plain(x, t1, flip=True),
+            lambda: firk.fir_valid_plain(x2, t2, flip=True)),
         "downsample_copy": device_ms(torch,
                                      lambda: y1[:, ::2].contiguous()),
     })
@@ -801,7 +814,7 @@ def main() -> int:
     check_grew("fir_decimate", before, {"fir_valid": 2})
     # FIR 1 at every tile of its tune space (for the next tuning PR)
     fir_1_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
-        torch, lambda c=c: firk.fir_valid(x, h1, **c))
+        torch, lambda c=c: firk.fir_valid(x, t1, flip=True, **c))
         for c in firk.TUNE_SPACE.configs({"k": 31})}
     cost1 = fir_cost(b, n, y1.shape[1], 31)
     cost2 = fir_cost(b, x2.shape[1], y2.shape[1], 15)
@@ -878,9 +891,10 @@ def main() -> int:
         "cascaded_channelizer", g, CHAN_X,
         {"fir_valid": 1, "pfb_fused": 1, "elementwise_chain": 1},
         graph.cascaded_channelizer_oracle(31, p, m), ORACLE_RTOL)
-    h = plan.consts["lowpass"].flip(0).contiguous()
+    lp = plan.consts["lowpass"]                    # flip=True
+    h = lp.flip(0)                    # reversed, for the F.conv1d yardstick
     cc = fir_cfg(31, n, b)
-    y = firk.fir_valid(x, h, **cc)
+    y = firk.fir_valid(x, lp, flip=True, **cc)
     frames = y[:, ::2].reshape(b, -1, p).contiguous()   # ↓2, then frames
     t = frames.shape[1]
     taps_rev = plan.consts["taps"].flip(0).contiguous()
@@ -890,7 +904,7 @@ def main() -> int:
     pw = ew.elementwise_chain(zk, (), (), abs2_head=True)
     chan_errs = {
         "fir_valid": hold(torch, "cascaded fir", y,
-                          firk.fir_valid_plain(x, h)),
+                          firk.fir_valid_plain(x, lp, flip=True)),
         "pfb_fused": hold(torch, "cascaded pfb", zk,
                           pfbk.pfb_fused_plain(frames, taps_rev, fr, fi),
                           PFB_RTOL),
@@ -903,9 +917,10 @@ def main() -> int:
           "plan_back_to_back": device_ms(torch, lambda: plan(x))}
     before = counts()
     ms.update({
-        "fir_valid": device_ms(torch, lambda: firk.fir_valid(x, h, **cc)),
-        "fir_valid_plain": device_ms(torch,
-                                     lambda: firk.fir_valid_plain(x, h)),
+        "fir_valid": device_ms(
+            torch, lambda: firk.fir_valid(x, lp, flip=True, **cc)),
+        "fir_valid_plain": device_ms(
+            torch, lambda: firk.fir_valid_plain(x, lp, flip=True)),
         "downsample_copy": device_ms(
             torch, lambda: y[:, ::2].reshape(b, -1, p).contiguous()),
         "pfb_fused": device_ms(
@@ -962,6 +977,43 @@ def main() -> int:
         "idft": {"dft": 1}, "fir": {"fir_valid": 1}, "unfold": {"unfold": 1},
         "overlap_add": {"overlap_add": 1}, "pfb_frontend": {"pfb_fused": 1},
         "pfb": {"pfb_fused": 1}}
+    # each kernel wrapper the sweep reaches: (module, attribute, plain
+    # version, its tune params, hold tolerance: None is bit-exact)
+    wrappers = {
+        "fir_valid": (firk, "fir_valid", firk.fir_valid_plain,
+                      firk.TUNE_SPACE.params, None),
+        "matmul": (mmk, "matmul", mmk.matmul_plain, mmk.TUNE_SPACE.params,
+                   MM_RTOL),
+        "dft": (dftk, "dft", dftk.dft_plain, dftk.TUNE_SPACE.params,
+                DFT_RTOL),
+        "unfold": (unfk, "unfold", unfk.unfold_plain, unfk.TUNE_SPACE.params,
+                   None),
+        "overlap_add": (unfk, "overlap_add", unfk.overlap_add_plain,
+                        unfk.OLA_TUNE_SPACE.params, None),
+        "pfb_fused": (pfbk, "pfb_fused", pfbk.pfb_fused_plain,
+                      pfbk.TUNE_SPACE.params, PFB_RTOL),
+        "elementwise_mult": (
+            ew, "elementwise_mult",
+            lambda x, y: ew.elementwise_binary_plain(x, y, "mul"),
+            ew.TUNE_SPACE.params, None),
+        "elementwise_add": (
+            ew, "elementwise_add",
+            lambda x, y: ew.elementwise_binary_plain(x, y, "add"),
+            ew.TUNE_SPACE.params, None)}
+
+    def recorded(fn):
+        """fn() with every kernel wrapper of ``wrappers`` noting its
+        calls: returns fn's result and [(kernel, args, kwargs)]."""
+        noted, real = [], {}
+        for name, (mod, attr, *_) in wrappers.items():
+            real[name] = getattr(mod, attr)
+            setattr(mod, attr, lambda *a, _n=name, **kw: (
+                noted.append((_n, a, kw)), real[_n](*a, **kw))[1])
+        out = fn()
+        for name, (mod, attr, *_) in wrappers.items():
+            setattr(mod, attr, real[name])
+        return out, noted
+
     rng = np.random.default_rng(1234)
     sweep = {}
     for d in opdefs.table_ops():
@@ -970,7 +1022,7 @@ def main() -> int:
                  else a for a in args]
         lw = "kernel" if "kernel" in d.lowerings else d.lowerings[0]
         zero_counts()
-        eager = d.eager(*targs, lowering=lw)
+        eager, launched = recorded(lambda: d.eager(*targs, lowering=lw))
         torch.cuda.synchronize()
         launches = counts()
         want_launches = dict.fromkeys(launches, 0)
@@ -978,11 +1030,26 @@ def main() -> int:
         if launches != want_launches:
             fail(f"table1 {d.table_name}: launches {launches}, want "
                  f"{want_launches}")
-        oplan = graph.compile(one_node(d, args),
-                              {"x": (args[0].shape, args[0].dtype)},
-                              lowering=lw)
+        # each kernel the row launched, again on the same inputs, against
+        # its plain version; then the row against its native one-node
+        # plan (summation has no other lowering)
+        errs = {}
+        for name, a, kw in launched:
+            mod, attr, plain, params, rtol = wrappers[name]
+            errs[name] = max(errs.get(name, 0.0), hold(
+                torch, f"table1 {d.table_name} {name}",
+                getattr(mod, attr)(*a, **kw),
+                plain(*a, **{k: v for k, v in kw.items()
+                             if k not in params}), rtol))
+        spec = {"x": (args[0].shape, args[0].dtype)}
+        oplan = graph.compile(one_node(d, args), spec, lowering=lw)
+        nplan = None if lw == "native" else graph.compile(
+            one_node(d, args), spec, lowering="native")
         if oplan.downgrades:
             fail(f"table1 {d.table_name}: downgrades {oplan.downgrades}")
+        native_err = None if nplan is None else hold(
+            torch, f"table1 {d.table_name} vs native plan", eager,
+            nplan(targs[0]), NATIVE_RTOL)
         planned = oplan(targs[0]).cpu().numpy()
         got = eager.cpu().numpy()
         want = np.asarray(d.oracle(*args))
@@ -998,23 +1065,36 @@ def main() -> int:
              args=[list(a.shape) if isinstance(a, np.ndarray) else a
                    for a in args],
              launches_per_call={k: v for k, v in launches.items() if v},
+             max_abs_err_vs_plain=errs, max_abs_err_vs_native=native_err,
              max_abs_err_vs_oracle=float(np.max(np.abs(got - want))),
              max_abs_oracle=float(np.max(np.abs(want))),
              max_abs_err_vs_plan=float(np.max(np.abs(planned - got))),
              ok=True)
-        sweep[d.name] = (targs, launches)
-        del eager, oplan, planned, got, want
-    (xa, ya), add_launches = sweep["ew_add"]
-    add_err = hold(torch, "table1 elementwise_add", ew.elementwise_add(xa, ya),
-                   ew.elementwise_binary_plain(xa, ya, "add"))
-    add_ms = {
-        "elementwise_add": device_ms(torch,
-                                     lambda: ew.elementwise_add(xa, ya)),
-        "elementwise_add_plain": device_ms(
-            torch, lambda: ew.elementwise_binary_plain(xa, ya, "add")),
-        "elementwise_add_library": device_ms(torch,
-                                             lambda: torch.add(xa, ya)),
-    }
+        sweep[d.name] = (d, targs, oplan, nplan, launched, launches, errs)
+        del eager, planned, got, want
+    # every row checked: now the times of its plan, its native plan, and
+    # each kernel it launched and that kernel's plain version
+    sweep_ms = {}
+    for name, (d, targs, oplan, nplan, launched, _, _) in sweep.items():
+        x0 = targs[0]
+        ms = {"plan": median_ms(torch, lambda: oplan(x0))}
+        if nplan is not None:
+            ms["plan_native"] = median_ms(torch, lambda: nplan(x0))
+        for kname, a, kw in launched:
+            mod, attr, plain, params, _ = wrappers[kname]
+            pkw = {k: v for k, v in kw.items() if k not in params}
+            ms[kname] = device_ms(
+                torch, lambda: getattr(mod, attr)(*a, **kw))
+            ms[kname + "_plain"] = device_ms(torch, lambda: plain(*a, **pkw))
+        emit(phase="main", path="table1", op=d.table_name, ms=ms)
+        sweep_ms[name] = ms
+    (xa, ya) = sweep["ew_add"][1]
+    add_launches, add_errs = sweep["ew_add"][5:]
+    add_err = add_errs["elementwise_add"]
+    add_ms = {k: sweep_ms["ew_add"][k]
+              for k in ("elementwise_add", "elementwise_add_plain")}
+    add_ms["elementwise_add_library"] = device_ms(torch,
+                                                  lambda: torch.add(xa, ya))
     emit(phase="main", path="table1", op="elementwise_add",
          x=list(xa.shape), ms=add_ms, max_abs_err_vs_plain=add_err)
     # the binary kernel's launches in the elementwise_add row's counted run

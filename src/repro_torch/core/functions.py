@@ -210,6 +210,23 @@ def idft(z: Tensor, *, lowering: str = "native", variant: str = "4mult",
 # ---------------------------------------------------------------------------
 # §4.3 FIR filter -- standard conv with taps as weights, Eq. (16)
 # ---------------------------------------------------------------------------
+def mode_pads(k: int, mode: str, flip: bool = True) -> tuple[int, int]:
+    """(pad_left, pad_right) of a K-tap filter in scipy's ``mode``:
+    'valid' none, 'full' K − 1 each side, 'same' (K − 1) in all, its
+    extra sample at an even K on the left for a true convolution
+    (``flip``, as ``np.convolve``) and on the right for a correlation.
+    These are the reference's native/conv pads; its Pallas wrapper pads
+    every 'same' as a correlation, one sample off for an even-K
+    convolution, and the port does not copy that."""
+    if mode == "valid":
+        return 0, 0
+    if mode == "same":
+        return (k // 2, (k - 1) // 2) if flip else ((k - 1) // 2, k // 2)
+    if mode == "full":
+        return k - 1, k - 1
+    raise ValueError(f"unknown mode {mode!r}")
+
+
 def fir(x: Tensor, taps: Tensor, *, mode: str = "valid",
         lowering: str = "native", flip: bool = True,
         block: Optional[dict] = None) -> Tensor:
@@ -218,19 +235,17 @@ def fir(x: Tensor, taps: Tensor, *, mode: str = "valid",
     The paper's Eq. (16) is a cross-correlation; a true FIR convolution
     needs the taps reversed, which ``flip=True`` (default) does --
     ``flip=False`` is the literal Eq. (16).  ``mode`` follows scipy:
-    "valid" (paper), "same", "full".  An even K's extra 'same' sample
-    goes left for a convolution and right for a correlation on every
-    lowering, as ``np.convolve`` and the reference's native/conv do
-    (:func:`repro_torch.kernels.fir.mode_pads`).  ``kernel`` pads
-    implicitly inside the FIR kernel; ``native`` and ``conv`` pad and run
-    the TINA standard conv."""
-    from repro_torch.kernels import fir as fir_kernel
+    "valid" (paper), "same", "full", with the pads of :func:`mode_pads`
+    on every lowering.  ``kernel`` pads and reverses the taps implicitly
+    inside the FIR kernel; ``native`` and ``conv`` reverse and pad, then
+    run the TINA standard conv."""
     _check_lowering("fir", lowering)
     k = taps.shape[-1]
-    kern = taps.flip(-1) if flip else taps
-    pad_left, pad_right = fir_kernel.mode_pads(k, mode, flip)
+    pad_left, pad_right = mode_pads(k, mode, flip)
     if lowering == "kernel":
-        return _kops().fir(x, kern, mode=mode, flip=flip, **(block or {}))
+        return _kops().fir(x, taps, pad_left=pad_left, pad_right=pad_right,
+                           flip=flip, **(block or {}))
+    kern = taps.flip(-1) if flip else taps
     w = x.shape[-1]
     xi = x.reshape((-1, 1, 1, w))                          # (T, 1, 1, W)
     k4 = kern.reshape(1, 1, 1, k)                          # OIHW

@@ -3,11 +3,14 @@
 //
 // Replaces: src/repro/kernels/fir.py:fir_valid (Pallas, TPU).
 //
-// What it computes: out[r, t] = sum_{k < K} xp[r, t + k] * kern[k] for
+// What it computes: out[r, t] = sum_{k < K} xp[r, t + k] * h[k] for
 // t < nout = n + pad_left + pad_right - K + 1, where xp is row r of x with
-// pad_left zeros before it and pad_right zeros after it.  The padding is
-// implicit (samples outside [0, n) read as 0), so the wrapper's 'same'
-// and 'full' modes need no padded copy of the signal.
+// pad_left zeros before it and pad_right zeros after it, and h is kern
+// (flip = 0) or kern reversed (flip = 1, a true convolution).  The
+// padding is implicit (samples outside [0, n) read as 0), so the 'same'
+// and 'full' modes need no padded copy of the signal, and the reversal
+// is done where the taps are staged, so a true FIR needs no reversed copy
+// of its taps.
 //
 // What bounds it on this card: 2K flops per output against 8 bytes (one
 // sample read, one output written), K/4 flop per byte.  The H100's ridge
@@ -20,7 +23,7 @@
 // samples, 0.25 ms against the 0.16 ms bytes bound).
 //
 // What the design does about that: one block owns `bn` outputs of one
-// row, `bn / threads` (V = 4 or 8) neighbouring outputs per thread.  It
+// row, `bn / threads` (V = 8) neighbouring outputs per thread.  It
 // stages the bn + K - 1 samples the tile reads in shared memory, reading
 // them itself: there is no halo rule (the TPU kernel needed K - 1 <= bn
 // and a second input block) and no padded copy.  Taps are staged in
@@ -37,16 +40,17 @@
 namespace {
 
 constexpr int TAP_CHUNK = 1024;   // taps staged in shared memory at once
+constexpr int V = 8;              // neighbouring outputs per thread
 
 __host__ __device__ constexpr int round_up(int a, int m) {
   return (a + m - 1) / m * m;
 }
 
-template <int V>
 __global__ void fir_kernel(const float* __restrict__ x,
                            const float* __restrict__ kern,
                            float* __restrict__ out, int n, int K,
-                           int pad_left, int nout, long long tblocks) {
+                           int pad_left, int nout, int flip,
+                           long long tblocks) {
   extern __shared__ __align__(16) float smem[];
   const int bn = blockDim.x * V;
   const long long r = blockIdx.x / tblocks;
@@ -66,7 +70,8 @@ __global__ void fir_kernel(const float* __restrict__ x,
   for (int k0 = 0; k0 < K; k0 += TAP_CHUNK) {
     const int kc = min(TAP_CHUNK, K - k0);
     if (k0 > 0) __syncthreads();         // every read of the last chunk done
-    for (int i = tid; i < kc; i += blockDim.x) taps[i] = __ldg(kern + k0 + i);
+    for (int i = tid; i < kc; i += blockDim.x)
+      taps[i] = __ldg(kern + (flip ? K - 1 - (k0 + i) : k0 + i));
     const int p0 = t0 + k0 - pad_left;   // x index of s[0]
     for (int i = tid; i < span; i += blockDim.x) {
       const int p = p0 + i;
@@ -107,10 +112,9 @@ __global__ void fir_kernel(const float* __restrict__ x,
   for (int i = tid; i < valid; i += blockDim.x) __stcs(orow + i, s[i]);
 }
 
-template <int V>
 cudaError_t launch(const float* x, const float* kern, float* out, int rows,
-                   int n, int K, int pad_left, int nout, int threads,
-                   cudaStream_t stream) {
+                   int n, int K, int pad_left, int nout, int flip,
+                   int threads, cudaStream_t stream) {
   const int bn = threads * V;
   const long long tblocks = (nout + bn - 1) / bn;
   const long long blocks = tblocks * rows;
@@ -120,26 +124,27 @@ cudaError_t launch(const float* x, const float* kern, float* out, int rows,
       sizeof(float) * (round_up(kc_max, 8) + round_up(bn + kc_max + V, 4));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fir_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fir_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  fir_kernel<V><<<(unsigned)blocks, threads, smem, stream>>>(
-      x, kern, out, n, K, pad_left, nout, tblocks);
+  fir_kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      x, kern, out, n, K, pad_left, nout, flip, tblocks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (rows, n) f32 contiguous, kern (K,) f32 -> out (rows, nout) f32 with
-// nout = n + pad_left + pad_right - K + 1 >= 1.  bn = threads * V outputs
-// per block, V = bn / threads in {4, 8}.  Returns the launch's cudaError_t.
+// nout = n + pad_left + pad_right - K + 1 >= 1; flip 1 reads kern
+// reversed.  bn = threads * V outputs per block.
+// Returns the launch's cudaError_t.
 extern "C" int tina_fir(const void* x, const void* kern, void* out, int rows,
-                        int n, int K, int pad_left, int pad_right, int bn,
-                        int threads, void* stream) {
+                        int n, int K, int pad_left, int pad_right, int flip,
+                        int bn, int threads, void* stream) {
   if (rows <= 0 || n < 0 || K <= 0 || pad_left < 0 || pad_right < 0 ||
-      threads <= 0 || threads > 1024 || threads % 32 != 0 || bn <= 0 ||
-      bn % threads != 0)
+      threads <= 0 || threads > 1024 || threads % 32 != 0 ||
+      bn != threads * V || (flip != 0 && flip != 1))
     return cudaErrorInvalidValue;
   const long long nout_ll = (long long)n + pad_left + pad_right - K + 1;
   if (nout_ll < 1 || nout_ll > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -147,13 +152,6 @@ extern "C" int tina_fir(const void* x, const void* kern, void* out, int rows,
   const auto* xs = static_cast<const float*>(x);
   const auto* ks = static_cast<const float*>(kern);
   auto* o = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (bn / threads) {
-    case 4:
-      return launch<4>(xs, ks, o, rows, n, K, pad_left, nout, threads, s);
-    case 8:
-      return launch<8>(xs, ks, o, rows, n, K, pad_left, nout, threads, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch(xs, ks, o, rows, n, K, pad_left, nout, flip, threads,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -17,8 +17,9 @@
 // BK = 16, staging the x chunk k-major (so a thread reads its rows with
 // float4 loads) and the y chunk in shared memory; each thread keeps a
 // (TM x TN) micro-tile of fp32 accumulators in registers (8 x 8 in the
-// 128 x 128 tile), TM x TN FMAs for each (TM + TN) / 4 float4 loads.  A
-// thread's rows and columns come in groups of four spaced half a tile
+// 128 x 128 tile, 4 x 4 in the 64 x 64 one: the two tiles compiled, the
+// ones the wrapper's default picks), TM x TN FMAs for each (TM + TN) / 4
+// float4 loads.  A thread's rows and columns come in groups of four spaced half a tile
 // apart, so neighbouring threads read neighbouring float4s (no bank
 // conflicts).  Every edge (M, N, K not tile multiples) is masked in the
 // loads and the stores, so the wrapper pads nothing.  `order` says which
@@ -134,8 +135,6 @@ extern "C" int tina_matmul(const void* x, const void* y, void* out, int M,
   const auto s = static_cast<cudaStream_t>(stream);
   if (bm == 128 && bn == 128)
     return launch<128, 128, 8, 8>(a, b, o, M, N, K, order_nm, s);
-  if (bm == 128 && bn == 64)
-    return launch<128, 64, 8, 4>(a, b, o, M, N, K, order_nm, s);
   if (bm == 64 && bn == 64)
     return launch<64, 64, 4, 4>(a, b, o, M, N, K, order_nm, s);
   return cudaErrorInvalidValue;

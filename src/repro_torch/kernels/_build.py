@@ -48,8 +48,9 @@ SIGNATURES = {
     "tina_unfold": [_P, _P, _I, _I, _I, _I, _I, _P],
     # frames, out, rows, T, J, hop, threads, stream
     "tina_overlap_add": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # x, kern, out, rows, n, K, pad_left, pad_right, bn, threads, stream
-    "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, kern, out, rows, n, K, pad_left, pad_right, flip, bn, threads,
+    # stream
+    "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, y, out, M, N, K, bm, bn, bk, order_nm, stream
     "tina_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -8,6 +8,8 @@ and how).  :func:`fir_valid` launches it for a CUDA tensor and runs
 CPU tensor; the two agree bit for bit.  Unlike the TPU kernel there is
 no halo rule (K − 1 ≤ bn) and no padded copy: a block stages the samples
 its tile reads, and ``pad_left`` / ``pad_right`` zeros are implicit.
+``flip`` reads the taps reversed as they are staged, so a true FIR needs
+no reversed copy of its taps either.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.kernels import _build, tune
 
 TAP_CHUNK = 1024        # csrc/fir.cu: taps staged in shared memory at once
-PER_THREAD = (4, 8)     # csrc/fir.cu: compiled outputs per thread (V)
+PER_THREAD = 8          # csrc/fir.cu: outputs per thread (V)
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
 
@@ -31,46 +33,33 @@ def smem_bytes(bn: int, k: int) -> int:
 def _valid(cfg: dict, ctx: dict) -> bool:
     bn, threads = cfg["bn"], cfg["threads"]
     return (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0
-            and bn % threads == 0 and bn // threads in PER_THREAD
+            and bn == threads * PER_THREAD
             and smem_bytes(bn, ctx["k"]) <= tune.SMEM_BUDGET)
 
 
 # ctx: {"k": taps, "n": signal length, "rows": flattened batch rows}.  A
 # block computes bn outputs of one row, bn / threads neighbouring outputs
-# per thread (a compiled 4 or 8); the hard limits are those, the threads
-# per block and the shared memory its taps and samples take.
+# per thread (the compiled 8); the hard limits are those, the threads per
+# block and the shared memory its taps and samples take.
 TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="fir",
     params=("bn", "threads"),
     candidates=lambda ctx: tuple(
-        {"bn": threads * v, "threads": threads}
-        for threads in (128, 256) for v in PER_THREAD),
+        {"bn": threads * PER_THREAD, "threads": threads}
+        for threads in (128, 256)),
     valid=_valid,
     default=lambda ctx: {"bn": 2048, "threads": 256},
 ))
 
 
-def mode_pads(k: int, mode: str, flip: bool = True) -> tuple[int, int]:
-    """(pad_left, pad_right) of a K-tap filter in scipy's ``mode``:
-    'valid' none, 'full' K − 1 each side, 'same' (K − 1) in all, its
-    extra sample at an even K on the left for a true convolution
-    (``flip``, as ``np.convolve``) and on the right for a correlation.
-    These are the reference's native/conv pads; its Pallas wrapper pads
-    every 'same' as a correlation, one sample off for an even-K
-    convolution, and the port does not copy that."""
-    if mode == "valid":
-        return 0, 0
-    if mode == "same":
-        return (k // 2, (k - 1) // 2) if flip else ((k - 1) // 2, k // 2)
-    if mode == "full":
-        return k - 1, k - 1
-    raise ValueError(f"unknown mode {mode!r}")
-
-
 def fir_valid_plain(x: torch.Tensor, kern: torch.Tensor, *,
-                    pad_left: int = 0, pad_right: int = 0) -> torch.Tensor:
+                    pad_left: int = 0, pad_right: int = 0,
+                    flip: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain torch: from zero, one multiply
-    and one add per tap in ascending k over the implicitly padded rows."""
+    and one add per tap in ascending k over the implicitly padded rows,
+    with the taps reversed first for ``flip``."""
+    if flip:
+        kern = kern.flip(0)
     k = kern.shape[0]
     xp = torch.nn.functional.pad(x, (pad_left, pad_right))
     nout = xp.shape[-1] - k + 1
@@ -81,11 +70,12 @@ def fir_valid_plain(x: torch.Tensor, kern: torch.Tensor, *,
 
 
 def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
-              pad_right: int = 0, bn: int = 2048,
+              pad_right: int = 0, flip: bool = False, bn: int = 2048,
               threads: int = 256) -> torch.Tensor:
     """x (R, N), kern (K,) -> (R, N + pad_left + pad_right − K + 1):
-    out[r, t] = Σ_k xp[r, t + k]·kern[k], xp the row between pad_left and
-    pad_right zeros.
+    out[r, t] = Σ_k xp[r, t + k]·h[k], xp the row between pad_left and
+    pad_right zeros, h = kern, or kern reversed for ``flip`` (a true
+    convolution).
 
     A CPU tensor runs :func:`fir_valid_plain`; a CUDA tensor launches the
     kernel on the current stream or raises."""
@@ -98,7 +88,7 @@ def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
     dev = x.device
     if dev.type == "cpu":
         return fir_valid_plain(x, kern, pad_left=pad_left,
-                               pad_right=pad_right)
+                               pad_right=pad_right, flip=flip)
     if dev.type != "cuda":
         raise ValueError(f"fir_valid: no kernel for device {dev}")
     for name, t in (("x", x), ("kern", kern)):
@@ -118,12 +108,13 @@ def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
         return out
     code = _build.lib().tina_fir(
         x.data_ptr(), kern.data_ptr(), out.data_ptr(), rows, n, k, pad_left,
-        pad_right, bn, threads, torch.cuda.current_stream(dev).cuda_stream)
+        pad_right, int(flip), bn, threads,
+        torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "fir_valid")
     return out
 
 
-__all__ = ["fir_valid", "fir_valid_plain", "mode_pads", "TUNE_SPACE",
+__all__ = ["fir_valid", "fir_valid_plain", "TUNE_SPACE",
            "LAUNCHES", "TAP_CHUNK", "PER_THREAD", "smem_bytes"]

@@ -116,23 +116,22 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
     return out.reshape(x.shape[:-2] + (m, n))
 
 
-def fir(x: torch.Tensor, kern: torch.Tensor, *, mode: str = "valid",
-        flip: bool = True, bn: int | None = None,
+def fir(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
+        pad_right: int = 0, flip: bool = False, bn: int | None = None,
         threads: int | None = None) -> torch.Tensor:
-    """Cross-correlation of the rows of x (..., N) with ``kern`` (K,) in
-    scipy's ``mode``, through the FIR kernel.  The caller flips the taps
-    for a true FIR and says so with ``flip``, which places an even K's
-    extra 'same' sample (:func:`repro_torch.kernels.fir.mode_pads`).  The
-    padding is implicit in the kernel: no padded copy of x is made."""
-    k = kern.shape[0]
-    pad_left, pad_right = fir_kernel.mode_pads(k, mode, flip)
+    """Cross-correlation of the rows of x (..., N) with ``kern`` (K), or
+    with ``kern`` reversed for ``flip`` (a true convolution), between
+    ``pad_left`` and ``pad_right`` zeros, through the FIR kernel.  The
+    padding and the reversal are implicit in the kernel: no padded copy
+    of x and no reversed copy of the taps is made."""
     n = x.shape[-1]
     cfg = _resolve(fir_kernel.TUNE_SPACE,
-                   {"k": k, "n": n, "rows": tune.leading_rows(x.shape)},
+                   {"k": kern.shape[0], "n": n,
+                    "rows": tune.leading_rows(x.shape)},
                    bn=bn, threads=threads)
     out = fir_kernel.fir_valid(x.reshape((-1, n)).contiguous(),
                                kern.contiguous(), pad_left=pad_left,
-                               pad_right=pad_right, **cfg)
+                               pad_right=pad_right, flip=flip, **cfg)
     return out.reshape(x.shape[:-1] + (out.shape[-1],))
 
 

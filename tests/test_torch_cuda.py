@@ -227,11 +227,13 @@ def test_fir_valid_bit_exact(dev, rows, n, k):
     x = torch.randn(rows, n, device=dev)
     kern = torch.randn(k, device=dev)
     for pads in ((0, 0), (k // 2, (k - 1) // 2), (k - 1, k - 1), (3, 0)):
-        got = firk.fir_valid(x, kern, pad_left=pads[0], pad_right=pads[1])
-        torch.cuda.synchronize()
-        want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
-                                    pad_right=pads[1])
-        assert torch.equal(got, want), pads
+        for flip in (False, True):
+            got = firk.fir_valid(x, kern, pad_left=pads[0],
+                                 pad_right=pads[1], flip=flip)
+            torch.cuda.synchronize()
+            want = firk.fir_valid_plain(x, kern, pad_left=pads[0],
+                                        pad_right=pads[1], flip=flip)
+            assert torch.equal(got, want), (pads, flip)
 
 
 FIR_TILES = [(c["bn"], c["threads"])
@@ -243,11 +245,27 @@ def test_fir_every_tile_and_strided_rows(dev, tile):
     bn, threads = tile
     x = torch.randn(6, 5001, device=dev)[::2]          # strided rows
     kern = torch.randn(31, device=dev)
-    got = ops.fir(x, kern, mode="same", bn=bn, threads=threads)
+    got = ops.fir(x, kern, pad_left=15, pad_right=15, flip=True, bn=bn,
+                  threads=threads)
     torch.cuda.synchronize()
     want = firk.fir_valid_plain(x.contiguous(), kern, pad_left=15,
-                                pad_right=15)
+                                pad_right=15, flip=True)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["valid", "same", "full"])
+@pytest.mark.parametrize("k", [8, 9])
+@pytest.mark.parametrize("flip", [True, False], ids=["flip", "noflip"])
+def test_fir_function_kernel_matches_native(dev, mode, k, flip):
+    x = torch.randn(3, 2001, device=dev)
+    taps = torch.randn(k, device=dev)
+    firk.LAUNCHES = 0
+    got = functions.fir(x, taps, mode=mode, flip=flip, lowering="kernel")
+    torch.cuda.synchronize()
+    assert firk.LAUNCHES == 1
+    want = functions.fir(x, taps, mode=mode, flip=flip, lowering="native")
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 MM_CASES = [((1, 1), (1, 1)), ((257, 255), (255, 129)),

@@ -120,6 +120,34 @@ def test_fir_valid_plain_pads_implicitly(pads):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("pads", [(0, 0), (4, 3), (7, 7)])
+def test_fir_valid_flip_reads_the_taps_reversed(pads):
+    rng = _rng("plain_flip", pads)
+    x = _t(rng.standard_normal((3, 200)).astype(np.float32))
+    kern = _t(rng.standard_normal(8).astype(np.float32))
+    got = firk.fir_valid(x, kern, pad_left=pads[0], pad_right=pads[1],
+                         flip=True)
+    want = firk.fir_valid(x, kern.flip(0).contiguous(), pad_left=pads[0],
+                          pad_right=pads[1])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["same", "full"])
+@pytest.mark.parametrize("k", [8, 13])
+def test_ops_fir_pads_vs_jax_modes(mode, k):
+    """``ops.fir`` with a correlation's pads (``flip=False``) is the
+    JAX wrapper's ``mode``, even K included."""
+    rng = _rng("ops_fir_pads", mode, k)
+    x = rng.standard_normal((2, 500)).astype(np.float32)
+    kern = rng.standard_normal(k).astype(np.float32)
+    want = np.asarray(jops.fir(jnp.asarray(x), jnp.asarray(kern), mode=mode))
+    pad_left, pad_right = functions.mode_pads(k, mode, flip=False)
+    got = ops.fir(_t(x), _t(kern), pad_left=pad_left,
+                  pad_right=pad_right).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_matmul_plain_is_the_product():
     rng = _rng("mm_plain")
     x = rng.standard_normal((33, 20)).astype(np.float32)
@@ -167,10 +195,10 @@ def test_even_k_same_is_not_the_pallas_quirk():
     got = functions.fir(_t(x), _t(taps), mode="same",
                         lowering="kernel").numpy()
     np.testing.assert_allclose(got, numpy_same, rtol=1e-4, atol=1e-4)
-    assert firk.mode_pads(8, "same", True) == (4, 3)
-    assert firk.mode_pads(8, "same", False) == (3, 4)
-    assert firk.mode_pads(9, "same", True) == firk.mode_pads(9, "same",
-                                                             False) == (4, 4)
+    assert functions.mode_pads(8, "same", True) == (4, 3)
+    assert functions.mode_pads(8, "same", False) == (3, 4)
+    assert functions.mode_pads(9, "same", True) == functions.mode_pads(
+        9, "same", False) == (4, 4)
 
 
 @pytest.mark.parametrize("lw,jlw", LOWERINGS, ids=LW_IDS)
@@ -389,6 +417,7 @@ def test_invalid_block_configs_raise():
         lambda: ops.fir(x, torch.randn(5), bn=1000),
         lambda: ops.fir(x, torch.randn(5), bn=256, threads=100),
         lambda: ops.fir(x, torch.randn(5), bn=4096, threads=256),
+        lambda: ops.fir(x, torch.randn(5), bn=1024, threads=256),
         lambda: ops.matmul(x, x.T, bm=96),
         lambda: ops.matmul(x, x.T, bk=32),
         lambda: ops.matmul(x, x.T, order="km"),
