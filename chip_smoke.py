@@ -3,7 +3,8 @@
 against its plain torch version, and drives the ``pfb_power``,
 ``stft_overlap_add``, ``spectrogram``, ``fir_decimate``, ``correlate``
 and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
-4096-cubed matmul end to end on one NVIDIA card.
+4096-cubed matmul end to end on one NVIDIA card, at f32, then at int8
+and bf16.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -51,7 +52,34 @@ Prints one JSON line per phase:
             (1e-5 + 1e-5 |eager|); once every row passed, the median
             times of both plans and the device times of each kernel and
             its plain version on the row's inputs
-  kernels   the kernel table: launches, errors, times, bounds
+  int8_kernels  the four int8 kernels against their plain versions, bit
+            for bit: ragged M, N, K (K < 4, K % 4 != 0), every compiled
+            tile, rows not 4-byte aligned, +-127 operands at K = 2048
+            against an int64 sum, the int8 DFM both ways, K = 1 to 4097
+            taps both orientations, P = 16, 20, 48 and 1024, and inputs
+            whose x / scale quotients are exact half-integers
+  int8_main ``pfb_power`` at ``precision="int8"``, kernel lowering, full
+            width: node precisions and the abs2 downgrade, launches per
+            call (pfb_fused_int8 1, chain 1), the whole output against
+            the int8 native plan bit for bit, row 0's SQNR against the
+            numpy oracle (>= 26 dB, the pfb int8 budget), the kernel and
+            the chain held against their plain versions, times of the
+            plan, the native plan, the kernel (each compiled tile) and
+            its plain version, and its bound (int8 ops at 1,979 TOPS or
+            bytes at 3.35 TB/s)
+  int8_paths  the other five pipelines at int8 at their cells' widths,
+            the int8 Table-1 rows (one-node plans, each against its int8
+            native plan and its op's SQNR budget) and a 4096-cubed int8
+            matmul: launches, rows 0-1 against the int8 native plan for
+            two rows (bit for bit; 2 ulp of max allowed where a complex
+            idft recombines), row 0's SQNR (asserted for spectrogram and
+            matmul, printed for the rest), each int8 kernel held against
+            its plain version at the path's shapes, times, bounds and the
+            ``torch._int_mm`` yardstick of the int8 contraction alone
+  bf16      ``pfb_power`` at ``precision="bf16"``, kernel lowering, full
+            width: launches, SQNR of row 0 (>= 30 dB), plan times
+  kernels   the kernel table, all 13 TPU kernels: launches, errors,
+            times, bounds
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without CUDA, or outside a checkout, the script
@@ -64,6 +92,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -73,6 +102,7 @@ SRC = ROOT / "src"
 # fp32 FMA-pipe flop/s (no tensor cores: the kernels run full fp32).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core ops/s (a MAC is 2)
 REPEATS = 20
 SPIN_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers a run's enqueue
 PFB_RTOL = 1e-4       # fp32 sums of P*M terms in another order
@@ -90,8 +120,13 @@ MM_N = 4096
 SWEEP_N = 2048
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kv) -> None:
-    print(json.dumps(kv), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({**kv, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -167,9 +202,40 @@ def fir_cost(rows, n_in, n_out, k) -> tuple[int, int]:
     return 4 * (rows * n_in + k + rows * n_out), 2 * k * rows * n_out
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+def bound(nbytes: int, flops: int, peak: float = PEAK_F32_FLOPS
+          ) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES_S, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def bound8(nbytes: int, ops: int) -> tuple[float, str]:
+    """The bound of an int8 kernel: its int8 multiply-adds (2 ops each)
+    at the int8 tensor-core peak, or its bytes."""
+    return bound(nbytes, ops, PEAK_INT8_OPS)
+
+
+def qgemm_cost(m, k, n, planes=1) -> tuple[int, int]:
+    """(bytes, ops) of an int8 GEMM: xq, the int8 matrices and the f32
+    scales read once, f32 (complex64 for two planes) written once."""
+    nbytes = m * k + planes * k * n + 4 * (m + planes * n) \
+        + 4 * planes * m * n
+    return nbytes, 2 * planes * m * k * n
+
+
+def qfir_cost(rows, n_in, n_out, k) -> tuple[int, int]:
+    """(bytes, ops) of one int8 FIR: f32 rows, int8 taps and their scale
+    read once, f32 output written once; a MAC per tap and output."""
+    return 4 * rows * n_in + k + 4 + 4 * rows * n_out, 2 * k * rows * n_out
+
+
+def qpfb_cost(b, t, p, n, m) -> tuple[int, int]:
+    """(bytes, ops) of the fused int8 PFB: frames, taps, scales and the
+    int8 DFM read once, complex64 written once; the frontend's M MACs per
+    (frame, branch) and the DFT's two P-deep MACs per output bin."""
+    tout = t - m + 1
+    nbytes = 4 * b * t * p + m * p + 4 * p + 2 * p * n + 8 * n \
+        + 8 * b * tout * n
+    return nbytes, 2 * m * b * tout * p + 4 * b * tout * p * n
 
 
 def add_cost(*costs) -> tuple[int, int]:
@@ -213,7 +279,7 @@ def main() -> int:
         return 2
 
     from repro_torch import graph
-    from repro_torch.core import functions, opdefs
+    from repro_torch.core import functions, opdefs, quantize
     from repro_torch.core.blocks import fp32_convs
     from repro_torch.core.pfb import pfb_window
     from repro_torch.kernels import _build, ops
@@ -228,13 +294,18 @@ def main() -> int:
         pfbk.LAUNCHES = ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
         dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
         firk.LAUNCHES = mmk.LAUNCHES = 0
+        mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = 0
+        firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
 
     def counts() -> dict:
         return {"pfb_fused": pfbk.LAUNCHES, "elementwise_chain": ew.LAUNCHES,
                 "elementwise_binary": ew.BINARY_LAUNCHES,
                 "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
                 "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
-                "matmul": mmk.LAUNCHES}
+                "matmul": mmk.LAUNCHES, "matmul_int8": mmk.INT8_LAUNCHES,
+                "dft_int8": dftk.INT8_LAUNCHES,
+                "fir_valid_int8": firk.INT8_LAUNCHES,
+                "pfb_fused_int8": pfbk.INT8_LAUNCHES}
 
     # -- card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -661,9 +732,8 @@ def main() -> int:
     ms["dft"] = ms["dft_forward"] + ms["dft_inverse"]
     calls = REPEATS + 2
     grew = {k: counts()[k] - before[k] for k in before}
-    if grew != {"pfb_fused": 0, "elementwise_chain": 0,
-                "elementwise_binary": 2 * calls, "dft": 2 * calls, "unfold": calls, "overlap_add": calls,
-                "fir_valid": 0, "matmul": 0}:
+    if grew != {**dict.fromkeys(grew, 0), "elementwise_binary": 2 * calls,
+                "dft": 2 * calls, "unfold": calls, "overlap_add": calls}:
         fail(f"stft_overlap_add: lone kernel launches grew by {grew}")
     rows_f = b * t
     nt = t - j // hop + 1
@@ -1138,6 +1208,654 @@ def main() -> int:
                            cost=mm_cost, err=mm_err)
     del plan, native, x, yd
 
+    # ======================================================================
+    # the int8 tier (precision="int8") and the bf16 tier
+    # ======================================================================
+    def compile_quiet(g, shape, **kw):
+        """graph.compile without the (expected, checked) downgrade warning
+        of the nodes that declare no int8."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return graph.compile(g, {"x": shape}, **kw)
+
+    def half_integer_signal(shape, period, seed):
+        """f32 samples every window of ``period`` along dim -2 (a 2-D row:
+        dim -1) of which holds one ±a, so its scale is s = 9/1024; all
+        other samples are half-integer multiples of s, so x / s is
+        exactly k + 0.5: the case round half to even decides."""
+        a, sc = np.float32(1.1162109375), np.float32(9 / 1024)
+        if np.float32(a * (np.float32(1) / np.float32(127))) != sc:
+            fail("half-integer input: scale_of(a) is not 9/1024")
+        r = np.random.default_rng(seed)
+        xh = ((r.integers(-100, 100, shape) + 0.5) * sc).astype(np.float32)
+        signs = np.where(r.random(shape) < 0.5, -a, a).astype(np.float32)
+        idx = [slice(None)] * len(shape)
+        idx[-1 if len(shape) == 2 else -2] = slice(None, None, period)
+        xh[tuple(idx)] = signs[tuple(idx)]
+        qh = xh[np.abs(xh) != a] / sc
+        if not np.all(qh - np.floor(qh) == np.float32(0.5)):
+            fail("half-integer input: a quotient is not k + 0.5")
+        return torch.as_tensor(xh, device=dev)
+
+    def int_mm(xq, wq_cm):
+        """The library yardstick of an int8 contraction: torch._int_mm
+        (cuBLASLt int8 -> int32), the contraction alone -- no quantize
+        step, no rescale.  Timed here only; the port never calls it.
+        ``wq_cm`` is the weight laid out column-major (``col_major``),
+        once, outside the timing: cuBLASLt refuses a row-major (64, 64)
+        int8 operand (CUBLAS_STATUS_NOT_SUPPORTED)."""
+        return torch._int_mm(xq, wq_cm)
+
+    def col_major(w):
+        return w.t().contiguous().t()
+
+    int8_floor = min(d.budget("int8").sqnr_db for d in opdefs.OPDEFS.values()
+                     if d.budget("int8") is not None)
+    eps32 = float(np.finfo(np.float32).eps)
+
+    # -- int8 kernels against their plain versions, bit for bit -------------
+    def int8_pair(m, k, n):
+        xq, sx = quantize.quantize_symmetric(randn(m, k), axis=-1)
+        wq, ws = quantize.quantize_weights(randn(k, n))
+        return xq, wq, sx.reshape(-1), ws.reshape(-1)
+
+    # matmul_int8: M, N, K not tile multiples, K below 4 and not a
+    # multiple of 4, every compiled tile; rows that do not start 4-byte
+    # aligned; the saturated headroom case at K = 2048
+    for m, k, n in ((1, 1, 1), (257, 129, 255), (300, 100, 50), (70, 3, 33),
+                    (130, 4097, 67)):
+        xq, wq, sx, ws = int8_pair(m, k, n)
+        want = mmk.matmul_int8_plain(xq, wq, sx, ws)
+        for bm, bn, bk in mmk.TILES_INT8:
+            hold(torch, f"matmul_int8 {(m, k, n)} tile {(bm, bn, bk)}",
+                 mmk.matmul_int8(xq, wq, sx, ws, bm=bm, bn=bn, bk=bk), want)
+        emit(phase="int8_kernels", kernel="matmul_int8", mkn=[m, k, n],
+             tiles=[list(t) for t in mmk.TILES_INT8], exact=True)
+    xq, wq, sx, ws = int8_pair(64, 2048, 96)
+    buf = torch.empty(64 * 2048 + 1, dtype=torch.int8, device=dev)
+    xs = buf[1:].view(64, 2048)
+    xs.copy_(xq)
+    for bm, bn, bk in mmk.TILES_INT8:
+        hold(torch, "matmul_int8 unaligned rows",
+             mmk.matmul_int8(xs, wq, sx, ws, bm=bm, bn=bn, bk=bk),
+             mmk.matmul_int8_plain(xq, wq, sx, ws))
+    sat = torch.where(torch.rand(512, 2048, device=dev, generator=gen) < 0.5,
+                      -127, 127).to(torch.int8)
+    wsat = torch.where(torch.rand(2048, 512, device=dev, generator=gen) < 0.5,
+                       -127, 127).to(torch.int8)
+    one = torch.ones(512, device=dev)
+    acc64 = sat.cpu().long() @ wsat.cpu().long()      # int64, exact
+    if acc64.abs().max() >= 2 ** 31:
+        fail("headroom case overflows int32")
+    for bm, bn, bk in mmk.TILES_INT8:
+        hold(torch, "matmul_int8 headroom (+-127, K = 2048)",
+             mmk.matmul_int8(sat, wsat, one, one, bm=bm, bn=bn, bk=bk).cpu(),
+             acc64.float())
+    hold(torch, "dft_int8 headroom (+-127, K = 2048)",
+         dftk.dft_int8(sat, wsat, -wsat, one, one, one),
+         dftk.dft_int8_plain(sat, wsat, -wsat, one, one, one))
+    emit(phase="int8_kernels", kernel="matmul_int8",
+         cases="unaligned rows; +-127 at K = 2048 (max |acc| "
+               f"{int(acc64.abs().max())}) against an int64 sum",
+         exact=True)
+    # dft_int8: ragged rows and widths, forward and inverse int8 DFM
+    for rows in (1, 37, 8188):
+        for n in (7, 64, 1024):
+            for inverse in (False, True):
+                xq, sx = quantize.quantize_symmetric(randn(rows, n), axis=-1)
+                qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(dev))
+                hold(torch, f"dft_int8 rows={rows} n={n} inverse={inverse}",
+                     dftk.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si),
+                     dftk.dft_int8_plain(xq, qr, qi, sx.reshape(-1), sr, si))
+        emit(phase="int8_kernels", kernel="dft_int8", rows=rows,
+             n=[7, 64, 1024], inverse=[False, True], exact=True)
+    # half-integer quotients where the quantize runs in torch (qmatmul,
+    # qdft): the card's wrapper path against the CPU's torch integer path
+    xh = half_integer_signal((96, 256), 256, 3)
+    wq, ws = quantize.quantize_weights(randn(256, 72))
+    hold(torch, "qmatmul half-integer quotients, card vs CPU",
+         ops.qmatmul(xh, wq, ws.reshape(-1)).cpu(),
+         quantize.qmatmul(xh.cpu(), wq.cpu(), ws.reshape(-1).cpu()))
+    hold(torch, "qdft half-integer quotients, card vs CPU",
+         ops.qdft(xh[:, :64].contiguous()).cpu(),
+         quantize.qdft(xh[:, :64].contiguous().cpu()))
+    # fir_valid_int8: K = 1 to 4097, ragged rows, taps as given and
+    # reversed, every tile, half-integer quotients inside the kernel
+    for rows, n, k in ((3, 1000, 1), (2, 999, 8), (5, 4099, 15),
+                       (1, 70001, 31), (7, 3000, 63), (2, 5003, 129),
+                       (2, 9001, 4097)):
+        x = randn(rows, n)
+        for flip in (False, True):
+            tq, ts = quantize.quantize_fir_taps(randn(k), flip=flip)
+            tq, ts = tq.reshape(-1), ts.reshape(1)
+            hold(torch, f"fir_valid_int8 {(rows, n)} K={k} flip={flip}",
+                 firk.fir_valid_int8(x, tq, ts),
+                 firk.fir_valid_int8_plain(x, tq, ts))
+        emit(phase="int8_kernels", kernel="fir_valid_int8", shape=[rows, n],
+             k=k, flip=[False, True], exact=True)
+    xh = half_integer_signal((3, 5000), 31, 9)
+    tq, ts = quantize.quantize_fir_taps(randn(31))
+    tq, ts = tq.reshape(-1), ts.reshape(1)
+    want = firk.fir_valid_int8_plain(xh.cpu(), tq.cpu(), ts.cpu())
+    for cfg in firk.TUNE_SPACE_INT8.configs({"k": 31}):
+        hold(torch, f"fir_valid_int8 half-integers tile {cfg} vs CPU plain",
+             firk.fir_valid_int8(xh, tq, ts, **cfg).cpu(), want)
+    emit(phase="int8_kernels", kernel="fir_valid_int8",
+         cases="half-integer quotients, every tile, against the CPU",
+         exact=True)
+    # pfb_fused_int8: P = 16, 20, 48 and 1024, ragged frame counts, both
+    # tiles, half-integer quotients in the frontend
+    for b, t, p, m in ((2, 301, 16, 4), (1, 203, 48, 8), (3, 130, 16, 16),
+                       (1, 75, 1024, 8), (2, 40, 20, 3)):
+        frames = randn(b, t, p)
+        tq, ts = quantize.quantize_pfb_taps(randn(m, p))
+        qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+        args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
+        want = pfbk.pfb_fused_int8_plain(*args)
+        for bt, bn in pfbk.TILES_INT8:
+            hold(torch, f"pfb_fused_int8 {(b, t, p, m)} tile {(bt, bn)}",
+                 pfbk.pfb_fused_int8(*args, bt=bt, bn=bn), want)
+        emit(phase="int8_kernels", kernel="pfb_fused_int8",
+             shape=[b, t, p, m], tiles=[list(t) for t in pfbk.TILES_INT8],
+             exact=True)
+    frames = half_integer_signal((2, 90, 48), 8, 10)
+    tq, ts = quantize.quantize_pfb_taps(
+        torch.as_tensor(pfb_window(48, 8).astype(np.float32), device=dev))
+    qr, sr, qi, si = quantize._qdfm_tensors(48, False, str(dev))
+    args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
+    want = pfbk.pfb_fused_int8_plain(*(a.cpu() for a in args))
+    for bt, bn in pfbk.TILES_INT8:
+        hold(torch, f"pfb_fused_int8 half-integers tile {(bt, bn)} vs CPU",
+             pfbk.pfb_fused_int8(*args, bt=bt, bn=bn).cpu(), want)
+    emit(phase="int8_kernels", kernel="pfb_fused_int8",
+         cases="half-integer quotients, both tiles, against the CPU",
+         exact=True)
+
+    # -- int8 main path: pfb_power at full width -----------------------------
+    b, n, p, m = 16, 2 ** 22, 1024, 8
+    g = graph.build_pfb_power(p, m)
+    torch.cuda.reset_peak_memory_stats()
+    plan8 = compile_quiet(g, (b, n), precision="int8", lowering="kernel")
+    pname = next(nd.name for nd in plan8.graph.topo() if nd.op == "pfb")
+    aname = next(nd.name for nd in plan8.graph.topo() if nd.op == "abs2")
+    if plan8.node_precisions != {pname: "int8", aname: "f32"} \
+            or plan8.downgrades != {aname: "precision:int8"} \
+            or set(plan8.node_lowerings.values()) != {"kernel"}:
+        fail(f"int8 pfb_power: precisions {plan8.node_precisions}, "
+             f"downgrades {plan8.downgrades}, lowerings "
+             f"{plan8.node_lowerings}")
+    x = torch.randn(b, n, device=dev, generator=gen)
+    zero_counts()
+    out8 = plan8(x)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {**dict.fromkeys(launches, 0), "pfb_fused_int8": 1,
+            "elementwise_chain": 1}
+    t = n // p
+    tout = t - m + 1
+    if launches != want:
+        fail(f"int8 pfb_power: launches per call {launches}, want {want}")
+    if tuple(out8.shape) != (b, tout, p) or not bool(
+            torch.isfinite(out8).all()):
+        fail(f"int8 pfb_power: output {tuple(out8.shape)} not finite or "
+             "misshaped")
+    native8 = compile_quiet(g, (b, n), precision="int8")
+    if not torch.equal(out8, native8(x)):
+        fail("int8 pfb_power: kernel plan not bit-identical to the int8 "
+             "native plan")
+    sq = opdefs.sqnr_db(graph.pfb_power_oracle(p, m)(x[0].cpu().numpy()),
+                        out8[0].cpu().numpy())
+    sq_floor = max(opdefs.OPDEFS["pfb"].budget("int8").sqnr_db, int8_floor)
+    if not sq >= sq_floor:
+        fail(f"int8 pfb_power: SQNR {sq} dB < {sq_floor}")
+    tq, ts = plan8.qconsts[pname]
+    frames = x.reshape(b, t, p)
+    qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+    args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
+    pcfg = ops._resolve(pfbk.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t})
+    zk = pfbk.pfb_fused_int8(*args, **pcfg)
+    perr = hold(torch, "int8 main pfb_fused_int8", zk,
+                pfbk.pfb_fused_int8_plain(*args))
+    cerr = hold(torch, "int8 main abs2", ew.elementwise_chain(
+        zk, (), (), abs2_head=True), ew.elementwise_chain_plain(
+        zk, (), (), abs2_head=True))
+    peak8 = torch.cuda.max_memory_allocated() / 1e9
+    ms = {"plan": median_ms(torch, lambda: plan8(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan8(x)),
+          "plan_native": median_ms(torch, lambda: native8(x))}
+    before = counts()
+    ms.update({
+        "pfb_fused_int8": device_ms(
+            torch, lambda: pfbk.pfb_fused_int8(*args, **pcfg)),
+        "pfb_fused_int8_plain": device_ms(
+            torch, lambda: pfbk.pfb_fused_int8_plain(*args)),
+        "elementwise_chain": device_ms(
+            torch, lambda: ew.elementwise_chain(zk, (), (), abs2_head=True)),
+        "elementwise_chain_plain": device_ms(
+            torch, lambda: ew.elementwise_chain_plain(zk, (), (),
+                                                      abs2_head=True)),
+    })
+    check_grew("int8 pfb_power", before,
+               {"pfb_fused_int8": 1, "elementwise_chain": 1})
+    pfb_tiles = {f"{bt}x{bn}": device_ms(
+        torch, lambda bt=bt, bn=bn: pfbk.pfb_fused_int8(*args, bt=bt, bn=bn))
+        for bt, bn in pfbk.TILES_INT8
+        if pfbk.TUNE_SPACE_INT8.valid({"bt": bt, "bn": bn},
+                                      {"m": m, "p": p, "t": t})}
+    pcost = qpfb_cost(b, t, p, p, m)
+    emit(phase="int8_main", path="pfb_power", precision="int8", x=[b, n],
+         p=p, m=m, tile=pcfg, launches_per_call=launches,
+         node_precisions=plan8.node_precisions, downgrades=plan8.downgrades,
+         bitwise_vs_native_plan=True, sqnr_db_row0_vs_oracle=sq,
+         sqnr_floor_db=sq_floor, max_abs_err_vs_plain={
+             "pfb_fused_int8": perr, "elementwise_chain": cerr},
+         ms=ms, ms_per_tile=pfb_tiles,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms=bound8(*pcost)[0], bound_by=bound8(*pcost)[1],
+         pfb_int8_achieved_tops=pcost[1] / (ms["pfb_fused_int8"] * 1e-3)
+         / 1e12, max_memory_gb=peak8)
+    table["int8_pfb"] = dict(launches=launches, ms=ms, cost=pcost, err=perr)
+    del plan8, native8, out8, x, frames, zk, args
+
+    # -- int8 paths: the other five pipelines at their cells' widths --------
+    def drive8(label, g, shape, want, oracle, floor=None, complex_idft=False):
+        """The int8 kernel plan run once with the counts at 0; rows 0-1
+        held against the int8 native plan compiled for those two rows
+        (every row is computed on its own), bit for bit -- or within
+        2 ulp of max|native| where a complex idft recombines; row 0's
+        SQNR against the numpy oracle."""
+        torch.cuda.reset_peak_memory_stats()
+        plan = compile_quiet(g, shape, precision="int8", lowering="kernel")
+        for nd in plan.graph.topo():
+            if nd.op in ("input", "const"):
+                continue
+            d = opdefs.OPDEFS[nd.op]
+            lw, pr = plan.node_lowerings[nd.name], plan.node_precisions[nd.name]
+            if d.qimpl is not None and "kernel" in d.q_lowerings:
+                ok = (lw, pr) == ("kernel", "int8")
+            else:
+                ok = lw == ("native" if d.lowering_agnostic else "kernel")
+            if not ok or "lowering" in plan.downgrades.get(nd.name, ""):
+                fail(f"{label}: node {nd.name} ({nd.op}) runs {lw}/{pr}, "
+                     f"downgrades {plan.downgrades}")
+        x = torch.randn(*shape, device=dev, generator=gen)
+        zero_counts()
+        out = plan(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        full_want = {**dict.fromkeys(launches, 0), **want}
+        if launches != full_want:
+            fail(f"{label}: launches per call {launches}, want {full_want}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{label}: non-finite output")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        two = (2,) + tuple(shape[1:])
+        native = compile_quiet(g, two, precision="int8")
+        ref = native(x[:2].contiguous())
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out[:2], ref)
+        err, scale = rel_err(torch, out[:2], ref)
+        if not bitwise and not (complex_idft and err <= 2 * eps32 * scale):
+            fail(f"{label}: rows 0-1 vs the int8 native plan: max |diff| "
+                 f"{err} of {scale}")
+        sq = opdefs.sqnr_db(oracle(x[0].cpu().numpy()), out[0].cpu().numpy())
+        if floor is not None and not sq >= floor:
+            fail(f"{label}: SQNR {sq} dB < {floor}")
+        info = dict(launches_per_call=launches, out=list(out.shape),
+                    node_precisions=plan.node_precisions,
+                    downgrades=plan.downgrades,
+                    bitwise_vs_native_rows01=bitwise,
+                    max_abs_err_vs_native_rows01=err,
+                    sqnr_db_row0_vs_oracle=sq, plan_peak_memory_gb=peak)
+        ms = {"plan": median_ms(torch, lambda: plan(x)),
+              "plan_back_to_back": device_ms(torch, lambda: plan(x)),
+              "plan_native_rows01": median_ms(
+                  torch, lambda: native(x[:2].contiguous()))}
+        del out, ref
+        return plan, x, info, ms
+
+    # spectrogram: unfold -> window -> dft (int8) -> |.|^2 -> scale
+    b, n = SPEC_X
+    j = SPEC_J
+    g = graph.build_spectrogram(j)
+    plan, x, info, ms = drive8(
+        "int8 spectrogram", g, SPEC_X,
+        {"unfold": 1, "elementwise_binary": 1, "dft_int8": 1,
+         "elementwise_chain": 1}, graph.spectrogram_oracle(j), int8_floor)
+    frames = unfk.unfold(x, j)
+    xq, sx = quantize.quantize_symmetric(
+        ew.elementwise_mult(frames, plan.consts["win"]).reshape(-1, j),
+        axis=-1)
+    sx = sx.reshape(-1)
+    qr, sr, qi, si = quantize._qdfm_tensors(j, False, str(dev))
+    qr_cm, qi_cm = col_major(qr), col_major(qi)
+    dcfg = ops._resolve(dftk.TUNE_SPACE_INT8,
+                        {"m": xq.shape[0], "n": j, "k": j})
+    derr = hold(torch, "int8 spectrogram dft_int8",
+                dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg),
+                dftk.dft_int8_plain(xq, qr, qi, sx, sr, si))
+    before = counts()
+    ms.update({
+        "dft_int8": device_ms(
+            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)),
+        "dft_int8_plain": device_ms(
+            torch, lambda: dftk.dft_int8_plain(xq, qr, qi, sx, sr, si)),
+        "dft_int8_library": device_ms(
+            torch, lambda: (int_mm(xq, qr_cm), int_mm(xq, qi_cm))),
+    })
+    check_grew("int8 spectrogram", before, {"dft_int8": 1})
+    dcost = qgemm_cost(xq.shape[0], j, j, planes=2)
+    emit(phase="int8_paths", path="spectrogram", x=list(SPEC_X), window=j,
+         tile=dcfg, max_abs_err_vs_plain={"dft_int8": derr}, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"dft_int8": bound8(*dcost)[0]}, **info)
+    table["int8_dft"] = dict(launches=info["launches_per_call"], ms=ms,
+                             cost=dcost, err=derr)
+    del plan, x, frames, xq
+
+    # stft_overlap_add: the forward dft on dft_int8, the complex idft as
+    # four matmul_int8
+    b, n = STFT_X
+    j, hop = STFT_J, STFT_HOP
+    g = graph.build_stft_overlap_add(j, hop)
+    plan, x, info, ms = drive8(
+        "int8 stft_overlap_add", g, STFT_X,
+        {"unfold": 1, "elementwise_binary": 2, "dft_int8": 1,
+         "matmul_int8": 4, "overlap_add": 1},
+        graph.stft_overlap_add_oracle(j, hop), complex_idft=True)
+    fd = functions.unfold(x, j)[:, ::hop, :].contiguous()
+    xq, sx = quantize.quantize_symmetric(
+        ew.elementwise_mult(fd, plan.consts["win"]).reshape(-1, j), axis=-1)
+    sx = sx.reshape(-1)
+    qr, sr, qi, si = quantize._qdfm_tensors(j, False, str(dev))
+    qr_cm, qi_cm = col_major(qr), col_major(qi)
+    dcfg = ops._resolve(dftk.TUNE_SPACE_INT8,
+                        {"m": xq.shape[0], "n": j, "k": j})
+    z = dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)
+    serr = {"dft_int8": hold(torch, "int8 stft dft_int8", z,
+                             dftk.dft_int8_plain(xq, qr, qi, sx, sr, si))}
+    ir, isr, ii, isi = quantize._qdfm_tensors(j, True, str(dev))
+    zrq, szr = quantize.quantize_symmetric(z.real, axis=-1)
+    ziq, szi = quantize.quantize_symmetric(z.imag, axis=-1)
+    prods = [(zrq, ir, szr.reshape(-1), isr), (ziq, ii, szi.reshape(-1), isi),
+             (zrq, ii, szr.reshape(-1), isi), (ziq, ir, szi.reshape(-1), isr)]
+    serr["matmul_int8"] = max(
+        hold(torch, "int8 stft idft matmul_int8",
+             mmk.matmul_int8(*pr, **dcfg), mmk.matmul_int8_plain(*pr))
+        for pr in prods)
+    before = counts()
+    ms.update({
+        "dft_int8": device_ms(
+            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)),
+        "dft_int8_plain": device_ms(
+            torch, lambda: dftk.dft_int8_plain(xq, qr, qi, sx, sr, si)),
+        "dft_int8_library": device_ms(
+            torch, lambda: (int_mm(xq, qr_cm), int_mm(xq, qi_cm))),
+        "matmul_int8": sum(device_ms(
+            torch, lambda pr=pr: mmk.matmul_int8(*pr, **dcfg))
+            for pr in prods),
+        "matmul_int8_plain": sum(device_ms(
+            torch, lambda pr=pr: mmk.matmul_int8_plain(*pr))
+            for pr in prods),
+        "matmul_int8_library": sum(device_ms(
+            torch, lambda a=pr[0], w=col_major(pr[1]): int_mm(a, w))
+            for pr in prods),
+    })
+    check_grew("int8 stft_overlap_add", before,
+               {"dft_int8": 1, "matmul_int8": 4})
+    rows_f = xq.shape[0]
+    emit(phase="int8_paths", path="stft_overlap_add", x=list(STFT_X),
+         window=j, hop=hop, frames=rows_f, tile=dcfg,
+         max_abs_err_vs_plain=serr, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"dft_int8": bound8(*qgemm_cost(rows_f, j, j, 2))[0],
+                   "matmul_int8": 4 * bound8(*qgemm_cost(rows_f, j, j))[0]},
+         **info)
+    del plan, x, fd, xq, z, zrq, ziq, prods
+
+    # fir_decimate: two int8 FIRs
+    b, n = FIR_X
+    g = graph.build_fir_decimate(31, 15)
+    plan, x, info, ms = drive8(
+        "int8 fir_decimate", g, FIR_X, {"fir_valid_int8": 2},
+        graph.fir_decimate_oracle(31, 15))
+    (tq1, ts1), (tq2, ts2) = (
+        plan.qconsts[nd.name] for nd in plan.graph.topo() if nd.op == "fir")
+    tq1, ts1, tq2, ts2 = tq1.reshape(-1), ts1.reshape(1), tq2.reshape(-1), \
+        ts2.reshape(1)
+    c1 = ops._resolve(firk.TUNE_SPACE_INT8, {"k": 31, "n": n, "rows": b})
+    y1 = firk.fir_valid_int8(x, tq1, ts1, **c1)
+    x2 = y1[:, ::2].contiguous()
+    c2 = ops._resolve(firk.TUNE_SPACE_INT8,
+                      {"k": 15, "n": x2.shape[1], "rows": b})
+    y2 = firk.fir_valid_int8(x2, tq2, ts2, **c2)
+    ferr = max(hold(torch, "int8 fir_decimate fir 1", y1,
+                    firk.fir_valid_int8_plain(x, tq1, ts1)),
+               hold(torch, "int8 fir_decimate fir 2", y2,
+                    firk.fir_valid_int8_plain(x2, tq2, ts2)))
+    before = counts()
+    ms.update({
+        "fir_1": device_ms(
+            torch, lambda: firk.fir_valid_int8(x, tq1, ts1, **c1)),
+        "fir_2": device_ms(
+            torch, lambda: firk.fir_valid_int8(x2, tq2, ts2, **c2)),
+        "fir_valid_int8_plain": both(
+            lambda: firk.fir_valid_int8_plain(x, tq1, ts1),
+            lambda: firk.fir_valid_int8_plain(x2, tq2, ts2)),
+    })
+    ms["fir_valid_int8"] = ms["fir_1"] + ms["fir_2"]
+    check_grew("int8 fir_decimate", before, {"fir_valid_int8": 2})
+    fir8_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
+        torch, lambda c=c: firk.fir_valid_int8(x, tq1, ts1, **c), repeats=5)
+        for c in firk.TUNE_SPACE_INT8.configs({"k": 31})}
+    fcost = add_cost(qfir_cost(b, n, y1.shape[1], 31),
+                     qfir_cost(b, x2.shape[1], y2.shape[1], 15))
+    emit(phase="int8_paths", path="fir_decimate", x=list(FIR_X),
+         taps=[31, 15], tiles={"fir_1": c1, "fir_2": c2},
+         max_abs_err_vs_plain={"fir_valid_int8": ferr}, ms=ms,
+         fir_1_ms_per_tile=fir8_tiles,
+         divisions_fir_1=int(y1.numel()) * 31,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"fir_1": bound8(*qfir_cost(b, n, y1.shape[1], 31))[0],
+                   "fir_2": bound8(*qfir_cost(b, x2.shape[1], y2.shape[1],
+                                              15))[0]}, **info)
+    table["int8_fir"] = dict(launches=info["launches_per_call"], ms=ms,
+                             cost=fcost, err=ferr)
+    del plan, x, y1, x2, y2
+
+    # correlate: the 63-tap template on the int8 FIR, then |.|^2 * scale
+    g = graph.build_correlate(63)
+    plan, x, info, ms = drive8(
+        "int8 correlate", g, FIR_X,
+        {"fir_valid_int8": 1, "elementwise_chain": 1},
+        graph.correlate_oracle(63))
+    ((tq, ts),) = (plan.qconsts[nd.name] for nd in plan.graph.topo()
+                   if nd.op == "fir")
+    tq, ts = tq.reshape(-1), ts.reshape(1)
+    cc = ops._resolve(firk.TUNE_SPACE_INT8, {"k": 63, "n": n, "rows": b})
+    cerr = hold(torch, "int8 correlate fir", firk.fir_valid_int8(
+        x, tq, ts, **cc), firk.fir_valid_int8_plain(x, tq, ts))
+    before = counts()
+    ms.update({
+        "fir_valid_int8": device_ms(
+            torch, lambda: firk.fir_valid_int8(x, tq, ts, **cc)),
+        "fir_valid_int8_plain": device_ms(
+            torch, lambda: firk.fir_valid_int8_plain(x, tq, ts)),
+    })
+    check_grew("int8 correlate", before, {"fir_valid_int8": 1})
+    emit(phase="int8_paths", path="correlate", x=list(FIR_X), taps=63,
+         tile=cc, max_abs_err_vs_plain={"fir_valid_int8": cerr}, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"fir_valid_int8": bound8(*qfir_cost(
+             b, n, n - 62, 63))[0]}, **info)
+    del plan, x
+
+    # cascaded_channelizer: int8 FIR (31) -> down 2 -> int8 PFB (16, 4)
+    b, n = CHAN_X
+    p, m = 16, 4
+    g = graph.build_cascaded_channelizer(31, p, m)
+    plan, x, info, ms = drive8(
+        "int8 cascaded_channelizer", g, CHAN_X,
+        {"fir_valid_int8": 1, "pfb_fused_int8": 1, "elementwise_chain": 1},
+        graph.cascaded_channelizer_oracle(31, p, m))
+    fname = next(nd.name for nd in plan.graph.topo() if nd.op == "fir")
+    pname = next(nd.name for nd in plan.graph.topo() if nd.op == "pfb")
+    tq, ts = plan.qconsts[fname]
+    tq, ts = tq.reshape(-1), ts.reshape(1)
+    cc = ops._resolve(firk.TUNE_SPACE_INT8, {"k": 31, "n": n, "rows": b})
+    y = firk.fir_valid_int8(x, tq, ts, **cc)
+    frames = y[:, ::2].reshape(b, -1, p).contiguous()
+    t = frames.shape[1]
+    pq, ps = plan.qconsts[pname]
+    qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+    pargs = (frames, pq, ps.reshape(-1), qr, qi, sr, si)
+    pcfg = ops._resolve(pfbk.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t})
+    kerr = {"fir_valid_int8": hold(torch, "int8 cascaded fir", y,
+                                   firk.fir_valid_int8_plain(x, tq, ts)),
+            "pfb_fused_int8": hold(
+                torch, "int8 cascaded pfb",
+                pfbk.pfb_fused_int8(*pargs, **pcfg),
+                pfbk.pfb_fused_int8_plain(*pargs))}
+    before = counts()
+    ms.update({
+        "fir_valid_int8": device_ms(
+            torch, lambda: firk.fir_valid_int8(x, tq, ts, **cc)),
+        "pfb_fused_int8": device_ms(
+            torch, lambda: pfbk.pfb_fused_int8(*pargs, **pcfg)),
+        "pfb_fused_int8_plain": device_ms(
+            torch, lambda: pfbk.pfb_fused_int8_plain(*pargs)),
+    })
+    check_grew("int8 cascaded_channelizer", before,
+               {"fir_valid_int8": 1, "pfb_fused_int8": 1})
+    emit(phase="int8_paths", path="cascaded_channelizer", x=list(CHAN_X),
+         taps=31, p=p, m=m, tiles={"fir_valid_int8": cc,
+                                   "pfb_fused_int8": pcfg},
+         max_abs_err_vs_plain=kerr, ms=ms,
+         plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
+         bound_ms={"fir_valid_int8": bound8(*qfir_cost(
+             b, n, y.shape[1], 31))[0],
+             "pfb_fused_int8": bound8(*qpfb_cost(b, t, p, p, m))[0]},
+         **info)
+    del plan, x, y, frames, pargs
+
+    # the int8 Table-1 sweep: every op with an int8 kernel, one-node plans
+    sweep8_launches = {"matmul": {"matmul_int8": 1}, "dft": {"dft_int8": 1},
+                       "idft": {"matmul_int8": 4},
+                       "fir": {"fir_valid_int8": 1},
+                       "pfb": {"pfb_fused_int8": 1}}
+    for d in opdefs.table_ops():
+        if "kernel" not in d.q_lowerings:
+            continue
+        args = d.make_args(rng, SWEEP_N)
+        spec = {"x": (args[0].shape, args[0].dtype)}
+        kplan = graph.compile(one_node(d, args), spec, precision="int8",
+                              lowering="kernel")
+        nplan = graph.compile(one_node(d, args), spec, precision="int8")
+        if kplan.downgrades or set(kplan.node_precisions.values()) \
+                != {"int8"}:
+            fail(f"int8 table1 {d.table_name}: {kplan.node_precisions} "
+                 f"{kplan.downgrades}")
+        x0 = torch.as_tensor(args[0], device=dev)
+        zero_counts()
+        got = kplan(x0)
+        torch.cuda.synchronize()
+        launches = counts()
+        want_l = {**dict.fromkeys(launches, 0), **sweep8_launches[d.name]}
+        if launches != want_l:
+            fail(f"int8 table1 {d.table_name}: launches {launches}, want "
+                 f"{want_l}")
+        ref = nplan(x0)
+        bitwise = torch.equal(got, ref)
+        err, scale = rel_err(torch, got, ref)
+        if not bitwise and not (d.name == "idft" and err <= 2 * eps32 * scale):
+            fail(f"int8 table1 {d.table_name}: vs its int8 native plan "
+                 f"{err} of {scale}")
+        sq = opdefs.sqnr_db(d.oracle(*args), got.cpu().numpy())
+        if not sq >= d.budget("int8").sqnr_db:
+            fail(f"int8 table1 {d.table_name}: SQNR {sq} dB < "
+                 f"{d.budget('int8').sqnr_db}")
+        emit(phase="int8_paths", path="table1", op=d.table_name,
+             precision="int8", launches_per_call={
+                 k: v for k, v in launches.items() if v},
+             bitwise_vs_native_plan=bitwise, max_abs_err_vs_native=err,
+             sqnr_db_vs_oracle=sq, budget_db=d.budget("int8").sqnr_db,
+             ms={"plan": median_ms(torch, lambda: kplan(x0)),
+                 "plan_native": median_ms(torch, lambda: nplan(x0))})
+        del kplan, nplan, got, ref
+
+    # matmul 4096 x 4096 @ 4096 x 4096 at int8, a one-node plan
+    g = graph.Graph(f"matmul_int8_{MM_N}")
+    y_np = rng.standard_normal((MM_N, MM_N), dtype=np.float32)
+    mnode = g.apply("matmul", g.input("x"), g.const(y_np, "y"))
+    g.output(mnode)
+    y64 = y_np.astype(np.float64)
+    plan, x, info, ms = drive8(
+        "int8 matmul", g, (MM_N, MM_N), {"matmul_int8": 1},
+        lambda x0: x0.astype(np.float64) @ y64,
+        opdefs.OPDEFS["matmul"].budget("int8").sqnr_db)
+    wq, ws = plan.qconsts[mnode]
+    xq, sx = quantize.quantize_symmetric(x, axis=-1)
+    sx = sx.reshape(-1)
+    mcfg = ops._resolve(mmk.TUNE_SPACE_INT8,
+                        {"m": MM_N, "n": MM_N, "k": MM_N})
+    merr = hold(torch, "int8 matmul 4096", mmk.matmul_int8(
+        xq, wq, sx, ws, **mcfg), mmk.matmul_int8_plain(xq, wq, sx, ws))
+    before = counts()
+    ms.update({
+        "matmul_int8": device_ms(
+            torch, lambda: mmk.matmul_int8(xq, wq, sx, ws, **mcfg)),
+        "matmul_int8_plain": device_ms(
+            torch, lambda: mmk.matmul_int8_plain(xq, wq, sx, ws)),
+        "matmul_int8_library": device_ms(
+            torch, lambda w=col_major(wq): int_mm(xq, w)),
+    })
+    check_grew("int8 matmul", before, {"matmul_int8": 1})
+    mm8_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}": device_ms(
+        torch, lambda c=c: mmk.matmul_int8(xq, wq, sx, ws, **c), repeats=5)
+        for c in mmk.TUNE_SPACE_INT8.configs(
+            {"m": MM_N, "n": MM_N, "k": MM_N})}
+    mcost = qgemm_cost(MM_N, MM_N, MM_N)
+    emit(phase="int8_paths", path="matmul", x=[MM_N, MM_N],
+         y=[MM_N, MM_N], tile=mcfg, max_abs_err_vs_plain=merr, ms=ms,
+         ms_per_tile=mm8_tiles, bound_ms=bound8(*mcost)[0],
+         achieved_tops=mcost[1] / (ms["matmul_int8"] * 1e-3) / 1e12,
+         library_achieved_tops=mcost[1] / (ms["matmul_int8_library"] * 1e-3)
+         / 1e12, **info)
+    table["int8_mm"] = dict(launches=info["launches_per_call"], ms=ms,
+                            cost=mcost, err=merr)
+    del plan, x, xq
+
+    # -- bf16: pfb_power at full width, kernel lowering ----------------------
+    b, n, p, m = 16, 2 ** 22, 1024, 8
+    g = graph.build_pfb_power(p, m)
+    planb = graph.compile(g, {"x": (b, n)}, precision="bf16",
+                          lowering="kernel")
+    if set(planb.node_precisions.values()) != {"bf16"} or planb.downgrades \
+            or set(planb.node_lowerings.values()) != {"kernel"}:
+        fail(f"bf16 pfb_power: {planb.node_precisions} {planb.downgrades} "
+             f"{planb.node_lowerings}")
+    x = torch.randn(b, n, device=dev, generator=gen)
+    zero_counts()
+    outb = planb(x)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {**dict.fromkeys(launches, 0), "pfb_fused": 1,
+            "elementwise_chain": 1}
+    if launches != want:
+        fail(f"bf16 pfb_power: launches per call {launches}, want {want}")
+    sqb = opdefs.sqnr_db(graph.pfb_power_oracle(p, m)(x[0].cpu().numpy()),
+                         outb[0].cpu().numpy())
+    if not sqb >= 30.0:
+        fail(f"bf16 pfb_power: SQNR {sqb} dB < 30")
+    nativeb = graph.compile(g, {"x": (2, n)}, precision="bf16")
+    berr, bscale = rel_err(torch, outb[:2], nativeb(x[:2].contiguous()))
+    emit(phase="bf16", path="pfb_power", precision="bf16", x=[b, n], p=p,
+         m=m, launches_per_call=launches, sqnr_db_row0_vs_oracle=sqb,
+         max_abs_err_rows01_vs_native_bf16=berr, max_abs_native=bscale,
+         ms={"plan": median_ms(torch, lambda: planb(x)),
+             "plan_back_to_back": device_ms(torch, lambda: planb(x))})
+    del planb, nativeb, outb, x
+
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
     rows = []
@@ -1178,6 +1896,26 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms[name],
+                     "plain_ms": ms[name + "_plain"],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": ms[lib] if lib else None})
+    for name, src, replaces, entry, lib in (
+            ("matmul_int8", "src/repro_torch/csrc/qmatmul.cu",
+             "src/repro/kernels/matmul.py:170", table["int8_mm"],
+             "matmul_int8_library"),
+            ("dft_int8", "src/repro_torch/csrc/qmatmul.cu",
+             "src/repro/kernels/dft.py:154", table["int8_dft"],
+             "dft_int8_library"),
+            ("fir_valid_int8", "src/repro_torch/csrc/qfir.cu",
+             "src/repro/kernels/fir.py:135", table["int8_fir"], None),
+            ("pfb_fused_int8", "src/repro_torch/csrc/qpfb.cu",
+             "src/repro/kernels/pfb.py:227", table["int8_pfb"], None)):
+        b_ms, b_by = bound8(*entry["cost"])
+        ms = entry["ms"]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": entry["launches"][name],
+                     "max_abs_err": entry["err"], "ms": ms[name],
                      "plain_ms": ms[name + "_plain"],
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": ms[lib] if lib else None})

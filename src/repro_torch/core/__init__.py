@@ -1,7 +1,7 @@
 """TINA core in torch: the building blocks, the op mappings, the PFB
-itself, the OpDef layer, the Table-1 registry and the pipeline
-registry."""
-from repro_torch.core import blocks, functions, pfb
+itself, int8 quantization, the OpDef layer, the Table-1 registry and the
+pipeline registry."""
+from repro_torch.core import blocks, functions, pfb, quantize
 from repro_torch.core.blocks import (depthwise_conv, fully_connected,
                                      pointwise_conv, standard_conv,
                                      transposed_conv)
@@ -16,5 +16,5 @@ __all__ = [
     "standard_conv", "depthwise_conv", "pointwise_conv", "transposed_conv",
     "fully_connected", "elementwise_mult", "elementwise_add", "matmul",
     "summation", "dft", "idft", "fir", "depthwise_fir", "unfold",
-    "overlap_add", "pfb_full", "pfb_frontend", "pfb_window",
+    "overlap_add", "pfb_full", "pfb_frontend", "pfb_window", "quantize",
 ]

@@ -10,15 +10,25 @@ planner, the fuser and the kernels' tune spaces all derive from.
   * tuning view -- ``tune_space`` names the kernel's
     :class:`repro_torch.kernels.tune.TuneSpace`; ``tune_ctx`` extracts the
     shape facts the space needs.
+  * precision view -- ``precisions`` names the tiers the op supports
+    (``"f32"`` always; ``"bf16"`` generically: inputs and output rounded
+    through bfloat16 around the f32 impl; ``"int8"`` where a quantized
+    impl exists or the op is pure data movement).  ``budgets`` declares
+    the per-tier accuracy :class:`Budget` against the f32 oracle;
+    ``qimpl`` is the int8 implementation (``(args, attrs, qpack,
+    lowering, block)``, built on :mod:`repro_torch.core.quantize`, with
+    ``lowering="kernel"`` routing to the int8 CUDA kernels per
+    ``q_lowerings``) and ``qprep`` quantizes const weights once at plan
+    build (``(attrs, {argpos: const}) -> qpack``).
 
 The port declares every op of the reference: the eleven Table-1 ops
 (``ew_mul``, ``ew_add``, ``matmul``, ``summation``, ``dft``, ``idft``,
 ``fir``, ``unfold``, ``overlap_add``, ``pfb_frontend``, ``pfb``) and the
 graph-only glue (``window``, ``abs2``, ``scale``, ``real``,
 ``downsample``, ``frame_decimate``, ``fused_ew``), in the reference's
-order.  The reference's precision and streaming fields come with their
-slices; a graph naming an op missing here fails to compile with the
-reference's "unknown op" error.
+order, with the reference's precision declarations.  The streaming
+fields come with their slice; a graph naming an op missing here fails
+to compile with the reference's "unknown op" error.
 """
 from __future__ import annotations
 
@@ -28,12 +38,79 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import functions, pfb
+from repro_torch.core import functions, pfb, quantize
 
 
 def _kops():
     from repro_torch.kernels import ops
     return ops
+
+
+# ---------------------------------------------------------------------------
+# precision tiers: accuracy budgets + bf16 rounding
+# ---------------------------------------------------------------------------
+PRECISIONS = ("f32", "bf16", "int8")
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def sqnr_db(ref, out) -> float:
+    """Signal-to-quantization-noise ratio in dB of ``out`` against the
+    reference: ``10·log10(mean|ref|² / mean|out−ref|²)``; infinite for an
+    exact match.  The one accuracy metric of the precision tiers."""
+    ref = _np(ref)
+    out = _np(out)
+    p_ref = float(np.mean(np.abs(ref) ** 2))
+    p_err = float(np.mean(np.abs(out - ref) ** 2))
+    if p_err == 0.0:
+        return float("inf")
+    if p_ref == 0.0:
+        return float("-inf")
+    return 10.0 * float(np.log10(p_ref / p_err))
+
+
+@dataclasses.dataclass(frozen=True)
+class Budget:
+    """Per-precision accuracy budget: a reduced-precision execution of
+    the op must achieve at least ``sqnr_db`` dB against the f32
+    reference (and/or stay within ``atol`` max abs error)."""
+    sqnr_db: float | None = None
+    atol: float | None = None
+
+    def check(self, ref, out) -> tuple[bool, dict]:
+        """(ok, achieved): achieved carries the measured metrics."""
+        achieved = {"sqnr_db": sqnr_db(ref, out),
+                    "max_abs_err": float(np.max(np.abs(_np(out) - _np(ref))))}
+        ok = True
+        if self.sqnr_db is not None and achieved["sqnr_db"] < self.sqnr_db:
+            ok = False
+        if self.atol is not None and achieved["max_abs_err"] > self.atol:
+            ok = False
+        return ok, achieved
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """bf16 numerics simulated on f32 tensors: round through bfloat16
+    (round to nearest even) and back, real and imaginary parts separately
+    for complex input; other dtypes pass unchanged.  So the bf16 tier
+    composes with every lowering: kernels see f32 holding bf16 values."""
+    if x.is_complex():
+        part = x.real.dtype
+        return torch.complex(x.real.to(torch.bfloat16).to(part),
+                             x.imag.to(torch.bfloat16).to(part))
+    if x.is_floating_point():
+        return x.to(torch.bfloat16).to(x.dtype)
+    return x
+
+
+# every op supporting bf16 inherits this budget unless it declares its
+# own: 8 mantissa bits give ~48 dB per value, and f32 accumulation keeps
+# composite ops comfortably above 30 dB
+_BF16_DEFAULT_BUDGET = Budget(sqnr_db=30.0)
 
 
 REQUIRED = object()      # sentinel: attr has no default, caller must set it
@@ -70,6 +147,22 @@ class OpDef:
                                                # non-array make_args entries
     tune_space: str | None = None              # kernels.tune space key
     tune_ctx: Callable | None = None           # (attrs, in_shapes) -> dict
+    precisions: tuple[str, ...] = ("f32", "bf16")
+    # tiers the op supports; "int8" needs a qimpl or a precision-
+    # transparent op (pure data movement: its f32 impl IS its int8 one)
+    budgets: tuple[tuple[str, Budget], ...] = ()
+    # (precision, Budget) pairs; bf16 falls back to the module default
+    qimpl: Callable | None = None
+    # (args, attrs, qpack, lowering, block) -> Tensor: the int8 impl;
+    # qpack is the plan-built weight pack from qprep, or None (quantize
+    # the weight per call)
+    qprep: Callable | None = None              # (attrs, {argpos: const})
+    # -> qpack | None: quantize const weights once at plan build
+    qok: Callable[[dict], bool] | None = None  # attrs -> int8 supported?
+    q_lowerings: tuple[str, ...] = ("native",)
+    # lowerings the qimpl understands; any other request runs native
+    qtune_space: str | None = None
+    # kernels.tune space of the op's int8 kernel (shares tune_ctx)
 
     def bind(self, attrs: dict) -> dict:
         """Merge ``attrs`` over the schema defaults and validate."""
@@ -89,6 +182,29 @@ class OpDef:
             else:
                 out[a.name] = a.default
         return out
+
+    def supports_precision(self, precision: str,
+                           attrs: dict | None = None) -> bool:
+        """f32 always; otherwise the tier must be declared and (for
+        int8) pass the op's attr-level ``qok`` guard when attrs are
+        given."""
+        if precision in (None, "f32"):
+            return True
+        if precision not in self.precisions:
+            return False
+        if precision == "int8" and self.qok is not None and attrs is not None:
+            return bool(self.qok(attrs))
+        return True
+
+    def budget(self, precision: str) -> Budget | None:
+        """The declared accuracy Budget for ``precision`` (bf16 falls
+        back to the module default; f32 has none: it is the reference)."""
+        for p, b in self.budgets:
+            if p == precision:
+                return b
+        if precision == "bf16" and "bf16" in self.precisions:
+            return _BF16_DEFAULT_BUDGET
+        return None
 
 
 OPDEFS: dict[str, OpDef] = {}
@@ -214,6 +330,82 @@ def _impl_fused(args, at, lowering, block=None):
 
 
 # ---------------------------------------------------------------------------
+# quantized (int8) implementations, on repro_torch.core.quantize: exact
+# integer contractions, one f32 rescale at the epilogue.  lowering=
+# "kernel" launches the int8 CUDA kernel, anything else runs the torch
+# integer path; the two are bit-identical.
+# ---------------------------------------------------------------------------
+def _qimpl_matmul(args, at, qpack, lowering="native", block=None):
+    x, w = args[0], args[1]
+    wq, ws = qpack if qpack is not None else quantize.quantize_weights(w)
+    if lowering == "kernel":
+        return _kops().qmatmul(x, wq, ws.reshape(-1), **(block or {}))
+    return quantize.qmatmul(x, wq, ws.reshape(-1))
+
+
+def _qprep_matmul(at, consts):
+    w = consts.get(1)
+    if w is None:
+        return None
+    wq, ws = quantize.quantize_weights(w)
+    return wq, ws.reshape(-1)
+
+
+def _qimpl_dft(args, at, qpack, lowering="native", block=None):
+    if lowering == "kernel":
+        return _kops().qdft(args[0], **(block or {}))
+    return quantize.qdft(args[0])
+
+
+def _qimpl_idft(args, at, qpack, lowering="native", block=None):
+    if lowering == "kernel":
+        return _kops().qdft(args[0], inverse=True, **(block or {}))
+    return quantize.qidft(args[0])
+
+
+def _qimpl_fir(args, at, qpack, lowering="native", block=None):
+    if at["mode"] != "valid":            # guarded by qok
+        return functions.fir(args[0], args[1], mode=at["mode"],
+                             flip=at["flip"])
+    if lowering == "kernel":
+        qtaps = (qpack if qpack is not None
+                 else quantize.quantize_fir_taps(args[1], flip=at["flip"]))
+        return _kops().qfir(args[0], *qtaps, **(block or {}))
+    return quantize.qfir(args[0], args[1], flip=at["flip"], qtaps=qpack)
+
+
+def _qprep_fir(at, consts):
+    taps = consts.get(1)
+    if taps is None or at["mode"] != "valid":
+        return None
+    return quantize.quantize_fir_taps(taps, flip=at["flip"])
+
+
+def _qimpl_pfb_frontend(args, at, qpack, lowering="native", block=None):
+    # native only: the f32 kernel frontend rides pfb_fused with an
+    # identity DFT, which has no integer analogue (the identity would be
+    # quantized too); the torch int8 einsum is already integer compute
+    return quantize.qpfb_frontend(args[0], args[1] if len(args) > 1 else None,
+                                  qtaps=qpack)
+
+
+def _qimpl_pfb(args, at, qpack, lowering="native", block=None):
+    if lowering == "kernel":
+        qtaps = (qpack if qpack is not None
+                 else quantize.quantize_pfb_taps(args[1]))
+        return _kops().qpfb(args[0], *qtaps, **(block or {}))
+    return quantize.qpfb(args[0], args[1] if len(args) > 1 else None,
+                         qtaps=qpack)
+
+
+def _qprep_pfb(at, consts):
+    taps = consts.get(1)
+    if taps is None:
+        return None
+    return quantize.quantize_pfb_taps(taps)
+
+
+# ---------------------------------------------------------------------------
 # tune contexts
 # ---------------------------------------------------------------------------
 def _rows(shape) -> int:
@@ -306,7 +498,11 @@ register(OpDef(
     section="3.2", building_block="pointwise conv",
     eager=functions.matmul, oracle=lambda x, y: x @ y,
     make_args=_NN, table_name="matmul",
-    tune_space="matmul", tune_ctx=_ctx_matmul))
+    tune_space="matmul", tune_ctx=_ctx_matmul,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=28.0)),),
+    qimpl=_qimpl_matmul, qprep=_qprep_matmul,
+    q_lowerings=("native", "kernel"), qtune_space="matmul_int8"))
 
 register(OpDef(
     "summation",
@@ -327,7 +523,11 @@ register(OpDef(
     eager=functions.dft, oracle=lambda x: np.fft.fft(x),
     make_args=lambda rng, n: (
         rng.standard_normal((max(1, n // 8), n), dtype=np.float32),),
-    table_name="dft", tune_space="dft", tune_ctx=_ctx_dft))
+    table_name="dft", tune_space="dft", tune_ctx=_ctx_dft,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=26.0)),),
+    qimpl=_qimpl_dft,
+    q_lowerings=("native", "kernel"), qtune_space="dft_int8"))
 
 register(OpDef(
     "idft",
@@ -341,7 +541,11 @@ register(OpDef(
         rng.standard_normal((max(1, n // 8), n))
         + 1j * rng.standard_normal((max(1, n // 8), n))
     ).astype(np.complex64),),
-    table_name="idft", tune_space="dft", tune_ctx=_ctx_dft))
+    table_name="idft", tune_space="dft", tune_ctx=_ctx_dft,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=26.0)),),
+    qimpl=_qimpl_idft,
+    q_lowerings=("native", "kernel"), qtune_space="dft_int8"))
 
 register(OpDef(
     "fir",
@@ -353,7 +557,12 @@ register(OpDef(
     eager=functions.fir, oracle=_np_fir_valid,
     make_args=lambda rng, n: (_signal(rng, n),
                               rng.standard_normal((31,), dtype=np.float32)),
-    table_name="fir", tune_space="fir", tune_ctx=_ctx_fir))
+    table_name="fir", tune_space="fir", tune_ctx=_ctx_fir,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=30.0)),),
+    qimpl=_qimpl_fir, qprep=_qprep_fir,
+    qok=lambda at: at["mode"] == "valid",
+    q_lowerings=("native", "kernel"), qtune_space="fir_int8"))
 
 register(OpDef(
     "unfold",
@@ -365,7 +574,10 @@ register(OpDef(
     eager=functions.unfold, oracle=_np_unfold,
     make_args=lambda rng, n: (_signal(rng, n), 16),
     table_name="unfold", arg_attrs=("window",),
-    tune_space="unfold", tune_ctx=_ctx_unfold))
+    tune_space="unfold", tune_ctx=_ctx_unfold,
+    # precision-transparent: pure data movement, the f32 impl IS the
+    # int8 behavior, so int8 requests pass through instead of downgrading
+    precisions=("f32", "bf16", "int8")))
 
 register(OpDef(
     "overlap_add", _impl_overlap_add, ("native", "conv", "kernel"),
@@ -386,7 +598,10 @@ register(OpDef(
     eager=pfb.pfb_frontend, oracle=_np_pfb_frontend,
     make_args=lambda rng, n: (_signal(rng, n),
                               pfb.pfb_window(16, 8).astype(np.float32)),
-    table_name="pfb_frontend", tune_space="pfb", tune_ctx=_ctx_pfb))
+    table_name="pfb_frontend", tune_space="pfb", tune_ctx=_ctx_pfb,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=26.0)),),
+    qimpl=_qimpl_pfb_frontend, qprep=_qprep_pfb))
 
 register(OpDef(
     "pfb",
@@ -398,7 +613,11 @@ register(OpDef(
     eager=pfb.pfb, oracle=_np_pfb,
     make_args=lambda rng, n: (_signal(rng, n),
                               pfb.pfb_window(16, 8).astype(np.float32)),
-    table_name="pfb", tune_space="pfb", tune_ctx=_ctx_pfb))
+    table_name="pfb", tune_space="pfb", tune_ctx=_ctx_pfb,
+    precisions=("f32", "bf16", "int8"),
+    budgets=(("int8", Budget(sqnr_db=26.0)),),
+    qimpl=_qimpl_pfb, qprep=_qprep_pfb,
+    q_lowerings=("native", "kernel"), qtune_space="pfb_int8"))
 
 # ---------------------------------------------------------------------------
 # glue primitives (graph-only: no Table-1 row)
@@ -454,4 +673,5 @@ def table_ops() -> list[OpDef]:
     return [d for d in OPDEFS.values() if d.table_name is not None]
 
 
-__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register", "table_ops"]
+__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register", "table_ops",
+           "Budget", "sqnr_db", "bf16_round", "PRECISIONS"]

@@ -4,7 +4,7 @@ cached plans that run on the card.
   graph.py      declarative graph IR (a copy of the reference's, so
                 signatures hash the same) and ``load_graph``
   plan.py       planner: shape specialization, elementwise fusion,
-                lowering selection, memoized plans
+                lowering and precision selection, memoized plans
   pipelines.py  built-in workloads (``spectrogram``, ``pfb_power``,
                 ``fir_decimate``, ``stft_overlap_add``, ``correlate``,
                 ``cascaded_channelizer``)
@@ -15,6 +15,8 @@ Quick use::
     g = graph.build_pfb_power(n_branches=1024, n_taps=8)
     plan = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="kernel")
     power = plan(x)                     # x: a float32 tensor on the card
+    plan8 = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="kernel",
+                          precision="int8")   # the int8 kernels
 """
 from repro_torch.core.opdefs import OPDEFS, OpDef
 from repro_torch.graph import pipelines, plan

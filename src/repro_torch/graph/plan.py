@@ -1,10 +1,11 @@
 """Planner: shape-specialize a pipeline graph, fuse adjacent elementwise
 nodes, pick each node's lowering, and memoize the compiled plan.
 
-``compile(graph, shapes, lowering=..., device=...)`` returns a
-:class:`Plan`; the cache key is ``(graph.signature, input shapes and
-dtypes, device, lowering, block configs, fuse)``, so a second identical
-call is a dict lookup that returns the same Plan.
+``compile(graph, shapes, lowering=..., precision=..., device=...)``
+returns a :class:`Plan`; the cache key is ``(graph.signature, input
+shapes and dtypes, device, lowering, precision, quantize engine, block
+configs, fuse)``, so a second identical call is a dict lookup that
+returns the same Plan.
 
 Op catalog: every node's implementation, lowerings, attr schema and
 fusion trait come from :mod:`repro_torch.core.opdefs` (:data:`OPS` *is*
@@ -18,18 +19,30 @@ node that does not support the requested lowering runs ``native``, and
 the substitution is recorded on ``Plan.downgrades`` and warned once per
 graph.
 
+Precision: ``precision=`` is ``"f32"`` (default), ``"bf16"`` (inputs
+and output of every node rounded through bfloat16 around its f32 impl,
+any lowering), ``"int8"`` (the quantized impls of the matmul-shaped ops:
+const weights quantized once at compile onto the plan's device,
+``Plan.qconsts``; activations per call; ``kernel`` runs the int8 CUDA
+kernels where the op's ``q_lowerings`` has it, any other lowering the
+torch integer path), or a per-node dict.  A node that does not support
+the tier runs f32, recorded dimension-tagged on ``Plan.downgrades``
+(``"precision:int8"``, comma-joined with a ``"lowering:..."`` tag) and
+warned once per graph.
+
 Fusion: maximal runs of adjacent single-consumer elementwise nodes
 (at least two) collapse into one ``fused_ew`` node -- one launch of the
-chain kernel under ``kernel``.
+chain kernel under ``kernel``.  A dict precision is a fusion boundary:
+a run whose members ask for different tiers stays unfused.
 
 Device: plans run on ``"cuda"`` unless ``device=`` says otherwise;
 asking for CUDA without a card raises RuntimeError.  Graph consts become
 device tensors once, here, not per call.  Shape inference runs the
 native lowering on ``"meta"`` tensors.
 
-Not yet ported (each raises ValueError): ``precision`` other than
-``"f32"``, ``lowering="auto"``, ``block_configs="auto"``,
-``fuse="auto"`` and ``mesh``.
+Not yet ported (each raises ValueError): ``precision="auto"``,
+``lowering="auto"``, ``block_configs="auto"``, ``fuse="auto"`` and
+``mesh``.
 """
 from __future__ import annotations
 
@@ -41,21 +54,41 @@ import numpy as np
 import torch
 
 from repro_torch import obs, resolve_device
-from repro_torch.core.opdefs import OPDEFS
+from repro_torch.core import quantize
+from repro_torch.core.opdefs import OPDEFS, bf16_round
 from repro_torch.graph.graph import Graph, Node
 
 OPS = OPDEFS
 LOWERINGS = ("native", "conv", "kernel")
+TIERS = ("f32", "bf16", "int8", "auto")
 
 
 def apply_node(node: Node, args: Sequence[torch.Tensor], lowering: str,
-               block: dict | None = None) -> torch.Tensor:
-    """Execute one graph node through its OpDef (an unsupported lowering
-    runs native; the planner records such substitutions ahead of time)."""
+               block: dict | None = None, precision: str = "f32",
+               qpack=None) -> torch.Tensor:
+    """Execute one graph node through its OpDef.
+
+    An unsupported lowering runs native and an unsupported precision f32
+    (the planner records such substitutions ahead of time).  ``"int8"``
+    runs the op's quantized impl (``qpack``: the plan-built weight pack,
+    or None to quantize per call), its lowering limited to the op's
+    ``q_lowerings``; ``"bf16"`` rounds inputs and output through
+    bfloat16 around the f32 impl.  An op declaring a tier but no qimpl
+    is precision-transparent: its f32 impl is its behavior there."""
     d = OPS[node.op]
     at = d.bind(node.attr)
     if lowering not in d.lowerings:
         lowering = "native"
+    if precision not in (None, "f32") \
+            and not d.supports_precision(precision, at):
+        precision = "f32"
+    if precision == "int8" and d.qimpl is not None:
+        if lowering not in d.q_lowerings:
+            lowering = "native"
+        return d.qimpl(list(args), at, qpack, lowering, block)
+    if precision == "bf16":
+        args = [bf16_round(a) for a in args]
+        return bf16_round(d.impl(list(args), at, lowering, block))
     return d.impl(list(args), at, lowering, block)
 
 
@@ -75,16 +108,22 @@ def _const_tensor(value: np.ndarray, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _execute(graph: Graph, env: dict[str, torch.Tensor],
              lowerings: dict[str, str],
-             configs: dict[str, dict] | None = None):
+             configs: dict[str, dict] | None = None,
+             precisions: dict[str, str] | None = None,
+             qconsts: dict[str, tuple] | None = None):
     """Run ``graph`` from ``env`` (inputs and consts by name)."""
     configs = configs or {}
+    precisions = precisions or {}
+    qconsts = qconsts or {}
     env = dict(env)
     for node in graph.topo():
         if node.op in ("input", "const"):
             continue
         env[node.name] = apply_node(node, [env[i] for i in node.inputs],
                                     lowerings.get(node.name, "native"),
-                                    configs.get(node.name))
+                                    configs.get(node.name),
+                                    precisions.get(node.name, "f32"),
+                                    qconsts.get(node.name))
     outs = tuple(env[o] for o in graph.outputs)
     return outs[0] if len(outs) == 1 else outs
 
@@ -221,15 +260,27 @@ class Plan:
     configs: dict[str, dict] = dataclasses.field(default_factory=dict)
     # node name -> block config ({} = kernel defaults)
     downgrades: dict[str, str] = dataclasses.field(default_factory=dict)
-    # node name -> "lowering:<requested>" the node could not honor
+    # node name -> dimension-tagged request(s) the node could not honor:
+    # "lowering:kernel", "precision:int8", or both comma-joined
     consts: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     # graph consts, on the plan's device since compile
+    precisions: dict[str, str] = dataclasses.field(default_factory=dict)
+    # node name -> effective execution precision
+    qconsts: dict[str, tuple] = dataclasses.field(default_factory=dict)
+    # node name -> int8 (q, scale) weight pack, quantized once at compile
+    # on the plan's device by the OpDef's qprep
 
     @property
     def node_lowerings(self) -> dict[str, str]:
         """Effective per-node lowerings (requests a node doesn't support
         appear as ``native`` here and in :attr:`downgrades`)."""
         return self.lowerings
+
+    @property
+    def node_precisions(self) -> dict[str, str]:
+        """Effective per-node precisions (requested tiers a node doesn't
+        support appear as ``f32`` here and in :attr:`downgrades`)."""
+        return self.precisions
 
     def __call__(self, *args, **kwargs):
         arrays = list(args)
@@ -244,7 +295,8 @@ class Plan:
                     f"plan for {self.graph.name!r} was compiled for {name} "
                     f"{dtype}{shape}, got {t.dtype}{tuple(t.shape)}")
             env[name] = t
-        return _execute(self.graph, env, self.lowerings, self.configs)
+        return _execute(self.graph, env, self.lowerings, self.configs,
+                        self.precisions, self.qconsts)
 
 
 _CACHE: dict[tuple, Plan] = {}
@@ -271,21 +323,32 @@ def clear_cache() -> None:
 
 
 def _warn_downgrades(graph: Graph, downgrades: dict[str, str]) -> None:
-    """Warn once per (graph, downgrade set) that nodes fell back to
-    native: a requested-kernel-got-native plan must be visible."""
+    """Warn once per (graph, downgrade set) that nodes fell back, saying
+    which dimension did: a requested-kernel-got-native or requested-int8-
+    got-f32 plan must be visible."""
     key = (graph.name, tuple(sorted(downgrades.items())))
     if key in _WARNED_DOWNGRADES:
         return
     _WARNED_DOWNGRADES.add(key)
-    detail = ", ".join(
-        f"{name} ({graph.nodes[name].op}: requested "
-        f"{tag.partition(':')[2]!r}, supports "
-        f"{'/'.join(OPS[graph.nodes[name].op].lowerings)})"
-        for name, tag in sorted(downgrades.items()))
+    by_dim: dict[str, dict[str, str]] = {"lowering": {}, "precision": {}}
+    for name, tags in downgrades.items():
+        for tag in tags.split(","):
+            dim, _, req = tag.partition(":")
+            by_dim.setdefault(dim, {})[name] = req
+    parts = []
+    for dim, fallback, supports in (("lowering", "native", "lowerings"),
+                                    ("precision", "f32", "precisions")):
+        if by_dim[dim]:
+            detail = ", ".join(
+                f"{name} ({graph.nodes[name].op}: requested {req!r}, "
+                f"supports "
+                f"{'/'.join(getattr(OPS[graph.nodes[name].op], supports))})"
+                for name, req in sorted(by_dim[dim].items()))
+            parts.append(f"{len(by_dim[dim])} node(s) fell back to "
+                         f"{dim}={fallback!r}: {detail}")
     warnings.warn(
-        f"plan for {graph.name!r}: {len(downgrades)} node(s) fell back to "
-        f"lowering='native': {detail}; see Plan.downgrades / "
-        "Plan.node_lowerings", stacklevel=3)
+        f"plan for {graph.name!r}: " + "; ".join(parts)
+        + "; see Plan.downgrades / Plan.node_lowerings", stacklevel=3)
 
 
 def _dtype(d) -> torch.dtype:
@@ -320,7 +383,7 @@ class CompileOptions:
     lowering: object = "native"       # str | {node: str}
     block_configs: dict | None = None  # None | {node: {param: int}}
     fuse: bool = True
-    precision: str = "f32"
+    precision: object = "f32"          # str | {node: str}
     mesh: object = None
 
     def replace(self, **changes) -> "CompileOptions":
@@ -329,9 +392,15 @@ class CompileOptions:
 
 
 def _check_ported(o: CompileOptions) -> None:
-    if o.precision != "f32":
-        raise ValueError(f"precision={o.precision!r} is not yet ported "
-                         "(only 'f32'); see ROADMAP.md")
+    prec = o.precision if o.precision is not None else "f32"
+    tiers = set(prec.values()) if isinstance(prec, dict) else {prec}
+    bad = tiers - set(TIERS)
+    if bad:
+        raise ValueError(f"precision: unknown tier(s) {sorted(bad)}; "
+                         f"expected one of {TIERS} or a per-node dict")
+    if "auto" in tiers:
+        raise ValueError("precision='auto' (the budget-gated autotuner) is "
+                         "not yet ported; see ROADMAP.md")
     if o.lowering == "auto" or (isinstance(o.lowering, dict)
                                 and "auto" in o.lowering.values()):
         raise ValueError("lowering='auto' (the autotuner) is not yet ported; "
@@ -367,9 +436,10 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
 
     ``lowering``: one name for every node or a {node: lowering} dict
     (post- or pre-fusion names; a fused node honors its members' request
-    when they agree).  ``block_configs``: {node: {param: int}} kernel
-    block sizes, validated at the kernel boundary.  ``fuse``: collapse
-    elementwise chains (default True).
+    when they agree).  ``precision``: ``"f32"``, ``"bf16"``, ``"int8"``
+    or a {node: tier} dict (module docstring).  ``block_configs``:
+    {node: {param: int}} kernel block sizes, validated at the kernel
+    boundary.  ``fuse``: collapse elementwise chains (default True).
     """
     o = options or CompileOptions()
     if changes:
@@ -382,14 +452,20 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     elif isinstance(lowering, dict):
         lowering = {n: ("native" if lw == "reference" else lw)
                     for n, lw in lowering.items()}
+    precision = o.precision if o.precision is not None else "f32"
     specs = _norm_specs(graph, shapes, o.dtype)
     spec_key = tuple((n, specs[n][0], str(specs[n][1])) for n in graph.inputs)
     low_key = (tuple(sorted(lowering.items()))
                if isinstance(lowering, dict) else lowering)
+    prec_key = (tuple(sorted(precision.items()))
+                if isinstance(precision, dict) else precision)
     cfg_key = (tuple(sorted((n, tuple(sorted(c.items())))
                             for n, c in o.block_configs.items()))
                if o.block_configs else None)
-    key = (graph.signature, spec_key, str(device), low_key, cfg_key, o.fuse)
+    # the quantize engine is part of the key: an engine_override("ref")
+    # compile must not collide with the default "int" plans
+    key = (graph.signature, spec_key, str(device), low_key, prec_key,
+           quantize.engine(), cfg_key, o.fuse)
     plan = _CACHE.get(key)
     if plan is not None:
         _HITS.add()
@@ -397,6 +473,7 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     _MISSES.add()
     with obs.span("plan.compile", cat="compile", graph=graph.name,
                   device=str(device), lowering=str(low_key),
+                  precision=str(prec_key),
                   shapes=",".join(f"{n}:{specs[n][0]}"
                                   for n in graph.inputs)):
         for node in graph.topo():
@@ -410,22 +487,52 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
             except ValueError as e:
                 raise ValueError(f"{node.name}: {e}") from None
         avals = infer(graph, specs)
+
+        def req_prec(name: str) -> str:
+            """The precision requested for a (pre-fusion) node name."""
+            if not isinstance(precision, dict):
+                return precision
+            return precision.get(name, "f32")
+
         with obs.span("plan.fuse", cat="compile", graph=graph.name,
                       mode=str(o.fuse)):
-            g = fuse_elementwise(graph, avals) if o.fuse else graph
+            # precision boundaries are fusion boundaries: a fused node
+            # runs at ONE tier, so a run whose members ask for different
+            # tiers stays unfused
+            keep = (None if not isinstance(precision, dict) else
+                    lambda run: len({req_prec(n.name) for n in run}) == 1)
+            g = fuse_elementwise(graph, avals, keep=keep) if o.fuse else graph
 
         lowerings: dict[str, str] = {}
         downgrades: dict[str, str] = {}
-        for node in g.topo():
-            if node.op in ("input", "const"):
-                continue
+        precisions: dict[str, str] = {}
+
+        def tag_downgrade(name: str, dim: str, req: str) -> None:
+            tag = f"{dim}:{req}"
+            downgrades[name] = (f"{downgrades[name]},{tag}"
+                                if name in downgrades else tag)
+
+        def members_agree(node: Node, requests: dict):
+            """A fused node honors its members' request when they agree."""
+            req = {requests[m] for m in node.attr.get("members", ())
+                   if m in requests}
+            return req.pop() if len(req) == 1 else None
+
+        def req_prec_node(node: Node) -> str:
+            if not isinstance(precision, dict):
+                return precision
+            if node.name in precision:
+                return precision[node.name]
+            if node.op == "fused_ew":
+                return members_agree(node, precision) or "f32"
+            return "f32"
+
+        compute = [n for n in g.topo() if n.op not in ("input", "const")]
+        for node in compute:
             if isinstance(lowering, dict):
                 req = lowering.get(node.name)
                 if req is None and node.op == "fused_ew":
-                    members = {lowering[m]
-                               for m in node.attr.get("members", ())
-                               if m in lowering}
-                    req = members.pop() if len(members) == 1 else None
+                    req = members_agree(node, lowering)
             else:
                 req = lowering
             d = OPS[node.op]
@@ -434,23 +541,56 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
             else:
                 lowerings[node.name] = "native"
                 if req not in (None, "native") and not d.lowering_agnostic:
-                    downgrades[node.name] = f"lowering:{req}"
+                    tag_downgrade(node.name, "lowering", req)
+        for node in compute:
+            # int8 with a quantized impl keeps the lowering when the qimpl
+            # has it (q_lowerings: the int8 CUDA kernels); else it quietly
+            # runs native, the torch integer path -- not a downgrade, the
+            # integer path IS the tier.  An unsupported tier runs f32,
+            # recorded, unless the op is pure data movement.
+            rp = req_prec_node(node)
+            d = OPS[node.op]
+            if rp == "f32":
+                precisions[node.name] = "f32"
+            elif d.supports_precision(rp, d.bind(node.attr)):
+                precisions[node.name] = rp
+                if rp == "int8" and d.qimpl is not None \
+                        and lowerings[node.name] not in d.q_lowerings:
+                    lowerings[node.name] = "native"
+            else:
+                precisions[node.name] = "f32"
+                if not d.lowering_agnostic:
+                    tag_downgrade(node.name, "precision", rp)
         if downgrades:
             _DOWNGRADES.add(len(downgrades))
             _warn_downgrades(g, downgrades)
+
+        consts = {n.name: _const_tensor(g.consts[n.name], device)
+                  for n in g.topo() if n.op == "const"}
+        # quantize const weights ONCE, here, on the plan's device: the
+        # (q, scale) packs ride the Plan, calls quantize activations only
+        qconsts: dict[str, tuple] = {}
+        for node in compute:
+            d = OPS[node.op]
+            if precisions[node.name] != "int8" or d.qprep is None:
+                continue
+            qp = d.qprep(d.bind(node.attr),
+                         {i: consts[ref] for i, ref in enumerate(node.inputs)
+                          if ref in consts})
+            if qp is not None:
+                qconsts[node.name] = qp
 
         plan = Plan(graph=g, input_names=tuple(g.inputs),
                     lowerings=lowerings, key=key, device=device,
                     input_specs=specs,
                     configs={n: dict(c)
                              for n, c in (o.block_configs or {}).items()},
-                    downgrades=downgrades,
-                    consts={n.name: _const_tensor(g.consts[n.name], device)
-                            for n in g.topo() if n.op == "const"})
+                    downgrades=downgrades, consts=consts,
+                    precisions=precisions, qconsts=qconsts)
         _CACHE[key] = plan
     return plan
 
 
-__all__ = ["OPS", "LOWERINGS", "Plan", "CompileOptions", "apply_node",
+__all__ = ["OPS", "LOWERINGS", "TIERS", "Plan", "CompileOptions", "apply_node",
            "compile", "infer", "fuse_elementwise", "run_to_steps",
            "cache_stats", "clear_cache"]

@@ -53,6 +53,16 @@ SIGNATURES = {
     "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, y, out, M, N, K, bm, bn, bk, order_nm, stream
     "tina_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xq, yq, sx, sy, out, M, N, K, bm, bn, bk, stream
+    "tina_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xq, fr, fi, sx, sr, si, out, B, L, N, bm, bn, bk, stream
+    "tina_dft_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # x, tq, ts, out, rows, n, K, bn, threads, stream
+    "tina_fir_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # frames, tq, ts, qr, qi, sr, si, out, B, T, P, N, M, bt, bn, stream
+    "tina_pfb_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

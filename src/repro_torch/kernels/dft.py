@@ -15,12 +15,18 @@ whose imaginary plane is never formed ("null xi"): the real forward DFT
 of an STFT does half the work of a complex one.  The result is complex64.
 Unlike the TPU kernel there is no padding to block multiples: the kernel
 masks its ragged edges.
+
+:func:`dft_int8` is the int8 tier's real-signal DFT: ``tina_dft_int8`` in
+``csrc/qmatmul.cu`` replaces the reference's ``kernels/dft.py:dft_int8``
+(one int8 x block against the int8 Fr and Fi, two int32 accumulators);
+:func:`dft_int8_plain` is its function in plain torch, equal bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, tune
+from repro_torch.kernels import matmul as mm_kernel
 
 # Compiled tile shapes of csrc/dft.cu (rows x columns per block): the two
 # the default picks.  Others are added when a measured shape prefers them.
@@ -28,6 +34,7 @@ TILES = ((64, 64), (64, 32))
 VARIANTS = ("4mult", "3mult")
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
+INT8_LAUNCHES = 0   # the same for dft_int8
 
 # ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limit: a compiled
 # tile shape (the shared-memory chunks are fixed at 25 KB at most).
@@ -107,5 +114,78 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
     return out
 
 
+# -- int8 ------------------------------------------------------------------
+# Compiled tile of tina_dft_int8 (bm, bn, bk): 256 threads, a 4 x 4 int32
+# micro-tile per thread for each of Fr and Fi, L in chunks of 32 int8.
+TILES_INT8 = ((64, 64, 32),)
+
+# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limits: the compiled
+# tile (6.1 KB of static shared memory, far inside the 227 KB a block may
+# have) and L <= MAX_INT8_K.  ops.qdft runs a complex input's four
+# products through matmul_int8 at the same tile.
+TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
+    kernel="dft_int8",
+    params=("bm", "bn", "bk"),
+    candidates=lambda ctx: tuple({"bm": bm, "bn": bn, "bk": bk}
+                                 for bm, bn, bk in TILES_INT8),
+    valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"], cfg["bk"]) in TILES_INT8
+                            and ctx["k"] <= mm_kernel.MAX_INT8_K),
+    default=lambda ctx: {"bm": 64, "bn": 64, "bk": 32},
+))
+
+
+def dft_int8_plain(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+                   sx: torch.Tensor, sr: torch.Tensor,
+                   si: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: complex64 (B, N) =
+    (xq @ fr · sx) · sr + i (xq @ fi · sx) · si, exact int32 sums."""
+    return torch.complex(mm_kernel.matmul_int8_plain(xq, fr, sx, sr),
+                         mm_kernel.matmul_int8_plain(xq, fi, sx, si))
+
+
+def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
+             sx: torch.Tensor, sr: torch.Tensor, si: torch.Tensor, *,
+             bm: int = 64, bn: int = 64, bk: int = 32) -> torch.Tensor:
+    """Real-signal int8 DFT: xq (B, L) int8 rows with per-row scales sx
+    (B,); fr / fi (L, N) the int8 Fourier matrix with per-column scales
+    sr / si (N,) -> complex64 (B, N).
+
+    A CPU tensor runs :func:`dft_int8_plain`; a CUDA tensor launches the
+    kernel on the current stream or raises."""
+    if xq.ndim != 2 or fr.ndim != 2 or xq.shape[1] != fr.shape[0]:
+        raise ValueError(f"dft_int8: shapes {tuple(xq.shape)} @ "
+                         f"{tuple(fr.shape)}")
+    b, l = xq.shape
+    n = fr.shape[1]
+    dev = xq.device
+    if dev.type == "cpu":
+        return dft_int8_plain(xq, fr, fi, sx, sr, si)
+    if dev.type != "cuda":
+        raise ValueError(f"dft_int8: no kernel for device {dev}")
+    mm_kernel.check_int8_args(
+        "dft_int8", dev, xq=(xq, torch.int8, (b, l)),
+        fr=(fr, torch.int8, (l, n)), fi=(fi, torch.int8, (l, n)),
+        sx=(sx, torch.float32, (b,)), sr=(sr, torch.float32, (n,)),
+        si=(si, torch.float32, (n,)))
+    if (bm, bn, bk) not in TILES_INT8:
+        raise ValueError(f"dft_int8: tile {(bm, bn, bk)} not compiled; "
+                         f"have {TILES_INT8}")
+    if not 0 < l <= mm_kernel.MAX_INT8_K:
+        raise ValueError(f"dft_int8: L = {l} outside "
+                         f"1..{mm_kernel.MAX_INT8_K}")
+    out = torch.empty((b, n), device=dev, dtype=torch.complex64)
+    if out.numel() == 0:
+        return out
+    code = _build.lib().tina_dft_int8(
+        xq.data_ptr(), fr.data_ptr(), fi.data_ptr(), sx.data_ptr(),
+        sr.data_ptr(), si.data_ptr(), out.data_ptr(), b, l, n, bm, bn, bk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    global INT8_LAUNCHES
+    INT8_LAUNCHES += 1
+    _build.check(code, "dft_int8")
+    return out
+
+
 __all__ = ["dft", "dft_plain", "TUNE_SPACE", "TILES", "VARIANTS",
-           "LAUNCHES"]
+           "LAUNCHES", "dft_int8", "dft_int8_plain", "TUNE_SPACE_INT8",
+           "TILES_INT8", "INT8_LAUNCHES"]

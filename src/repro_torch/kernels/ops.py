@@ -12,6 +12,13 @@ The P x P Fourier matrix is built once per (P, device) and kept: under
 ``jit`` the reference folded it into a constant, and rebuilding it per
 call here would be a host-to-device copy of 8 MB at P = 1024.
 
+The int8 wrappers (:func:`qmatmul`, :func:`qdft`, :func:`qfir`,
+:func:`qpfb`) quantize activations with the same
+:func:`~repro_torch.core.quantize.quantize_symmetric` as the torch
+integer path (or inside the kernel, per window), so every one of them is
+bit-identical to it; the int8 Fourier matrix is quantized once per
+(n, inverse) and uploaded once per device.
+
 Unlike the reference's wrappers these do not pad to block multiples:
 the kernels mask their own ragged edges.  A kernel takes contiguous
 inputs, so a wrapper handed a strided view (``frame_decimate`` after
@@ -25,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import quantize
 from repro_torch.kernels import dft as dft_kernel
 from repro_torch.kernels import elementwise as ew_kernel
 from repro_torch.kernels import fir as fir_kernel
@@ -248,6 +256,93 @@ def overlap_add(frames: torch.Tensor, hop: int, *,
     return out.reshape(batch + (out.shape[-1],))
 
 
+# ---------------------------------------------------------------------------
+# int8 wrappers: the qimpl lowering targets
+# ---------------------------------------------------------------------------
+def qmatmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *,
+            bm: int | None = None, bn: int | None = None,
+            bk: int | None = None) -> torch.Tensor:
+    """x (..., L) float against an int8 (L, N) weight with per-column
+    scales: per-row activation quantization (quantize.qmatmul's
+    convention), then one launch of the int8 GEMM."""
+    l = x.shape[-1]
+    n = wq.shape[1]
+    cfg = _resolve(mm_kernel.TUNE_SPACE_INT8,
+                   {"m": tune.leading_rows(x.shape), "n": n, "k": l},
+                   bm=bm, bn=bn, bk=bk)
+    xq, sx = quantize.quantize_symmetric(x.reshape((-1, l)), axis=-1)
+    out = mm_kernel.matmul_int8(xq, wq.contiguous(), sx.reshape(-1),
+                                w_scale.reshape(-1).contiguous(), **cfg)
+    return out.reshape(x.shape[:-1] + (n,))
+
+
+def qdft(x: torch.Tensor, *, inverse: bool = False, bm: int | None = None,
+         bn: int | None = None, bk: int | None = None) -> torch.Tensor:
+    """(I)DFT with the int8-quantized Fourier matrix: a real signal runs
+    the shared-x dft_int8 kernel (one launch, both matrices); a complex
+    one expands to the 4-real-matmul form through four launches of
+    matmul_int8, its real and imaginary rows quantized once each.  Each
+    product is rounded to f32 before the cross-term combine."""
+    n = x.shape[-1]
+    qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(x.device))
+    cfg = _resolve(dft_kernel.TUNE_SPACE_INT8,
+                   {"m": tune.leading_rows(x.shape), "n": n, "k": n},
+                   bm=bm, bn=bn, bk=bk)
+    x2 = x.reshape((-1, n))
+    if x2.is_complex():
+        zrq, szr = quantize.quantize_symmetric(
+            x2.real.to(torch.float32), axis=-1)
+        ziq, szi = quantize.quantize_symmetric(
+            x2.imag.to(torch.float32), axis=-1)
+        szr, szi = szr.reshape(-1), szi.reshape(-1)
+
+        def mm(xq, sx, wq, sw):
+            return mm_kernel.matmul_int8(xq, wq, sx, sw, **cfg)
+
+        out = torch.complex(mm(zrq, szr, qr, sr) - mm(ziq, szi, qi, si),
+                            mm(zrq, szr, qi, si) + mm(ziq, szi, qr, sr))
+    else:
+        xq, sx = quantize.quantize_symmetric(x2, axis=-1)
+        out = dft_kernel.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si, **cfg)
+    return out.reshape(x.shape[:-1] + (n,))
+
+
+def qfir(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
+         bn: int | None = None, threads: int | None = None) -> torch.Tensor:
+    """'valid' FIR against a quantize_fir_taps pack ((K, 1) int8 taps,
+    already reversed for a true FIR, and their (1, 1) scale); each window
+    is quantized inside the kernel."""
+    k = tq.shape[0]
+    n = x.shape[-1]
+    cfg = _resolve(fir_kernel.TUNE_SPACE_INT8,
+                   {"k": k, "n": n, "rows": tune.leading_rows(x.shape)},
+                   bn=bn, threads=threads)
+    out = fir_kernel.fir_valid_int8(
+        x.reshape((-1, n)).contiguous(), tq.reshape(-1).contiguous(),
+        ts.reshape(1).contiguous(), **cfg)
+    return out.reshape(x.shape[:-1] + (n - k + 1,))
+
+
+def qpfb(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
+         bt: int | None = None, bn: int | None = None) -> torch.Tensor:
+    """Full fused int8 PFB against a quantize_pfb_taps pack ((M, P) int8
+    reversed prototype and its (1, P) scales): (..., n_samples) ->
+    complex64 (..., n_frames − M + 1, P), one kernel launch."""
+    m, p = tq.shape
+    if x.shape[-1] % p:
+        raise ValueError(f"n_samples {x.shape[-1]} not divisible by P={p}")
+    batch = x.shape[:-1]
+    frames = _frames(x.to(torch.float32), p)
+    t = frames.shape[1]
+    cfg = _resolve(pfb_kernel.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t},
+                   bt=bt, bn=bn)
+    qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(frames.device))
+    z = pfb_kernel.pfb_fused_int8(frames, tq.contiguous(),
+                                  ts.reshape(-1).contiguous(), qr, qi, sr, si,
+                                  **cfg)
+    return z.reshape(batch + (t - m + 1, p))
+
+
 __all__ = ["matmul", "fir", "pfb_fir", "pfb", "fused_elementwise", "abs2",
            "elementwise_mult", "elementwise_add", "dft", "unfold",
-           "overlap_add"]
+           "overlap_add", "qmatmul", "qdft", "qfir", "qpfb"]
