@@ -12,9 +12,14 @@ Prints one JSON line per phase:
 
   card      the card's name and power limit (``nvidia-smi``), versions
   build     seconds spent building ``src/repro_torch/csrc/*.cu`` with nvcc
+  sass      the warpgroup MMA instructions (HGMMA, IGMMA) that
+            ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` (the
+            3xTF32 DFT) and ``tina_matmul_int8`` (the s8 GEMM); none fails
   kernel    each kernel against its plain version at ragged shapes
             (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
-            taken in another order; matmul the same, at the JAX suite's
+            taken in another order, the DFT at every compiled tile, with
+            the staging of x each case took and rows that start
+            unaligned; matmul the same, at the JAX suite's
             shapes, every compiled tile and both grid orders; chain
             (complex and real abs2 heads), binary, unfold, overlap-add
             and FIR: exact equality -- the FIR at K = 1 to 4097, with
@@ -34,7 +39,9 @@ Prints one JSON line per phase:
             with the native plan (1e-4 of its max) and with the numpy
             oracle on batch row 0 (2e-3 of its max), each kernel held
             against its plain version at the shape the path gives it (the
-            kernel phase's tolerances), median times of 20 calls of the
+            kernel phase's tolerances), the DFT of ``stft_overlap_add``
+            (forward and inverse) and ``spectrogram`` also against a
+            float64 product (1e-5 of its max), median times of 20 calls of the
             plan, the native plan, each kernel alone at the shape the
             path gives it, its plain version, and the one PyTorch call
             that computes the same function (``F.conv1d`` without TF32
@@ -54,7 +61,8 @@ Prints one JSON line per phase:
             its plain version on the row's inputs
   int8_kernels  the four int8 kernels against their plain versions, bit
             for bit: ragged M, N, K (K < 4, K % 4 != 0), every compiled
-            tile, rows not 4-byte aligned, +-127 operands at K = 2048
+            tile, yq's K-major copy made per call and passed in, rows not
+            16-byte aligned, +-127 operands at K = 2048
             against an int64 sum, the int8 DFM both ways, K = 1 to 4097
             taps both orientations, P = 16, 20, 48 and 1024, and inputs
             whose x / scale quotients are exact half-integers
@@ -98,15 +106,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 bytes/s and
-# fp32 FMA-pipe flop/s (no tensor cores: the kernels run full fp32).
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 bytes/s,
+# fp32 FMA-pipe flop/s, and the TF32 and int8 tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12   # dense TF32 tensor-core flop/s
 PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core ops/s (a MAC is 2)
 REPEATS = 20
 SPIN_CYCLES = 20_000_000   # ~10 ms of GPU clock: covers a run's enqueue
 PFB_RTOL = 1e-4       # fp32 sums of P*M terms in another order
 DFT_RTOL = 1e-4       # fp32 sums of n terms in another order
+DFT_F64_RTOL = 1e-5   # the 3xTF32 DFT against a float64 product (one TF32
+                      # pass would be near 1e-3)
 NATIVE_RTOL = 1e-4    # kernel plan vs native plan on the card
 ORACLE_RTOL = 2e-3    # the reference suite's pipeline-vs-oracle tolerance
 MM_RTOL = 1e-4        # fp32 sums of K terms in another order
@@ -208,6 +219,13 @@ def bound(nbytes: int, flops: int, peak: float = PEAK_F32_FLOPS
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
+def bound_3xtf32(nbytes: int, flops: int) -> tuple[float, str]:
+    """The bound of the 3xTF32 DFT: each fp32 product runs as three TF32
+    products on the tensor cores (3 x its flops at the TF32 peak), or its
+    bytes."""
+    return bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+
+
 def bound8(nbytes: int, ops: int) -> tuple[float, str]:
     """The bound of an int8 kernel: its int8 multiply-adds (2 ops each)
     at the int8 tensor-core peak, or its bytes."""
@@ -263,6 +281,79 @@ def hold(torch, what, got, want, rtol=None) -> float:
     if rtol is not None and not err <= rtol * scale:
         fail(f"{what}: {err} > {rtol} * {scale}")
     return err
+
+
+def tc_kernel(mangled: str):
+    """(entry point, label) of a tensor-core kernel of tina_dft or
+    tina_matmul_int8 from its mangled name, else None; the DFT's label
+    carries its template flags, <complex x, 3mult>."""
+    if "dft_tf32_kernel" in mangled:
+        args = mangled.split("_kernel", 1)[1].split("Ev", 1)[0]
+        flags = ",".join(f for f in args if f in "01")
+        return "tina_dft", f"dft_tf32_kernel<{flags}>"
+    if "qmatmul_cu" in mangled and "matmul_kernel" in mangled:
+        return "tina_matmul_int8", "matmul_kernel"
+    return None
+
+
+def wgmma_counts(lib_path) -> dict:
+    """{entry point: {kernel: {"HGMMA"/"IGMMA": count}}}: the warpgroup
+    MMA instructions in the SASS of tina_dft's and tina_matmul_int8's
+    kernels in the built library, from ``cuobjdump -sass``."""
+    import os
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, fn = {"tina_dft": {}, "tina_matmul_int8": {}}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = tc_kernel(m.group(1))
+            fn = out[k[0]].setdefault(k[1], {}) if k else None
+            continue
+        op = re.search(r"\b([HI]GMMA)\.", line)
+        if fn is not None and op:
+            fn[op.group(1)] = fn.get(op.group(1), 0) + 1
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers", "spill_bytes"}} of tina_dft's and
+    tina_matmul_int8's kernels, from the build's ``-Xptxas -v`` log."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = tc_kernel(m.group(1))
+            name = k[1] if k else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def dft_f64_err(torch, x, fr, fi, got) -> float:
+    """max|got - x (fr + i fi)| over max|x (fr + i fi)|, the product taken
+    in float64 on the same f32 inputs: 3xTF32 keeps it near 1e-6, one TF32
+    pass would be near 1e-3."""
+    xd = x.to(torch.complex128)
+    frd, fid = fr.double(), fi.double()
+    want = torch.complex(xd.real @ frd - xd.imag @ fid,
+                         xd.real @ fid + xd.imag @ frd)
+    g, w = torch.view_as_real(got).double(), torch.view_as_real(want)
+    return ((g - w).abs().max() / w.abs().max()).item()
 
 
 def main() -> int:
@@ -329,6 +420,15 @@ def main() -> int:
          nvcc_seconds=_build.BUILD_INFO.get("seconds"),
          cached=_build.BUILD_INFO.get("cached"),
          sources=[str(s.relative_to(ROOT)) for s in _build.sources()])
+
+    # -- the tensor-core kernels' SASS holds warpgroup MMAs -----------------
+    mma = wgmma_counts(_build.build())
+    for entry, op in (("tina_dft", "HGMMA"), ("tina_matmul_int8", "IGMMA")):
+        if not mma[entry] or not all(c.get(op, 0) > 0
+                                     for c in mma[entry].values()):
+            fail(f"{entry}: a kernel without {op} in its SASS: {mma[entry]}")
+    emit(phase="sass", wgmma_instructions=mma,
+         ptxas=ptxas_usage(_build.BUILD_INFO.get("ptxas", "")))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -415,29 +515,51 @@ def main() -> int:
             if not ok:
                 fail(f"elementwise_{op} y {tuple(y.shape)}: not bit-"
                      "identical to plain")
-    # DFT: every ragged case, both variants, real and complex, both ways
+    # DFT: every ragged case, both variants, real and complex, both ways,
+    # every compiled tile; rows that do not start 16-byte aligned
     for rows in (1, 37, 8188):
         for n in (7, 64, 1024):
-            worst = 0.0
+            worst, staged = 0.0, {}
             for cplx in (False, True):
                 x = randn(rows, n,
                           dtype=torch.complex64 if cplx else torch.float32)
+                staged["complex" if cplx else "real"] = dftk.staging(x)
                 for inverse in (False, True):
                     fr, fi = functions._dfm_tensors(n, inverse,
                                                     torch.float32, str(dev))
                     for variant in dftk.VARIANTS:
-                        got = ops.dft(x, fr, fi, variant=variant)
-                        torch.cuda.synchronize()
                         want = dftk.dft_plain(x, fr, fi, variant)
-                        err, scale = rel_err(torch, got, want)
-                        worst = max(worst, err / scale)
-                        if err > DFT_RTOL * scale:
-                            fail(f"dft rows={rows} n={n} complex={cplx} "
-                                 f"inverse={inverse} {variant}: {err} > "
-                                 f"{DFT_RTOL} * {scale}")
+                        for bm, bn in dftk.TILES:
+                            got = ops.dft(x, fr, fi, variant=variant, bm=bm,
+                                          bn=bn)
+                            torch.cuda.synchronize()
+                            err, scale = rel_err(torch, got, want)
+                            worst = max(worst, err / scale)
+                            if err > DFT_RTOL * scale:
+                                fail(f"dft rows={rows} n={n} complex={cplx}"
+                                     f" inverse={inverse} {variant} tile "
+                                     f"{(bm, bn)}: {err} > {DFT_RTOL} * "
+                                     f"{scale}")
             emit(phase="kernel", kernel="dft", rows=rows, n=n,
                  cases="real+complex x forward+inverse x 4mult+3mult",
+                 tiles=[list(t) for t in dftk.TILES], staging=staged,
                  max_rel_err=worst, ok=True)
+    fr, fi = functions._dfm_tensors(1024, False, torch.float32, str(dev))
+    for cplx in (False, True):
+        dt = torch.complex64 if cplx else torch.float32
+        x = randn(300, 1024, dtype=dt)
+        buf = torch.empty(300 * 1024 + 1, dtype=dt, device=dev)
+        xs = buf[1:].view(300, 1024)
+        xs.copy_(x)
+        got = ops.dft(xs, fr, fi, variant="4mult")
+        want = ops.dft(x, fr, fi, variant="4mult")
+        if not torch.equal(got, want):
+            fail(f"dft complex={cplx}: an unaligned start ({dftk.staging(xs)})"
+                 f" differs from the aligned rows ({dftk.staging(x)})")
+    emit(phase="kernel", kernel="dft", rows=300, n=1024,
+         cases="rows not 16-byte aligned, real and complex: the padded "
+               "copy equals the direct TMA read bit for bit",
+         staging=dftk.staging(xs), ok=True)
     # FIR: the plain version's ascending-k sum, bit for bit; K = 1 to more
     # than a tap chunk, ragged rows and lengths, implicit 'same'/'full'
     # pads, taps as given and reversed (flip)
@@ -666,13 +788,26 @@ def main() -> int:
     xr = fw.reshape(-1, j)
     fr, fi = functions._dfm_tensors(j, False, torch.float32, str(dev))
     ir, ii = functions._dfm_tensors(j, True, torch.float32, str(dev))
+    # the kernel's TF32 planes of the DFM, made once as the plan makes them
+    pf = functions._dfm_tf32_tensors(j, False, "4mult", str(dev))
+    pi = functions._dfm_tf32_tensors(j, True, "4mult", str(dev))
     ucfg = ops._resolve(unfk.TUNE_SPACE, {"j": j, "n": n, "rows": b})
     dcfg = ops._resolve(dftk.TUNE_SPACE, {"m": b * t, "n": j, "k": j})
     ocfg = ops._resolve(unfk.OLA_TUNE_SPACE, {"j": j, "hop": hop,
                                              "k": j // hop, "t": t,
                                              "rows": b})
-    z = dftk.dft(xr, fr, fi, variant="4mult", **dcfg)
-    zinv = dftk.dft(z, ir, ii, variant="4mult", **dcfg)
+    z = dftk.dft(xr, fr, fi, variant="4mult", planes=pf, **dcfg)
+    zinv = dftk.dft(z, ir, ii, variant="4mult", planes=pi, **dcfg)
+    f64 = {"forward": dft_f64_err(torch, xr, fr, fi, z),
+           "inverse": dft_f64_err(torch, z, ir, ii, zinv)}
+    if not max(f64.values()) <= DFT_F64_RTOL:
+        fail(f"stft dft vs float64: {f64} > {DFT_F64_RTOL} of max")
+    # the fp32 plain version on the same inputs, for scale
+    plain_f64 = {
+        "forward": dft_f64_err(torch, xr, fr, fi,
+                               dftk.dft_plain(xr, fr, fi, "4mult")),
+        "inverse": dft_f64_err(torch, z, ir, ii,
+                               dftk.dft_plain(z, ir, ii, "4mult"))}
     r = zinv.real.contiguous().reshape(b, t, j)
     rw = ew.elementwise_mult(r, win)
     # each kernel against its plain version at these shapes, before timing
@@ -716,9 +851,11 @@ def main() -> int:
         "elementwise_binary_library": both(lambda: torch.mul(fd, win),
                                            lambda: torch.mul(r, win)),
         "dft_forward": device_ms(
-            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", **dcfg)),
+            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", planes=pf,
+                                    **dcfg)),
         "dft_inverse": device_ms(
-            torch, lambda: dftk.dft(z, ir, ii, variant="4mult", **dcfg)),
+            torch, lambda: dftk.dft(z, ir, ii, variant="4mult", planes=pi,
+                                    **dcfg)),
         "dft_plain": both(lambda: dftk.dft_plain(xr, fr, fi, "4mult"),
                           lambda: dftk.dft_plain(z, ir, ii, "4mult")),
         "dft_library": both(lambda: torch.fft.fft(xr),
@@ -749,9 +886,18 @@ def main() -> int:
          hop=hop, frames=rows_f, tiles={"unfold": ucfg, "dft": dcfg,
                                         "overlap_add": ocfg},
          max_abs_err_vs_plain=errs, ms=ms, plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
-         plan_bound_ms=sum(bound(*c)[0] for c in cost.values()),
+         plan_bound_ms=sum((bound_3xtf32 if k == "dft" else bound)(*c)[0]
+                           for k, c in cost.items()),
          unfold_gb_s=cost["unfold"][0] / (ms["unfold"] * 1e-3) / 1e9,
          dft_achieved_tflops=cost["dft"][1] / (ms["dft"] * 1e-3) / 1e12,
+         dft_achieved_tf32_tflops=3 * cost["dft"][1] / (ms["dft"] * 1e-3)
+         / 1e12,
+         dft_bound_ms={"3xtf32": bound_3xtf32(*cost["dft"])[0],
+                       "fp32_pipe": bound(*cost["dft"])[0]},
+         dft_max_rel_err_vs_float64=f64,
+         dft_plain_max_rel_err_vs_float64=plain_f64,
+         dft_staging={"forward": dftk.staging(xr),
+                      "inverse": dftk.staging(z)},
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     table["stft"] = dict(launches=info["launches_per_call"], ms=ms,
                          cost=cost, err=errs)
@@ -772,8 +918,13 @@ def main() -> int:
     fw = ew.elementwise_mult(frames, win)
     xr = fw.reshape(-1, j)
     fr, fi = functions._dfm_tensors(j, False, torch.float32, str(dev))
+    pf = functions._dfm_tf32_tensors(j, False, "4mult", str(dev))
     dcfg = ops._resolve(dftk.TUNE_SPACE, {"m": xr.shape[0], "n": j, "k": j})
-    z = dftk.dft(xr, fr, fi, variant="4mult", **dcfg)
+    z = dftk.dft(xr, fr, fi, variant="4mult", planes=pf, **dcfg)
+    spec_f64 = dft_f64_err(torch, xr, fr, fi, z)
+    if not spec_f64 <= DFT_F64_RTOL:
+        fail(f"spectrogram dft vs float64: {spec_f64} > {DFT_F64_RTOL} of "
+             "max")
     steps = (("scale", 1.0 / j),)
     # each kernel against its plain version at these shapes, before timing
     spec_errs = {
@@ -804,7 +955,8 @@ def main() -> int:
         "elementwise_binary_library": device_ms(
             torch, lambda: torch.mul(frames, win)),
         "dft": device_ms(
-            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", **dcfg)),
+            torch, lambda: dftk.dft(xr, fr, fi, variant="4mult", planes=pf,
+                                    **dcfg)),
         "dft_plain": device_ms(
             torch, lambda: dftk.dft_plain(xr, fr, fi, "4mult")),
         "dft_library": device_ms(torch, lambda: torch.fft.fft(xr)),
@@ -819,10 +971,14 @@ def main() -> int:
     emit(phase="main", path="spectrogram", x=list(SPEC_X), window=j,
          frames=nf, tiles={"unfold": ucfg, "dft": dcfg},
          max_abs_err_vs_plain=spec_errs, ms=ms,
+         dft_max_rel_err_vs_float64=spec_f64, dft_staging=dftk.staging(xr),
+         dft_bound_ms={"3xtf32": bound_3xtf32(*dft_cost(nf, j, j, False))[0],
+                       "fp32_pipe": bound(*dft_cost(nf, j, j, False))[0]},
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          plan_bound_ms=sum(bound(*c)[0] for c in (
              (4 * (b * n + nf * j), 0), (4 * (2 * nf * j + j), nf * j),
-             dft_cost(nf, j, j, False), (12 * nf * j, 4 * nf * j))),
+             (12 * nf * j, 4 * nf * j)))
+         + bound_3xtf32(*dft_cost(nf, j, j, False))[0],
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     del plan, native, x, frames, fw, xr, z
 
@@ -1054,8 +1210,8 @@ def main() -> int:
                       firk.TUNE_SPACE.params, None),
         "matmul": (mmk, "matmul", mmk.matmul_plain, mmk.TUNE_SPACE.params,
                    MM_RTOL),
-        "dft": (dftk, "dft", dftk.dft_plain, dftk.TUNE_SPACE.params,
-                DFT_RTOL),
+        "dft": (dftk, "dft", dftk.dft_plain,
+                dftk.TUNE_SPACE.params + ("planes",), DFT_RTOL),
         "unfold": (unfk, "unfold", unfk.unfold_plain, unfk.TUNE_SPACE.params,
                    None),
         "overlap_add": (unfk, "overlap_add", unfk.overlap_add_plain,
@@ -1260,17 +1416,22 @@ def main() -> int:
         return xq, wq, sx.reshape(-1), ws.reshape(-1)
 
     # matmul_int8: M, N, K not tile multiples, K below 4 and not a
-    # multiple of 4, every compiled tile; rows that do not start 4-byte
-    # aligned; the saturated headroom case at K = 2048
+    # multiple of 4 or 16, every compiled tile, yq's K-major copy made by
+    # the wrapper and by the caller; rows that do not start aligned; the
+    # saturated headroom case at K = 2048
     for m, k, n in ((1, 1, 1), (257, 129, 255), (300, 100, 50), (70, 3, 33),
-                    (130, 4097, 67)):
+                    (130, 4097, 67), (200, 2048, 384)):
         xq, wq, sx, ws = int8_pair(m, k, n)
+        wt = wq.t().contiguous()
         want = mmk.matmul_int8_plain(xq, wq, sx, ws)
         for bm, bn, bk in mmk.TILES_INT8:
-            hold(torch, f"matmul_int8 {(m, k, n)} tile {(bm, bn, bk)}",
-                 mmk.matmul_int8(xq, wq, sx, ws, bm=bm, bn=bn, bk=bk), want)
+            for yt in (None, wt):
+                hold(torch, f"matmul_int8 {(m, k, n)} tile {(bm, bn, bk)}",
+                     mmk.matmul_int8(xq, wq, sx, ws, yt=yt, bm=bm, bn=bn,
+                                     bk=bk), want)
         emit(phase="int8_kernels", kernel="matmul_int8", mkn=[m, k, n],
-             tiles=[list(t) for t in mmk.TILES_INT8], exact=True)
+             tiles=[list(t) for t in mmk.TILES_INT8],
+             staging=mmk.int8_staging(xq, wt), exact=True)
     xq, wq, sx, ws = int8_pair(64, 2048, 96)
     buf = torch.empty(64 * 2048 + 1, dtype=torch.int8, device=dev)
     xs = buf[1:].view(64, 2048)
@@ -1297,6 +1458,8 @@ def main() -> int:
     emit(phase="int8_kernels", kernel="matmul_int8",
          cases="unaligned rows; +-127 at K = 2048 (max |acc| "
                f"{int(acc64.abs().max())}) against an int64 sum",
+         staging={"unaligned rows": mmk.int8_staging(xs, wq.t()),
+                  "headroom": mmk.int8_staging(sat, wsat.t())},
          exact=True)
     # dft_int8: ragged rows and widths, forward and inverse int8 DFM
     for rows in (1, 37, 8188):
@@ -1575,13 +1738,21 @@ def main() -> int:
     serr = {"dft_int8": hold(torch, "int8 stft dft_int8", z,
                              dftk.dft_int8_plain(xq, qr, qi, sx, sr, si))}
     ir, isr, ii, isi = quantize._qdfm_tensors(j, True, str(dev))
+    irt, iit = quantize._qdfm_kmajor(j, True, str(dev))
     zrq, szr = quantize.quantize_symmetric(z.real, axis=-1)
     ziq, szi = quantize.quantize_symmetric(z.imag, axis=-1)
-    prods = [(zrq, ir, szr.reshape(-1), isr), (ziq, ii, szi.reshape(-1), isi),
-             (zrq, ii, szr.reshape(-1), isi), (ziq, ir, szi.reshape(-1), isr)]
+    # the idft's four products, each with the DFM's K-major copy, at a
+    # tile of matmul_int8's own space (ops.qdft resolves it there)
+    prods = [(zrq, ir, szr.reshape(-1), isr, irt),
+             (ziq, ii, szi.reshape(-1), isi, iit),
+             (zrq, ii, szr.reshape(-1), isi, iit),
+             (ziq, ir, szi.reshape(-1), isr, irt)]
+    mcfg = ops._resolve(mmk.TUNE_SPACE_INT8,
+                        {"m": zrq.shape[0], "n": j, "k": j})
     serr["matmul_int8"] = max(
         hold(torch, "int8 stft idft matmul_int8",
-             mmk.matmul_int8(*pr, **dcfg), mmk.matmul_int8_plain(*pr))
+             mmk.matmul_int8(*pr[:4], yt=pr[4], **mcfg),
+             mmk.matmul_int8_plain(*pr[:4]))
         for pr in prods)
     before = counts()
     ms.update({
@@ -1592,10 +1763,10 @@ def main() -> int:
         "dft_int8_library": device_ms(
             torch, lambda: (int_mm(xq, qr_cm), int_mm(xq, qi_cm))),
         "matmul_int8": sum(device_ms(
-            torch, lambda pr=pr: mmk.matmul_int8(*pr, **dcfg))
+            torch, lambda pr=pr: mmk.matmul_int8(*pr[:4], yt=pr[4], **mcfg))
             for pr in prods),
         "matmul_int8_plain": sum(device_ms(
-            torch, lambda pr=pr: mmk.matmul_int8_plain(*pr))
+            torch, lambda pr=pr: mmk.matmul_int8_plain(*pr[:4]))
             for pr in prods),
         "matmul_int8_library": sum(device_ms(
             torch, lambda a=pr[0], w=col_major(pr[1]): int_mm(a, w))
@@ -1605,7 +1776,9 @@ def main() -> int:
                {"dft_int8": 1, "matmul_int8": 4})
     rows_f = xq.shape[0]
     emit(phase="int8_paths", path="stft_overlap_add", x=list(STFT_X),
-         window=j, hop=hop, frames=rows_f, tile=dcfg,
+         window=j, hop=hop, frames=rows_f,
+         tiles={"dft_int8": dcfg, "matmul_int8": mcfg},
+         matmul_int8_staging=mmk.int8_staging(zrq, irt),
          max_abs_err_vs_plain=serr, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={"dft_int8": bound8(*qgemm_cost(rows_f, j, j, 2))[0],
@@ -1793,17 +1966,17 @@ def main() -> int:
         "int8 matmul", g, (MM_N, MM_N), {"matmul_int8": 1},
         lambda x0: x0.astype(np.float64) @ y64,
         opdefs.OPDEFS["matmul"].budget("int8").sqnr_db)
-    wq, ws = plan.qconsts[mnode]
+    wq, ws, wt = plan.qconsts[mnode]      # wt: the K-major copy, made once
     xq, sx = quantize.quantize_symmetric(x, axis=-1)
     sx = sx.reshape(-1)
     mcfg = ops._resolve(mmk.TUNE_SPACE_INT8,
                         {"m": MM_N, "n": MM_N, "k": MM_N})
     merr = hold(torch, "int8 matmul 4096", mmk.matmul_int8(
-        xq, wq, sx, ws, **mcfg), mmk.matmul_int8_plain(xq, wq, sx, ws))
+        xq, wq, sx, ws, yt=wt, **mcfg), mmk.matmul_int8_plain(xq, wq, sx, ws))
     before = counts()
     ms.update({
         "matmul_int8": device_ms(
-            torch, lambda: mmk.matmul_int8(xq, wq, sx, ws, **mcfg)),
+            torch, lambda: mmk.matmul_int8(xq, wq, sx, ws, yt=wt, **mcfg)),
         "matmul_int8_plain": device_ms(
             torch, lambda: mmk.matmul_int8_plain(xq, wq, sx, ws)),
         "matmul_int8_library": device_ms(
@@ -1811,12 +1984,14 @@ def main() -> int:
     })
     check_grew("int8 matmul", before, {"matmul_int8": 1})
     mm8_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}": device_ms(
-        torch, lambda c=c: mmk.matmul_int8(xq, wq, sx, ws, **c), repeats=5)
+        torch, lambda c=c: mmk.matmul_int8(xq, wq, sx, ws, yt=wt, **c),
+        repeats=5)
         for c in mmk.TUNE_SPACE_INT8.configs(
             {"m": MM_N, "n": MM_N, "k": MM_N})}
     mcost = qgemm_cost(MM_N, MM_N, MM_N)
     emit(phase="int8_paths", path="matmul", x=[MM_N, MM_N],
          y=[MM_N, MM_N], tile=mcfg, max_abs_err_vs_plain=merr, ms=ms,
+         staging=mmk.int8_staging(xq, wt),
          ms_per_tile=mm8_tiles, bound_ms=bound8(*mcost)[0],
          achieved_tops=mcost[1] / (ms["matmul_int8"] * 1e-3) / 1e12,
          library_achieved_tops=mcost[1] / (ms["matmul_int8_library"] * 1e-3)
@@ -1892,7 +2067,7 @@ def main() -> int:
             ("elementwise_add", "src/repro_torch/csrc/elementwise.cu",
              "src/repro/kernels/elementwise.py:71", add["cost"], add["err"],
              add["launches"], add["ms"], "elementwise_add_library")):
-        b_ms, b_by = bound(*cost)
+        b_ms, b_by = (bound_3xtf32 if name == "dft" else bound)(*cost)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms[name],

@@ -155,6 +155,18 @@ def _dfm_tensors(n: int, inverse: bool, dtype: torch.dtype,
             torch.as_tensor(fi, device=device))
 
 
+@functools.lru_cache(maxsize=64)
+def _dfm_tf32_tensors(n: int, inverse: bool, variant: str,
+                      device: str) -> Tensor:
+    """The f32 DFT kernel's F side: the hi and lo TF32 parts of the
+    (I)DFM's planes, K-major and zero-padded
+    (``kernels/dft.py:tf32_planes``), made once per (n, inverse, variant,
+    device) beside :func:`_dfm_tensors`."""
+    from repro_torch.kernels import dft as dft_kernel
+    fr, fi = _dfm_tensors(n, inverse, torch.float32, device)
+    return dft_kernel.tf32_planes(fr, fi, variant)
+
+
 def _split(x: Tensor) -> tuple[Tensor, Tensor]:
     if x.is_complex():
         return x.real, x.imag
@@ -177,9 +189,13 @@ def dft(x: Tensor, *, inverse: bool = False, lowering: str = "native",
     rdt = _REAL_OF.get(x.dtype, x.dtype)
     fr, fi = _dfm_tensors(n, inverse, rdt, str(x.device))
     if lowering == "kernel":
-        # a real signal goes in as it is: the kernel forms no zero plane
+        # a real signal goes in as it is: the kernel forms no zero plane;
+        # the card's kernel takes the DFM's TF32 planes, made once
+        planes = (_dfm_tf32_tensors(n, inverse, variant, str(x.device))
+                  if x.device.type == "cuda" and rdt == torch.float32
+                  else None)
         z = _kops().dft(x.reshape((-1, n)), fr, fi, variant=variant,
-                        **(block or {}))
+                        planes=planes, **(block or {}))
         return z.reshape(x.shape[:-1] + (n,))
     xr, xi = _split(x)
     shp = xr.shape

@@ -337,18 +337,24 @@ def _impl_fused(args, at, lowering, block=None):
 # ---------------------------------------------------------------------------
 def _qimpl_matmul(args, at, qpack, lowering="native", block=None):
     x, w = args[0], args[1]
-    wq, ws = qpack if qpack is not None else quantize.quantize_weights(w)
+    if qpack is not None:
+        wq, ws, wt = qpack
+    else:                       # w is a plan input: packed per call
+        (wq, ws), wt = quantize.quantize_weights(w), None
     if lowering == "kernel":
-        return _kops().qmatmul(x, wq, ws.reshape(-1), **(block or {}))
+        return _kops().qmatmul(x, wq, ws.reshape(-1), wt=wt,
+                               **(block or {}))
     return quantize.qmatmul(x, wq, ws.reshape(-1))
 
 
 def _qprep_matmul(at, consts):
+    """(wq, ws, wq^T): the int8 weight pack with its K-major copy, the B
+    operand of the s8 tensor-core GEMM, made here once."""
     w = consts.get(1)
     if w is None:
         return None
     wq, ws = quantize.quantize_weights(w)
-    return wq, ws.reshape(-1)
+    return wq, ws.reshape(-1), wq.t().contiguous()
 
 
 def _qimpl_dft(args, at, qpack, lowering="native", block=None):

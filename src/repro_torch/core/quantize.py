@@ -211,6 +211,16 @@ def _qdfm_tensors(n: int, inverse: bool, device: str
     return tuple(torch.as_tensor(a, device=device) for a in (qr, sr, qi, si))
 
 
+@functools.lru_cache(maxsize=16)
+def _qdfm_kmajor(n: int, inverse: bool, device: str
+                 ) -> tuple[Tensor, Tensor]:
+    """(qr^T, qi^T): the int8 DFM's K-major (n, n) copies, the B operand
+    the s8 tensor-core GEMM takes (kernels/matmul.py:matmul_int8), made
+    once per (n, inverse, device) like :func:`_qdfm_tensors`."""
+    qr, _, qi, _ = _qdfm_tensors(n, inverse, device)
+    return qr.t().contiguous(), qi.t().contiguous()
+
+
 def qdft(x: Tensor, *, inverse: bool = False,
          quantize_activations: bool = True) -> Tensor:
     """(I)DFT with an int8 Fourier-matrix kernel (paper §4.1/§4.2

@@ -1,213 +1,358 @@
-// Blocked complex DFT for Hopper (sm_90a): a tiled fp32 GEMM of the
-// signal rows against the (inverse) Fourier matrix, with the real and
-// imaginary parts carried side by side.
+// Blocked complex DFT for Hopper (sm_90a): the signal rows against the
+// (inverse) Fourier matrix on the TF32 tensor cores, split three ways so
+// that the result keeps about fp32 accuracy (3xTF32).
 //
 // Replaces: src/repro/kernels/dft.py:dft (Pallas, TPU).
 //
 // What it computes: Z = X (Fr + i Fi) for X (B, L) and F (L, N), written
 // as interleaved complex64 straight into the output tensor.  X is either
-// interleaved complex64, read directly, or real float32 ("null xi": no
-// imaginary plane is allocated, loaded or multiplied).  variant:
+// interleaved complex64 or real float32 ("null xi": no imaginary plane is
+// allocated, loaded or multiplied).  variant:
 //   4mult  Zr = Xr Fr - Xi Fi ;  Zi = Xr Fi + Xi Fr
 //   3mult  k1 = (Xr + Xi) Fr ; k2 = Xr (Fi - Fr) ; k3 = Xi (Fr + Fi)
 //          Zr = k1 - k3 ;  Zi = k1 + k2          (Karatsuba)
 // With a real X, 4mult does two real products and 3mult does k1 and k2
-// (k3 = 0): the same numbers as multiplying a zero plane, half the work.
+// (k3 = 0).
 //
 // What bounds it on this card: operations.  At the STFT's width (L = N =
-// 1024) a complex row costs 8 L N flops against 8 (L + N) bytes, some
-// 500 flops per byte; the reference's tolerance assumes full fp32, so the
-// rate is the fp32 FMA pipe's 67 TFLOP/s (no TF32 tensor cores).  Small
-// N (the spectrogram's 64) moves the balance toward bytes.
+// 1024) a complex row costs 8 L N flops against 8 (L + N) bytes.  The
+// reference's tolerance rules out one TF32 pass (10 mantissa bits, about
+// 1e-3 relative); the fp32 FMA pipe (67 TFLOP/s) is the old ceiling.
+// 3xTF32 runs every real product as three TF32 products,
+//   X F ~= Xhi Fhi + Xhi Flo + Xlo Fhi     (x = hi + lo, both TF32),
+// dropping only Xlo Flo (2^-22 relative): three times the work at the
+// TF32 tensor-core rate (495 TFLOP/s), 2.5 times under the fp32 pipe's
+// bound.  The spectrogram's L = N = 64 over half a million rows is bound
+// by bytes instead: a block column covers all of N, so X is read once.
 //
-// What the design does about that: one block owns a (BM x BN) tile of Z.
-// It walks K = L in chunks of BK, staging the X chunk (k-major, for
-// float4 reads along rows) and the F chunk in shared memory; every
-// thread accumulates a 4 x 4 register micro-tile per accumulator
-// (two for 4mult, three for 3mult), 16 FMAs per accumulator for each
-// pair of float4 loads.  For 3mult the sums Xr + Xi, Fi - Fr and Fr + Fi
-// are formed once per element while staging.  Every ragged edge (rows,
-// L, N not tile multiples; N = 7) is masked in the loads and the stores,
-// so the wrapper pads nothing.  Plain fp32 FMA: no TF32.  A simple
-// kernel first: wgmma with a 3xTF32 split, and double-buffered loads,
-// are later work.
+// What the design does about that: one block of 288 threads owns a
+// (128 x 64) tile of Z.  Warp 8 is the producer: one lane streams the
+// K = L chunks of 32 through a two-stage ring in shared memory with TMA
+// (mbarriers count the bytes in and the consumers out).  A chunk holds
+// the X tile (two 128-byte column halves for a complex X) and, for each
+// plane, its hi and lo F tiles, all 128B-swizzled.  The F planes are
+// prepared once per (n, inverse, variant, device) on the host
+// (repro_torch/core/functions.py:_dfm_tf32_tensors): hi and lo TF32
+// parts of Fr, Fi (4mult) or Fr, Fi - Fr, Fr + Fi (3mult), K-major
+// (N, L) as TF32 wgmma takes B, zero-padded to 64 in N and 32 in L, so
+// the F side needs no mask.  Warps 0-7 are two consumer warpgroups, each
+// on 64 rows: for every 8-deep step a warp reads its X fragment from
+// shared memory into registers, de-interleaves a complex row, forms
+// Xr + Xi (3mult), splits each value into TF32 hi and lo
+// (cvt.rna.tf32.f32), and issues three wgmma.m64n64k8 per real product
+// (-Xi Fi of 4mult with the instruction's A scale at -1)
+// with A from registers and B from the swizzled tile, one group in
+// flight while the next fragment is split.  The tensor core's own f32
+// accumulation truncates, and over all of L = 1024 that costs about
+// 1e-5 of max: so (two planes) each chunk's products start a fresh
+// accumulator set (scale-d 0) that is added into the result with
+// round-to-nearest f32 adds once the chunk is done.  3mult on a complex
+// X (three planes: no registers for a second set) accumulates in place.
+// The epilogue writes interleaved complex64 from the registers.  TMA
+// zero-fills rows past B and columns past L; rows and columns past
+// (B, N) are not stored.  TMA needs 16-byte aligned rows: the wrapper
+// makes a zero-padded copy of an X whose rows are not
+// (kernels/dft.py:staging).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BK = 16;   // depth of one K chunk
+using namespace tina::hopper;
 
-template <int BM, int BN, bool CPLX, bool KARA>
-__global__ void __launch_bounds__((BM / 4) * (BN / 4))
-dft_kernel(const float* __restrict__ x, const float* __restrict__ fr,
-           const float* __restrict__ fi, float2* __restrict__ out, int B,
-           int L, int N) {
-  constexpr int NT = (BM / 4) * (BN / 4);
-  constexpr int NA = (CPLX ? (KARA ? 3 : 2) : 1);   // X-side planes
-  constexpr int NB = (KARA && CPLX) ? 3 : 2;        // F-side planes
-  constexpr int LDA = BM + 4;                       // keeps float4 alignment
-  __shared__ __align__(16) float as[NA][BK][LDA];
-  __shared__ __align__(16) float bs[NB][BK][BN];
+constexpr int BM = 128;           // rows of a block: two warpgroups of 64
+constexpr int BN = 64;            // columns of a block
+constexpr int BK = 32;            // K per stage: one 128-byte f32 row
+constexpr int STAGES = 2;
+constexpr int THREADS = 288;      // two consumer warpgroups + one producer
+constexpr int X_TILE = BM * 128;  // bytes of one 128-byte-wide X tile
+constexpr int F_TILE = BN * 128;  // bytes of one F tile
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / 4);
-  const int ty = tid / (BN / 4);
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+template <bool CPLX, bool KARA>
+struct Cfg {
+  static constexpr int NP = (KARA && CPLX) ? 3 : 2;  // F planes (hi + lo)
+  static constexpr int NA = CPLX ? (KARA ? 3 : 2) : 1;  // X-side operands
+  static constexpr int XT = CPLX ? 2 : 1;            // X tiles per stage
+  static constexpr int STAGE = XT * X_TILE + 2 * NP * F_TILE;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  // a fresh accumulator set per chunk, added in f32 (module comment)
+  static constexpr bool PROMOTE = NP == 2;
+};
 
-  float acc[NB][4][4];   // 4mult: (zr, zi); 3mult: (k1, k2[, k3])
-#pragma unroll
-  for (int p = 0; p < NB; ++p)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    // 1. the X chunk, k fastest so the global reads coalesce
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int mm = i / BK, kk = i % BK;
-      const int m = m0 + mm, k = k0 + kk;
-      const bool ok = m < B && k < L;
-      if constexpr (CPLX) {
-        const float2 v = ok ? __ldg(reinterpret_cast<const float2*>(x) +
-                                    (size_t)m * L + k)
-                            : make_float2(0.f, 0.f);
-        if constexpr (KARA) {
-          as[0][kk][mm] = v.x + v.y;
-          as[1][kk][mm] = v.x;
-          as[2][kk][mm] = v.y;
-        } else {
-          as[0][kk][mm] = v.x;
-          as[1][kk][mm] = v.y;
-        }
-      } else {
-        as[0][kk][mm] = ok ? __ldg(x + (size_t)m * L + k) : 0.f;
-      }
-    }
-    // 2. the F chunk, this block's columns
-    for (int i = tid; i < BK * BN; i += NT) {
-      const int kk = i / BN, nn = i % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      const bool ok = k < L && n < N;
-      const float r = ok ? __ldg(fr + (size_t)k * N + n) : 0.f;
-      const float im = ok ? __ldg(fi + (size_t)k * N + n) : 0.f;
-      if constexpr (KARA) {
-        bs[0][kk][nn] = r;
-        bs[1][kk][nn] = im - r;
-        if constexpr (CPLX) bs[2][kk][nn] = r + im;
-      } else {
-        bs[0][kk][nn] = r;
-        bs[1][kk][nn] = im;
-      }
-    }
-    __syncthreads();
-    // 3. partial products on the register micro-tiles
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[NA][4], b[NB][4];
-#pragma unroll
-      for (int p = 0; p < NA; ++p) {
-        const float4 v = *reinterpret_cast<const float4*>(&as[p][kk][ty * 4]);
-        a[p][0] = v.x; a[p][1] = v.y; a[p][2] = v.z; a[p][3] = v.w;
-      }
-#pragma unroll
-      for (int p = 0; p < NB; ++p) {
-        const float4 v = *reinterpret_cast<const float4*>(&bs[p][kk][tx * 4]);
-        b[p][0] = v.x; b[p][1] = v.y; b[p][2] = v.z; b[p][3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (KARA) {
-            // k1 += (Xr+Xi) Fr, k2 += Xr (Fi-Fr), k3 += Xi (Fr+Fi)
-            acc[0][i][j] = fmaf(a[0][i], b[0][j], acc[0][i][j]);
-            if constexpr (CPLX) {
-              acc[1][i][j] = fmaf(a[1][i], b[1][j], acc[1][i][j]);
-              acc[2][i][j] = fmaf(a[2][i], b[2][j], acc[2][i][j]);
-            } else {
-              acc[1][i][j] = fmaf(a[0][i], b[1][j], acc[1][i][j]);
-            }
-          } else {
-            acc[0][i][j] = fmaf(a[0][i], b[0][j], acc[0][i][j]);
-            acc[1][i][j] = fmaf(a[0][i], b[1][j], acc[1][i][j]);
-            if constexpr (CPLX) {
-              acc[0][i][j] = fmaf(-a[1][i], b[1][j], acc[0][i][j]);
-              acc[1][i][j] = fmaf(a[1][i], b[0][j], acc[1][i][j]);
-            }
-          }
-        }
-    }
-    __syncthreads();
-  }
-
-  // 4. store the valid part of the tile as complex64
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float zr, zi;
-      if constexpr (KARA) {
-        if constexpr (CPLX)
-          zr = acc[0][i][j] - acc[2][i][j];
-        else
-          zr = acc[0][i][j];
-        zi = acc[0][i][j] + acc[1][i][j];
-      } else {
-        zr = acc[0][i][j];
-        zi = acc[1][i][j];
-      }
-      out[(size_t)m * N + n] = make_float2(zr, zi);
-    }
-  }
-}
-
-template <int BM, int BN, bool CPLX, bool KARA>
-cudaError_t launch(const float* x, const float* fr, const float* fi,
-                   float2* out, int B, int L, int N, cudaStream_t s) {
-  const dim3 grid((B + BM - 1) / BM, (N + BN - 1) / BN);
-  dft_kernel<BM, BN, CPLX, KARA><<<grid, (BM / 4) * (BN / 4), 0, s>>>(
-      x, fr, fi, out, B, L, N);
-  return cudaGetLastError();
+// One real product of the 3xTF32 split: d (+)= SA A B with A = ahi +
+// alo and B = bhi + blo, the small terms first; sd = 0 starts d afresh.
+template <int SA = 1>
+__device__ __forceinline__ void mma3(float (&d)[BN / 2],
+                                     const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint64_t bhi,
+                                     uint64_t blo, int sd) {
+  wgmma_tf32_m64n64k8<SA>(d, alo, bhi, sd);
+  wgmma_tf32_m64n64k8<SA>(d, ahi, blo, 1);
+  wgmma_tf32_m64n64k8<SA>(d, ahi, bhi, 1);
 }
 
 template <bool CPLX, bool KARA>
-cudaError_t dispatch(int bm, int bn, const float* x, const float* fr,
-                     const float* fi, float2* out, int B, int L, int N,
-                     cudaStream_t s) {
-  if (bm == 64 && bn == 64)
-    return launch<64, 64, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
-  if (bm == 64 && bn == 32)
-    return launch<64, 32, CPLX, KARA>(x, fr, fi, out, B, L, N, s);
-  return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(THREADS, 1)
+dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap fmap,
+                float2* __restrict__ out, int B, int N, int n_pad,
+                int k_tiles, int n_blocks) {
+  using C = Cfg<CPLX, KARA>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = (blockIdx.x % n_blocks) * BN;
+  const int m0 = (blockIdx.x / n_blocks) * BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: one lane keeps the ring full
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        uint8_t* st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        for (int h = 0; h < C::XT; ++h)
+          tma_load_2d(st + h * X_TILE, &xmap, &full[s],
+                      C::XT * BK * kt + BK * h, m0);
+        for (int q = 0; q < 2 * C::NP; ++q)
+          tma_load_2d(st + C::XT * X_TILE + q * F_TILE, &fmap, &full[s],
+                      BK * kt, q * n_pad + n0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp / 4;
+  const int g = lane / 4, q = lane % 4;
+  const int r0 = wg * 64 + (warp % 4) * 16 + g;   // rows r0 and r0 + 8
+
+  // acc: the result; part: one chunk's products (acc itself without
+  // PROMOTE)
+  float acc[C::NP][BN / 2];
+  float part[C::PROMOTE ? C::NP : 1][BN / 2];
+#pragma unroll
+  for (int p = 0; p < C::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[p][i] = 0.f;
+  if constexpr (!C::PROMOTE)
+#pragma unroll
+    for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
+  auto dst = [&](int p) -> float (&)[BN / 2] {
+    if constexpr (C::PROMOTE)
+      return part[p];
+    else
+      return acc[p];
+  };
+
+  // A operands of two 8-deep steps, each split into TF32 hi and lo: a
+  // real X has Xr alone; a complex one Xr, Xi (4mult: -Xi is Xi with the
+  // instruction's A scale at -1) or Xr + Xi, Xr, Xi (3mult).
+  uint32_t ahi[2][C::NA][4], alo[2][C::NA][4];
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* xs = smem + s * C::STAGE;
+    const uint8_t* fs = xs + C::XT * X_TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const int b = kk & 1;
+      // the X fragment: xr/xi[2 c + h] at row r0 + 8 h, column
+      // 8 kk + q + 4 c of the chunk (swizzled: 16-byte unit ^ row % 8)
+      float xr[4], xi[4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          if constexpr (CPLX) {
+            const int cc = 8 * (kk % 2) + q + 4 * c;   // in a 16-wide half
+            const float2 v = *reinterpret_cast<const float2*>(
+                xs + (kk / 2) * X_TILE + row * 128 +
+                (((cc >> 1) ^ (row & 7)) << 4) + (cc & 1) * 8);
+            xr[2 * c + h] = v.x;
+            xi[2 * c + h] = v.y;
+          } else {
+            const int cc = 8 * kk + q + 4 * c;
+            xr[2 * c + h] = *reinterpret_cast<const float*>(
+                xs + row * 128 + (((cc >> 2) ^ (row & 7)) << 4) +
+                (cc & 3) * 4);
+          }
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (!CPLX) {
+          split_tf32(xr[i], ahi[b][0][i], alo[b][0][i]);
+        } else if constexpr (KARA) {
+          split_tf32(__fadd_rn(xr[i], xi[i]), ahi[b][0][i], alo[b][0][i]);
+          split_tf32(xr[i], ahi[b][1][i], alo[b][1][i]);
+          split_tf32(xi[i], ahi[b][2][i], alo[b][2][i]);
+        } else {
+          split_tf32(xr[i], ahi[b][0][i], alo[b][0][i]);
+          split_tf32(xi[i], ahi[b][1][i], alo[b][1][i]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < C::NA; ++a) {
+        fence_regs(ahi[b][a]);
+        fence_regs(alo[b][a]);
+      }
+      // B: plane p's hi tile at 2 p, its lo tile at 2 p + 1
+      auto bd = [&](int t) { return desc_sw128(fs + t * F_TILE + kk * 32); };
+      const int sd = (C::PROMOTE && kk == 0) ? 0 : 1;
+      wgmma_fence();
+      if constexpr (KARA) {
+        constexpr int XR = CPLX ? 1 : 0;                       // Xr
+        mma3(dst(0), ahi[b][0], alo[b][0], bd(0), bd(1), sd);  // k1 (Fr)
+        mma3(dst(1), ahi[b][XR], alo[b][XR], bd(2), bd(3), sd);  // k2
+        if constexpr (CPLX)
+          mma3(dst(2), ahi[b][2], alo[b][2], bd(4), bd(5), sd);  // k3
+      } else {
+        mma3(dst(0), ahi[b][0], alo[b][0], bd(0), bd(1), sd);  // Zr: Xr Fr
+        mma3(dst(1), ahi[b][0], alo[b][0], bd(2), bd(3), sd);  // Zi: Xr Fi
+        if constexpr (CPLX) {
+          mma3(dst(1), ahi[b][1], alo[b][1], bd(0), bd(1), 1);  // + Xi Fr
+          mma3<-1>(dst(0), ahi[b][1], alo[b][1], bd(2), bd(3), 1);  // - Xi Fi
+        }
+      }
+      wgmma_commit();
+      if (kk > 0) {
+        // the step before this one is done: its fragment may be reused
+        wgmma_wait<1>();
+#pragma unroll
+        for (int a = 0; a < C::NA; ++a) {
+          fence_regs(ahi[b ^ 1][a]);
+          fence_regs(alo[b ^ 1][a]);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < C::NA; ++a) {
+      fence_regs(ahi[1][a]);
+      fence_regs(alo[1][a]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (C::PROMOTE) {
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) {
+        fence_regs(part[p]);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          acc[p][i] = __fadd_rn(acc[p][i], part[p][i]);
+      }
+    }
+  }
+  if constexpr (!C::PROMOTE)
+#pragma unroll
+    for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
+
+  // epilogue: interleaved complex64, two neighbouring columns a store
+  const bool pairs = (N % 2) == 0;   // 16-byte aligned (zr, zi) pairs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    if (m >= B) continue;
+    float2* row = out + (size_t)m * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n >= N) continue;
+      float zr[2], zi[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        if constexpr (KARA) {
+          zr[e] = CPLX ? __fsub_rn(acc[0][i], acc[C::NP - 1][i]) : acc[0][i];
+          zi[e] = __fadd_rn(acc[0][i], acc[1][i]);
+        } else {
+          zr[e] = acc[0][i];
+          zi[e] = acc[1][i];
+        }
+      }
+      if (pairs && n + 1 < N) {
+        *reinterpret_cast<float4*>(row + n) =
+            make_float4(zr[0], zi[0], zr[1], zi[1]);
+      } else {
+        row[n] = make_float2(zr[0], zi[0]);
+        if (n + 1 < N) row[n + 1] = make_float2(zr[1], zi[1]);
+      }
+    }
+  }
+}
+
+template <bool CPLX, bool KARA>
+cudaError_t launch(const CUtensorMap& xm, const CUtensorMap& fm,
+                   float2* out, int B, int N, int n_pad, int k_tiles,
+                   cudaStream_t s) {
+  using C = Cfg<CPLX, KARA>;
+  auto* kern = dft_tf32_kernel<CPLX, KARA>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long nb = (N + BN - 1) / BN, mb = (B + BM - 1) / BM;
+  if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)(nb * mb), THREADS, C::SMEM, s>>>(xm, fm, out, B, N, n_pad,
+                                                     k_tiles, (int)nb);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// x (B, L): interleaved complex64 (x_is_complex) or float32; fr/fi (L, N)
-// f32; out (B, N) complex64; all contiguous on the device.  karatsuba
-// selects 3mult.  Launches on `stream`; returns the launch's cudaError_t.
-extern "C" int tina_dft(const void* x, int x_is_complex, const void* fr,
-                        const void* fi, void* out, int B, int L, int N,
-                        int karatsuba, int bm, int bn, void* stream) {
-  if (B <= 0 || L <= 0 || N <= 0 || (N + bn - 1) / (bn > 0 ? bn : 1) > 65535)
+// x (B, x_cols): interleaved complex64 (x_is_complex) or float32, its
+// rows 16-byte aligned, columns L .. x_cols - 1 zero; planes (2 P, n_pad,
+// l_pad) f32, the hi and lo TF32 parts of each F plane, K-major
+// (P = 2 for 4mult: Fr, Fi; P = 3 for 3mult: Fr, Fi - Fr, Fr + Fi),
+// n_pad a multiple of 64 >= N, l_pad a multiple of 32 >= L; out (B, N)
+// complex64.  All contiguous on the device.  karatsuba selects 3mult.
+// Launches on `stream`; returns the launch's cudaError_t.
+extern "C" int tina_dft(const void* x, int x_is_complex, int x_cols,
+                        const void* planes, int n_pad, int l_pad, void* out,
+                        int B, int L, int N, int karatsuba, int bm, int bn,
+                        void* stream) {
+  const int elem = x_is_complex ? 8 : 4;
+  if (B <= 0 || L <= 0 || N <= 0 || bm != BM || x_cols < L ||
+      bn != BN || n_pad < N || n_pad % BN || l_pad < L || l_pad % BK ||
+      (long long)x_cols * elem % 16 || !aligned16(x) || !aligned16(planes))
     return cudaErrorInvalidValue;
+  CUtensorMap xm, fm;
+  const int x_floats = x_is_complex ? 2 * x_cols : x_cols;
+  if (!tile_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x_floats, B,
+                (uint64_t)x_floats * 4, BK, BM) ||
+      !tile_map(&fm, planes, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, l_pad,
+                (uint64_t)(karatsuba ? 6 : 4) * n_pad, (uint64_t)l_pad * 4,
+                BK, BN))
+    return cudaErrorInvalidValue;
+  const int k_tiles = (L + BK - 1) / BK;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* rf = static_cast<const float*>(fr);
-  const auto* jf = static_cast<const float*>(fi);
   auto* o = static_cast<float2*>(out);
   if (x_is_complex)
-    return karatsuba
-               ? dispatch<true, true>(bm, bn, xf, rf, jf, o, B, L, N, s)
-               : dispatch<true, false>(bm, bn, xf, rf, jf, o, B, L, N, s);
-  return karatsuba
-             ? dispatch<false, true>(bm, bn, xf, rf, jf, o, B, L, N, s)
-             : dispatch<false, false>(bm, bn, xf, rf, jf, o, B, L, N, s);
+    return karatsuba ? launch<true, true>(xm, fm, o, B, N, n_pad, k_tiles, s)
+                     : launch<true, false>(xm, fm, o, B, N, n_pad, k_tiles, s);
+  return karatsuba ? launch<false, true>(xm, fm, o, B, N, n_pad, k_tiles, s)
+                   : launch<false, false>(xm, fm, o, B, N, n_pad, k_tiles, s);
 }

@@ -9,7 +9,10 @@ an unchanged tree reuses the last build.  Nothing is built at import:
 :func:`lib` builds at first use, which only a CUDA tensor reaches.
 
 No PyTorch headers are included, so a build takes seconds, not the
-minutes ``torch.utils.cpp_extension`` would need.
+minutes ``torch.utils.cpp_extension`` would need.  Nothing is linked but
+the CUDA runtime: the TMA tensor maps of the tensor-core kernels come
+from the driver's ``cuTensorMapEncodeTiled``, which ``csrc/hopper.cuh``
+reaches through ``cudaGetDriverEntryPointByVersion`` (no ``-lcuda``).
 """
 from __future__ import annotations
 
@@ -42,8 +45,9 @@ SIGNATURES = {
                    ctypes.POINTER(_F), ctypes.POINTER(_P), _I, _P, _I, _P],
     # x, y, out, n, cols, y_is_row, op (0 mul, 1 add), threads, stream
     "tina_binary": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
-    # x, x_is_complex, fr, fi, out, B, L, N, karatsuba, bm, bn, stream
-    "tina_dft": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, x_is_complex, x_cols, planes, n_pad, l_pad, out, B, L, N,
+    # karatsuba, bm, bn, stream
+    "tina_dft": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, y, rows, n, J, bt, bj, stream
     "tina_unfold": [_P, _P, _I, _I, _I, _I, _I, _P],
     # frames, out, rows, T, J, hop, threads, stream
@@ -53,7 +57,7 @@ SIGNATURES = {
     "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, y, out, M, N, K, bm, bn, bk, order_nm, stream
     "tina_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # xq, yq, sx, sy, out, M, N, K, bm, bn, bk, stream
+    # xq, yt (yq K-major), sx, sy, out, M, N, K, bm, bn, bk, stream
     "tina_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # xq, fr, fi, sx, sr, si, out, B, L, N, bm, bn, bk, stream
     "tina_dft_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -2,9 +2,11 @@
 matrix product of signal rows.
 
 The CUDA kernel is ``csrc/dft.cu`` (it replaces the JAX reference's
-``kernels/dft.py:dft``; the source says what bounds it and how).
-:func:`dft` launches it for a CUDA tensor and runs :func:`dft_plain`,
-the same arithmetic in plain torch, for a CPU tensor.  Two variants:
+``kernels/dft.py:dft``; the source says what bounds it and how): a
+3xTF32 product on the tensor cores (``wgmma``), each value split into two
+TF32 parts, hi + lo, and X F taken as Xhi Fhi + Xhi Flo + Xlo Fhi.
+:func:`dft` launches it for a CUDA tensor and runs :func:`dft_plain`, the
+same arithmetic in plain fp32 torch, for a CPU tensor.  Two variants:
 
   * ``4mult``  Zr = Xr Fr − Xi Fi ; Zi = Xr Fi + Xi Fr
   * ``3mult``  Karatsuba: k1 = (Xr+Xi) Fr, k2 = Xr (Fi−Fr),
@@ -13,8 +15,14 @@ the same arithmetic in plain torch, for a CPU tensor.  Two variants:
 The signal is complex64, read as interleaved pairs, or real float32,
 whose imaginary plane is never formed ("null xi"): the real forward DFT
 of an STFT does half the work of a complex one.  The result is complex64.
-Unlike the TPU kernel there is no padding to block multiples: the kernel
-masks its ragged edges.
+
+The F side is split on the host, once per matrix: :func:`tf32_planes`
+makes the hi and lo TF32 parts of every plane the variant multiplies,
+K-major (N, L) as the tensor cores take B, zero-padded to tile multiples
+(``core/functions.py:_dfm_tf32_tensors`` keeps them per (n, inverse,
+variant, device)).  The X side is split in the kernel.  TMA reads X where
+its rows are 16-byte aligned; elsewhere the wrapper copies X into a
+zero-padded buffer first (:func:`staging` says which, by shape).
 
 :func:`dft_int8` is the int8 tier's real-signal DFT: ``tina_dft_int8`` in
 ``csrc/qmatmul.cu`` replaces the reference's ``kernels/dft.py:dft_int8``
@@ -28,23 +36,88 @@ import torch
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels import matmul as mm_kernel
 
-# Compiled tile shapes of csrc/dft.cu (rows x columns per block): the two
-# the default picks.  Others are added when a measured shape prefers them.
-TILES = ((64, 64), (64, 32))
+# The compiled tile of csrc/dft.cu (rows x columns per block): 128 rows,
+# two consumer warpgroups of 64, by 64 columns (a second f32 accumulator
+# set per warpgroup, for accuracy, leaves no registers for 128).
+TILES = ((128, 64),)
 VARIANTS = ("4mult", "3mult")
+BK = 32          # K per ring stage: one 128-byte row of f32
+STAGES = 2       # ring depth
+N_ALIGN = 64     # the planes' N padding: the tile's columns
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
 INT8_LAUNCHES = 0   # the same for dft_int8
 
-# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limit: a compiled
-# tile shape (the shared-memory chunks are fixed at 25 KB at most).
+
+def smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a tile's largest ring (a complex x at
+    3mult): per stage the X tile (two 128-byte halves of a complex row)
+    and a hi and a lo F tile for each of three planes, bm or bn rows of
+    128 bytes; the mbarriers and 1 KB of alignment."""
+    stage = 2 * bm * 128 + 2 * 3 * bn * 128
+    return STAGES * stage + 2 * STAGES * 8 + 1024
+
+
+# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limit: the compiled
+# tile, whose ring (160 KB at most: complex x, three planes) fits the
+# 227 KB of shared memory a block may use.
 TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="dft",
     params=("bm", "bn"),
     candidates=lambda ctx: tuple({"bm": bm, "bn": bn} for bm, bn in TILES),
-    valid=lambda cfg, ctx: (cfg["bm"], cfg["bn"]) in TILES,
-    default=lambda ctx: {"bm": 64, "bn": 64 if ctx["n"] > 32 else 32},
+    valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"]) in TILES
+                            and smem_bytes(cfg["bm"], cfg["bn"])
+                            <= tune.SMEM_BUDGET),
+    default=lambda ctx: {"bm": 128, "bn": 64},
 ))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tf32_split(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``f``: hi = f rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), its
+    low 13 bits zero; lo = the same rounding of f − hi (exact in f32).
+    |f − hi − lo| <= 2^-22 |f|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(f)
+    return hi, rna(f - hi)
+
+
+def tf32_planes(fr: torch.Tensor, fi: torch.Tensor,
+                variant: str = "4mult") -> torch.Tensor:
+    """The F side of the kernel, made once per matrix: (2 P, n_pad,
+    l_pad) float32, for each plane its hi then its lo TF32 part, K-major
+    ((N, L), the transpose of fr), zero-padded to n_pad (a multiple of
+    64) and l_pad (a multiple of 32).  The planes are Fr, Fi (4mult,
+    P = 2) or Fr, Fi − Fr, Fr + Fi (3mult, P = 3), the differences taken
+    in f32 as :func:`dft_plain` takes them."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown dft variant {variant!r}")
+    l, n = fr.shape
+    planes = ((fr, fi) if variant == "4mult" else (fr, fi - fr, fr + fi))
+    out = torch.zeros((2 * len(planes), _round_up(n, N_ALIGN),
+                       _round_up(l, BK)), dtype=torch.float32,
+                      device=fr.device)
+    for p, f in enumerate(planes):
+        hi, lo = tf32_split(f.to(torch.float32).t())
+        out[2 * p, :n, :l] = hi
+        out[2 * p + 1, :n, :l] = lo
+    return out
+
+
+def staging(x: torch.Tensor) -> str:
+    """How the kernel reads x: ``"tma"`` straight from x when its rows
+    are 16-byte aligned (L a multiple of 2 for complex64, of 4 for
+    float32, and an aligned start), else ``"padded_copy"``: x copied
+    into rows zero-padded to a multiple of 4 first."""
+    row_bytes = x.shape[-1] * (8 if x.is_complex() else 4)
+    return ("tma" if row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
+            else "padded_copy")
 
 
 def dft_plain(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
@@ -79,9 +152,13 @@ def _check(name, t, dtype, shape, device):
 
 
 def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
-        variant: str = "3mult", bm: int = 64, bn: int = 64) -> torch.Tensor:
+        variant: str = "3mult", bm: int = 128, bn: int = 64,
+        planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, L) complex64 or float32, fr/fi (L, N) float32 (the forward
     or inverse Fourier matrix) -> complex64 (B, N) = x (fr + i fi).
+    ``planes``: :func:`tf32_planes` of (fr, fi, variant), made once by a
+    caller whose matrix is a constant; None splits fr and fi here, per
+    call.
 
     A CPU tensor runs :func:`dft_plain`; a CUDA tensor launches the
     kernel on the current stream or raises."""
@@ -101,12 +178,22 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
     if (bm, bn) not in TILES:
         raise ValueError(f"dft: tile ({bm}, {bn}) not compiled; have "
                          f"{TILES}")
+    if planes is None:
+        planes = tf32_planes(fr, fi, variant)
+    np_ = 2 if variant == "4mult" else 3
+    _check("planes", planes, torch.float32,
+           (2 * np_, _round_up(n, N_ALIGN), _round_up(l, BK)), dev)
     out = torch.empty((b, n), device=dev, dtype=torch.complex64)
     if out.numel() == 0:
         return out
+    if staging(x) != "tma":
+        xs = torch.zeros((b, _round_up(l, 4)), dtype=x.dtype, device=dev)
+        xs[:, :l] = x
+        x = xs
     code = _build.lib().tina_dft(
-        x.data_ptr(), int(cplx), fr.data_ptr(), fi.data_ptr(),
-        out.data_ptr(), b, l, n, int(variant == "3mult"), bm, bn,
+        x.data_ptr(), int(cplx), x.shape[1], planes.data_ptr(),
+        planes.shape[1], planes.shape[2], out.data_ptr(), b, l, n,
+        int(variant == "3mult"), bm, bn,
         torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
@@ -122,7 +209,7 @@ TILES_INT8 = ((64, 64, 32),)
 # ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limits: the compiled
 # tile (6.1 KB of static shared memory, far inside the 227 KB a block may
 # have) and L <= MAX_INT8_K.  ops.qdft runs a complex input's four
-# products through matmul_int8 at the same tile.
+# products through matmul_int8, at a tile of matmul_int8's own space.
 TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     kernel="dft_int8",
     params=("bm", "bn", "bk"),
@@ -187,5 +274,6 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
 
 
 __all__ = ["dft", "dft_plain", "TUNE_SPACE", "TILES", "VARIANTS",
+           "tf32_split", "tf32_planes", "staging", "smem_bytes",
            "LAUNCHES", "dft_int8", "dft_int8_plain", "TUNE_SPACE_INT8",
            "TILES_INT8", "INT8_LAUNCHES"]

@@ -6,14 +6,17 @@ convolution (paper Eq. 9), in fp32 and in int8.
 tensor and runs :func:`matmul_plain` for a CPU tensor.  It runs full
 fp32 FMAs (no TF32), as the reference's 2e-5 tolerance requires.
 
-``csrc/qmatmul.cu`` (``tina_matmul_int8``) replaces
-``kernels/matmul.py:matmul_int8``: :func:`matmul_int8` launches it for a
-CUDA tensor and runs :func:`matmul_int8_plain` (the exact integer
-contraction of :mod:`repro_torch.core.quantize` and the same epilogue)
-for a CPU tensor; the two agree bit for bit.
+``csrc/qmatmul.cu`` (``tina_matmul_int8``, s8 ``wgmma`` on the tensor
+cores, TMA loads) replaces ``kernels/matmul.py:matmul_int8``:
+:func:`matmul_int8` launches it for a CUDA tensor and runs
+:func:`matmul_int8_plain` (the exact integer contraction of
+:mod:`repro_torch.core.quantize` and the same epilogue) for a CPU
+tensor; the two agree bit for bit.  The tensor cores take B K-major:
+callers whose yq is a constant pass its transpose made once (``yt``).
 
-Both mask their ragged edges instead of padding to block multiples; the
-sources say what bounds them and how.
+Neither pads M or N to block multiples (the int8 GEMM pads K to 16
+only where TMA cannot read the rows); the sources say what bounds them
+and how.
 """
 from __future__ import annotations
 
@@ -99,20 +102,23 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
 
 
 # -- int8 ------------------------------------------------------------------
-# Compiled tiles of csrc/qmatmul.cu, (bm, bn, bk): 256 threads each, an
-# 8 x 8 or 4 x 4 int32 micro-tile per thread, K in chunks of 32 int8.
-TILES_INT8 = ((128, 128, 32), (64, 64, 32))
+# The compiled tile of csrc/qmatmul.cu, (bm, bn, bk): 128 rows (two
+# consumer warpgroups of 64) by 128 columns, K in 128-byte steps through
+# a four-stage TMA ring.
+TILES_INT8 = ((128, 128, 128),)
+INT8_STAGES = 4
+INT8_K_ALIGN = 16    # TMA: rows of xq and yt must be 16-byte multiples
 
 
-def _default_int8(ctx: dict) -> dict:
-    big = min(ctx["m"], ctx["n"]) >= 1024
-    return {"bm": 128 if big else 64, "bn": 128 if big else 64, "bk": 32}
+def int8_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of an int8 tile: per stage a bm x bk chunk
+    of xq and a bn x bk chunk of yt, the mbarriers, 1 KB of alignment."""
+    return INT8_STAGES * (bm + bn) * bk + 2 * INT8_STAGES * 8 + 1024
 
 
-# ctx: {"m": rows, "n": cols, "k": inner}.  Hard limits: a compiled tile
-# (its static shared memory, 8.3 KB at most, is far inside the 227 KB a
-# block may have) and K <= MAX_INT8_K, so that K * 127^2 fits the int32
-# accumulator.
+# ctx: {"m": rows, "n": cols, "k": inner}.  Hard limits: the compiled
+# tile, whose ring (129 KB) fits the 227 KB of shared memory, and
+# K <= MAX_INT8_K, so that K * 127^2 fits the int32 accumulator.
 MAX_INT8_K = 0x7fffffff // (127 * 127)
 TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     kernel="matmul_int8",
@@ -120,8 +126,10 @@ TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     candidates=lambda ctx: tuple({"bm": bm, "bn": bn, "bk": bk}
                                  for bm, bn, bk in TILES_INT8),
     valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"], cfg["bk"]) in TILES_INT8
+                            and int8_smem_bytes(cfg["bm"], cfg["bn"],
+                                                cfg["bk"]) <= tune.SMEM_BUDGET
                             and ctx["k"] <= MAX_INT8_K),
-    default=_default_int8,
+    default=lambda ctx: dict(zip(("bm", "bn", "bk"), TILES_INT8[0])),
 ))
 
 
@@ -148,11 +156,30 @@ def check_int8_args(what: str, dev: torch.device, **tensors) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def int8_staging(xq: torch.Tensor, yt: torch.Tensor) -> str:
+    """How the kernel reads its operands: ``"tma"`` straight from xq and
+    the K-major yt when K is a multiple of 16 and both start 16-byte
+    aligned, else ``"padded_copy"``: both copied into rows zero-padded
+    to a multiple of 16 first (zeros add nothing to an int32 sum)."""
+    ok = (xq.shape[1] % INT8_K_ALIGN == 0 and xq.data_ptr() % 16 == 0
+          and yt.data_ptr() % 16 == 0)
+    return "tma" if ok else "padded_copy"
+
+
+def _pad_k(t: torch.Tensor, k: int) -> torch.Tensor:
+    out = torch.zeros((t.shape[0], k), dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
+
+
 def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
-                sy: torch.Tensor, *, bm: int = 128, bn: int = 128,
-                bk: int = 32) -> torch.Tensor:
+                sy: torch.Tensor, *, yt: torch.Tensor | None = None,
+                bm: int = 128, bn: int = 128, bk: int = 128) -> torch.Tensor:
     """int8 xq (M, K) @ int8 yq (K, N) with exact int32 accumulation;
     float32 out = (acc * sx[m]) * sy[n] with sx (M,), sy (N,) float32.
+    ``yt``: yq's K-major copy (N, K), the tensor cores' B operand, where
+    the caller made it once (yq a constant); None transposes yq here, per
+    call.
 
     A CPU tensor runs :func:`matmul_int8_plain`; a CUDA tensor launches
     the kernel on the current stream or raises."""
@@ -166,8 +193,10 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
         return matmul_int8_plain(xq, yq, sx, sy)
     if dev.type != "cuda":
         raise ValueError(f"matmul_int8: no kernel for device {dev}")
+    if yt is None:
+        yt = yq.t().contiguous()
     check_int8_args("matmul_int8", dev, xq=(xq, torch.int8, (m, k)),
-                    yq=(yq, torch.int8, (k, n)),
+                    yq=(yq, torch.int8, (k, n)), yt=(yt, torch.int8, (n, k)),
                     sx=(sx, torch.float32, (m,)), sy=(sy, torch.float32, (n,)))
     if (bm, bn, bk) not in TILES_INT8:
         raise ValueError(f"matmul_int8: tile {(bm, bn, bk)} not compiled; "
@@ -178,9 +207,12 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    if int8_staging(xq, yt) != "tma":
+        kp = -(-k // INT8_K_ALIGN) * INT8_K_ALIGN
+        xq, yt = _pad_k(xq, kp), _pad_k(yt, kp)
     code = _build.lib().tina_matmul_int8(
-        xq.data_ptr(), yq.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-        out.data_ptr(), m, n, k, bm, bn, bk,
+        xq.data_ptr(), yt.data_ptr(), sx.data_ptr(), sy.data_ptr(),
+        out.data_ptr(), m, n, xq.shape[1], bm, bn, bk,
         torch.cuda.current_stream(dev).cuda_stream)
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
@@ -190,4 +222,5 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
 
 __all__ = ["matmul", "matmul_plain", "TUNE_SPACE", "TILES", "ORDERS",
            "LAUNCHES", "matmul_int8", "matmul_int8_plain", "TUNE_SPACE_INT8",
-           "TILES_INT8", "INT8_LAUNCHES", "MAX_INT8_K"]
+           "TILES_INT8", "INT8_LAUNCHES", "MAX_INT8_K", "int8_staging",
+           "int8_smem_bytes"]

@@ -17,10 +17,13 @@ The int8 wrappers (:func:`qmatmul`, :func:`qdft`, :func:`qfir`,
 :func:`~repro_torch.core.quantize.quantize_symmetric` as the torch
 integer path (or inside the kernel, per window), so every one of them is
 bit-identical to it; the int8 Fourier matrix is quantized once per
-(n, inverse) and uploaded once per device.
+(n, inverse) and uploaded once per device, with the K-major copies the
+int8 GEMM takes.
 
 Unlike the reference's wrappers these do not pad to block multiples:
-the kernels mask their own ragged edges.  A kernel takes contiguous
+the kernels mask their own ragged edges (the f32 DFT's F planes are
+padded once, with the DFM; an x whose rows TMA cannot read is copied
+into padded rows by the kernel wrapper).  A kernel takes contiguous
 inputs, so a wrapper handed a strided view (``frame_decimate`` after
 ``unfold``, ``real`` after ``idft``, ``downsample`` before a FIR or a
 PFB) makes it contiguous first, a copy.
@@ -215,16 +218,20 @@ def abs2(x: torch.Tensor, *, threads: int | None = None) -> torch.Tensor:
 
 def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
         variant: str = "3mult", bm: int | None = None,
-        bn: int | None = None) -> torch.Tensor:
+        bn: int | None = None,
+        planes: torch.Tensor | None = None) -> torch.Tensor:
     """(B, L) complex or real signal rows through the blocked DFT kernel
     against fr + i fi (L, N) -> complex64 (B, N).  The reference's
     ``ops.dft`` takes and returns (re, im) planes; here a complex64 input
-    is read interleaved and a real one has no imaginary plane at all."""
+    is read interleaved and a real one has no imaginary plane at all.
+    ``planes``: the kernel's TF32 split of (fr, fi), made once by the
+    caller (``dft_kernel.tf32_planes``), or None to split per call."""
     b, l = x.shape
     n = fr.shape[1]
     cfg = _resolve(dft_kernel.TUNE_SPACE, {"m": b, "n": n, "k": l},
                    bm=bm, bn=bn)
-    return dft_kernel.dft(x.contiguous(), fr, fi, variant=variant, **cfg)
+    return dft_kernel.dft(x.contiguous(), fr, fi, variant=variant,
+                          planes=planes, **cfg)
 
 
 def unfold(x: torch.Tensor, window: int, *, bt: int | None = None,
@@ -260,11 +267,13 @@ def overlap_add(frames: torch.Tensor, hop: int, *,
 # int8 wrappers: the qimpl lowering targets
 # ---------------------------------------------------------------------------
 def qmatmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *,
-            bm: int | None = None, bn: int | None = None,
-            bk: int | None = None) -> torch.Tensor:
+            wt: torch.Tensor | None = None, bm: int | None = None,
+            bn: int | None = None, bk: int | None = None) -> torch.Tensor:
     """x (..., L) float against an int8 (L, N) weight with per-column
     scales: per-row activation quantization (quantize.qmatmul's
-    convention), then one launch of the int8 GEMM."""
+    convention), then one launch of the int8 GEMM.  ``wt``: the weight's
+    K-major copy (N, L) where it was made once (the qprep pack), else
+    None and the kernel wrapper makes it per call."""
     l = x.shape[-1]
     n = wq.shape[1]
     cfg = _resolve(mm_kernel.TUNE_SPACE_INT8,
@@ -272,7 +281,8 @@ def qmatmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *,
                    bm=bm, bn=bn, bk=bk)
     xq, sx = quantize.quantize_symmetric(x.reshape((-1, l)), axis=-1)
     out = mm_kernel.matmul_int8(xq, wq.contiguous(), sx.reshape(-1),
-                                w_scale.reshape(-1).contiguous(), **cfg)
+                                w_scale.reshape(-1).contiguous(), yt=wt,
+                                **cfg)
     return out.reshape(x.shape[:-1] + (n,))
 
 
@@ -281,27 +291,31 @@ def qdft(x: torch.Tensor, *, inverse: bool = False, bm: int | None = None,
     """(I)DFT with the int8-quantized Fourier matrix: a real signal runs
     the shared-x dft_int8 kernel (one launch, both matrices); a complex
     one expands to the 4-real-matmul form through four launches of
-    matmul_int8, its real and imaginary rows quantized once each.  Each
-    product is rounded to f32 before the cross-term combine."""
+    matmul_int8 against the DFM's K-major copies, its real and imaginary
+    rows quantized once each.  Each product is rounded to f32 before the
+    cross-term combine.  The tile comes from the space of the kernel
+    that runs: dft_int8's for a real x, matmul_int8's for a complex one."""
     n = x.shape[-1]
     qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(x.device))
-    cfg = _resolve(dft_kernel.TUNE_SPACE_INT8,
-                   {"m": tune.leading_rows(x.shape), "n": n, "k": n},
-                   bm=bm, bn=bn, bk=bk)
+    ctx = {"m": tune.leading_rows(x.shape), "n": n, "k": n}
     x2 = x.reshape((-1, n))
     if x2.is_complex():
+        cfg = _resolve(mm_kernel.TUNE_SPACE_INT8, ctx, bm=bm, bn=bn, bk=bk)
+        qrt, qit = quantize._qdfm_kmajor(n, inverse, str(x.device))
         zrq, szr = quantize.quantize_symmetric(
             x2.real.to(torch.float32), axis=-1)
         ziq, szi = quantize.quantize_symmetric(
             x2.imag.to(torch.float32), axis=-1)
         szr, szi = szr.reshape(-1), szi.reshape(-1)
 
-        def mm(xq, sx, wq, sw):
-            return mm_kernel.matmul_int8(xq, wq, sx, sw, **cfg)
+        def mm(xq, sx, wq, sw, wt):
+            return mm_kernel.matmul_int8(xq, wq, sx, sw, yt=wt, **cfg)
 
-        out = torch.complex(mm(zrq, szr, qr, sr) - mm(ziq, szi, qi, si),
-                            mm(zrq, szr, qi, si) + mm(ziq, szi, qr, sr))
+        out = torch.complex(
+            mm(zrq, szr, qr, sr, qrt) - mm(ziq, szi, qi, si, qit),
+            mm(zrq, szr, qi, si, qit) + mm(ziq, szi, qr, sr, qrt))
     else:
+        cfg = _resolve(dft_kernel.TUNE_SPACE_INT8, ctx, bm=bm, bn=bn, bk=bk)
         xq, sx = quantize.quantize_symmetric(x2, axis=-1)
         out = dft_kernel.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si, **cfg)
     return out.reshape(x.shape[:-1] + (n,))

@@ -183,6 +183,28 @@ def test_dft_every_tile(dev, tile):
         assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
+def test_dft_staging_and_fp64_accuracy(dev):
+    """Rows that TMA cannot read (an unaligned start) go through the
+    padded copy and give the same numbers; at the STFT's width the 3xTF32
+    product is within 1e-5 of max against a float64 product (one TF32
+    pass would be near 1e-3)."""
+    n = 1024
+    fr, fi = functions._dfm_tensors(n, False, torch.float32, str(dev))
+    planes = functions._dfm_tf32_tensors(n, False, "4mult", str(dev))
+    x = torch.randn(300, n, device=dev)
+    buf = torch.empty(300 * n + 1, device=dev)
+    xs = buf[1:].view(300, n)
+    xs.copy_(x)
+    assert dftk.staging(x) == "tma" and dftk.staging(xs) == "padded_copy"
+    got = dftk.dft(x, fr, fi, variant="4mult", planes=planes)
+    assert torch.equal(dftk.dft(xs, fr, fi, variant="4mult", planes=planes),
+                       got)
+    want = torch.complex(x.double() @ fr.double(), x.double() @ fi.double())
+    err = (torch.view_as_real(got).double()
+           - torch.view_as_real(want)).abs().max()
+    assert err <= 1e-5 * torch.view_as_real(want).abs().max()
+
+
 def _counts():
     return {"unfold": unfk.LAUNCHES, "overlap_add": unfk.OLA_LAUNCHES,
             "binary": ewk.BINARY_LAUNCHES, "dft": dftk.LAUNCHES,
@@ -354,7 +376,11 @@ def test_matmul_int8_bit_exact(dev, m, k, n, tile):
     bm, bn, bk = tile
     got = mmk.matmul_int8(xq, wq, sx, ws, bm=bm, bn=bn, bk=bk)
     torch.cuda.synchronize()
-    assert torch.equal(got, mmk.matmul_int8_plain(xq, wq, sx, ws))
+    want = mmk.matmul_int8_plain(xq, wq, sx, ws)
+    assert torch.equal(got, want)
+    # the K-major copy made once by the caller gives the same bits
+    assert torch.equal(mmk.matmul_int8(xq, wq, sx, ws, yt=wq.t().contiguous(),
+                                       bm=bm, bn=bn, bk=bk), want)
 
 
 def test_matmul_int8_unaligned_rows_and_headroom(dev):

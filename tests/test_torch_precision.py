@@ -142,6 +142,55 @@ def test_qdfm_bitwise(n, inverse):
         _bitwise(got, want)
 
 
+@pytest.mark.parametrize("n", [7, 64, 1024])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_qdfm_kmajor_is_the_transpose_of_jax(n, inverse):
+    """The s8 tensor-core GEMM's B operand for the complex qdft: the int8
+    DFM's K-major copies, bit for bit the transpose of the reference's,
+    made once per (n, inverse, device)."""
+    (jqr, _), (jqi, _) = jq._qdfm(n, inverse)
+    qrt, qit = quantize._qdfm_kmajor(n, inverse, "cpu")
+    _bitwise(qrt, np.asarray(jqr).T)
+    _bitwise(qit, np.asarray(jqi).T)
+    assert qrt.is_contiguous() and qit.is_contiguous()
+    assert quantize._qdfm_kmajor(n, inverse, "cpu")[0] is qrt
+
+
+@pytest.mark.parametrize("k,n", [(64, 48), (3, 5), (129, 67)])
+def test_qprep_matmul_pack_carries_the_kmajor_weight(k, n):
+    """The plan-built int8 matmul pack: the reference's quantize_weights
+    pack and the K-major (N, K) copy of its int8 weight, bit for bit."""
+    w = _rng("kmajor", k, n).standard_normal((k, n)).astype(np.float32)
+    d = opdefs.OPDEFS["matmul"]
+    wq, ws, wt = d.qprep(d.bind({}), {1: _t(w)})
+    jwq, jws = jq.quantize_weights(w)
+    _bitwise(wq, jwq)
+    _bitwise(ws, np.asarray(jws).reshape(-1))
+    _bitwise(wt, np.asarray(jwq).T)
+    assert wt.is_contiguous()
+
+
+def test_qdft_resolves_the_tile_of_the_kernel_that_runs(monkeypatch):
+    """A complex x runs four matmul_int8 launches and takes its tile from
+    matmul_int8's space; a real x runs dft_int8 at dft_int8's tile."""
+    seen = []
+    resolve = ops._resolve
+    monkeypatch.setattr(ops, "_resolve", lambda space, ctx, **kw: (
+        seen.append(space.kernel), resolve(space, ctx, **kw))[1])
+    rng = _rng("qdft_tile")
+    z = _t(_cplx(rng, (8, 64)))
+    x = _t(rng.standard_normal((8, 64)).astype(np.float32))
+    ops.qdft(z, inverse=True)
+    assert seen == ["matmul_int8"]
+    seen.clear()
+    ops.qdft(x)
+    assert seen == ["dft_int8"]
+    bm, bn, bk = mmk.TILES_INT8[-1]
+    _bitwise(ops.qdft(z, bm=bm, bn=bn, bk=bk), ops.qdft(z))
+    with pytest.raises(ValueError, match="invalid block config"):
+        ops.qdft(z, **dict(zip(("bm", "bn", "bk"), dftk.TILES_INT8[0])))
+
+
 def test_weight_packs_bitwise():
     rng = _rng("packs")
     w = rng.standard_normal((64, 48)).astype(np.float32)

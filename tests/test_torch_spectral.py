@@ -370,5 +370,111 @@ def test_tune_spaces_describe_the_cuda_kernels():
     assert dsp is dftk.TUNE_SPACE
     assert {(c["bm"], c["bn"]) for c in dsp.configs(
         {"m": 8188, "n": 1024, "k": 1024})} == set(dftk.TILES)
-    assert dsp.check({}, {"m": 4, "n": 7, "k": 7}) == {"bm": 64, "bn": 32}
+    assert dsp.check({}, {"m": 4, "n": 7, "k": 7}) == {"bm": 128, "bn": 64}
+    # the largest ring (complex x, three planes) fits
+    assert all(dftk.smem_bytes(bm, bn) <= tune.SMEM_BUDGET
+               for bm, bn in dftk.TILES)
     assert tune.space("overlap_add") is unfk.OLA_TUNE_SPACE
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 DFT kernel's host side: the TF32 planes of the DFM, the split
+# they rest on, and its accuracy (emulated in torch: the sandbox's
+# measurement; the card's is chip_smoke.py's float64 check)
+# ---------------------------------------------------------------------------
+DFT_RTOL = 1e-4     # chip_smoke.py: the kernel against its plain version
+
+
+@pytest.mark.parametrize("n", [7, 64, 100])
+@pytest.mark.parametrize("inverse", [False, True], ids=["dft", "idft"])
+@pytest.mark.parametrize("variant", dftk.VARIANTS)
+def test_dfm_tf32_planes_against_jax_dfm(n, inverse, variant):
+    planes = functions._dfm_tf32_tensors(n, inverse, variant, "cpu")
+    jr, ji = jfunctions._dfm(n, inverse, "float32")
+    want = [jr, ji] if variant == "4mult" else [jr, ji - jr, jr + ji]
+    n_pad, l_pad = -(-n // dftk.N_ALIGN) * dftk.N_ALIGN, -(-n // 32) * 32
+    assert planes.shape == (2 * len(want), n_pad, l_pad)
+    assert planes.dtype == torch.float32 and planes.is_contiguous()
+    # hi and lo are exact TF32 values: their low 13 bits are zero
+    assert not (planes.view(torch.int32) & 0x1FFF).any()
+    for p, f in enumerate(want):
+        hi, lo = planes[2 * p].numpy(), planes[2 * p + 1].numpy()
+        # K-major: row n of a plane is column n of F
+        got = hi[:n, :n].astype(np.float64) + lo[:n, :n]
+        assert (np.abs(got - f.T.astype(np.float64)).max()
+                <= 2.0 ** -21 * np.abs(f).max())
+        pad = np.ones(hi.shape, bool)
+        pad[:n, :n] = False
+        assert not hi[pad].any() and not lo[pad].any()
+    # made once per (n, inverse, variant, device)
+    assert functions._dfm_tf32_tensors(n, inverse, variant, "cpu") is planes
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    f = torch.from_numpy(
+        _rng("tf32").standard_normal(4096).astype(np.float32) * 1e3)
+    hi, lo = dftk.tf32_split(f)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (f.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -22 * f.double().abs()).all())
+    # cvt.rna: a tie (bit 12 alone set below the TF32 mantissa) rounds
+    # away from zero, either sign
+    tie = torch.tensor([0x3F801000, -0x407FF000], dtype=torch.int32)
+    up = dftk.tf32_split(tie.view(torch.float32))[0].view(torch.int32)
+    assert up.tolist() == [0x3F802000, -0x407FE000]
+
+
+def _tf32_product(x, hi, lo, n, passes):
+    """x (B, L) f32 against one TF32-split plane (K-major (N, L)), with
+    f32 sums: passes 3 is the kernel's Xhi Fhi + Xhi Flo + Xlo Fhi (each
+    product of two TF32 values exact in f32), 1 a single TF32 pass."""
+    l = x.shape[1]
+    xh, xl = dftk.tf32_split(x)
+    fh, fl = hi[:n, :l].t(), lo[:n, :l].t()
+    if passes == 1:
+        return xh @ fh
+    return xl @ fh + xh @ fl + xh @ fh
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dft", "idft"])
+def test_3xtf32_emulation_within_dft_rtol_at_1024(inverse):
+    """At the STFT's width, L = N = 1024, the 3xTF32 split (emulated with
+    f32 sums) stays within DFT_RTOL of the fp32 product, 4mult on a real
+    forward x and a complex inverse one; a single TF32 pass does not."""
+    n = 1024
+    rng = _rng("3xtf32", inverse)
+    fr, fi = functions._dfm_tensors(n, inverse, torch.float32, "cpu")
+    planes = functions._dfm_tf32_tensors(n, inverse, "4mult", "cpu")
+    if inverse:
+        x = _t(_cplx(rng, (32, n)))
+    else:
+        x = _t(rng.standard_normal((32, n)).astype(np.float32))
+    want = dftk.dft_plain(x, fr, fi, "4mult")
+    errs = {}
+    for passes in (3, 1):
+        def mm(a, p):
+            return _tf32_product(a, planes[2 * p], planes[2 * p + 1], n,
+                                 passes)
+        xr = x.real if x.is_complex() else x
+        zr, zi = mm(xr, 0), mm(xr, 1)
+        if x.is_complex():
+            zr, zi = zr - mm(x.imag, 1), zi + mm(x.imag, 0)
+        got = torch.view_as_real(torch.complex(zr, zi))
+        ref_ = torch.view_as_real(want)
+        errs[passes] = float((got - ref_).abs().max() / ref_.abs().max())
+    assert errs[3] <= DFT_RTOL
+    assert errs[1] > DFT_RTOL > 10 * errs[3]
+
+
+def test_dft_staging_is_decided_by_shape():
+    """TMA reads rows that are 16-byte multiples from an aligned start;
+    anything else goes through the zero-padded copy."""
+    real = torch.zeros(4, 64)
+    assert dftk.staging(real) == "tma"
+    assert dftk.staging(torch.zeros(4, 7)) == "padded_copy"
+    assert dftk.staging(torch.zeros(4, 8, dtype=torch.complex64)) == "tma"
+    assert dftk.staging(torch.zeros(4, 7, dtype=torch.complex64)) == \
+        "padded_copy"
+    shifted = torch.zeros(4 * 64 + 1)[1:].view(4, 64)
+    assert shifted.is_contiguous() and dftk.staging(shifted) == "padded_copy"
