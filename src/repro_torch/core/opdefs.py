@@ -338,23 +338,35 @@ def _impl_fused(args, at, lowering, block=None):
 def _qimpl_matmul(args, at, qpack, lowering="native", block=None):
     x, w = args[0], args[1]
     if qpack is not None:
-        wq, ws, wt = qpack
+        wq, ws = qpack[0], qpack[1]
     else:                       # w is a plan input: packed per call
-        (wq, ws), wt = quantize.quantize_weights(w), None
+        wq, ws = quantize.quantize_weights(w)
     if lowering == "kernel":
+        wt = (_int8_kmajor(qpack) if qpack is not None and x.is_cuda
+              else None)
         return _kops().qmatmul(x, wq, ws.reshape(-1), wt=wt,
                                **(block or {}))
     return quantize.qmatmul(x, wq, ws.reshape(-1))
 
 
 def _qprep_matmul(at, consts):
-    """(wq, ws, wq^T): the int8 weight pack with its K-major copy, the B
-    operand of the s8 tensor-core GEMM, made here once."""
+    """[wq, ws, None]: the int8 weight pack, with a slot for its K-major
+    copy that :func:`_int8_kmajor` fills where a kernel launch needs it."""
     w = consts.get(1)
     if w is None:
         return None
     wq, ws = quantize.quantize_weights(w)
-    return wq, ws.reshape(-1), wq.t().contiguous()
+    return [wq, ws.reshape(-1), None]
+
+
+def _int8_kmajor(qpack: list) -> torch.Tensor:
+    """The K-major (N, K) copy of a matmul pack's int8 weight, the B
+    operand of the s8 tensor-core GEMM: made at the first launch that
+    asks for it and kept in the pack, so native and CPU plans never hold
+    a second copy of the weight."""
+    if qpack[2] is None:
+        qpack[2] = qpack[0].t().contiguous()
+    return qpack[2]
 
 
 def _qimpl_dft(args, at, qpack, lowering="native", block=None):

@@ -159,15 +159,21 @@ def test_qdfm_kmajor_is_the_transpose_of_jax(n, inverse):
 @pytest.mark.parametrize("k,n", [(64, 48), (3, 5), (129, 67)])
 def test_qprep_matmul_pack_carries_the_kmajor_weight(k, n):
     """The plan-built int8 matmul pack: the reference's quantize_weights
-    pack and the K-major (N, K) copy of its int8 weight, bit for bit."""
+    pack, and the K-major (N, K) copy of its int8 weight, bit for bit,
+    made once at the first kernel launch that asks for it (none at plan
+    build, so native and CPU plans hold one copy of the weight)."""
     w = _rng("kmajor", k, n).standard_normal((k, n)).astype(np.float32)
     d = opdefs.OPDEFS["matmul"]
-    wq, ws, wt = d.qprep(d.bind({}), {1: _t(w)})
+    pack = d.qprep(d.bind({}), {1: _t(w)})
+    wq, ws, wt = pack
     jwq, jws = jq.quantize_weights(w)
     _bitwise(wq, jwq)
     _bitwise(ws, np.asarray(jws).reshape(-1))
+    assert wt is None
+    wt = opdefs._int8_kmajor(pack)
     _bitwise(wt, np.asarray(jwq).T)
     assert wt.is_contiguous()
+    assert opdefs._int8_kmajor(pack) is wt and pack[2] is wt
 
 
 def test_qdft_resolves_the_tile_of_the_kernel_that_runs(monkeypatch):
