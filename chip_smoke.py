@@ -13,14 +13,20 @@ Prints one JSON line per phase:
   card      the card's name and power limit (``nvidia-smi``), versions
   build     seconds spent building ``src/repro_torch/csrc/*.cu`` with nvcc
   sass      the warpgroup MMA instructions (HGMMA, IGMMA) that
-            ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` (the
-            3xTF32 DFT) and ``tina_matmul_int8`` (the s8 GEMM); none fails
+            ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` and
+            ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA) and
+            ``tina_matmul_int8`` and ``tina_dft_int8`` (the s8 GEMM and
+            DFT: IGMMA); a kernel without them fails
   kernel    each kernel against its plain version at ragged shapes
             (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
             taken in another order, the DFT at every compiled tile, with
             the staging of x each case took and rows that start
             unaligned; matmul the same, at the JAX suite's
-            shapes, every compiled tile and both grid orders; chain
+            shapes and K not a multiple of 4, every compiled tile and
+            both grid orders, y's TF32 planes made per call and passed
+            in, each case also against a float64 product (1e-5 of its
+            max), the split pass bit for bit against its plain twin,
+            and rows that start unaligned; chain
             (complex and real abs2 heads), binary, unfold, overlap-add
             and FIR: exact equality -- the FIR at K = 1 to 4097, with
             implicit padding, with the taps as given and reversed
@@ -40,14 +46,18 @@ Prints one JSON line per phase:
             oracle on batch row 0 (2e-3 of its max), each kernel held
             against its plain version at the shape the path gives it (the
             kernel phase's tolerances), the DFT of ``stft_overlap_add``
-            (forward and inverse) and ``spectrogram`` also against a
-            float64 product (1e-5 of its max), median times of 20 calls of the
+            (forward and inverse) and ``spectrogram`` and the matmul
+            also against a float64 product (1e-5 of its max), every plan
+            output dense and sharing no storage with its input, median
+            times of 20 calls of the
             plan, the native plan, each kernel alone at the shape the
             path gives it, its plain version, and the one PyTorch call
             that computes the same function (``F.conv1d`` without TF32
             for the FIR, ``torch.matmul``, ``torch.add``; timed here
             only, the port never calls them); ``fir_decimate``'s first
-            FIR and the matmul also at every tile of their tune spaces.
+            FIR and the matmul also at every tile of their tune spaces;
+            the matmul plan's first call makes y's TF32 planes and its
+            second launches the GEMM alone.
             Path ``table1``: every row of the Table-1 registry at the
             ``kernel`` lowering (its one lowering for ``summation``) on
             the row's own inputs at size 2048, with the launches of that
@@ -56,14 +66,16 @@ Prints one JSON line per phase:
             phase's tolerances), the row against its native single-node
             plan on the card (1e-4 of its max), the numpy oracle (|diff|
             <= 2e-3 + 2e-3 |oracle|) and its kernel single-node plan
-            (1e-5 + 1e-5 |eager|); once every row passed, the median
+            (1e-5 + 1e-5 |eager|), the matmul row also against float64
+            (1e-5 of its max); once every row passed, the median
             times of both plans and the device times of each kernel and
             its plain version on the row's inputs
   int8_kernels  the four int8 kernels against their plain versions, bit
             for bit: ragged M, N, K (K < 4, K % 4 != 0), every compiled
-            tile, yq's K-major copy made per call and passed in, rows not
-            16-byte aligned, +-127 operands at K = 2048
-            against an int64 sum, the int8 DFM both ways, K = 1 to 4097
+            tile, yq's (and the DFT's Fr and Fi) K-major copies made per
+            call and passed in, rows not 16-byte aligned, +-127 operands
+            at K = 2048 against an int64 sum, the int8 DFM both ways, an
+            odd N and L not a multiple of 16 for the DFT, K = 1 to 4097
             taps both orientations, P = 16, 20, 48 and 1024, and inputs
             whose x / scale quotients are exact half-integers
   int8_main ``pfb_power`` at ``precision="int8"``, kernel lowering, full
@@ -82,12 +94,16 @@ Prints one JSON line per phase:
             two rows (bit for bit; 2 ulp of max allowed where a complex
             idft recombines), row 0's SQNR (asserted for spectrogram and
             matmul, printed for the rest), each int8 kernel held against
-            its plain version at the path's shapes, times, bounds and the
-            ``torch._int_mm`` yardstick of the int8 contraction alone
+            its plain version at the path's shapes, times (``dft_int8``
+            at both its tiles), bounds and the ``torch._int_mm``
+            yardstick of the int8 contraction alone (for ``dft_int8``
+            one call against [Fr | Fi])
   bf16      ``pfb_power`` at ``precision="bf16"``, kernel lowering, full
             width: launches, SQNR of row 0 (>= 30 dB), plan times
   kernels   the kernel table, all 13 TPU kernels: launches, errors,
-            times, bounds
+            times, bounds (an f32 product at the TF32 tensor-core peak;
+            the fused PFB's FIR at the fp32 pipe beside its DFT at TF32;
+            the fp32-pipe figures print beside them in the path lines)
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without CUDA, or outside a checkout, the script
@@ -121,6 +137,8 @@ DFT_F64_RTOL = 1e-5   # the 3xTF32 DFT against a float64 product (one TF32
 NATIVE_RTOL = 1e-4    # kernel plan vs native plan on the card
 ORACLE_RTOL = 2e-3    # the reference suite's pipeline-vs-oracle tolerance
 MM_RTOL = 1e-4        # fp32 sums of K terms in another order
+MM_F64_RTOL = 1e-5    # the 3xTF32 GEMM against a float64 product (as the
+                      # DFT's; one TF32 pass would be near 1e-3)
 SWEEP_TOL = 2e-3      # Table-1 row vs numpy oracle (tests/test_opdefs.py)
 PLAN_TOL = 1e-5       # Table-1 row eager vs its single-node plan
 STFT_J, STFT_HOP, STFT_X = 1024, 512, (4, 2 ** 20)
@@ -190,13 +208,13 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return ((got - want).abs().max().item(), want.abs().max().item())
 
 
-def pfb_cost(b, t, p, n, m) -> tuple[int, int]:
-    """(bytes, flops) the fused PFB must move and do: frames, taps and
-    F read once, complex output written once; FIR + two real products."""
+def pfb_cost(b, t, p, n, m) -> tuple[int, int, int]:
+    """(bytes, FIR flops, DFT flops) the fused PFB must move and do:
+    frames, taps and F read once, complex output written once; the FIR's
+    M multiply-adds per (frame, branch), then two real products."""
     tout = t - m + 1
     nbytes = 4 * (b * t * p + m * p + 2 * p * n) + 8 * b * tout * n
-    flops = 2 * m * b * tout * p + 4 * b * tout * p * n
-    return nbytes, flops
+    return nbytes, 2 * m * b * tout * p, 4 * b * tout * p * n
 
 
 def dft_cost(b, l, n, cplx) -> tuple[int, int]:
@@ -220,9 +238,27 @@ def bound(nbytes: int, flops: int, peak: float = PEAK_F32_FLOPS
 
 
 def bound_tf32(nbytes: int, flops: int) -> tuple[float, str]:
-    """The bound of the DFT: its flops at the TF32 tensor-core peak, the
-    fastest rate the card has for an f32 product, or its bytes."""
+    """The bound of an f32 product (the DFT, the GEMM): its flops at the
+    TF32 tensor-core peak, the fastest rate the card has for an f32
+    product, or its bytes."""
     return bound(nbytes, flops, PEAK_TF32_FLOPS)
+
+
+def bound_pfb(nbytes: int, fir_flops: int, dft_flops: int
+              ) -> tuple[float, str]:
+    """The bound of the fused PFB: its FIR on the fp32 pipe and its two
+    real DFT products at the TF32 peak, one after the other, or its
+    bytes."""
+    tb = nbytes / PEAK_BYTES_S
+    tf = fir_flops / PEAK_F32_FLOPS + dft_flops / PEAK_TF32_FLOPS
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def fp32_pipe_ms(nbytes: int, *flops: int) -> float:
+    """A diagnostic beside an f32 product's bound: every flop on the
+    67 TFLOP/s fp32 pipe, or the bytes (the bound before the tensor
+    cores ran the products)."""
+    return bound(nbytes, sum(flops))[0]
 
 
 def bound_3xtf32(nbytes: int, flops: int) -> tuple[float, str]:
@@ -289,14 +325,26 @@ def hold(torch, what, got, want, rtol=None) -> float:
     return err
 
 
+# entry point -> the warpgroup MMA its kernels must hold
+TC_ENTRIES = {"tina_dft": "HGMMA", "tina_matmul": "HGMMA",
+              "tina_matmul_int8": "IGMMA", "tina_dft_int8": "IGMMA"}
+
+
 def tc_kernel(mangled: str):
-    """(entry point, label) of a tensor-core kernel of tina_dft or
-    tina_matmul_int8 from its mangled name, else None; the DFT's label
-    carries its template flags, <complex x, 3mult>."""
+    """(entry point, label) of a tensor-core kernel of ``TC_ENTRIES``
+    from its mangled name, else None; a label carries the template
+    arguments: <complex x, 3mult> of the DFT, the tile width of the
+    others."""
+    import re
+    width = re.search(r"ILi(\d+)E", mangled)
     if "dft_tf32_kernel" in mangled:
         args = mangled.split("_kernel", 1)[1].split("Ev", 1)[0]
         flags = ",".join(f for f in args if f in "01")
         return "tina_dft", f"dft_tf32_kernel<{flags}>"
+    if "tf32_matmul_kernel" in mangled and width:
+        return "tina_matmul", f"tf32_matmul_kernel<{width.group(1)}>"
+    if "s8_dft_kernel" in mangled and width:
+        return "tina_dft_int8", f"s8_dft_kernel<{width.group(1)}>"
     if "qmatmul_cu" in mangled and "matmul_kernel" in mangled:
         return "tina_matmul_int8", "matmul_kernel"
     return None
@@ -304,8 +352,8 @@ def tc_kernel(mangled: str):
 
 def wgmma_counts(lib_path) -> dict:
     """{entry point: {kernel: {"HGMMA"/"IGMMA": count}}}: the warpgroup
-    MMA instructions in the SASS of tina_dft's and tina_matmul_int8's
-    kernels in the built library, from ``cuobjdump -sass``."""
+    MMA instructions in the SASS of the kernels of every entry point of
+    ``TC_ENTRIES`` in the built library, from ``cuobjdump -sass``."""
     import os
     import re
     import shutil
@@ -313,7 +361,7 @@ def wgmma_counts(lib_path) -> dict:
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    out, fn = {"tina_dft": {}, "tina_matmul_int8": {}}, None
+    out, fn = {entry: {} for entry in TC_ENTRIES}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -327,8 +375,8 @@ def wgmma_counts(lib_path) -> dict:
 
 
 def ptxas_usage(log: str) -> dict:
-    """{kernel: {"registers", "spill_bytes"}} of tina_dft's and
-    tina_matmul_int8's kernels, from the build's ``-Xptxas -v`` log."""
+    """{kernel: {"registers", "spill_bytes"}} of the tensor-core kernels
+    (``TC_ENTRIES``), from the build's ``-Xptxas -v`` log."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -362,6 +410,13 @@ def dft_f64_err(torch, x, fr, fi, got) -> float:
     return ((g - w).abs().max() / w.abs().max()).item()
 
 
+def mm_f64_err(torch, x, y, got) -> float:
+    """max|got - x y| over max|x y|, the product taken in float64 on the
+    same f32 inputs (the 3xTF32 GEMM's accuracy, as dft_f64_err)."""
+    want = x.double() @ y.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: run from the root of a checkout: "
@@ -390,7 +445,7 @@ def main() -> int:
     def zero_counts() -> None:
         pfbk.LAUNCHES = ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
         dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
-        firk.LAUNCHES = mmk.LAUNCHES = 0
+        firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
         mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = 0
         firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
 
@@ -399,10 +454,23 @@ def main() -> int:
                 "elementwise_binary": ew.BINARY_LAUNCHES,
                 "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
                 "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
-                "matmul": mmk.LAUNCHES, "matmul_int8": mmk.INT8_LAUNCHES,
+                "matmul": mmk.LAUNCHES, "tf32_planes": mmk.PLANES_LAUNCHES,
+                "matmul_int8": mmk.INT8_LAUNCHES,
                 "dft_int8": dftk.INT8_LAUNCHES,
                 "fir_valid_int8": firk.INT8_LAUNCHES,
                 "pfb_fused_int8": pfbk.INT8_LAUNCHES}
+
+    def owned(label, out, *inputs) -> None:
+        """A plan output is dense and shares no storage with its inputs
+        (the reference returns fresh arrays)."""
+        def span(t):
+            st = t.untyped_storage()
+            return st.data_ptr(), st.data_ptr() + st.nbytes()
+        o0, o1 = span(out)
+        if not out.is_contiguous() or any(
+                o0 < span(t)[1] and span(t)[0] < o1 for t in inputs):
+            fail(f"{label}: the plan output is not a dense tensor of its "
+                 f"own (strides {out.stride()})")
 
     # -- card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -429,7 +497,7 @@ def main() -> int:
 
     # -- the tensor-core kernels' SASS holds warpgroup MMAs -----------------
     mma = wgmma_counts(_build.build())
-    for entry, op in (("tina_dft", "HGMMA"), ("tina_matmul_int8", "IGMMA")):
+    for entry, op in TC_ENTRIES.items():
         if not mma[entry] or not all(c.get(op, 0) > 0
                                      for c in mma[entry].values()):
             fail(f"{entry}: a kernel without {op} in its SASS: {mma[entry]}")
@@ -620,26 +688,54 @@ def main() -> int:
              exact=ok)
         if not ok:
             fail(f"fir_valid strided rows tile {cfg}: not bit-identical")
-    # matmul: the JAX suite's shapes (m, l, n), batched, every tile x order
+    # matmul: the JAX suite's shapes (m, l, n), batched, every tile x
+    # order; K not a multiple of 4 (the padded copy), odd N, y's planes
+    # made per call and passed in; the split pass bit for bit against its
+    # plain twin; rows that start unaligned
     for xs_shape, ys_shape in (((1, 1), (1, 1)), ((257, 129), (129, 255)),
                                ((300, 100), (100, 50)),
-                               ((3, 5, 40, 24), (24, 17))):
+                               ((3, 5, 40, 24), (24, 17)),
+                               ((130, 1027), (1027, 193))):
         x, y = randn(*xs_shape), randn(*ys_shape)
-        want = mmk.matmul_plain(x.reshape(-1, xs_shape[-1]), y)
-        worst = 0.0
+        x2 = x.reshape(-1, xs_shape[-1])
+        want = mmk.matmul_plain(x2, y)
+        planes = mmk.tf32_planes(y)
+        hold(torch, f"tf32_planes {ys_shape}", planes,
+             mmk.tf32_planes_plain(y))
+        worst = worst64 = 0.0
         for bm, bn, bk in mmk.TILES:
             for order in mmk.ORDERS:
-                got = ops.matmul(x, y, bm=bm, bn=bn, bk=bk, order=order)
-                torch.cuda.synchronize()
-                err, scale = rel_err(torch, got.reshape(want.shape), want)
-                worst = max(worst, err / scale)
-                if err > MM_RTOL * scale:
-                    fail(f"matmul {xs_shape} @ {ys_shape} tile "
-                         f"{(bm, bn, bk)} {order}: {err} > {MM_RTOL} * "
-                         f"{scale}")
+                for yt in (None, planes):
+                    got = ops.matmul(x, y, yt_planes=yt, bm=bm, bn=bn, bk=bk,
+                                     order=order)
+                    torch.cuda.synchronize()
+                    err, scale = rel_err(torch, got.reshape(want.shape), want)
+                    worst = max(worst, err / scale)
+                    if err > MM_RTOL * scale:
+                        fail(f"matmul {xs_shape} @ {ys_shape} tile "
+                             f"{(bm, bn, bk)} {order}: {err} > {MM_RTOL} * "
+                             f"{scale}")
+                    worst64 = max(worst64, mm_f64_err(
+                        torch, x2, y, got.reshape(want.shape)))
+        if not worst64 <= MM_F64_RTOL:
+            fail(f"matmul {xs_shape} @ {ys_shape} vs float64: {worst64} > "
+                 f"{MM_F64_RTOL} of max")
         emit(phase="kernel", kernel="matmul", x=list(xs_shape),
-             y=list(ys_shape), cases="every tile x both orders",
-             max_rel_err=worst, ok=True)
+             y=list(ys_shape),
+             cases="every tile x both orders x planes per call and made "
+                   "once", staging=mmk.staging(x2), max_rel_err=worst,
+             max_rel_err_vs_float64=worst64, ok=True)
+    x, y = randn(300, 1024), randn(1024, 96)
+    buf = torch.empty(300 * 1024 + 1, device=dev)
+    xs = buf[1:].view(300, 1024)
+    xs.copy_(x)
+    if not torch.equal(ops.matmul(xs, y), ops.matmul(x, y)):
+        fail(f"matmul: an unaligned start ({mmk.staging(xs)}) differs from "
+             f"the aligned rows ({mmk.staging(x)})")
+    emit(phase="kernel", kernel="matmul", x=[300, 1024], y=[1024, 96],
+         cases="rows not 16-byte aligned: the padded copy equals the "
+               "direct TMA read bit for bit", staging=mmk.staging(xs),
+         ok=True)
 
     # -- main path: pfb_power end to end -------------------------------------
     table = {}
@@ -668,6 +764,7 @@ def main() -> int:
                 or not bool(torch.isfinite(out).all()):
             fail(f"{label}: output {out.dtype}{tuple(out.shape)}, finite="
                  f"{bool(torch.isfinite(out).all())}")
+        owned(label, out, x)
         native = graph.compile(g, {"x": (b, n)}, lowering="native")
         ref = native(x)
         torch.cuda.synchronize()
@@ -719,20 +816,26 @@ def main() -> int:
         cerr, _ = rel_err(
             torch, ew.elementwise_chain(zk, (), (), abs2_head=True),
             ew.elementwise_chain_plain(zk, (), (), abs2_head=True))
-        pb, pf = pfb_cost(b, t, p, p, m)
+        pcost = pfb_cost(b, t, p, p, m)
         n_out = b * tout * p
+        chain_cost = (12 * n_out, 3 * n_out)
         emit(phase="main", size=label, x=[b, n], p=p, m=m, tile=cfg,
              launches_per_call=launches, max_abs_err_vs_native=err_native,
              max_abs_native=scale_native, max_abs_err_row0_vs_oracle=err_oracle,
              max_abs_oracle_row0=scale_oracle, ms=ms,
              plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
-             pfb_achieved_tflops=pf / (ms["pfb_fused"] * 1e-3) / 1e12,
+             pfb_bound_ms={"fir_fp32_dft_tf32": bound_pfb(*pcost)[0],
+                           "fp32_pipe": fp32_pipe_ms(*pcost)},
+             plan_bound_ms=bound_pfb(*pcost)[0] + bound(*chain_cost)[0],
+             plan_bound_ms_fp32_pipe=fp32_pipe_ms(*pcost)
+             + bound(*chain_cost)[0],
+             pfb_achieved_tflops=(pcost[1] + pcost[2])
+             / (ms["pfb_fused"] * 1e-3) / 1e12,
              chain_achieved_gb_s=12 * n_out / (ms["elementwise_chain"] * 1e-3)
              / 1e9,
              max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-        table[label] = dict(launches=launches, ms=ms, pfb=(pb, pf),
-                            chain=(12 * n_out, 3 * n_out), pfb_err=kerr,
-                            chain_err=cerr)
+        table[label] = dict(launches=launches, ms=ms, pfb=pcost,
+                            chain=chain_cost, pfb_err=kerr, chain_err=cerr)
         del zk, out, x, frames
 
     # -- main paths: stft_overlap_add at full width, spectrogram ------------
@@ -759,6 +862,7 @@ def main() -> int:
             fail(f"{label}: launches per call {launches}, want {full_want}")
         if not bool(torch.isfinite(out).all()):
             fail(f"{label}: non-finite output")
+        owned(label, out, x)
         plan_peak = torch.cuda.max_memory_allocated() / 1e9
         native = graph.compile(g, {"x": shape}, lowering="native")
         ref = native(x)
@@ -1062,6 +1166,8 @@ def main() -> int:
             lambda: firk.fir_valid_plain(x2, t2, flip=True)),
         "downsample_copy": device_ms(torch,
                                      lambda: y1[:, ::2].contiguous()),
+        # the plan's output is y2's stride-2 tail made dense (Plan._owned)
+        "output_copy": device_ms(torch, lambda: y2[:, ::2].contiguous()),
     })
     with fp32_convs():
         ms["fir_valid_library"] = both(lambda: conv1d(x, h1),
@@ -1201,8 +1307,13 @@ def main() -> int:
          p=p, m=m, tiles={"fir_valid": cc, "pfb_fused": pcfg},
          max_abs_err_vs_plain=chan_errs, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
-         bound_ms={k: bound(*c)[0] for k, c in chan_cost.items()},
-         plan_bound_ms=sum(bound(*c)[0] for c in chan_cost.values()),
+         bound_ms={k: (bound_pfb if k == "pfb_fused" else bound)(*c)[0]
+                   for k, c in chan_cost.items()},
+         pfb_bound_ms_fp32_pipe=fp32_pipe_ms(*chan_cost["pfb_fused"]),
+         plan_bound_ms=sum((bound_pfb if k == "pfb_fused" else bound)(*c)[0]
+                           for k, c in chan_cost.items()),
+         plan_bound_ms_fp32_pipe=sum(fp32_pipe_ms(*c)
+                                     for c in chan_cost.values()),
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     del plan, native, x, y, frames, zk, pw
 
@@ -1229,7 +1340,8 @@ def main() -> int:
     sweep_launches = {
         "ew_mul": {"elementwise_binary": 1},
         "ew_add": {"elementwise_binary": 1},
-        "matmul": {"matmul": 1}, "summation": {}, "dft": {"dft": 1},
+        "matmul": {"matmul": 1, "tf32_planes": 1}, "summation": {},
+        "dft": {"dft": 1},
         "idft": {"dft": 1}, "fir": {"fir_valid": 1}, "unfold": {"unfold": 1},
         "overlap_add": {"overlap_add": 1}, "pfb_frontend": {"pfb_fused": 1},
         "pfb": {"pfb_fused": 1}}
@@ -1238,8 +1350,8 @@ def main() -> int:
     wrappers = {
         "fir_valid": (firk, "fir_valid", firk.fir_valid_plain,
                       firk.TUNE_SPACE.params, None),
-        "matmul": (mmk, "matmul", mmk.matmul_plain, mmk.TUNE_SPACE.params,
-                   MM_RTOL),
+        "matmul": (mmk, "matmul", mmk.matmul_plain,
+                   mmk.TUNE_SPACE.params + ("yt_planes",), MM_RTOL),
         "dft": (dftk, "dft", dftk.dft_plain,
                 dftk.TUNE_SPACE.params + ("planes",), DFT_RTOL),
         "unfold": (unfk, "unfold", unfk.unfold_plain, unfk.TUNE_SPACE.params,
@@ -1314,6 +1426,12 @@ def main() -> int:
                  f"{want.shape}, plan {planned.shape}")
         ex_plan, ex_oracle = excess(planned, got, PLAN_TOL), \
             excess(got, want, SWEEP_TOL)
+        f64 = None
+        if d.name == "matmul":          # the 3xTF32 GEMM against float64
+            f64 = mm_f64_err(torch, targs[0], targs[1], eager)
+            if not f64 <= MM_F64_RTOL:
+                fail(f"table1 matmul vs float64: {f64} > {MM_F64_RTOL} of "
+                     "max")
         if ex_plan > 0 or ex_oracle > 0:
             fail(f"table1 {d.table_name}: eager vs plan over 1e-5 by "
                  f"{ex_plan}, vs oracle over 2e-3 by {ex_oracle}")
@@ -1325,7 +1443,7 @@ def main() -> int:
              max_abs_err_vs_oracle=float(np.max(np.abs(got - want))),
              max_abs_oracle=float(np.max(np.abs(want))),
              max_abs_err_vs_plan=float(np.max(np.abs(planned - got))),
-             ok=True)
+             max_rel_err_vs_float64=f64, ok=True)
         sweep[d.name] = (d, targs, oplan, nplan, launched, launches, errs)
         del eager, planned, got, want
     # every row checked: now the times of its plan, its native plan, and
@@ -1362,37 +1480,71 @@ def main() -> int:
     # -- main path: matmul, 4096 x 4096 @ 4096 x 4096, as a one-node plan ---
     g = graph.Graph(f"matmul_{MM_N}")
     y_np = rng.standard_normal((MM_N, MM_N), dtype=np.float32)
-    g.output(g.apply("matmul", g.input("x"), g.const(y_np, "y")))
+    mnode = g.apply("matmul", g.input("x"), g.const(y_np, "y"))
+    g.output(mnode)
     y64 = y_np.astype(np.float64)
+    # the plan's first call makes y's TF32 planes (its kernel pack)
     plan, native, x, info = drive(
-        "matmul", g, (MM_N, MM_N), {"matmul": 1},
+        "matmul", g, (MM_N, MM_N), {"matmul": 1, "tf32_planes": 1},
         lambda x0: x0.astype(np.float64) @ y64, ORACLE_RTOL)
+    planes = plan.kconsts[mnode][0]
+    if planes is None:
+        fail("matmul: the kernel plan ran without making y's TF32 planes")
+    zero_counts()
+    plan(x)
+    torch.cuda.synchronize()
+    if counts() != {**dict.fromkeys(counts(), 0), "matmul": 1}:
+        fail(f"matmul: a second plan call launched {counts()}, want the "
+             "GEMM alone (y's planes made once)")
     yd = plan.consts["y"]
     mcfg = ops._resolve(mmk.TUNE_SPACE, {"m": MM_N, "n": MM_N, "k": MM_N})
-    mm_err = hold(torch, "matmul 4096", mmk.matmul(x, yd, **mcfg),
-                  mmk.matmul_plain(x, yd), MM_RTOL)
+    zk = mmk.matmul(x, yd, yt_planes=planes, **mcfg)
+    mm_err = hold(torch, "matmul 4096", zk, mmk.matmul_plain(x, yd), MM_RTOL)
+    planes_err = hold(torch, "tf32_planes 4096", mmk.tf32_planes(yd),
+                      mmk.tf32_planes_plain(yd))
+    mm_f64 = mm_f64_err(torch, x, yd, zk)
+    if not mm_f64 <= MM_F64_RTOL:
+        fail(f"matmul 4096 vs float64: {mm_f64} > {MM_F64_RTOL} of max")
+    mm_f64_library = mm_f64_err(torch, x, yd, torch.matmul(x, yd))
+    del zk
     ms = {"plan": median_ms(torch, lambda: plan(x)),
-          "plan_native": median_ms(torch, lambda: native(x))}
+          "plan_native": median_ms(torch, lambda: native(x)),
+          "plan_back_to_back": device_ms(torch, lambda: plan(x))}
     before = counts()
     ms.update({
-        "matmul": device_ms(torch, lambda: mmk.matmul(x, yd, **mcfg)),
+        "matmul": device_ms(
+            torch, lambda: mmk.matmul(x, yd, yt_planes=planes, **mcfg)),
         "matmul_plain": device_ms(torch, lambda: mmk.matmul_plain(x, yd)),
         "matmul_library": device_ms(torch, lambda: torch.matmul(x, yd)),
+        # diagnostics: the split pass alone, and the GEMM splitting y per
+        # call (what an eager call with a fresh y pays)
+        "tf32_planes": device_ms(torch, lambda: mmk.tf32_planes(yd)),
+        "tf32_planes_plain": device_ms(
+            torch, lambda: mmk.tf32_planes_plain(yd)),
+        "matmul_split_per_call": device_ms(
+            torch, lambda: mmk.matmul(x, yd, **mcfg)),
     })
-    check_grew("matmul", before, {"matmul": 1})
+    check_grew("matmul", before, {"matmul": 2, "tf32_planes": 2})
     mm_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}/{c['order']}": device_ms(
-        torch, lambda c=c: mmk.matmul(x, yd, **c), repeats=5)
+        torch, lambda c=c: mmk.matmul(x, yd, yt_planes=planes, **c),
+        repeats=5)
         for c in mmk.TUNE_SPACE.configs({"m": MM_N, "n": MM_N, "k": MM_N})}
     mm_cost = (4 * 3 * MM_N * MM_N, 2 * MM_N ** 3)
     emit(phase="main", path="matmul", x=[MM_N, MM_N], y=[MM_N, MM_N],
-         tile=mcfg, max_abs_err_vs_plain=mm_err, ms=ms,
-         bound_ms=bound(*mm_cost)[0],
+         tile=mcfg, staging=mmk.staging(x), max_abs_err_vs_plain=mm_err,
+         tf32_planes_max_abs_err_vs_plain=planes_err,
+         max_rel_err_vs_float64=mm_f64,
+         library_max_rel_err_vs_float64=mm_f64_library, ms=ms,
+         bound_ms=bound_tf32(*mm_cost)[0],
+         bound_ms_3xtf32_method=bound_3xtf32(*mm_cost)[0],
+         bound_ms_fp32_pipe=fp32_pipe_ms(*mm_cost),
+         plan_bound_ms=bound_tf32(*mm_cost)[0],
          achieved_tflops=mm_cost[1] / (ms["matmul"] * 1e-3) / 1e12,
          ms_per_tile=mm_tiles,
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     table["matmul"] = dict(launches=info["launches_per_call"], ms=ms,
                            cost=mm_cost, err=mm_err)
-    del plan, native, x, yd
+    del plan, native, x, yd, planes
 
     # ======================================================================
     # the int8 tier (precision="int8") and the bf16 tier
@@ -1491,17 +1643,53 @@ def main() -> int:
          staging={"unaligned rows": mmk.int8_staging(xs, wq.t()),
                   "headroom": mmk.int8_staging(sat, wsat.t())},
          exact=True)
-    # dft_int8: ragged rows and widths, forward and inverse int8 DFM
+    # dft_int8: ragged rows and widths, forward and inverse int8 DFM,
+    # every compiled tile, the K-major planes made by the wrapper and
+    # passed in (as ops.qdft passes them)
     for rows in (1, 37, 8188):
+        staged = {}
         for n in (7, 64, 1024):
             for inverse in (False, True):
                 xq, sx = quantize.quantize_symmetric(randn(rows, n), axis=-1)
+                sx = sx.reshape(-1)
                 qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(dev))
-                hold(torch, f"dft_int8 rows={rows} n={n} inverse={inverse}",
-                     dftk.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si),
-                     dftk.dft_int8_plain(xq, qr, qi, sx.reshape(-1), sr, si))
+                qrt, qit = quantize._qdfm_kmajor(n, inverse, str(dev))
+                staged[n] = mmk.int8_staging(xq, qrt, qit)
+                want = dftk.dft_int8_plain(xq, qr, qi, sx, sr, si)
+                for bm, bn, bk in dftk.TILES_INT8:
+                    for frt, fit in ((None, None), (qrt, qit)):
+                        hold(torch, f"dft_int8 rows={rows} n={n} inverse="
+                             f"{inverse} tile {(bm, bn, bk)}",
+                             dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=frt,
+                                           fit=fit, bm=bm, bn=bn, bk=bk),
+                             want)
         emit(phase="int8_kernels", kernel="dft_int8", rows=rows,
-             n=[7, 64, 1024], inverse=[False, True], exact=True)
+             n=[7, 64, 1024], inverse=[False, True],
+             tiles=[list(t) for t in dftk.TILES_INT8], staging=staged,
+             exact=True)
+    # dft_int8 off the square DFM: an odd N at L a multiple of 16, L not a
+    # multiple of 16 (the padded copy), rows that start unaligned
+    for l, n in ((64, 33), (100, 64), (1000, 257)):
+        xq, sx = quantize.quantize_symmetric(randn(300, l), axis=-1)
+        sx = sx.reshape(-1)
+        fr, sr = quantize.quantize_weights(randn(l, n))
+        fi, si = quantize.quantize_weights(randn(l, n))
+        sr, si = sr.reshape(-1), si.reshape(-1)
+        want = dftk.dft_int8_plain(xq, fr, fi, sx, sr, si)
+        buf = torch.empty(300 * l + 1, dtype=torch.int8, device=dev)
+        xs = buf[1:].view(300, l)
+        xs.copy_(xq)
+        for bm, bn, bk in dftk.TILES_INT8:
+            for xin in (xq, xs):
+                hold(torch, f"dft_int8 L={l} N={n} tile {(bm, bn, bk)} "
+                     f"({mmk.int8_staging(xin, fr.t())})",
+                     dftk.dft_int8(xin, fr, fi, sx, sr, si, bm=bm, bn=bn,
+                                   bk=bk), want)
+        emit(phase="int8_kernels", kernel="dft_int8", rows=300, l=l, n=n,
+             tiles=[list(t) for t in dftk.TILES_INT8],
+             staging={"aligned": mmk.int8_staging(xq, fr.t().contiguous()),
+                      "unaligned rows": mmk.int8_staging(xs, fr.t())},
+             exact=True)
     # half-integer quotients where the quantize runs in torch (qmatmul,
     # qdft): the card's wrapper path against the CPU's torch integer path
     xh = half_integer_signal((96, 256), 256, 3)
@@ -1592,6 +1780,7 @@ def main() -> int:
             torch.isfinite(out8).all()):
         fail(f"int8 pfb_power: output {tuple(out8.shape)} not finite or "
              "misshaped")
+    owned("int8 pfb_power", out8, x)
     native8 = compile_quiet(g, (b, n), precision="int8")
     if not torch.equal(out8, native8(x)):
         fail("int8 pfb_power: kernel plan not bit-identical to the int8 "
@@ -1681,6 +1870,7 @@ def main() -> int:
             fail(f"{label}: launches per call {launches}, want {full_want}")
         if not bool(torch.isfinite(out).all()):
             fail(f"{label}: non-finite output")
+        owned(label, out, x)
         peak = torch.cuda.max_memory_allocated() / 1e9
         two = (2,) + tuple(shape[1:])
         native = compile_quiet(g, two, precision="int8")
@@ -1721,25 +1911,37 @@ def main() -> int:
         axis=-1)
     sx = sx.reshape(-1)
     qr, sr, qi, si = quantize._qdfm_tensors(j, False, str(dev))
+    qrt, qit = quantize._qdfm_kmajor(j, False, str(dev))
     qr_cm, qi_cm = col_major(qr), col_major(qi)
+    qri_cm = col_major(torch.cat([qr, qi], 1))    # [Fr | Fi], one product
     dcfg = ops._resolve(dftk.TUNE_SPACE_INT8,
                         {"m": xq.shape[0], "n": j, "k": j})
     derr = hold(torch, "int8 spectrogram dft_int8",
-                dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg),
+                dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt, fit=qit,
+                              **dcfg),
                 dftk.dft_int8_plain(xq, qr, qi, sx, sr, si))
     before = counts()
     ms.update({
         "dft_int8": device_ms(
-            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)),
+            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt,
+                                         fit=qit, **dcfg)),
         "dft_int8_plain": device_ms(
             torch, lambda: dftk.dft_int8_plain(xq, qr, qi, sx, sr, si)),
-        "dft_int8_library": device_ms(
+        "dft_int8_library": device_ms(torch, lambda: int_mm(xq, qri_cm)),
+        "dft_int8_library_two_calls": device_ms(
             torch, lambda: (int_mm(xq, qr_cm), int_mm(xq, qi_cm))),
     })
     check_grew("int8 spectrogram", before, {"dft_int8": 1})
+    spec_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}": device_ms(
+        torch, lambda c=c: dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt,
+                                         fit=qit, **c))
+        for c in dftk.TUNE_SPACE_INT8.configs(
+            {"m": xq.shape[0], "n": j, "k": j})}
     dcost = qgemm_cost(xq.shape[0], j, j, planes=2)
     emit(phase="int8_paths", path="spectrogram", x=list(SPEC_X), window=j,
-         tile=dcfg, max_abs_err_vs_plain={"dft_int8": derr}, ms=ms,
+         tile=dcfg, dft_int8_staging=mmk.int8_staging(xq, qrt, qit),
+         dft_int8_ms_per_tile=spec_tiles,
+         max_abs_err_vs_plain={"dft_int8": derr}, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={"dft_int8": bound8(*dcost)[0]}, **info)
     table["int8_dft"] = dict(launches=info["launches_per_call"], ms=ms,
@@ -1761,10 +1963,12 @@ def main() -> int:
         ew.elementwise_mult(fd, plan.consts["win"]).reshape(-1, j), axis=-1)
     sx = sx.reshape(-1)
     qr, sr, qi, si = quantize._qdfm_tensors(j, False, str(dev))
+    qrt, qit = quantize._qdfm_kmajor(j, False, str(dev))
     qr_cm, qi_cm = col_major(qr), col_major(qi)
+    qri_cm = col_major(torch.cat([qr, qi], 1))    # [Fr | Fi], one product
     dcfg = ops._resolve(dftk.TUNE_SPACE_INT8,
                         {"m": xq.shape[0], "n": j, "k": j})
-    z = dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)
+    z = dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt, fit=qit, **dcfg)
     serr = {"dft_int8": hold(torch, "int8 stft dft_int8", z,
                              dftk.dft_int8_plain(xq, qr, qi, sx, sr, si))}
     ir, isr, ii, isi = quantize._qdfm_tensors(j, True, str(dev))
@@ -1787,10 +1991,12 @@ def main() -> int:
     before = counts()
     ms.update({
         "dft_int8": device_ms(
-            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, **dcfg)),
+            torch, lambda: dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt,
+                                         fit=qit, **dcfg)),
         "dft_int8_plain": device_ms(
             torch, lambda: dftk.dft_int8_plain(xq, qr, qi, sx, sr, si)),
-        "dft_int8_library": device_ms(
+        "dft_int8_library": device_ms(torch, lambda: int_mm(xq, qri_cm)),
+        "dft_int8_library_two_calls": device_ms(
             torch, lambda: (int_mm(xq, qr_cm), int_mm(xq, qi_cm))),
         "matmul_int8": sum(device_ms(
             torch, lambda pr=pr: mmk.matmul_int8(*pr[:4], yt=pr[4], **mcfg))
@@ -1804,10 +2010,17 @@ def main() -> int:
     })
     check_grew("int8 stft_overlap_add", before,
                {"dft_int8": 1, "matmul_int8": 4})
+    stft_tiles = {f"{c['bm']}x{c['bn']}x{c['bk']}": device_ms(
+        torch, lambda c=c: dftk.dft_int8(xq, qr, qi, sx, sr, si, frt=qrt,
+                                         fit=qit, **c))
+        for c in dftk.TUNE_SPACE_INT8.configs(
+            {"m": xq.shape[0], "n": j, "k": j})}
     rows_f = xq.shape[0]
     emit(phase="int8_paths", path="stft_overlap_add", x=list(STFT_X),
          window=j, hop=hop, frames=rows_f,
          tiles={"dft_int8": dcfg, "matmul_int8": mcfg},
+         dft_int8_staging=mmk.int8_staging(xq, qrt, qit),
+         dft_int8_ms_per_tile=stft_tiles,
          matmul_int8_staging=mmk.int8_staging(zrq, irt),
          max_abs_err_vs_plain=serr, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
@@ -2100,7 +2313,10 @@ def main() -> int:
             ("elementwise_add", "src/repro_torch/csrc/elementwise.cu",
              "src/repro/kernels/elementwise.py:71", add["cost"], add["err"],
              add["launches"], add["ms"], "elementwise_add_library")):
-        b_ms, b_by = (bound_tf32 if name == "dft" else bound)(*cost)
+        # f32 products at the TF32 tensor-core peak; the PFB's FIR at the
+        # fp32 pipe beside its DFT at TF32
+        b_ms, b_by = (bound_tf32 if name in ("dft", "matmul") else
+                      bound_pfb if name == "pfb_fused" else bound)(*cost)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms[name],

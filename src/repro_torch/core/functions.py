@@ -98,15 +98,17 @@ def elementwise_add(x: Tensor, y: Tensor, *, lowering: str = "native",
 # §3.2 matrix-matrix multiplication -- pointwise conv, Eq. (9)
 # ---------------------------------------------------------------------------
 def matmul(x: Tensor, y: Tensor, *, lowering: str = "native",
-           block: Optional[dict] = None) -> Tensor:
+           block: Optional[dict] = None,
+           yt_planes: Optional[Tensor] = None) -> Tensor:
     """Z = X @ Y via pointwise conv: X (.., M, L) becomes the conv input
     (T, C_in=L, 1, W=M); the kernel is Y (L, N) (paper Eq. 9).  ``kernel``
-    runs the fp32 GEMM kernel."""
+    runs the fp32 GEMM kernel; ``yt_planes`` (that lowering only) are
+    y's TF32 planes where a caller made them once."""
     _check_lowering("matmul", lowering)
     if y.ndim != 2:
         raise ValueError("TINA matmul kernel (conv weight) must be 2-D")
     if lowering == "kernel":
-        return _kops().matmul(x, y, **(block or {}))
+        return _kops().matmul(x, y, yt_planes=yt_planes, **(block or {}))
     if lowering == "native":
         return torch.matmul(x, y)
     m, l = x.shape[-2], x.shape[-1]

@@ -20,6 +20,11 @@ planner, the fuser and the kernels' tune spaces all derive from.
     ``lowering="kernel"`` routing to the int8 CUDA kernels per
     ``q_lowerings``) and ``qprep`` quantizes const weights once at plan
     build (``(attrs, {argpos: const}) -> qpack``).
+  * kernel view -- ``kprep`` (``(attrs, {argpos: const}) -> kpack``)
+    gives an f32 node at the ``kernel`` lowering a slot for the
+    kernel-side form of its const weights (the f32 GEMM's TF32 planes of
+    y), filled at its first launch on the card; ``impl`` then takes it as
+    ``kpack=``.
 
 The port declares every op of the reference: the eleven Table-1 ops
 (``ew_mul``, ``ew_add``, ``matmul``, ``summation``, ``dft``, ``idft``,
@@ -163,6 +168,10 @@ class OpDef:
     # lowerings the qimpl understands; any other request runs native
     qtune_space: str | None = None
     # kernels.tune space of the op's int8 kernel (shares tune_ctx)
+    kprep: Callable | None = None              # (attrs, {argpos: const})
+    # -> kpack | None: at plan build, a slot for the kernel-side form of
+    # an f32 node's const weights; impl(..., kpack=) fills it at the
+    # first kernel launch
 
     def bind(self, attrs: dict) -> dict:
         """Merge ``attrs`` over the schema defaults and validate."""
@@ -508,10 +517,35 @@ register(OpDef(
     make_args=_NN, table_name="elementwise_add",
     tune_space="elementwise", tune_ctx=_ctx_ew_binary))
 
+def _impl_matmul(a, at, lw, b=None, kpack=None):
+    planes = (_tf32_kmajor(kpack, a[1])
+              if kpack is not None and lw == "kernel" and a[0].is_cuda
+              else None)
+    return functions.matmul(a[0], a[1], lowering=lw, block=b,
+                            yt_planes=planes)
+
+
+def _kprep_matmul(at, consts):
+    """[None]: a slot for the TF32 planes of a const y, which
+    :func:`_tf32_kmajor` fills at the first kernel launch on the card."""
+    return [None] if 1 in consts else None
+
+
+def _tf32_kmajor(kpack: list, y: torch.Tensor) -> torch.Tensor:
+    """The hi and lo TF32 planes of a const y, K-major, the B operand of
+    the 3xTF32 GEMM (``kernels/matmul.py:tf32_planes``, a CUDA pass):
+    made at the first launch that asks for them and kept in the plan's
+    kernel pack, so the split pass does not run per call and native and
+    CPU plans hold no second copy of the weight."""
+    if kpack[0] is None:
+        from repro_torch.kernels import matmul as mm_kernel
+        kpack[0] = mm_kernel.tf32_planes(y)
+    return kpack[0]
+
+
 register(OpDef(
     "matmul",
-    lambda a, at, lw, b=None: functions.matmul(a[0], a[1], lowering=lw,
-                                               block=b),
+    _impl_matmul,
     ("native", "conv", "kernel"),
     section="3.2", building_block="pointwise conv",
     eager=functions.matmul, oracle=lambda x, y: x @ y,
@@ -520,7 +554,8 @@ register(OpDef(
     precisions=("f32", "bf16", "int8"),
     budgets=(("int8", Budget(sqnr_db=28.0)),),
     qimpl=_qimpl_matmul, qprep=_qprep_matmul,
-    q_lowerings=("native", "kernel"), qtune_space="matmul_int8"))
+    q_lowerings=("native", "kernel"), qtune_space="matmul_int8",
+    kprep=_kprep_matmul))
 
 register(OpDef(
     "summation",

@@ -52,49 +52,36 @@
 // zero-fills rows past B and columns past L; rows and columns past
 // (B, N) are not stored.  TMA needs 16-byte aligned rows: the wrapper
 // makes a zero-padded copy of an X whose rows are not
-// (kernels/dft.py:staging).
+// (kernels/dft.py:staging).  The ring, the X fragment and the
+// three-product step are tf32_gemm.cuh's, shared with matmul.cu; this
+// file keeps what is the DFT's own: the planes, the A operands of each
+// variant and the complex epilogue.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "tf32_gemm.cuh"
 
 namespace {
 
 using namespace tina::hopper;
+using tina::tf32::BM;
+using tina::tf32::BK;
+using tina::tf32::THREADS;
 
-constexpr int BM = 128;           // rows of a block: two warpgroups of 64
 constexpr int BN = 64;            // columns of a block
-constexpr int BK = 32;            // K per stage: one 128-byte f32 row
 constexpr int STAGES = 2;
-constexpr int THREADS = 288;      // two consumer warpgroups + one producer
-constexpr int X_TILE = BM * 128;  // bytes of one 128-byte-wide X tile
-constexpr int F_TILE = BN * 128;  // bytes of one F tile
 
 template <bool CPLX, bool KARA>
 struct Cfg {
   static constexpr int NP = (KARA && CPLX) ? 3 : 2;  // F planes (hi + lo)
   static constexpr int NA = CPLX ? (KARA ? 3 : 2) : 1;  // X-side operands
-  static constexpr int XT = CPLX ? 2 : 1;            // X tiles per stage
-  static constexpr int STAGE = XT * X_TILE + 2 * NP * F_TILE;
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  using R = tina::tf32::Ring<CPLX ? 2 : 1, 2 * NP, BN, STAGES>;
   // a fresh accumulator set per chunk, added in f32 (module comment)
   static constexpr bool PROMOTE = NP == 2;
 };
-
-// One real product of the 3xTF32 split: d (+)= SA A B with A = ahi +
-// alo and B = bhi + blo, the small terms first; sd = 0 starts d afresh.
-template <int SA = 1>
-__device__ __forceinline__ void mma3(float (&d)[BN / 2],
-                                     const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4], uint64_t bhi,
-                                     uint64_t blo, int sd) {
-  wgmma_tf32_m64n64k8<SA>(d, alo, bhi, sd);
-  wgmma_tf32_m64n64k8<SA>(d, ahi, blo, 1);
-  wgmma_tf32_m64n64k8<SA>(d, ahi, bhi, 1);
-}
 
 template <bool CPLX, bool KARA>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -103,40 +90,24 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
                 float2* __restrict__ out, int B, int N, int n_pad,
                 int k_tiles, int n_blocks) {
   using C = Cfg<CPLX, KARA>;
+  using R = typename C::R;
+  using tina::tf32::mma3;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
+  uint64_t* full = tina::tf32::barriers<R>(smem);
   uint64_t* empty = full + STAGES;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = (blockIdx.x % n_blocks) * BN;
   const int m0 = (blockIdx.x / n_blocks) * BM;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);   // one arrival per consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  tina::tf32::ring_init<R>(full, empty);
 
   if (warp == 8) {
     // producer: one lane keeps the ring full
-    if (lane == 0) {
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        uint8_t* st = smem + s * C::STAGE;
-        mbar_expect_tx(&full[s], C::STAGE);
-        for (int h = 0; h < C::XT; ++h)
-          tma_load_2d(st + h * X_TILE, &xmap, &full[s],
-                      C::XT * BK * kt + BK * h, m0);
-        for (int q = 0; q < 2 * C::NP; ++q)
-          tma_load_2d(st + C::XT * X_TILE + q * F_TILE, &fmap, &full[s],
-                      BK * kt, q * n_pad + n0);
-      }
-    }
+    if (lane == 0)
+      tina::tf32::produce<R>(smem, full, empty, &xmap, &fmap, m0, n0, n_pad,
+                             k_tiles);
     return;
   }
 
@@ -163,106 +134,52 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
       return acc[p];
   };
 
-  // A operands of two 8-deep steps, each split into TF32 hi and lo: a
-  // real X has Xr alone; a complex one Xr, Xi (4mult: -Xi is Xi with the
-  // instruction's A scale at -1) or Xr + Xi, Xr, Xi (3mult).
-  uint32_t ahi[2][C::NA][4], alo[2][C::NA][4];
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
-    const uint8_t* xs = smem + s * C::STAGE;
-    const uint8_t* fs = xs + C::XT * X_TILE;
+  // A operands: a real X has Xr alone; a complex one Xr, Xi (4mult: -Xi
+  // is Xi with the instruction's A scale at -1) or Xr + Xi, Xr, Xi (3mult)
+  auto split = [&](const float (&xr)[4], const float (&xi)[4],
+                   uint32_t (&hi)[C::NA][4], uint32_t (&lo)[C::NA][4]) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      const int b = kk & 1;
-      // the X fragment: xr/xi[2 c + h] at row r0 + 8 h, column
-      // 8 kk + q + 4 c of the chunk (swizzled: 16-byte unit ^ row % 8)
-      float xr[4], xi[4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = r0 + 8 * h;
-          if constexpr (CPLX) {
-            const int cc = 8 * (kk % 2) + q + 4 * c;   // in a 16-wide half
-            const float2 v = *reinterpret_cast<const float2*>(
-                xs + (kk / 2) * X_TILE + row * 128 +
-                (((cc >> 1) ^ (row & 7)) << 4) + (cc & 1) * 8);
-            xr[2 * c + h] = v.x;
-            xi[2 * c + h] = v.y;
-          } else {
-            const int cc = 8 * kk + q + 4 * c;
-            xr[2 * c + h] = *reinterpret_cast<const float*>(
-                xs + row * 128 + (((cc >> 2) ^ (row & 7)) << 4) +
-                (cc & 3) * 4);
-          }
-        }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (!CPLX) {
-          split_tf32(xr[i], ahi[b][0][i], alo[b][0][i]);
-        } else if constexpr (KARA) {
-          split_tf32(__fadd_rn(xr[i], xi[i]), ahi[b][0][i], alo[b][0][i]);
-          split_tf32(xr[i], ahi[b][1][i], alo[b][1][i]);
-          split_tf32(xi[i], ahi[b][2][i], alo[b][2][i]);
-        } else {
-          split_tf32(xr[i], ahi[b][0][i], alo[b][0][i]);
-          split_tf32(xi[i], ahi[b][1][i], alo[b][1][i]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < C::NA; ++a) {
-        fence_regs(ahi[b][a]);
-        fence_regs(alo[b][a]);
-      }
-      // B: plane p's hi tile at 2 p, its lo tile at 2 p + 1
-      auto bd = [&](int t) { return desc_sw128(fs + t * F_TILE + kk * 32); };
-      const int sd = (C::PROMOTE && kk == 0) ? 0 : 1;
-      wgmma_fence();
-      if constexpr (KARA) {
-        constexpr int XR = CPLX ? 1 : 0;                       // Xr
-        mma3(dst(0), ahi[b][0], alo[b][0], bd(0), bd(1), sd);  // k1 (Fr)
-        mma3(dst(1), ahi[b][XR], alo[b][XR], bd(2), bd(3), sd);  // k2
-        if constexpr (CPLX)
-          mma3(dst(2), ahi[b][2], alo[b][2], bd(4), bd(5), sd);  // k3
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (!CPLX) {
+        split_tf32(xr[i], hi[0][i], lo[0][i]);
+      } else if constexpr (KARA) {
+        split_tf32(__fadd_rn(xr[i], xi[i]), hi[0][i], lo[0][i]);
+        split_tf32(xr[i], hi[1][i], lo[1][i]);
+        split_tf32(xi[i], hi[2][i], lo[2][i]);
       } else {
-        mma3(dst(0), ahi[b][0], alo[b][0], bd(0), bd(1), sd);  // Zr: Xr Fr
-        mma3(dst(1), ahi[b][0], alo[b][0], bd(2), bd(3), sd);  // Zi: Xr Fi
-        if constexpr (CPLX) {
-          mma3(dst(1), ahi[b][1], alo[b][1], bd(0), bd(1), 1);  // + Xi Fr
-          mma3<-1>(dst(0), ahi[b][1], alo[b][1], bd(2), bd(3), 1);  // - Xi Fi
-        }
-      }
-      wgmma_commit();
-      if (kk > 0) {
-        // the step before this one is done: its fragment may be reused
-        wgmma_wait<1>();
-#pragma unroll
-        for (int a = 0; a < C::NA; ++a) {
-          fence_regs(ahi[b ^ 1][a]);
-          fence_regs(alo[b ^ 1][a]);
-        }
+        split_tf32(xr[i], hi[0][i], lo[0][i]);
+        split_tf32(xi[i], hi[1][i], lo[1][i]);
       }
     }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int a = 0; a < C::NA; ++a) {
-      fence_regs(ahi[1][a]);
-      fence_regs(alo[1][a]);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-    if constexpr (C::PROMOTE) {
-#pragma unroll
-      for (int p = 0; p < C::NP; ++p) {
-        fence_regs(part[p]);
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i)
-          acc[p][i] = __fadd_rn(acc[p][i], part[p][i]);
+  };
+  // B: plane p's hi tile at 2 p, its lo tile at 2 p + 1
+  auto issue = [&](const uint32_t (&hi)[C::NA][4],
+                   const uint32_t (&lo)[C::NA][4], const uint8_t* fs,
+                   int kk) {
+    auto bd = [&](int t) { return tina::tf32::b_desc<R>(fs, t, kk); };
+    const int sd = (C::PROMOTE && kk == 0) ? 0 : 1;
+    if constexpr (KARA) {
+      constexpr int XR = CPLX ? 1 : 0;                     // Xr
+      mma3(dst(0), hi[0], lo[0], bd(0), bd(1), sd);        // k1 (Fr)
+      mma3(dst(1), hi[XR], lo[XR], bd(2), bd(3), sd);      // k2
+      if constexpr (CPLX)
+        mma3(dst(2), hi[2], lo[2], bd(4), bd(5), sd);      // k3
+    } else {
+      mma3(dst(0), hi[0], lo[0], bd(0), bd(1), sd);        // Zr: Xr Fr
+      mma3(dst(1), hi[0], lo[0], bd(2), bd(3), sd);        // Zi: Xr Fi
+      if constexpr (CPLX) {
+        mma3(dst(1), hi[1], lo[1], bd(0), bd(1), 1);       // + Xi Fr
+        mma3<-1>(dst(0), hi[1], lo[1], bd(2), bd(3), 1);   // - Xi Fi
       }
     }
-  }
+  };
+  auto chunk = [&]() {
+    if constexpr (C::PROMOTE)
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) tina::tf32::promote(acc[p], part[p]);
+  };
+  tina::tf32::consume<R, CPLX, C::NA>(smem, full, empty, k_tiles, r0, q,
+                                      lane, split, issue, chunk);
   if constexpr (!C::PROMOTE)
 #pragma unroll
     for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
@@ -305,15 +222,15 @@ template <bool CPLX, bool KARA>
 cudaError_t launch(const CUtensorMap& xm, const CUtensorMap& fm,
                    float2* out, int B, int N, int n_pad, int k_tiles,
                    cudaStream_t s) {
-  using C = Cfg<CPLX, KARA>;
+  constexpr int SMEM = Cfg<CPLX, KARA>::R::SMEM;
   auto* kern = dft_tf32_kernel<CPLX, KARA>;
   const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
   const long long nb = (N + BN - 1) / BN, mb = (B + BM - 1) / BM;
   if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
-  kern<<<(unsigned)(nb * mb), THREADS, C::SMEM, s>>>(xm, fm, out, B, N, n_pad,
-                                                     k_tiles, (int)nb);
+  kern<<<(unsigned)(nb * mb), THREADS, SMEM, s>>>(xm, fm, out, B, N, n_pad,
+                                                 k_tiles, (int)nb);
   return cudaGetLastError();
 }
 

@@ -37,14 +37,20 @@
 // 16-byte aligned rows: the wrapper makes zero-padded copies where K is
 // not a multiple of 16 or a row is not aligned (kernels/matmul.py).
 //
-// tina_dft_int8 is still SIMT: __dp4a, four int8 products summed into an
-// int32 per instruction (a ceiling near 134 TOPS).  One block of 256
-// threads owns a (BM x BN) output tile and walks K in chunks of BK = 32
-// bytes, staging x k-packed (four neighbouring int8 of a row in one int32
-// word) and k-major, the y chunk packed the same way along k for each
-// column; every thread keeps a (TM x TN) micro-tile of int32 accumulators
-// per matrix.  Edges are masked, so the wrapper pads nothing.
-
+// tina_dft_int8 runs on the same ring and MMA loop with two B operands,
+// the K-major copies of Fr and Fi (made once per device,
+// core/quantize.py:_qdfm_kmajor), so one A chunk of xq feeds both
+// planes.  Its epilogue writes interleaved complex64 straight from the
+// registers: a lane holds columns n and n + 1 of both planes and stores
+// (zr, zi, zr, zi) as one 16-byte streaming store (st.global.cs: the
+// output is not read again here), scalar stores only where N is odd.  At the spectrogram's L = N = 64 over half a million rows the
+// kernel is bound by those writes (268 MB of its 302 MB), so it comes in
+// two tiles: 128 x 128 (m64n128k32) for wide N and 128 x 64 (m64n64k32)
+// for N <= 64, where the wide one would compute and skip half its
+// columns; the wrapper picks by N.  A DFT grid is persistent: one block
+// per SM walks the output tiles, its producer lane running ahead into the
+// next tile's chunks while the consumers store the last one.
+//
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -55,231 +61,36 @@
 
 namespace {
 
-constexpr int BK = 32;       // int8 of K per chunk
-constexpr int KW = BK / 4;   // packed words per chunk
-
-__device__ __forceinline__ int ld8(const int8_t* p) { return __ldg(p); }
-
-// the dp4a DFT: one x row block against two int8 matrices
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-qdft_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ y0,
-            const int8_t* __restrict__ y1, const float* __restrict__ sx,
-            const float* __restrict__ s0, const float* __restrict__ s1,
-            float* __restrict__ out, int M, int N, int K, int x_words) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int RG = TM / 4, CG = TN / 4;   // groups of four rows / columns
-  constexpr int LDA = BM + 4;               // int4-aligned, conflict-free
-  constexpr int NB = 2;
-  __shared__ __align__(16) int as[KW][LDA];
-  __shared__ __align__(16) int bs[NB][KW][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  int acc[NB][TM][TN];
-#pragma unroll
-  for (int p = 0; p < NB; ++p)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[p][i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // 1. the x chunk, k-packed, neighbouring threads on one row's words
-    for (int i = tid; i < BM * KW; i += NT) {
-      const int mm = i / KW, kw = i % KW;
-      const int m = m0 + mm, k = k0 + 4 * kw;
-      int w = 0;
-      if (m < M && k < K) {
-        const int8_t* row = x + (size_t)m * K + k;
-        if (x_words && k + 4 <= K)
-          w = __ldg(reinterpret_cast<const int*>(row));
-        else
-          w = tina::pack4(ld8(row), k + 1 < K ? ld8(row + 1) : 0,
-                          k + 2 < K ? ld8(row + 2) : 0,
-                          k + 3 < K ? ld8(row + 3) : 0);
-      }
-      as[kw][mm] = w;
-    }
-    // 2. the y chunk(s), four rows of k packed per column
-    for (int i = tid; i < KW * BN; i += NT) {
-      const int kw = i / BN, nn = i % BN;
-      const int n = n0 + nn, k = k0 + 4 * kw;
-      int w0 = 0, w1 = 0;
-      if (n < N && k < K) {
-        int b[4], c[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = k + j < K;
-          const size_t at = (size_t)(k + j) * N + n;
-          b[j] = ok ? ld8(y0 + at) : 0;
-          c[j] = ok ? ld8(y1 + at) : 0;
-        }
-        w0 = tina::pack4(b[0], b[1], b[2], b[3]);
-        w1 = tina::pack4(c[0], c[1], c[2], c[3]);
-      }
-      bs[0][kw][nn] = w0;
-      bs[1][kw][nn] = w1;
-    }
-    __syncthreads();
-    // 3. the micro-tile's int32 partial sums, four products per __dp4a
-#pragma unroll
-    for (int kw = 0; kw < KW; ++kw) {
-      int a[TM], b[NB][TN];
-#pragma unroll
-      for (int g = 0; g < RG; ++g) {
-        const int4 v = *reinterpret_cast<const int4*>(
-            &as[kw][g * (BM / RG) + ty * 4]);
-        a[4 * g] = v.x; a[4 * g + 1] = v.y; a[4 * g + 2] = v.z;
-        a[4 * g + 3] = v.w;
-      }
-#pragma unroll
-      for (int p = 0; p < NB; ++p)
-#pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          const int4 v = *reinterpret_cast<const int4*>(
-              &bs[p][kw][g * (BN / CG) + tx * 4]);
-          b[p][4 * g] = v.x; b[p][4 * g + 1] = v.y; b[p][4 * g + 2] = v.z;
-          b[p][4 * g + 3] = v.w;
-        }
-#pragma unroll
-      for (int p = 0; p < NB; ++p)
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[p][i][j] = __dp4a(a[i], b[p][j], acc[p][i][j]);
-    }
-    __syncthreads();
-  }
-
-  // 4. the epilogue, (float(acc) * sx[m]) * s[n], on the valid part
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * (BM / RG) + ty * 4 + i % 4;
-    if (m >= M) continue;
-    const float sxm = __ldg(sx + m);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j / 4) * (BN / CG) + tx * 4 + j % 4;
-      if (n >= N) continue;
-      reinterpret_cast<float2*>(out)[(size_t)m * N + n] =
-          make_float2(tina::rescale(acc[0][i][j], sxm, __ldg(s0 + n)),
-                      tina::rescale(acc[1][i][j], sxm, __ldg(s1 + n)));
-    }
-  }
-}
-
-template <int BM, int BN, int TM, int TN>
-cudaError_t launch_dp4a(const int8_t* x, const int8_t* y0, const int8_t* y1,
-                        const float* sx, const float* s0, const float* s1,
-                        float* out, int M, int N, int K, cudaStream_t s) {
-  const unsigned gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
-  if (gn > 65535) return cudaErrorInvalidValue;
-  // one word per four x bytes when every row starts 4-byte aligned
-  const int x_words = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 4 == 0);
-  qdft_kernel<BM, BN, TM, TN><<<dim3(gm, gn), (BM / TM) * (BN / TN), 0, s>>>(
-      x, y0, y1, sx, s0, s1, out, M, N, K, x_words);
-  return cudaGetLastError();
-}
-
-bool bad_dims(int M, int N, int K, int bk) {
-  return M <= 0 || N <= 0 || K <= 0 || K > tina::MAX_INT8_K || bk != BK;
-}
-
 // ---- s8 wgmma: the TMA ring and the MMA loop -------------------------------
 namespace s8 {
 
 using namespace tina::hopper;
 
 constexpr int BM = 128;          // rows of a block: two warpgroups of 64
-constexpr int BN = 128;          // columns of a block
 constexpr int BKB = 128;         // K bytes per stage: one 128-byte row
 constexpr int STAGES = 4;
 constexpr int THREADS = 288;     // two consumer warpgroups + one producer
 constexpr int A_TILE = BM * BKB;
-constexpr int B_TILE = BN * BKB;
 
-template <int NB>
+// A ring of NB B operands of BN rows (the block's columns) per stage.
+template <int NB, int BN>
 struct Ring {
+  static constexpr int B_TILE = BN * BKB;
   static constexpr int STAGE = A_TILE + NB * B_TILE;
   static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
 
-// The producer lane: the A chunk (rows m0.., 128 K bytes) and the NB
-// B chunks (rows n0.. of each K-major B map) of every K step, in order.
-template <int NB>
-__device__ __forceinline__ void s8_produce(uint8_t* smem, uint64_t* full,
-                                           uint64_t* empty,
-                                           const CUtensorMap* amap,
-                                           const CUtensorMap* const (&bmap)[NB],
-                                           int m0, int n0, int k_tiles) {
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % STAGES;
-    if (kt >= STAGES) mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-    uint8_t* st = smem + s * Ring<NB>::STAGE;
-    mbar_expect_tx(&full[s], Ring<NB>::STAGE);
-    tma_load_2d(st, amap, &full[s], BKB * kt, m0);
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      tma_load_2d(st + A_TILE + b * B_TILE, bmap[b], &full[s], BKB * kt, n0);
-  }
+template <int W>
+__device__ __forceinline__ void wgmma_s8(int (&d)[W], uint64_t a,
+                                         uint64_t b) {
+  static_assert(W == 32 || W == 64, "a 64- or 128-column tile");
+  if constexpr (W == 32)
+    wgmma_s8_m64n64k32(d, a, b);
+  else
+    wgmma_s8_m64n128k32(d, a, b);
 }
 
-// A consumer warpgroup (wg = 0, 1: rows 64 wg.. of the tile): acc[b] +=
-// A B_b^T over all of K.  One wgmma group stays in flight; the stage of
-// the group before it goes back to the producer.
-template <int NB>
-__device__ __forceinline__ void s8_consume(uint8_t* smem, uint64_t* full,
-                                           uint64_t* empty, int wg, int lane,
-                                           int k_tiles,
-                                           int (&acc)[NB][BN / 2]) {
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
-    const uint8_t* st = smem + s * Ring<NB>::STAGE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKB / 32; ++kk) {
-      const uint64_t a = desc_sw128(st + wg * (A_TILE / 2) + kk * 32);
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        wgmma_s8_m64n128k32(acc[b], a,
-                            desc_sw128(st + A_TILE + b * B_TILE + kk * 32));
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-matmul_kernel(const __grid_constant__ CUtensorMap amap,
-              const __grid_constant__ CUtensorMap bmap,
-              const float* __restrict__ sx, const float* __restrict__ sy,
-              float* __restrict__ out, int M, int N, int k_tiles,
-              int n_blocks) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Ring<1>::STAGE);
-  uint64_t* empty = full + STAGES;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = (blockIdx.x % n_blocks) * BN;
-  const int m0 = (blockIdx.x / n_blocks) * BM;
-
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -288,18 +99,104 @@ matmul_kernel(const __grid_constant__ CUtensorMap amap,
     mbar_fence_init();
   }
   __syncthreads();
+}
+
+// The producer lane: the A chunk (rows m0.., 128 K bytes) and the NB
+// B chunks (rows n0.. of each K-major B map) of every K step of one
+// output tile, in order.  `it` counts the stages this lane has filled so
+// far (across the tiles of a persistent block).
+template <int NB, int BN>
+__device__ __forceinline__ void s8_produce(uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty,
+                                           const CUtensorMap* amap,
+                                           const CUtensorMap* const (&bmap)[NB],
+                                           int m0, int n0, int k_tiles,
+                                           int& it) {
+  using R = Ring<NB, BN>;
+  for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+    const int s = it % STAGES;
+    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+    uint8_t* st = smem + s * R::STAGE;
+    mbar_expect_tx(&full[s], R::STAGE);
+    tma_load_2d(st, amap, &full[s], BKB * kt, m0);
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      tma_load_2d(st + A_TILE + b * R::B_TILE, bmap[b], &full[s], BKB * kt,
+                  n0);
+  }
+}
+
+// A consumer warpgroup (wg = 0, 1: rows 64 wg.. of the tile): acc[b] =
+// A B_b^T over all of K of one output tile.  One wgmma group stays in
+// flight; the stage of the group before it goes back to the producer,
+// and the last one once the tile is done.  `it` counts the stages this
+// warp has consumed so far, as s8_produce's does.
+template <int NB, int BN>
+__device__ __forceinline__ void s8_consume(uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty, int wg, int lane,
+                                           int k_tiles,
+                                           int (&acc)[NB][BN / 2], int& it) {
+  using R = Ring<NB, BN>;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+  for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const uint8_t* st = smem + s * R::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKB / 32; ++kk) {
+      const uint64_t a = desc_sw128(st + wg * (A_TILE / 2) + kk * 32);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        wgmma_s8(acc[b], a,
+                 desc_sw128(st + A_TILE + b * R::B_TILE + kk * 32));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+  if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+}
+
+constexpr int MM_BN = 128;       // the GEMM's columns of a block
+
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_kernel(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ sx, const float* __restrict__ sy,
+              float* __restrict__ out, int M, int N, int k_tiles,
+              int n_blocks) {
+  using R = Ring<1, MM_BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * R::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = (blockIdx.x % n_blocks) * MM_BN;
+  const int m0 = (blockIdx.x / n_blocks) * BM;
+
+  ring_init(full, empty);
+  int it = 0;
 
   if (warp == 8) {
     if (lane == 0) {
       const CUtensorMap* const bm[1] = {&bmap};
-      s8_produce<1>(smem, full, empty, &amap, bm, m0, n0, k_tiles);
+      s8_produce<1, MM_BN>(smem, full, empty, &amap, bm, m0, n0, k_tiles, it);
     }
     return;
   }
 
-  int acc[1][BN / 2];
+  int acc[1][MM_BN / 2];
   const int wg = warp / 4;
-  s8_consume<1>(smem, full, empty, wg, lane, k_tiles, acc);
+  s8_consume<1, MM_BN>(smem, full, empty, wg, lane, k_tiles, acc, it);
 
   // epilogue: (float(acc) * sx[m]) * sy[n], two neighbouring columns a
   // store; d[4 j + 2 h + e] is row 16 w + g + 8 h, column 8 j + 2 q + e
@@ -313,7 +210,7 @@ matmul_kernel(const __grid_constant__ CUtensorMap amap,
     const float sxm = __ldg(sx + m);
     float* row = out + (size_t)m * N;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < MM_BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * q;
       if (n >= N) continue;
       const float v0 = tina::rescale(acc[0][4 * j + 2 * h], sxm, __ldg(sy + n));
@@ -333,17 +230,120 @@ matmul_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// The int8 DFT: one xq chunk against Fr^T and Fi^T, interleaved complex64
+// out; persistent, tile t = blockIdx.x, blockIdx.x + gridDim.x, ...
+// (the n tiles of one row block neighbour each other).
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+s8_dft_kernel(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap frmap,
+              const __grid_constant__ CUtensorMap fimap,
+              const float* __restrict__ sx, const float* __restrict__ sr,
+              const float* __restrict__ si, float2* __restrict__ out, int M,
+              int N, int k_tiles, int n_blocks, int tiles) {
+  using R = Ring<2, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * R::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  ring_init(full, empty);
+  int it = 0;
+
+  if (warp == 8) {
+    if (lane == 0) {
+      const CUtensorMap* const bm[2] = {&frmap, &fimap};
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        s8_produce<2, BN>(smem, full, empty, &amap, bm, (t / n_blocks) * BM,
+                          (t % n_blocks) * BN, k_tiles, it);
+    }
+    return;
+  }
+
+  int acc[2][BN / 2];
+  const int wg = warp / 4;
+  const int g = lane / 4, q = lane % 4;
+  const bool pairs = (N % 2) == 0;   // 16-byte aligned (zr, zi) pairs
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / n_blocks) * BM, n0 = (t % n_blocks) * BN;
+    s8_consume<2, BN>(smem, full, empty, wg, lane, k_tiles, acc, it);
+
+    // epilogue: zr = (float(acc_r) * sx[m]) * sr[n], zi likewise with
+    // si; d[4 j + 2 h + e] is row 16 w + g + 8 h, column 8 j + 2 q + e
+    const int r0 = m0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      if (m >= M) continue;
+      const float sxm = __ldg(sx + m);
+      float2* row = out + (size_t)m * N;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * q;
+        if (n >= N) continue;
+        const int i = 4 * j + 2 * h;
+        const float zr0 = tina::rescale(acc[0][i], sxm, __ldg(sr + n));
+        const float zi0 = tina::rescale(acc[1][i], sxm, __ldg(si + n));
+        if (n + 1 < N) {
+          const float zr1 = tina::rescale(acc[0][i + 1], sxm, __ldg(sr + n + 1));
+          const float zi1 = tina::rescale(acc[1][i + 1], sxm, __ldg(si + n + 1));
+          if (pairs) {
+            __stcs(reinterpret_cast<float4*>(row + n),
+                   make_float4(zr0, zi0, zr1, zi1));
+          } else {
+            __stcs(row + n, make_float2(zr0, zi0));
+            __stcs(row + n + 1, make_float2(zr1, zi1));
+          }
+        } else {
+          __stcs(row + n, make_float2(zr0, zi0));
+        }
+      }
+    }
+  }
+}
+
 cudaError_t launch(const CUtensorMap& am, const CUtensorMap& bm,
                    const float* sx, const float* sy, float* out, int M, int N,
                    int K, cudaStream_t s) {
-  constexpr int SMEM = Ring<1>::SMEM;
+  constexpr int SMEM = Ring<1, MM_BN>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
       matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
-  const long long nb = (N + BN - 1) / BN, mb = (M + BM - 1) / BM;
+  const long long nb = (N + MM_BN - 1) / MM_BN, mb = (M + BM - 1) / BM;
   if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
   matmul_kernel<<<(unsigned)(nb * mb), THREADS, SMEM, s>>>(
       am, bm, sx, sy, out, M, N, (K + BKB - 1) / BKB, (int)nb);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_dft(const CUtensorMap& am, const CUtensorMap& frm,
+                       const CUtensorMap& fim, const float* sx,
+                       const float* sr, const float* si, float2* out, int M,
+                       int N, int K, cudaStream_t s) {
+  constexpr int SMEM = Ring<2, BN>::SMEM;
+  auto* kern = s8_dft_kernel<BN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  const long long nb = (N + BN - 1) / BN, mb = (M + BM - 1) / BM;
+  if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
+  // one block per SM that fits, each walking the tiles
+  int device = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, THREADS, SMEM)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = nb * mb;
+  const long long grid = tiles < (long long)sms * per_sm
+                             ? tiles : (long long)sms * per_sm;
+  kern<<<(unsigned)grid, THREADS, SMEM, s>>>(am, frm, fim, sx, sr, si, out,
+                                             M, N, (K + BKB - 1) / BKB,
+                                             (int)nb, (int)tiles);
   return cudaGetLastError();
 }
 
@@ -362,32 +362,49 @@ bool aligned16(const void* p) {
 extern "C" int tina_matmul_int8(const void* xq, const void* yt, const void* sx,
                                 const void* sy, void* out, int M, int N,
                                 int K, int bm, int bn, int bk, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || bm != s8::BM ||
-      bn != s8::BN || bk != s8::BKB || !aligned16(xq) || !aligned16(yt))
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || K > tina::MAX_INT8_K ||
+      bm != s8::BM || bn != s8::MM_BN || bk != s8::BKB || !aligned16(xq) ||
+      !aligned16(yt))
     return cudaErrorInvalidValue;
   CUtensorMap am, bmap;
   if (!tina::hopper::tile_map(&am, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, M,
                               K, s8::BKB, s8::BM) ||
       !tina::hopper::tile_map(&bmap, yt, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
-                              K, s8::BKB, s8::BN))
+                              K, s8::BKB, s8::MM_BN))
     return cudaErrorInvalidValue;
   return s8::launch(am, bmap, static_cast<const float*>(sx),
                     static_cast<const float*>(sy), static_cast<float*>(out),
                     M, N, K, static_cast<cudaStream_t>(stream));
 }
 
-// xq (B, L) int8 signal rows, fr / fi (L, N) int8, sx (B,), sr / si (N,)
-// f32 -> out (B, N) complex64, all contiguous on the device.
-extern "C" int tina_dft_int8(const void* xq, const void* fr, const void* fi,
+// xq (B, K) int8 signal rows; frt / fit (N, K) int8, the K-major copies of
+// the int8 Fourier planes Fr, Fi (L, N); all rows 16-byte aligned (K a
+// multiple of 16, its columns past L zero); sx (B,), sr / si (N,) f32 ->
+// out (B, N) complex64, all contiguous on the device.  (bm, bn, bk) must
+// be a compiled tile.  Launches on `stream`; returns the launch's
+// cudaError_t.
+extern "C" int tina_dft_int8(const void* xq, const void* frt, const void* fit,
                              const void* sx, const void* sr, const void* si,
-                             void* out, int B, int L, int N, int bm, int bn,
+                             void* out, int B, int K, int N, int bm, int bn,
                              int bk, void* stream) {
-  if (bad_dims(B, N, L, bk)) return cudaErrorInvalidValue;
-  if (bm == 64 && bn == 64)
-    return launch_dp4a<64, 64, 4, 4>(
-        static_cast<const int8_t*>(xq), static_cast<const int8_t*>(fr),
-        static_cast<const int8_t*>(fi), static_cast<const float*>(sx),
-        static_cast<const float*>(sr), static_cast<const float*>(si),
-        static_cast<float*>(out), B, N, L, static_cast<cudaStream_t>(stream));
-  return cudaErrorInvalidValue;
+  if (B <= 0 || N <= 0 || K <= 0 || K % 16 || K > tina::MAX_INT8_K ||
+      bm != s8::BM || (bn != 128 && bn != 64) || bk != s8::BKB ||
+      !aligned16(xq) || !aligned16(frt) || !aligned16(fit))
+    return cudaErrorInvalidValue;
+  CUtensorMap am, frm, fim;
+  if (!tina::hopper::tile_map(&am, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, B,
+                              K, s8::BKB, s8::BM) ||
+      !tina::hopper::tile_map(&frm, frt, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
+                              K, s8::BKB, bn) ||
+      !tina::hopper::tile_map(&fim, fit, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
+                              K, s8::BKB, bn))
+    return cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto* o = static_cast<float2*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return bn == 128
+             ? s8::launch_dft<128>(am, frm, fim, f(sx), f(sr), f(si), o, B, N,
+                                   K, s)
+             : s8::launch_dft<64>(am, frm, fim, f(sx), f(sr), f(si), o, B, N,
+                                  K, s);
 }

@@ -35,6 +35,10 @@ Fusion: maximal runs of adjacent single-consumer elementwise nodes
 chain kernel under ``kernel``.  A dict precision is a fusion boundary:
 a run whose members ask for different tiers stays unfused.
 
+Outputs: as the reference's jit outputs, each is dense and owns its
+memory: a view is made contiguous and an output sharing storage with a
+plan input or const is copied (``_owned``).
+
 Device: plans run on ``"cuda"`` unless ``device=`` says otherwise;
 asking for CUDA without a card raises RuntimeError.  Graph consts become
 device tensors once, here, not per call.  Shape inference runs the
@@ -65,7 +69,7 @@ TIERS = ("f32", "bf16", "int8", "auto")
 
 def apply_node(node: Node, args: Sequence[torch.Tensor], lowering: str,
                block: dict | None = None, precision: str = "f32",
-               qpack=None) -> torch.Tensor:
+               qpack=None, kpack=None) -> torch.Tensor:
     """Execute one graph node through its OpDef.
 
     An unsupported lowering runs native and an unsupported precision f32
@@ -74,7 +78,9 @@ def apply_node(node: Node, args: Sequence[torch.Tensor], lowering: str,
     or None to quantize per call), its lowering limited to the op's
     ``q_lowerings``; ``"bf16"`` rounds inputs and output through
     bfloat16 around the f32 impl.  An op declaring a tier but no qimpl
-    is precision-transparent: its f32 impl is its behavior there."""
+    is precision-transparent: its f32 impl is its behavior there.
+    ``kpack``: an f32 node's plan-built kernel pack (the OpDef's
+    ``kprep``), handed to its impl."""
     d = OPS[node.op]
     at = d.bind(node.attr)
     if lowering not in d.lowerings:
@@ -89,6 +95,8 @@ def apply_node(node: Node, args: Sequence[torch.Tensor], lowering: str,
     if precision == "bf16":
         args = [bf16_round(a) for a in args]
         return bf16_round(d.impl(list(args), at, lowering, block))
+    if kpack is not None:
+        return d.impl(list(args), at, lowering, block, kpack=kpack)
     return d.impl(list(args), at, lowering, block)
 
 
@@ -110,11 +118,13 @@ def _execute(graph: Graph, env: dict[str, torch.Tensor],
              lowerings: dict[str, str],
              configs: dict[str, dict] | None = None,
              precisions: dict[str, str] | None = None,
-             qconsts: dict[str, tuple] | None = None):
+             qconsts: dict[str, tuple] | None = None,
+             kconsts: dict[str, list] | None = None):
     """Run ``graph`` from ``env`` (inputs and consts by name)."""
     configs = configs or {}
     precisions = precisions or {}
     qconsts = qconsts or {}
+    kconsts = kconsts or {}
     env = dict(env)
     for node in graph.topo():
         if node.op in ("input", "const"):
@@ -123,7 +133,8 @@ def _execute(graph: Graph, env: dict[str, torch.Tensor],
                                     lowerings.get(node.name, "native"),
                                     configs.get(node.name),
                                     precisions.get(node.name, "f32"),
-                                    qconsts.get(node.name))
+                                    qconsts.get(node.name),
+                                    kconsts.get(node.name))
     outs = tuple(env[o] for o in graph.outputs)
     return outs[0] if len(outs) == 1 else outs
 
@@ -269,6 +280,9 @@ class Plan:
     qconsts: dict[str, tuple] = dataclasses.field(default_factory=dict)
     # node name -> int8 (q, scale) weight pack, quantized once at compile
     # on the plan's device by the OpDef's qprep
+    kconsts: dict[str, list] = dataclasses.field(default_factory=dict)
+    # node name -> an f32 kernel node's pack from the OpDef's kprep (the
+    # GEMM's TF32 planes of its const y), filled at its first launch
 
     @property
     def node_lowerings(self) -> dict[str, str]:
@@ -295,8 +309,41 @@ class Plan:
                     f"plan for {self.graph.name!r} was compiled for {name} "
                     f"{dtype}{shape}, got {t.dtype}{tuple(t.shape)}")
             env[name] = t
-        return _execute(self.graph, env, self.lowerings, self.configs,
-                        self.precisions, self.qconsts)
+        outs = _execute(self.graph, env, self.lowerings, self.configs,
+                        self.precisions, self.qconsts, self.kconsts)
+        held = [*(env[n] for n in self.input_names), *self.consts.values()]
+        if isinstance(outs, tuple):
+            fresh = []
+            for o in outs:
+                fresh.append(_owned(o, held + fresh))
+            return tuple(fresh)
+        return _owned(outs, held)
+
+
+def _storage_span(t: torch.Tensor) -> tuple:
+    s = t.untyped_storage()
+    return t.device, s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the storages under ``a`` and ``b`` share any byte."""
+    da, a0, a1 = _storage_span(a)
+    db, b0, b1 = _storage_span(b)
+    return da == db and a0 < b1 and b0 < a1
+
+
+def _owned(out: torch.Tensor, held: list[torch.Tensor]) -> torch.Tensor:
+    """A plan output as the reference returns one: dense, and in memory
+    of its own.  A view (``downsample``, ``frame_decimate``, ``real``,
+    ``unfold`` at ``native``, the stride-2 tail of ``fir_decimate``)
+    becomes a contiguous copy; a dense output that shares storage with a
+    plan input, a plan const or an earlier output is copied, so a caller
+    who edits its input, or the plan's next call, cannot change it."""
+    if not out.is_contiguous():
+        return out.contiguous()
+    if any(_overlaps(out, t) for t in held):
+        return out.clone()
+    return out
 
 
 _CACHE: dict[tuple, Plan] = {}
@@ -579,6 +626,18 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                           if ref in consts})
             if qp is not None:
                 qconsts[node.name] = qp
+        # kernel packs of f32 kernel nodes: slots filled at first launch
+        kconsts: dict[str, list] = {}
+        for node in compute:
+            d = OPS[node.op]
+            if (d.kprep is None or precisions[node.name] != "f32"
+                    or lowerings[node.name] != "kernel"):
+                continue
+            kp = d.kprep(d.bind(node.attr),
+                         {i: consts[ref] for i, ref in enumerate(node.inputs)
+                          if ref in consts})
+            if kp is not None:
+                kconsts[node.name] = kp
 
         plan = Plan(graph=g, input_names=tuple(g.inputs),
                     lowerings=lowerings, key=key, device=device,
@@ -586,7 +645,8 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                     configs={n: dict(c)
                              for n, c in (o.block_configs or {}).items()},
                     downgrades=downgrades, consts=consts,
-                    precisions=precisions, qconsts=qconsts)
+                    precisions=precisions, qconsts=qconsts,
+                    kconsts=kconsts)
         _CACHE[key] = plan
     return plan
 

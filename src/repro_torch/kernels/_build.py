@@ -55,11 +55,15 @@ SIGNATURES = {
     # x, kern, out, rows, n, K, pad_left, pad_right, flip, bn, threads,
     # stream
     "tina_fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, y, out, M, N, K, bm, bn, bk, order_nm, stream
-    "tina_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, x_cols, planes, n_pad, k_pad, out, M, N, K, bm, bn, bk, order_nm,
+    # stream
+    "tina_matmul": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # y, planes, K, N, n_pad, k_pad, stream
+    "tina_tf32_planes": [_P, _P, _I, _I, _I, _I, _P],
     # xq, yt (yq K-major), sx, sy, out, M, N, K, bm, bn, bk, stream
     "tina_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # xq, fr, fi, sx, sr, si, out, B, L, N, bm, bn, bk, stream
+    # xq, frt, fit (Fr, Fi K-major), sx, sr, si, out, B, K, N, bm, bn,
+    # bk, stream
     "tina_dft_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P],
     # x, tq, ts, out, rows, n, K, bn, threads, stream

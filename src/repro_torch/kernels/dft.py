@@ -26,7 +26,9 @@ zero-padded buffer first (:func:`staging` says which, by shape).
 
 :func:`dft_int8` is the int8 tier's real-signal DFT: ``tina_dft_int8`` in
 ``csrc/qmatmul.cu`` replaces the reference's ``kernels/dft.py:dft_int8``
-(one int8 x block against the int8 Fr and Fi, two int32 accumulators);
+(one int8 x block against the int8 Fr and Fi, two int32 accumulators, on
+the s8 tensor cores, which take B K-major: a caller passes the K-major
+copies of Fr and Fi made once, ``frt``/``fit``);
 :func:`dft_int8_plain` is its function in plain torch, equal bit for bit.
 """
 from __future__ import annotations
@@ -76,16 +78,8 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def tf32_split(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of float32 ``f``: hi = f rounded to TF32 (10 mantissa
-    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), its
-    low 13 bits zero; lo = the same rounding of f − hi (exact in f32).
-    |f − hi − lo| <= 2^-22 |f|."""
-    def rna(v):
-        bits = v.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-    hi = rna(f)
-    return hi, rna(f - hi)
+# the TF32 split of csrc/hopper.cuh:split_tf32, shared with the GEMM
+tf32_split = mm_kernel.tf32_split
 
 
 def tf32_planes(fr: torch.Tensor, fi: torch.Tensor,
@@ -202,22 +196,36 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
 
 
 # -- int8 ------------------------------------------------------------------
-# Compiled tile of tina_dft_int8 (bm, bn, bk): 256 threads, a 4 x 4 int32
-# micro-tile per thread for each of Fr and Fi, L in chunks of 32 int8.
-TILES_INT8 = ((64, 64, 32),)
+# Compiled tiles of tina_dft_int8 (bm, bn, bk): 128 rows (two consumer
+# warpgroups of 64) by 128 or 64 columns of both planes, L in 128-byte
+# steps through matmul_int8's four-stage TMA ring.  128 x 64 is for
+# N <= 64, where 128 columns would compute and skip half.
+TILES_INT8 = ((128, 128, 128), (128, 64, 128))
 
-# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limits: the compiled
-# tile (6.1 KB of static shared memory, far inside the 227 KB a block may
-# have) and L <= MAX_INT8_K.  ops.qdft runs a complex input's four
-# products through matmul_int8, at a tile of matmul_int8's own space.
+
+def int8_smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of an int8 DFT tile: per stage a bm x bk
+    chunk of xq and a bn x bk chunk of each of Fr^T and Fi^T, the
+    mbarriers, 1 KB of alignment."""
+    return mm_kernel.INT8_STAGES * (bm + 2 * bn) * bk \
+        + 2 * mm_kernel.INT8_STAGES * 8 + 1024
+
+
+# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limits: a compiled
+# tile, whose ring (193 KB at 128 x 128) fits the 227 KB a block may use,
+# and L <= MAX_INT8_K.  ops.qdft runs a complex input's four products
+# through matmul_int8, at a tile of matmul_int8's own space.
 TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     kernel="dft_int8",
     params=("bm", "bn", "bk"),
     candidates=lambda ctx: tuple({"bm": bm, "bn": bn, "bk": bk}
                                  for bm, bn, bk in TILES_INT8),
     valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"], cfg["bk"]) in TILES_INT8
+                            and int8_smem_bytes(cfg["bm"], cfg["bn"],
+                                                cfg["bk"]) <= tune.SMEM_BUDGET
                             and ctx["k"] <= mm_kernel.MAX_INT8_K),
-    default=lambda ctx: {"bm": 64, "bn": 64, "bk": 32},
+    default=lambda ctx: {"bm": 128, "bn": 128 if ctx["n"] > 64 else 64,
+                         "bk": 128},
 ))
 
 
@@ -232,10 +240,15 @@ def dft_int8_plain(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
 
 def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
              sx: torch.Tensor, sr: torch.Tensor, si: torch.Tensor, *,
-             bm: int = 64, bn: int = 64, bk: int = 32) -> torch.Tensor:
+             frt: torch.Tensor | None = None,
+             fit: torch.Tensor | None = None, bm: int = 128, bn: int = 128,
+             bk: int = 128) -> torch.Tensor:
     """Real-signal int8 DFT: xq (B, L) int8 rows with per-row scales sx
     (B,); fr / fi (L, N) the int8 Fourier matrix with per-column scales
-    sr / si (N,) -> complex64 (B, N).
+    sr / si (N,) -> complex64 (B, N).  ``frt`` / ``fit``: the K-major
+    (N, L) copies of fr and fi, the tensor cores' B operands, where the
+    caller made them once (the int8 DFM: ``quantize._qdfm_kmajor``); None
+    transposes here, per call.
 
     A CPU tensor runs :func:`dft_int8_plain`; a CUDA tensor launches the
     kernel on the current stream or raises."""
@@ -249,9 +262,14 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
         return dft_int8_plain(xq, fr, fi, sx, sr, si)
     if dev.type != "cuda":
         raise ValueError(f"dft_int8: no kernel for device {dev}")
+    if frt is None:
+        frt = fr.t().contiguous()
+    if fit is None:
+        fit = fi.t().contiguous()
     mm_kernel.check_int8_args(
         "dft_int8", dev, xq=(xq, torch.int8, (b, l)),
         fr=(fr, torch.int8, (l, n)), fi=(fi, torch.int8, (l, n)),
+        frt=(frt, torch.int8, (n, l)), fit=(fit, torch.int8, (n, l)),
         sx=(sx, torch.float32, (b,)), sr=(sr, torch.float32, (n,)),
         si=(si, torch.float32, (n,)))
     if (bm, bn, bk) not in TILES_INT8:
@@ -263,10 +281,13 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
     out = torch.empty((b, n), device=dev, dtype=torch.complex64)
     if out.numel() == 0:
         return out
+    if mm_kernel.int8_staging(xq, frt, fit) != "tma":
+        lp = -(-l // mm_kernel.INT8_K_ALIGN) * mm_kernel.INT8_K_ALIGN
+        xq, frt, fit = (mm_kernel.pad_k(t, lp) for t in (xq, frt, fit))
     code = _build.lib().tina_dft_int8(
-        xq.data_ptr(), fr.data_ptr(), fi.data_ptr(), sx.data_ptr(),
-        sr.data_ptr(), si.data_ptr(), out.data_ptr(), b, l, n, bm, bn, bk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        xq.data_ptr(), frt.data_ptr(), fit.data_ptr(), sx.data_ptr(),
+        sr.data_ptr(), si.data_ptr(), out.data_ptr(), b, xq.shape[1], n, bm,
+        bn, bk, torch.cuda.current_stream(dev).cuda_stream)
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "dft_int8")
@@ -276,4 +297,4 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
 __all__ = ["dft", "dft_plain", "TUNE_SPACE", "TILES", "VARIANTS",
            "tf32_split", "tf32_planes", "staging", "smem_bytes",
            "LAUNCHES", "dft_int8", "dft_int8_plain", "TUNE_SPACE_INT8",
-           "TILES_INT8", "INT8_LAUNCHES"]
+           "TILES_INT8", "INT8_LAUNCHES", "int8_smem_bytes"]

@@ -3,8 +3,17 @@ convolution (paper Eq. 9), in fp32 and in int8.
 
 ``csrc/matmul.cu`` (``tina_matmul``) replaces the JAX reference's
 ``kernels/matmul.py:matmul``: :func:`matmul` launches it for a CUDA
-tensor and runs :func:`matmul_plain` for a CPU tensor.  It runs full
-fp32 FMAs (no TF32), as the reference's 2e-5 tolerance requires.
+tensor and runs :func:`matmul_plain` for a CPU tensor.  It is a 3xTF32
+product on the tensor cores (``wgmma``): each value split into two TF32
+parts, hi + lo, and x y taken as xhi yhi + xhi ylo + xlo yhi, each
+32-deep chunk in a fresh accumulator added in f32, which keeps it within
+the reference's 2e-5 of an fp32 product.  The tensor cores take B
+K-major: :func:`tf32_planes` (a CUDA pass, ``tina_tf32_planes``; its
+plain twin :func:`tf32_planes_plain`) splits y into its hi and lo planes,
+K-major and zero-padded, in one read; a caller whose y is a constant
+makes them once and passes them as ``yt_planes``.  TMA reads x where its
+rows are 16-byte aligned; elsewhere the wrapper copies x into
+zero-padded rows first (:func:`staging` says which, by shape).
 
 ``csrc/qmatmul.cu`` (``tina_matmul_int8``, s8 ``wgmma`` on the tensor
 cores, TMA loads) replaces ``kernels/matmul.py:matmul_int8``:
@@ -14,9 +23,8 @@ cores, TMA loads) replaces ``kernels/matmul.py:matmul_int8``:
 tensor; the two agree bit for bit.  The tensor cores take B K-major:
 callers whose yq is a constant pass its transpose made once (``yt``).
 
-Neither pads M or N to block multiples (the int8 GEMM pads K to 16
-only where TMA cannot read the rows); the sources say what bounds them
-and how.
+Neither pads M or N to block multiples; the sources say what bounds
+them and how.
 """
 from __future__ import annotations
 
@@ -25,24 +33,36 @@ import torch
 from repro_torch.core import quantize
 from repro_torch.kernels import _build, tune
 
-# Compiled tiles of csrc/matmul.cu, (bm, bn, bk): 256 threads each, with
-# an 8 x 8 or 4 x 4 micro-tile per thread; the two the default picks.
-TILES = ((128, 128, 16), (64, 64, 16))
-ORDERS = ("mn", "nm")   # which tile index blockIdx.x walks: M or N
+# Compiled tiles of csrc/matmul.cu, (bm, bn, bk): 128 rows (two consumer
+# warpgroups of 64) by 128 or 64 columns, K in 32-deep f32 chunks through
+# a four-stage TMA ring.
+TILES = ((128, 128, 32), (128, 64, 32))
+ORDERS = ("mn", "nm")   # which tile index consecutive blocks walk: M or N
+BK = 32           # K per ring stage: one 128-byte row of f32
+STAGES = 4        # ring depth
+N_ALIGN = 128     # the planes' N padding: a multiple of every tile's bn
+K_ALIGN = 4       # TMA: x's rows must be 16-byte multiples
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
+PLANES_LAUNCHES = 0   # the same for the y split pass (tf32_planes)
 INT8_LAUNCHES = 0   # the same for matmul_int8
 
 
+def smem_bytes(bm: int, bn: int, bk: int) -> int:
+    """Dynamic shared memory of an f32 tile: per stage a bm x bk chunk of
+    x and a bn x bk chunk of each of y's two planes, the mbarriers, 1 KB
+    of alignment."""
+    return STAGES * 4 * (bm + 2 * bn) * bk + 2 * STAGES * 8 + 1024
+
+
 def _default(ctx: dict) -> dict:
-    big = min(ctx["m"], ctx["n"]) >= 1024
-    return {"bm": 128 if big else 64, "bn": 128 if big else 64, "bk": 16,
+    return {"bm": 128, "bn": 128 if ctx["n"] > 64 else 64, "bk": BK,
             "order": "mn"}
 
 
 # ctx: {"m": rows, "n": cols, "k": inner}.  Hard limits: a compiled tile
-# and a grid order the kernel knows (the shared memory per tile is fixed,
-# 16.6 KB at most).
+# (whose ring, 193 KB at 128 x 128, fits the 227 KB a block may use) and
+# a grid order the kernel knows.
 TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="matmul",
     params=("bm", "bn", "bk", "order"),
@@ -50,9 +70,83 @@ TUNE_SPACE = tune.register(tune.TuneSpace(
         {"bm": bm, "bn": bn, "bk": bk, "order": order}
         for bm, bn, bk in TILES for order in ORDERS),
     valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"], cfg["bk"]) in TILES
-                            and cfg["order"] in ORDERS),
+                            and cfg["order"] in ORDERS
+                            and smem_bytes(cfg["bm"], cfg["bn"], cfg["bk"])
+                            <= tune.SMEM_BUDGET),
     default=_default,
 ))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tf32_split(f: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``f``: hi = f rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), its
+    low 13 bits zero; lo = the same rounding of f − hi (exact in f32).
+    |f − hi − lo| <= 2^-22 |f|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(f)
+    return hi, rna(f - hi)
+
+
+def planes_shape(k: int, n: int) -> tuple[int, int, int]:
+    """(2, n_pad, k_pad) of y's TF32 planes for a (K, N) y."""
+    return (2, _round_up(n, N_ALIGN), _round_up(k, BK))
+
+
+def tf32_planes_plain(y: torch.Tensor) -> torch.Tensor:
+    """The split pass in plain torch: (2, n_pad, k_pad) float32, y's hi
+    then its lo TF32 part (:func:`tf32_split`), K-major ((N, K), the
+    transpose of y), zero-padded to n_pad (a multiple of 128) and k_pad
+    (a multiple of 32)."""
+    k, n = y.shape
+    out = torch.zeros(planes_shape(k, n), dtype=torch.float32,
+                      device=y.device)
+    hi, lo = tf32_split(y.to(torch.float32).t())
+    out[0, :n, :k] = hi
+    out[1, :n, :k] = lo
+    return out
+
+
+def tf32_planes(y: torch.Tensor) -> torch.Tensor:
+    """y (K, N) float32 -> its TF32 planes, the kernel's B side
+    (:func:`tf32_planes_plain`'s layout, equal bit for bit).
+
+    A CPU tensor runs :func:`tf32_planes_plain`; a CUDA tensor launches
+    the split pass on the current stream or raises."""
+    if y.ndim != 2:
+        raise ValueError(f"tf32_planes: y must be 2-D, got {tuple(y.shape)}")
+    dev = y.device
+    if dev.type == "cpu":
+        return tf32_planes_plain(y)
+    if dev.type != "cuda":
+        raise ValueError(f"tf32_planes: no kernel for device {dev}")
+    if y.dtype != torch.float32 or not y.is_contiguous():
+        raise ValueError("tf32_planes: y must be contiguous float32")
+    k, n = y.shape
+    out = torch.empty(planes_shape(k, n), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return out.zero_()
+    code = _build.lib().tina_tf32_planes(
+        y.data_ptr(), out.data_ptr(), k, n, out.shape[1], out.shape[2],
+        torch.cuda.current_stream(dev).cuda_stream)
+    global PLANES_LAUNCHES
+    PLANES_LAUNCHES += 1
+    _build.check(code, "tf32_planes")
+    return out
+
+
+def staging(x: torch.Tensor) -> str:
+    """How the kernel reads x: ``"tma"`` straight from x when its rows
+    are 16-byte aligned (K a multiple of 4 and an aligned start), else
+    ``"padded_copy"``: x copied into rows zero-padded to a multiple of 4
+    first."""
+    return ("tma" if x.shape[-1] % K_ALIGN == 0 and x.data_ptr() % 16 == 0
+            else "padded_copy")
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -61,9 +155,12 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x @ y
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
-           bn: int = 128, bk: int = 16, order: str = "mn") -> torch.Tensor:
-    """x (M, K) @ y (K, N) -> (M, N), float32.
+def matmul(x: torch.Tensor, y: torch.Tensor, *,
+           yt_planes: torch.Tensor | None = None, bm: int = 128,
+           bn: int = 128, bk: int = BK, order: str = "mn") -> torch.Tensor:
+    """x (M, K) @ y (K, N) -> (M, N), float32.  ``yt_planes``:
+    :func:`tf32_planes` of y, made once by a caller whose y is a
+    constant; None splits y here, per call.
 
     A CPU tensor runs :func:`matmul_plain`; a CUDA tensor launches the
     kernel on the current stream or raises."""
@@ -92,8 +189,23 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
         return out
     if k == 0:
         return out.zero_()
+    if yt_planes is None:
+        yt_planes = tf32_planes(y)
+    if (yt_planes.dtype != torch.float32 or yt_planes.device != dev
+            or not yt_planes.is_contiguous()
+            or tuple(yt_planes.shape) != planes_shape(k, n)):
+        raise ValueError(f"matmul: yt_planes {yt_planes.dtype}"
+                         f"{tuple(yt_planes.shape)} on {yt_planes.device}, "
+                         f"expected float32{planes_shape(k, n)} on {dev}, "
+                         "contiguous")
+    if staging(x) != "tma":
+        xs = torch.zeros((m, _round_up(k, K_ALIGN)), dtype=x.dtype,
+                         device=dev)
+        xs[:, :k] = x
+        x = xs
     code = _build.lib().tina_matmul(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk,
+        x.data_ptr(), x.shape[1], yt_planes.data_ptr(), yt_planes.shape[1],
+        yt_planes.shape[2], out.data_ptr(), m, n, k, bm, bn, bk,
         int(order == "nm"), torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
@@ -156,17 +268,19 @@ def check_int8_args(what: str, dev: torch.device, **tensors) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def int8_staging(xq: torch.Tensor, yt: torch.Tensor) -> str:
-    """How the kernel reads its operands: ``"tma"`` straight from xq and
-    the K-major yt when K is a multiple of 16 and both start 16-byte
-    aligned, else ``"padded_copy"``: both copied into rows zero-padded
-    to a multiple of 16 first (zeros add nothing to an int32 sum)."""
-    ok = (xq.shape[1] % INT8_K_ALIGN == 0 and xq.data_ptr() % 16 == 0
-          and yt.data_ptr() % 16 == 0)
+def int8_staging(xq: torch.Tensor, *bts: torch.Tensor) -> str:
+    """How an int8 kernel reads its operands: ``"tma"`` straight from xq
+    and the K-major B operands ``bts`` when K is a multiple of 16 and all
+    start 16-byte aligned, else ``"padded_copy"``: all copied into rows
+    zero-padded to a multiple of 16 first (zeros add nothing to an int32
+    sum)."""
+    ok = (xq.shape[1] % INT8_K_ALIGN == 0
+          and all(t.data_ptr() % 16 == 0 for t in (xq, *bts)))
     return "tma" if ok else "padded_copy"
 
 
-def _pad_k(t: torch.Tensor, k: int) -> torch.Tensor:
+def pad_k(t: torch.Tensor, k: int) -> torch.Tensor:
+    """t (rows, K) copied into zero-padded rows of k >= K columns."""
     out = torch.zeros((t.shape[0], k), dtype=t.dtype, device=t.device)
     out[:, :t.shape[1]] = t
     return out
@@ -209,7 +323,7 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
         return out
     if int8_staging(xq, yt) != "tma":
         kp = -(-k // INT8_K_ALIGN) * INT8_K_ALIGN
-        xq, yt = _pad_k(xq, kp), _pad_k(yt, kp)
+        xq, yt = pad_k(xq, kp), pad_k(yt, kp)
     code = _build.lib().tina_matmul_int8(
         xq.data_ptr(), yt.data_ptr(), sx.data_ptr(), sy.data_ptr(),
         out.data_ptr(), m, n, xq.shape[1], bm, bn, bk,
@@ -221,6 +335,8 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
 
 
 __all__ = ["matmul", "matmul_plain", "TUNE_SPACE", "TILES", "ORDERS",
-           "LAUNCHES", "matmul_int8", "matmul_int8_plain", "TUNE_SPACE_INT8",
+           "LAUNCHES", "PLANES_LAUNCHES", "tf32_split", "tf32_planes",
+           "tf32_planes_plain", "planes_shape", "staging", "smem_bytes",
+           "matmul_int8", "matmul_int8_plain", "TUNE_SPACE_INT8",
            "TILES_INT8", "INT8_LAUNCHES", "MAX_INT8_K", "int8_staging",
            "int8_smem_bytes"]

@@ -18,15 +18,16 @@ The int8 wrappers (:func:`qmatmul`, :func:`qdft`, :func:`qfir`,
 integer path (or inside the kernel, per window), so every one of them is
 bit-identical to it; the int8 Fourier matrix is quantized once per
 (n, inverse) and uploaded once per device, with the K-major copies the
-int8 GEMM takes.
+int8 GEMM and DFT take.
 
 Unlike the reference's wrappers these do not pad to block multiples:
 the kernels mask their own ragged edges (the f32 DFT's F planes are
-padded once, with the DFM; an x whose rows TMA cannot read is copied
-into padded rows by the kernel wrapper).  A kernel takes contiguous
-inputs, so a wrapper handed a strided view (``frame_decimate`` after
-``unfold``, ``real`` after ``idft``, ``downsample`` before a FIR or a
-PFB) makes it contiguous first, a copy.
+padded once, with the DFM, and the f32 GEMM's y planes once per plan
+const; an x whose rows TMA cannot read is copied into padded rows by the
+kernel wrapper).  A kernel takes contiguous inputs, so a wrapper handed
+a strided view (``frame_decimate`` after ``unfold``, ``real`` after
+``idft``, ``downsample`` before a FIR or a PFB) makes it contiguous
+first, a copy.
 """
 from __future__ import annotations
 
@@ -109,11 +110,14 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
     return z.reshape(batch + (t - m + 1, p))
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
+def matmul(x: torch.Tensor, y: torch.Tensor, *,
+           yt_planes: torch.Tensor | None = None, bm: int | None = None,
            bn: int | None = None, bk: int | None = None,
            order: str | None = None) -> torch.Tensor:
     """x (..., M, L) @ y (L, N) through the fp32 GEMM kernel, the leading
-    dims of x flattened into rows."""
+    dims of x flattened into rows.  ``yt_planes``: y's TF32 planes
+    (``mm_kernel.tf32_planes``), made once by a caller whose y is a
+    constant, or None to split y per call."""
     if x.ndim < 2 or y.ndim != 2:
         raise ValueError(f"matmul: x {tuple(x.shape)} must be (..., M, L) "
                          f"and y {tuple(y.shape)} (L, N)")
@@ -123,7 +127,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
                    {"m": tune.leading_rows(x.shape), "n": n, "k": l},
                    bm=bm, bn=bn, bk=bk, order=order)
     out = mm_kernel.matmul(x.reshape((-1, l)).contiguous(), y.contiguous(),
-                           **cfg)
+                           yt_planes=yt_planes, **cfg)
     return out.reshape(x.shape[:-2] + (m, n))
 
 
@@ -291,17 +295,18 @@ def qdft(x: torch.Tensor, *, inverse: bool = False, bm: int | None = None,
     """(I)DFT with the int8-quantized Fourier matrix: a real signal runs
     the shared-x dft_int8 kernel (one launch, both matrices); a complex
     one expands to the 4-real-matmul form through four launches of
-    matmul_int8 against the DFM's K-major copies, its real and imaginary
-    rows quantized once each.  Each product is rounded to f32 before the
-    cross-term combine.  The tile comes from the space of the kernel
-    that runs: dft_int8's for a real x, matmul_int8's for a complex one."""
+    matmul_int8, its real and imaginary rows quantized once each.  Both
+    kernels take the DFM's K-major copies, made once per device.  Each
+    product is rounded to f32 before the cross-term combine.  The tile
+    comes from the space of the kernel that runs: dft_int8's for a real
+    x, matmul_int8's for a complex one."""
     n = x.shape[-1]
     qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(x.device))
+    qrt, qit = quantize._qdfm_kmajor(n, inverse, str(x.device))
     ctx = {"m": tune.leading_rows(x.shape), "n": n, "k": n}
     x2 = x.reshape((-1, n))
     if x2.is_complex():
         cfg = _resolve(mm_kernel.TUNE_SPACE_INT8, ctx, bm=bm, bn=bn, bk=bk)
-        qrt, qit = quantize._qdfm_kmajor(n, inverse, str(x.device))
         zrq, szr = quantize.quantize_symmetric(
             x2.real.to(torch.float32), axis=-1)
         ziq, szi = quantize.quantize_symmetric(
@@ -317,7 +322,8 @@ def qdft(x: torch.Tensor, *, inverse: bool = False, bm: int | None = None,
     else:
         cfg = _resolve(dft_kernel.TUNE_SPACE_INT8, ctx, bm=bm, bn=bn, bk=bk)
         xq, sx = quantize.quantize_symmetric(x2, axis=-1)
-        out = dft_kernel.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si, **cfg)
+        out = dft_kernel.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si,
+                                  frt=qrt, fit=qit, **cfg)
     return out.reshape(x.shape[:-1] + (n,))
 
 

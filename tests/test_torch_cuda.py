@@ -310,6 +310,54 @@ def test_matmul_matches_plain(dev, xs, ys, tile, order):
     want = mmk.matmul_plain(x.reshape(-1, xs[-1]), y).reshape(got.shape)
     # fp32 sums of K terms taken in another order
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    # 3xTF32 with per-chunk promotion: within 1e-5 of a float64 product
+    w64 = x.reshape(-1, xs[-1]).double() @ y.double()
+    assert ((got.reshape(w64.shape).double() - w64).abs().max()
+            <= 1e-5 * w64.abs().max())
+
+
+# the staging edges of the 3xTF32 GEMM: K not a multiple of 4 (the padded
+# copy), an odd N (scalar stores), K a multiple of 4 (TMA)
+@pytest.mark.parametrize("m,k,n", [(130, 1027, 193), (70, 3, 33),
+                                   (300, 100, 51)])
+def test_matmul_staging_edges_and_planes(dev, m, k, n):
+    x = torch.randn(m, k, device=dev)
+    y = torch.randn(k, n, device=dev)
+    planes = mmk.tf32_planes(y)
+    torch.cuda.synchronize()
+    # the split pass equals its plain twin bit for bit
+    assert torch.equal(planes, mmk.tf32_planes_plain(y))
+    want = mmk.matmul_plain(x, y)
+    for bm, bn, bk in mmk.TILES:
+        got = mmk.matmul(x, y, yt_planes=planes, bm=bm, bn=bn, bk=bk)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        # planes made per call give the same bits
+        assert torch.equal(mmk.matmul(x, y, bm=bm, bn=bn, bk=bk), got)
+    # rows that start unaligned take the padded copy, with the same bits
+    buf = torch.empty(m * k + 1, device=dev)
+    xs = buf[1:].view(m, k)
+    xs.copy_(x)
+    assert mmk.staging(xs) == "padded_copy"
+    assert torch.equal(mmk.matmul(xs, y, yt_planes=planes),
+                       mmk.matmul(x, y, yt_planes=planes))
+
+
+def test_matmul_plan_makes_the_planes_once(dev):
+    w = torch.randn(256, 192).numpy()
+    g = graph.Graph("mm")
+    node = g.apply("matmul", g.input("x"), g.const(w, "y"))
+    g.output(node)
+    plan = graph.compile(g, {"x": (64, 256)}, lowering="kernel")
+    x = torch.randn(64, 256, device=dev)
+    mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
+    first = plan(x)
+    torch.cuda.synchronize()
+    assert (mmk.LAUNCHES, mmk.PLANES_LAUNCHES) == (1, 1)
+    planes = plan.kconsts[node][0]
+    assert torch.equal(planes, mmk.tf32_planes_plain(plan.consts["y"]))
+    assert torch.equal(plan(x), first)
+    assert (mmk.LAUNCHES, mmk.PLANES_LAUNCHES) == (2, 1)
+    assert plan.kconsts[node][0] is planes
 
 
 @pytest.mark.parametrize("name,g,shape,want", [
@@ -411,15 +459,47 @@ def test_matmul_int8_unaligned_rows_and_headroom(dev):
 @pytest.mark.parametrize("rows", [1, 37, 8188])
 @pytest.mark.parametrize("n", [7, 64, 1024])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-def test_dft_int8_bit_exact(dev, rows, n, inverse):
+@pytest.mark.parametrize("tile", dftk.TILES_INT8)
+def test_dft_int8_bit_exact(dev, rows, n, inverse, tile):
     gen = torch.Generator(device=dev).manual_seed(rows * n)
     xq, sx = quantize.quantize_symmetric(
         torch.randn(rows, n, device=dev, generator=gen), axis=-1)
     qr, sr, qi, si = quantize._qdfm_tensors(n, inverse, str(dev))
-    got = dftk.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si)
+    qrt, qit = quantize._qdfm_kmajor(n, inverse, str(dev))
+    bm, bn, bk = tile
+    want = dftk.dft_int8_plain(xq, qr, qi, sx.reshape(-1), sr, si)
+    got = dftk.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si, bm=bm, bn=bn,
+                        bk=bk)
     torch.cuda.synchronize()
-    assert torch.equal(got, dftk.dft_int8_plain(xq, qr, qi, sx.reshape(-1),
-                                                sr, si))
+    assert torch.equal(got, want)
+    # the K-major planes made once (as ops.qdft passes them): same bits
+    assert torch.equal(dftk.dft_int8(xq, qr, qi, sx.reshape(-1), sr, si,
+                                     frt=qrt, fit=qit, bm=bm, bn=bn, bk=bk),
+                       want)
+
+
+# the staging edges of the s8 DFT off the square DFM: an odd N at L a
+# multiple of 16, L not a multiple of 16 (the padded copy), both
+@pytest.mark.parametrize("l,n", [(64, 33), (100, 64), (1000, 257)])
+@pytest.mark.parametrize("tile", dftk.TILES_INT8)
+def test_dft_int8_staging_edges(dev, l, n, tile):
+    gen = torch.Generator(device=dev).manual_seed(l * n)
+    xq, sx = quantize.quantize_symmetric(
+        torch.randn(300, l, device=dev, generator=gen), axis=-1)
+    fr, sr = quantize.quantize_weights(torch.randn(l, n, device=dev,
+                                                   generator=gen))
+    fi, si = quantize.quantize_weights(torch.randn(l, n, device=dev,
+                                                   generator=gen))
+    args = (xq, fr, fi, sx.reshape(-1), sr.reshape(-1), si.reshape(-1))
+    bm, bn, bk = tile
+    want = dftk.dft_int8_plain(*args)
+    assert torch.equal(dftk.dft_int8(*args, bm=bm, bn=bn, bk=bk), want)
+    buf = torch.empty(300 * l + 1, dtype=torch.int8, device=dev)
+    xs = buf[1:].view(300, l)
+    xs.copy_(xq)
+    assert mmk.int8_staging(xs, fr.t()) == "padded_copy"
+    assert torch.equal(dftk.dft_int8(xs, *args[1:], bm=bm, bn=bn, bk=bk),
+                       want)
 
 
 FIR_INT8_CASES = [(3, 1000, 1), (2, 999, 8), (5, 4099, 15), (1, 70001, 31),
@@ -517,7 +597,7 @@ def _int8_counts():
             "binary": ewk.BINARY_LAUNCHES, "unfold": unfk.LAUNCHES,
             "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
             "pfb_fused": pfbk.LAUNCHES, "dft": dftk.LAUNCHES,
-            "matmul": mmk.LAUNCHES}
+            "matmul": mmk.LAUNCHES, "tf32_planes": mmk.PLANES_LAUNCHES}
 
 
 @pytest.mark.parametrize("name,g,shape,want", [
@@ -580,4 +660,4 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         dftk.dft_int8(torch.zeros(4, 8, dtype=torch.int8, device=dev),
                       *(torch.zeros(8, 8, dtype=torch.int8, device=dev),) * 2,
                       *(torch.ones(n, device=dev) for n in (4, 8, 8)),
-                      bm=128, bn=128)
+                      bm=128, bn=96)

@@ -28,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import graph
 from repro_torch.core import functions, opdefs, registry
+from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
 from repro_torch.kernels import fir as firk
 from repro_torch.kernels import matmul as mmk
@@ -407,8 +408,102 @@ def test_tune_spaces_describe_the_cuda_kernels():
     assert {(c["bm"], c["bn"], c["bk"], c["order"]) for c in msp.configs(
         {"m": 4096, "n": 4096, "k": 4096})} == {
             t + (o,) for t in mmk.TILES for o in mmk.ORDERS}
-    assert msp.check({}, {"m": 4096, "n": 4096, "k": 4096})["bm"] == 128
-    assert msp.check({}, {"m": 300, "n": 50, "k": 100})["bm"] == 64
+    assert msp.check({}, {"m": 4096, "n": 4096, "k": 4096})["bn"] == 128
+    assert msp.check({}, {"m": 300, "n": 50, "k": 100})["bn"] == 64
+    assert all(mmk.smem_bytes(*t) <= tune.SMEM_BUDGET for t in mmk.TILES)
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 GEMM's host side: y's TF32 planes, the plan's kernel pack,
+# and the method's accuracy (emulated in torch on the CPU; the card's is
+# chip_smoke.py's float64 check)
+# ---------------------------------------------------------------------------
+MM_RTOL = 2e-5        # the reference's matmul tolerance (test_kernels.py)
+MM_F64_RTOL = 1e-5    # chip_smoke.py: the GEMM against a float64 product
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (129, 255), (100, 50), (24, 17),
+                                 (1027, 193)])
+def test_tf32_planes_twin_matches_dft_tf32_planes(k, n):
+    """The split pass's plain twin lays out y as the DFT's F side: hi then
+    lo TF32 part of y^T, K-major; only the N padding differs (a multiple
+    of the GEMM's widest tile, 128, against the DFT's 64), and it is
+    zero.  The CPU wrapper runs the twin."""
+    y = _t(_rng("planes", k, n).standard_normal((k, n)).astype(np.float32))
+    got = mmk.tf32_planes_plain(y)
+    assert tuple(got.shape) == mmk.planes_shape(k, n) == (
+        2, -(-n // 128) * 128, -(-k // 32) * 32)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    want = dftk.tf32_planes(y, y, "4mult")[:2]
+    assert torch.equal(got[:, :n, :k], want[:, :n, :k])
+    pad = torch.ones(got.shape[1:], dtype=torch.bool)
+    pad[:n, :k] = False
+    assert not got[:, pad].any()
+    assert torch.equal(mmk.tf32_planes(y), got)
+
+
+def test_matmul_plan_kernel_pack_is_a_slot_for_the_planes():
+    """An f32 kernel matmul plan with a const y holds a slot for y's TF32
+    planes, filled at the first launch on the card only: a CPU plan (and
+    a native one) never makes them."""
+    w = _rng("kpack").standard_normal((64, 48)).astype(np.float32)
+    g = graph.Graph("mm")
+    node = g.apply("matmul", g.input("x"), g.const(w, "y"))
+    g.output(node)
+    plan = graph.compile(g, {"x": (32, 64)}, lowering="kernel", device="cpu")
+    assert plan.kconsts == {node: [None]}
+    x = _t(_rng("kpack", 1).standard_normal((32, 64)).astype(np.float32))
+    np.testing.assert_allclose(plan(x).numpy(), x.numpy() @ w, rtol=MM_RTOL,
+                               atol=MM_RTOL)
+    assert plan.kconsts == {node: [None]}
+    assert graph.compile(g, {"x": (32, 64)}, lowering="native",
+                         device="cpu").kconsts == {}
+    assert graph.compile(g, {"x": (32, 64)}, lowering="kernel",
+                         precision="bf16", device="cpu").kconsts == {}
+
+
+def _tf32_gemm(x, planes, k, n, passes, promote=True):
+    """x (M, K) against y's planes as the kernel multiplies them, with f32
+    sums: passes 3 is xhi yhi + xhi ylo + xlo yhi (each product of two
+    TF32 values exact in f32), 1 a single TF32 pass; promote takes each
+    32-deep chunk apart and adds it into the result in f32."""
+    xh, xl = mmk.tf32_split(x)
+    yh, yl = planes[0, :n, :k].t(), planes[1, :n, :k].t()
+    step = mmk.BK if promote else k
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32)
+    for k0 in range(0, k, step):
+        c = slice(k0, k0 + step)
+        part = xh[:, c] @ yh[c]
+        if passes == 3:
+            part = xl[:, c] @ yh[c] + xh[:, c] @ yl[c] + part
+        acc = acc + part
+    return acc
+
+
+def test_3xtf32_gemm_emulation_within_float64_at_4096():
+    """At K = 4096 the 3xTF32 GEMM with per-chunk promotion (emulated
+    with f32 sums) stays within 1e-5 of max of a float64 product, and so
+    within the reference's 2e-5; a single TF32 pass does not."""
+    k, n = 4096, 64
+    rng = _rng("3xtf32_gemm")
+    x = _t(rng.standard_normal((64, k)).astype(np.float32))
+    y = _t(rng.standard_normal((k, n)).astype(np.float32))
+    planes = mmk.tf32_planes_plain(y)
+    want = x.double() @ y.double()
+    scale = float(want.abs().max())
+    errs = {p: float((_tf32_gemm(x, planes, k, n, p).double() - want)
+                     .abs().max()) / scale for p in (3, 1)}
+    assert errs[3] <= MM_F64_RTOL
+    assert errs[1] > MM_RTOL > 10 * errs[3]
+
+
+def test_matmul_staging_is_decided_by_shape():
+    """TMA reads x's rows where they are 16-byte multiples from an
+    aligned start; anything else goes through the zero-padded copy."""
+    assert mmk.staging(torch.zeros(4, 64)) == "tma"
+    assert mmk.staging(torch.zeros(4, 129)) == "padded_copy"
+    shifted = torch.zeros(4 * 64 + 1)[1:].view(4, 64)
+    assert shifted.is_contiguous() and mmk.staging(shifted) == "padded_copy"
 
 
 def test_invalid_block_configs_raise():
@@ -419,7 +514,7 @@ def test_invalid_block_configs_raise():
         lambda: ops.fir(x, torch.randn(5), bn=4096, threads=256),
         lambda: ops.fir(x, torch.randn(5), bn=1024, threads=256),
         lambda: ops.matmul(x, x.T, bm=96),
-        lambda: ops.matmul(x, x.T, bk=32),
+        lambda: ops.matmul(x, x.T, bk=16),
         lambda: ops.matmul(x, x.T, order="km"),
     ]
     for case in cases:

@@ -269,3 +269,59 @@ def test_port_imports_neither_jax_nor_reference():
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
+
+
+# ---------------------------------------------------------------------------
+# plan outputs own their memory, as the JAX plan's do
+# ---------------------------------------------------------------------------
+def _one_node(mod, op, **attrs):
+    g = mod.Graph(f"one_{op}")
+    g.output(g.apply(op, g.input("x"), **attrs))
+    return g
+
+
+# (the graph, built on either package; input shape; port lowering; JAX
+# lowering): the view ops, unfold's as_strided at native, and
+# fir_decimate's stride-2 tail
+ALIAS_CASES = {
+    "downsample": (lambda mod: _one_node(mod, "downsample", factor=2),
+                   (4, 64), "kernel", "pallas"),
+    "unfold": (lambda mod: _one_node(mod, "unfold", window=8),
+               (4, 64), "native", "native"),
+    "frame_decimate": (lambda mod: _one_node(mod, "frame_decimate",
+                                             factor=2),
+                       (4, 16, 8), "kernel", "pallas"),
+    "fir_decimate": (lambda mod: mod.build_fir_decimate(), (2, 4096),
+                     "kernel", "pallas"),
+}
+
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    sa, sb = a.untyped_storage(), b.untyped_storage()
+    return (sa.data_ptr() < sb.data_ptr() + sb.nbytes()
+            and sb.data_ptr() < sa.data_ptr() + sa.nbytes())
+
+
+@pytest.mark.parametrize("case", list(ALIAS_CASES))
+@pytest.mark.parametrize("kind", ["torch", "numpy"])
+def test_plan_output_is_dense_and_owns_its_memory_vs_jax(case, kind):
+    """The JAX plan returns a fresh, dense array.  The port's output must
+    be contiguous, share no storage with the caller's input, and still
+    equal the JAX plan's after the caller edits that input in place."""
+    build, shape, lw, jlw = ALIAS_CASES[case]
+    x_np = _rng("alias", case).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jgraph.compile(
+        build(jgraph), {"x": shape},
+        options=jgraph.CompileOptions(lowering=jlw))(jnp.asarray(x_np)))
+    plan = graph.compile(build(graph), {"x": shape}, lowering=lw,
+                         device="cpu")
+    x = torch.from_numpy(x_np.copy()) if kind == "torch" else x_np.copy()
+    got = plan(x)
+    assert got.is_contiguous()
+    assert not _shares_storage(got, torch.as_tensor(x))
+    if kind == "torch":
+        x.add_(1.0)
+    else:
+        x[...] = -1.0
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)

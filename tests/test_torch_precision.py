@@ -193,8 +193,33 @@ def test_qdft_resolves_the_tile_of_the_kernel_that_runs(monkeypatch):
     assert seen == ["dft_int8"]
     bm, bn, bk = mmk.TILES_INT8[-1]
     _bitwise(ops.qdft(z, bm=bm, bn=bn, bk=bk), ops.qdft(z))
+    # dft_int8's 64-column tile is no matmul_int8 tile
+    assert dftk.TILES_INT8[-1] not in mmk.TILES_INT8
     with pytest.raises(ValueError, match="invalid block config"):
-        ops.qdft(z, **dict(zip(("bm", "bn", "bk"), dftk.TILES_INT8[0])))
+        ops.qdft(z, **dict(zip(("bm", "bn", "bk"), dftk.TILES_INT8[-1])))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dft", "idft"])
+def test_qdft_hands_dft_int8_the_kmajor_planes(monkeypatch, inverse):
+    """A real x reaches dft_int8 with the int8 DFM's K-major copies, the
+    s8 tensor cores' B operands, made once per (n, inverse, device)
+    (quantize._qdfm_kmajor), not transposed per call."""
+    seen = []
+    real = dftk.dft_int8
+    monkeypatch.setattr(dftk, "dft_int8", lambda *a, **kw: (
+        seen.append((a, kw)), real(*a, **kw))[1])
+    n = 64
+    x = _t(_rng("qdft_kmajor", inverse).standard_normal(
+        (8, n)).astype(np.float32))
+    got = ops.qdft(x, inverse=inverse)
+    ((args, kw),) = seen
+    qrt, qit = quantize._qdfm_kmajor(n, inverse, "cpu")
+    assert kw["frt"] is qrt and kw["fit"] is qit
+    qr, _, qi, _ = quantize._qdfm_tensors(n, inverse, "cpu")
+    assert args[1] is qr and args[2] is qi
+    _bitwise(kw["frt"], qr.t().numpy())
+    _bitwise(kw["fit"], qi.t().numpy())
+    _bitwise(got, quantize.qdft(x, inverse=inverse))
 
 
 def test_weight_packs_bitwise():
