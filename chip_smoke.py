@@ -15,8 +15,10 @@ Prints one JSON line per phase:
   sass      the warpgroup MMA instructions (HGMMA, IGMMA) that
             ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` and
             ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA) and
-            ``tina_matmul_int8`` and ``tina_dft_int8`` (the s8 GEMM and
-            DFT: IGMMA); a kernel without them fails
+            ``tina_matmul_int8``, ``tina_dft_int8`` and the DFT stage of
+            ``tina_pfb_int8`` (the s8 GEMM and DFTs: IGMMA); a kernel
+            without them fails, as does a ``__dp4a`` (IDP) left in any
+            kernel of ``tina_pfb_int8``
   kernel    each kernel against its plain version at ragged shapes
             (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
             taken in another order, the DFT at every compiled tile, with
@@ -27,7 +29,9 @@ Prints one JSON line per phase:
             in, each case also against a float64 product (1e-5 of its
             max), the split pass bit for bit against its plain twin,
             and rows that start unaligned; chain
-            (complex and real abs2 heads), binary, unfold, overlap-add
+            (complex and real abs2 heads), binary (also x, y and out
+            as views 0-3 floats past a 16-byte boundary, cols 1 to 1024,
+            n not a multiple of 4), unfold, overlap-add
             and FIR: exact equality -- the FIR at K = 1 to 4097, with
             implicit padding, with the taps as given and reversed
             (``flip``), and on strided rows)
@@ -53,8 +57,11 @@ Prints one JSON line per phase:
             plan, the native plan, each kernel alone at the shape the
             path gives it, its plain version, and the one PyTorch call
             that computes the same function (``F.conv1d`` without TF32
-            for the FIR, ``torch.matmul``, ``torch.add``; timed here
-            only, the port never calls them); ``fir_decimate``'s first
+            for the FIR, ``torch.matmul``, ``torch.add``, ``torch.mul``;
+            timed here only, the port never calls them); the binary
+            kernel alone at each of its launches' shapes (stft,
+            spectrogram, the Table-1 add) beside ``torch.mul`` /
+            ``torch.add`` and its bytes bound; ``fir_decimate``'s first
             FIR and the matmul also at every tile of their tune spaces;
             the matmul plan's first call makes y's TF32 planes and its
             second launches the GEMM alone.
@@ -76,8 +83,10 @@ Prints one JSON line per phase:
             call and passed in, rows not 16-byte aligned, +-127 operands
             at K = 2048 against an int64 sum, the int8 DFM both ways, an
             odd N and L not a multiple of 16 for the DFT, K = 1 to 4097
-            taps both orientations, P = 16, 20, 48 and 1024, and inputs
-            whose x / scale quotients are exact half-integers
+            taps both orientations, the PFB at P = 16, 20, 37, 48, 1000
+            and 1024 on frames that start 16-byte aligned and not, its
+            frontend's int8 rows and scales against their plain twin, and
+            inputs whose x / scale quotients are exact half-integers
   int8_main ``pfb_power`` at ``precision="int8"``, kernel lowering, full
             width: node precisions and the abs2 downgrade, launches per
             call (pfb_fused_int8 1, chain 1), the whole output against
@@ -86,7 +95,10 @@ Prints one JSON line per phase:
             the chain held against their plain versions, times of the
             plan, the native plan, the kernel (each compiled tile) and
             its plain version, and its bound (int8 ops at 1,979 TOPS or
-            bytes at 3.35 TB/s)
+            bytes at 3.35 TB/s); its two kernels apart (the DFT stage
+            run alone on the frontend's rows, the frontend the rest),
+            each beside its bound, and ``torch._int_mm`` of the DFT
+            stage's contraction (also at the cascaded path)
   int8_paths  the other five pipelines at int8 at their cells' widths,
             the int8 Table-1 rows (one-node plans, each against its int8
             native plan and its op's SQNR budget) and a 4096-cubed int8
@@ -327,7 +339,8 @@ def hold(torch, what, got, want, rtol=None) -> float:
 
 # entry point -> the warpgroup MMA its kernels must hold
 TC_ENTRIES = {"tina_dft": "HGMMA", "tina_matmul": "HGMMA",
-              "tina_matmul_int8": "IGMMA", "tina_dft_int8": "IGMMA"}
+              "tina_matmul_int8": "IGMMA", "tina_dft_int8": "IGMMA",
+              "tina_pfb_int8": "IGMMA"}
 
 
 def tc_kernel(mangled: str):
@@ -345,15 +358,19 @@ def tc_kernel(mangled: str):
         return "tina_matmul", f"tf32_matmul_kernel<{width.group(1)}>"
     if "s8_dft_kernel" in mangled and width:
         return "tina_dft_int8", f"s8_dft_kernel<{width.group(1)}>"
+    if "qpfb_dft_kernel" in mangled and width:
+        return "tina_pfb_int8", f"qpfb_dft_kernel<{width.group(1)}>"
     if "qmatmul_cu" in mangled and "matmul_kernel" in mangled:
         return "tina_matmul_int8", "matmul_kernel"
     return None
 
 
-def wgmma_counts(lib_path) -> dict:
-    """{entry point: {kernel: {"HGMMA"/"IGMMA": count}}}: the warpgroup
-    MMA instructions in the SASS of the kernels of every entry point of
-    ``TC_ENTRIES`` in the built library, from ``cuobjdump -sass``."""
+def wgmma_counts(lib_path) -> tuple[dict, dict]:
+    """({entry point: {kernel: {"HGMMA"/"IGMMA": count}}}, {kernel of
+    qpfb.cu: IDP count}): the warpgroup MMA instructions in the SASS of
+    the kernels of every entry point of ``TC_ENTRIES`` in the built
+    library, and the ``__dp4a`` (IDP) instructions left in each kernel of
+    the int8 PFB, from ``cuobjdump -sass``."""
     import os
     import re
     import shutil
@@ -362,28 +379,40 @@ def wgmma_counts(lib_path) -> dict:
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     out, fn = {entry: {} for entry in TC_ENTRIES}, None
+    idp, pfb = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             k = tc_kernel(m.group(1))
             fn = out[k[0]].setdefault(k[1], {}) if k else None
+            pfb = None
+            if "qpfb_cu" in m.group(1):
+                k = re.search(r"(frontend_kernel|qpfb_dft_kernel)IL[bi]"
+                              r"(\d+)E", m.group(1))
+                pfb = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+                idp.setdefault(pfb, 0)
             continue
         op = re.search(r"\b([HI]GMMA)\.", line)
         if fn is not None and op:
             fn[op.group(1)] = fn.get(op.group(1), 0) + 1
-    return out
+        if pfb is not None and re.search(r"\bIDP\.", line):
+            idp[pfb] += 1
+    return out, idp
 
 
 def ptxas_usage(log: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of the tensor-core kernels
-    (``TC_ENTRIES``), from the build's ``-Xptxas -v`` log."""
+    (``TC_ENTRIES``) and of the int8 PFB's frontend, from the build's
+    ``-Xptxas -v`` log."""
     import re
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = tc_kernel(m.group(1))
-            name = k[1] if k else None
+            f = re.search(r"frontend_kernelILb(\d)E", m.group(1))
+            name = k[1] if k else (
+                f"frontend_kernel<{f.group(1)}>" if f else None)
             if name:
                 out[name] = {}
             continue
@@ -460,6 +489,24 @@ def main() -> int:
                 "fir_valid_int8": firk.INT8_LAUNCHES,
                 "pfb_fused_int8": pfbk.INT8_LAUNCHES}
 
+    def binary_yardstick(x, y, op) -> dict:
+        """The binary kernel alone at a path's shapes, beside one torch
+        call of the same function (timed here only) and its bytes bound
+        (x and out, and y once); launches outside any counted run."""
+        fn = ew.elementwise_mult if op == "mul" else ew.elementwise_add
+        tfn = torch.mul if op == "mul" else torch.add
+        b_ms, b_by = bound(4 * (2 * x.numel() + y.numel()), x.numel())
+        off = [t.data_ptr() % 16 for t in (x, y)]   # out: fresh, aligned
+        row = tuple(y.shape) != tuple(x.shape)
+        vec = (off == [0, 0] and x.shape[-1] % 4 == 0) if row else \
+            off[0] == off[1] == 0
+        return {"x": list(x.shape), "y": list(y.shape), "op": op,
+                "offsets_bytes": off, "threads": 256,
+                "route": "float4" if vec else "scalar",
+                "ms": device_ms(torch, lambda: fn(x, y)),
+                "torch_ms": device_ms(torch, lambda: tfn(x, y)),
+                "bound_ms": b_ms, "bound_by": b_by}
+
     def owned(label, out, *inputs) -> None:
         """A plan output is dense and shares no storage with its inputs
         (the reference returns fresh arrays)."""
@@ -496,12 +543,15 @@ def main() -> int:
          sources=[str(s.relative_to(ROOT)) for s in _build.sources()])
 
     # -- the tensor-core kernels' SASS holds warpgroup MMAs -----------------
-    mma = wgmma_counts(_build.build())
+    mma, pfb_idp = wgmma_counts(_build.build())
     for entry, op in TC_ENTRIES.items():
         if not mma[entry] or not all(c.get(op, 0) > 0
                                      for c in mma[entry].values()):
             fail(f"{entry}: a kernel without {op} in its SASS: {mma[entry]}")
-    emit(phase="sass", wgmma_instructions=mma,
+    if len(pfb_idp) != 4 or any(pfb_idp.values()):
+        fail(f"tina_pfb_int8: want its two frontend and two DFT kernels, none "
+             f"with __dp4a (IDP): {pfb_idp}")
+    emit(phase="sass", wgmma_instructions=mma, pfb_int8_idp=pfb_idp,
          ptxas=ptxas_usage(_build.BUILD_INFO.get("ptxas", "")))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -589,6 +639,32 @@ def main() -> int:
             if not ok:
                 fail(f"elementwise_{op} y {tuple(y.shape)}: not bit-"
                      "identical to plain")
+    # binary at offsets: x, y and out as views that start 0-3 floats past a
+    # 16-byte boundary (the same offset: a scalar head, 16-byte vectors and
+    # a scalar tail; other offsets: the scalar loop), cols 1 to 1024 (n
+    # not a multiple of 4 where cols is odd), and two large cases whose
+    # threads each walk several vectors (the row index carried, not
+    # divided)
+    def at(k, size):
+        return randn(size + 4)[k:k + size]
+
+    offsets = ((0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3), (1, 2, 0),
+               (0, 0, 1))
+    cases = [(37, cols, row, o) for cols in (1, 3, 4, 64, 1024)
+             for row in (False, True) for o in offsets]
+    cases += [(40_000, 1000, True, (0, 0, 0)), (40_001, 1001, False, (2, 2, 2))]
+    for op, fn in (("mul", ew.elementwise_mult),
+                   ("add", ew.elementwise_add)):
+        for rows, cols, row, (ox, oy, oo) in cases:
+            x = at(ox, rows * cols).view(rows, cols)
+            y = (at(oy, cols) if row else
+                 at(oy, rows * cols).view(rows, cols))
+            out = at(oo, rows * cols).view(rows, cols)
+            hold(torch, f"elementwise_{op} {(rows, cols)} row={row} "
+                 f"offsets {(ox, oy, oo)}", fn(x, y, out=out),
+                 ew.elementwise_binary_plain(x, y, op))
+        emit(phase="kernel", kernel="elementwise_binary", op=op,
+             cases=[[r, c, w, list(o)] for r, c, w, o in cases], exact=True)
     # DFT: every ragged case, both variants, real and complex, both ways,
     # every compiled tile; rows that do not start 16-byte aligned
     for rows in (1, 37, 8188):
@@ -1003,6 +1079,8 @@ def main() -> int:
     if grew != {**dict.fromkeys(grew, 0), "elementwise_binary": 2 * calls,
                 "dft": 2 * calls, "unfold": calls, "overlap_add": calls}:
         fail(f"stft_overlap_add: lone kernel launches grew by {grew}")
+    stft_binary = [binary_yardstick(fd, win, "mul"),
+                   binary_yardstick(r, win, "mul")]
     rows_f = b * t
     nt = t - j // hop + 1
     cost = {
@@ -1030,6 +1108,7 @@ def main() -> int:
          dft_plain_max_rel_err_vs_float64=plain_f64,
          dft_staging={"forward": dftk.staging(xr),
                       "inverse": dftk.staging(z)},
+         elementwise_binary=stft_binary,
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     table["stft"] = dict(launches=info["launches_per_call"], ms=ms,
                          cost=cost, err=errs)
@@ -1102,6 +1181,7 @@ def main() -> int:
     nf = xr.shape[0]
     emit(phase="main", path="spectrogram", x=list(SPEC_X), window=j,
          frames=nf, tiles={"unfold": ucfg, "dft": dcfg},
+         elementwise_binary=binary_yardstick(frames, win, "mul"),
          max_abs_err_vs_plain=spec_errs, ms=ms,
          dft_max_rel_err_vs_float64=spec_f64, dft_staging=dftk.staging(xr),
          dft_bound_ms={
@@ -1470,7 +1550,8 @@ def main() -> int:
     add_ms["elementwise_add_library"] = device_ms(torch,
                                                   lambda: torch.add(xa, ya))
     emit(phase="main", path="table1", op="elementwise_add",
-         x=list(xa.shape), ms=add_ms, max_abs_err_vs_plain=add_err)
+         x=list(xa.shape), ms=add_ms, max_abs_err_vs_plain=add_err,
+         elementwise_binary=binary_yardstick(xa, ya, "add"))
     # the binary kernel's launches in the elementwise_add row's counted run
     table["add"] = dict(
         launches={"elementwise_add": add_launches["elementwise_binary"]},
@@ -1586,6 +1667,42 @@ def main() -> int:
 
     def col_major(w):
         return w.t().contiguous().t()
+
+    def pfb8_stages(args, frt, fit, cfg) -> dict:
+        """The int8 PFB's two kernels apart, at a path's shapes (P a
+        multiple of 16): the whole call, the DFT stage alone (tina_dft_int8
+        runs the same s8_gemm.cuh DFT on the frontend's yq and ys), the
+        frontend as the difference, the bytes bound of each, and one
+        torch._int_mm of yq against [Fr | Fi] (the DFT stage's
+        contraction alone) as its yardstick.  Launches dft_int8 outside
+        any counted run."""
+        frames, tq, ts, qr, qi, sr, si = args
+        b, t, p = frames.shape
+        rows = b * (t - tq.shape[0] + 1)
+        yq = torch.empty((rows, pfbk.padded_width(p)), dtype=torch.int8,
+                         device=dev)
+        ys = torch.empty(rows, device=dev)
+        pfbk.pfb_fused_int8(*args, frt=frt, fit=fit, scratch=(yq, ys), **cfg)
+        dcfg = {"bm": cfg["bt"], "bn": cfg["bn"], "bk": 128}
+        qri_cm = col_major(torch.cat([qr, qi], 1))
+        out = {
+            "call": device_ms(torch, lambda: pfbk.pfb_fused_int8(
+                *args, frt=frt, fit=fit, **cfg)),
+            "dft_stage": device_ms(torch, lambda: dftk.dft_int8(
+                yq, qr, qi, ys, sr, si, frt=frt, fit=fit, **dcfg)),
+        }
+        try:           # cuBLASLt may refuse a narrow int8 operand
+            out["dft_stage_int_mm"] = device_ms(
+                torch, lambda: int_mm(yq, qri_cm))
+        except RuntimeError as e:
+            out["dft_stage_int_mm"] = f"refused: {str(e)[:120]}"
+        out["frontend"] = out["call"] - out["dft_stage"]
+        n = qr.shape[1]
+        out["frontend_bound"] = bound8(
+            4 * frames.numel() + tq.numel() + 4 * p + rows * (p + 4),
+            2 * tq.shape[0] * rows * p)[0]
+        out["dft_stage_bound"] = bound8(*qgemm_cost(rows, p, n, planes=2))[0]
+        return out
 
     int8_floor = min(d.budget("int8").sqnr_db for d in opdefs.OPDEFS.values()
                      if d.budget("int8") is not None)
@@ -1724,21 +1841,39 @@ def main() -> int:
     emit(phase="int8_kernels", kernel="fir_valid_int8",
          cases="half-integer quotients, every tile, against the CPU",
          exact=True)
-    # pfb_fused_int8: P = 16, 20, 48 and 1024, ragged frame counts, both
-    # tiles, half-integer quotients in the frontend
+    # pfb_fused_int8: P = 16, 20, 48, 1000 and 1024 (20, 48 and 1000 pad
+    # yq's stride to 16; 37 takes the scalar frontend loads), ragged frame
+    # counts, both tiles, frames whose rows start 16-byte aligned and not,
+    # the frontend's yq and ys against their plain twin; half-integer
+    # quotients in the frontend
     for b, t, p, m in ((2, 301, 16, 4), (1, 203, 48, 8), (3, 130, 16, 16),
-                       (1, 75, 1024, 8), (2, 40, 20, 3)):
-        frames = randn(b, t, p)
+                       (1, 75, 1024, 8), (2, 40, 20, 3), (1, 60, 1000, 8),
+                       (2, 50, 37, 5)):
+        buf = randn(b * t * p + 1)
         tq, ts = quantize.quantize_pfb_taps(randn(m, p))
+        ts = ts.reshape(-1)
         qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
-        args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
-        want = pfbk.pfb_fused_int8_plain(*args)
-        for bt, bn in pfbk.TILES_INT8:
-            hold(torch, f"pfb_fused_int8 {(b, t, p, m)} tile {(bt, bn)}",
-                 pfbk.pfb_fused_int8(*args, bt=bt, bn=bn), want)
+        qrt, qit = quantize._qdfm_kmajor(p, False, str(dev))
+        rows = b * (t - m + 1)
+        for aligned in (True, False):
+            frames = (buf[:-1] if aligned else buf[1:]).view(b, t, p)
+            args = (frames, tq, ts, qr, qi, sr, si)
+            want = pfbk.pfb_fused_int8_plain(*args)
+            wq, ws = pfbk.pfb_frontend_int8_plain(frames, tq, ts)
+            for bt, bn in pfbk.TILES_INT8:
+                yq = torch.full_like(wq, 99)
+                ys = torch.empty_like(ws)
+                label = f"pfb_fused_int8 {(b, t, p, m)} tile {(bt, bn)} " \
+                    f"aligned={aligned}"
+                hold(torch, label, pfbk.pfb_fused_int8(
+                    *args, frt=qrt, fit=qit, bt=bt, bn=bn,
+                    scratch=(yq, ys)), want)
+                hold(torch, label + " yq", yq, wq)
+                hold(torch, label + " ys", ys, ws)
         emit(phase="int8_kernels", kernel="pfb_fused_int8",
-             shape=[b, t, p, m], tiles=[list(t) for t in pfbk.TILES_INT8],
-             exact=True)
+             shape=[b, t, p, m], p_pad=pfbk.padded_width(p),
+             tiles=[list(t) for t in pfbk.TILES_INT8],
+             frames_aligned=[True, False], frontend_exact=True, exact=True)
     frames = half_integer_signal((2, 90, 48), 8, 10)
     tq, ts = quantize.quantize_pfb_taps(
         torch.as_tensor(pfb_window(48, 8).astype(np.float32), device=dev))
@@ -1793,9 +1928,10 @@ def main() -> int:
     tq, ts = plan8.qconsts[pname]
     frames = x.reshape(b, t, p)
     qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+    qrt, qit = quantize._qdfm_kmajor(p, False, str(dev))
     args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
     pcfg = ops._resolve(pfbk.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t})
-    zk = pfbk.pfb_fused_int8(*args, **pcfg)
+    zk = pfbk.pfb_fused_int8(*args, frt=qrt, fit=qit, **pcfg)
     perr = hold(torch, "int8 main pfb_fused_int8", zk,
                 pfbk.pfb_fused_int8_plain(*args))
     cerr = hold(torch, "int8 main abs2", ew.elementwise_chain(
@@ -1808,7 +1944,8 @@ def main() -> int:
     before = counts()
     ms.update({
         "pfb_fused_int8": device_ms(
-            torch, lambda: pfbk.pfb_fused_int8(*args, **pcfg)),
+            torch, lambda: pfbk.pfb_fused_int8(*args, frt=qrt, fit=qit,
+                                               **pcfg)),
         "pfb_fused_int8_plain": device_ms(
             torch, lambda: pfbk.pfb_fused_int8_plain(*args)),
         "elementwise_chain": device_ms(
@@ -1820,13 +1957,17 @@ def main() -> int:
     check_grew("int8 pfb_power", before,
                {"pfb_fused_int8": 1, "elementwise_chain": 1})
     pfb_tiles = {f"{bt}x{bn}": device_ms(
-        torch, lambda bt=bt, bn=bn: pfbk.pfb_fused_int8(*args, bt=bt, bn=bn))
+        torch, lambda bt=bt, bn=bn: pfbk.pfb_fused_int8(
+            *args, frt=qrt, fit=qit, bt=bt, bn=bn))
         for bt, bn in pfbk.TILES_INT8
         if pfbk.TUNE_SPACE_INT8.valid({"bt": bt, "bn": bn},
                                       {"m": m, "p": p, "t": t})}
     pcost = qpfb_cost(b, t, p, p, m)
     emit(phase="int8_main", path="pfb_power", precision="int8", x=[b, n],
-         p=p, m=m, tile=pcfg, launches_per_call=launches,
+         p=p, m=m, tile=pcfg, p_pad=pfbk.padded_width(p),
+         frontend_shape=pfbk.frontend_shape(p),
+         pfb_int8_stages=pfb8_stages(args, qrt, qit, pcfg),
+         launches_per_call=launches,
          node_precisions=plan8.node_precisions, downgrades=plan8.downgrades,
          bitwise_vs_native_plan=True, sqnr_db_row0_vs_oracle=sq,
          sqnr_floor_db=sq_floor, max_abs_err_vs_plain={
@@ -2124,20 +2265,22 @@ def main() -> int:
     t = frames.shape[1]
     pq, ps = plan.qconsts[pname]
     qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+    qrt, qit = quantize._qdfm_kmajor(p, False, str(dev))
     pargs = (frames, pq, ps.reshape(-1), qr, qi, sr, si)
     pcfg = ops._resolve(pfbk.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t})
     kerr = {"fir_valid_int8": hold(torch, "int8 cascaded fir", y,
                                    firk.fir_valid_int8_plain(x, tq, ts)),
             "pfb_fused_int8": hold(
                 torch, "int8 cascaded pfb",
-                pfbk.pfb_fused_int8(*pargs, **pcfg),
+                pfbk.pfb_fused_int8(*pargs, frt=qrt, fit=qit, **pcfg),
                 pfbk.pfb_fused_int8_plain(*pargs))}
     before = counts()
     ms.update({
         "fir_valid_int8": device_ms(
             torch, lambda: firk.fir_valid_int8(x, tq, ts, **cc)),
         "pfb_fused_int8": device_ms(
-            torch, lambda: pfbk.pfb_fused_int8(*pargs, **pcfg)),
+            torch, lambda: pfbk.pfb_fused_int8(*pargs, frt=qrt, fit=qit,
+                                               **pcfg)),
         "pfb_fused_int8_plain": device_ms(
             torch, lambda: pfbk.pfb_fused_int8_plain(*pargs)),
     })
@@ -2151,7 +2294,8 @@ def main() -> int:
          bound_ms={"fir_valid_int8": bound8(*qfir_cost(
              b, n, y.shape[1], 31))[0],
              "pfb_fused_int8": bound8(*qpfb_cost(b, t, p, p, m))[0]},
-         **info)
+         p_pad=pfbk.padded_width(p), frontend_shape=pfbk.frontend_shape(p),
+         pfb_int8_stages=pfb8_stages(pargs, qrt, qit, pcfg), **info)
     del plan, x, y, frames, pargs
 
     # the int8 Table-1 sweep: every op with an int8 kernel, one-node plans

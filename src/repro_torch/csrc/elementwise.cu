@@ -28,12 +28,20 @@
 // tina_binary: out = x * y or x + y, bound by bytes (12 per element, or
 // 8 when y is a broadcast row that stays in L1/L2).  y is either x's
 // shape or one row of `cols` values broadcast over the rows, as a window
-// constant is: the kernel indexes it at i % cols, carried from one step
-// of the grid-stride loop to the next without a division, so the
-// broadcast is never materialised.  __fmul_rn / __fadd_rn: bit-exact
-// against the plain version.
+// constant is; the broadcast is never materialised.  The loads and stores
+// are 16 bytes (float4) wherever the views allow it: for a full y where
+// x, y and out start at the same offset modulo 16 bytes (a scalar head of
+// at most three elements brings them to a 16-byte boundary, a scalar
+// tail finishes the ragged end), for a row where all three are 16-byte
+// aligned and cols % 4 == 0 (a vector never straddles two rows).  Any
+// other view runs the scalar loop.  A row's index is carried from one
+// step of the grid-stride loop to the next (j += stride % cols, one
+// subtraction on wrap), so no step divides.  Its own grid: one thread per
+// vector, capped at eight waves of the card (each thread then walks a few
+// vectors).  __fmul_rn / __fadd_rn: bit-exact against the plain version.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -82,6 +90,12 @@ __global__ void chain_kernel(const float* __restrict__ head, long long n,
   }
 }
 
+template <bool ADD>
+__device__ __forceinline__ float binop(float a, float b) {
+  return ADD ? __fadd_rn(a, b) : __fmul_rn(a, b);
+}
+
+// The scalar loop: every element, for views the vector loop cannot take.
 template <bool ADD, bool ROW>
 __global__ void binary_kernel(const float* __restrict__ x,
                               const float* __restrict__ y,
@@ -91,14 +105,89 @@ __global__ void binary_kernel(const float* __restrict__ x,
   int j = ROW ? (int)(i % cols) : 0;             // y's index when ROW
   const int dj = ROW ? (int)(stride % cols) : 0;
   for (; i < n; i += stride) {
-    const float a = __ldg(x + i);
-    const float b = __ldg(y + (ROW ? (long long)j : i));
-    out[i] = ADD ? __fadd_rn(a, b) : __fmul_rn(a, b);
+    out[i] = binop<ADD>(__ldg(x + i), __ldg(y + (ROW ? (long long)j : i)));
     if (ROW) {
       j += dj;
       if (j >= cols) j -= cols;
     }
   }
+}
+
+// The vector loop over nv float4s from element `head` on (16-byte
+// aligned there in x, y and out); threads 0 .. head-1 also take the
+// scalar head, threads 0 .. tail-1 the scalar tail after the last vector.
+// ROW: y is one row of 4 cols4 values, head and tail are 0, and
+// dj = (gridDim.x * blockDim.x) % cols4.
+template <bool ADD, bool ROW>
+__global__ void binary_vec_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ y,
+                                  float* __restrict__ out, int head,
+                                  long long nv, int tail, int cols4,
+                                  int dj) {
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (!ROW) {
+    if (tid < (unsigned)head)
+      out[tid] = binop<ADD>(__ldg(x + tid), __ldg(y + tid));
+    if (tid < (unsigned)tail) {
+      const long long i = head + 4 * nv + tid;
+      out[i] = binop<ADD>(__ldg(x + i), __ldg(y + i));
+    }
+  }
+  const auto* x4 = reinterpret_cast<const float4*>(x + head);
+  const auto* y4 = reinterpret_cast<const float4*>(y + head);
+  auto* o4 = reinterpret_cast<float4*>(out + head);
+  int j = ROW ? (int)(tid % (unsigned)cols4) : 0;   // once per thread
+  for (long long v = tid; v < nv; v += stride) {
+    const float4 a = __ldg(x4 + v);
+    const float4 b = __ldg(y4 + (ROW ? (long long)j : v));
+    o4[v] = make_float4(binop<ADD>(a.x, b.x), binop<ADD>(a.y, b.y),
+                        binop<ADD>(a.z, b.z), binop<ADD>(a.w, b.w));
+    if (ROW) {
+      j += dj;
+      if (j >= cols4) j -= cols4;
+    }
+  }
+}
+
+template <bool ADD>
+cudaError_t launch_binary(const float* x, const float* y, float* out,
+                          long long n, int cols, bool row, int threads,
+                          cudaStream_t s) {
+  const auto off = [](const void* p) {
+    return (int)(reinterpret_cast<uintptr_t>(p) % 16);
+  };
+  const bool vec = row ? off(x) == 0 && off(y) == 0 && off(out) == 0 &&
+                             cols % 4 == 0
+                       : off(x) == off(y) && off(x) == off(out);
+  if (!vec) {
+    const unsigned blocks = tina::grid_stride_blocks(n, threads);
+    if (row)
+      binary_kernel<ADD, true><<<blocks, threads, 0, s>>>(x, y, out, n, cols);
+    else
+      binary_kernel<ADD, false><<<blocks, threads, 0, s>>>(x, y, out, n,
+                                                           cols);
+    return cudaGetLastError();
+  }
+  const long long to16 = (16 - off(x)) % 16 / 4;   // elements to a boundary
+  const int head = (int)(to16 < n ? to16 : n);
+  const long long nv = (n - head) / 4;
+  const int tail = (int)(n - head - 4 * nv);
+  // one thread per vector (at least one, for the head and tail), at most
+  // eight waves of the card
+  const long long want = (nv > 0 ? nv : 1) + threads - 1;
+  const long long cap = (long long)tina::sm_count() * (2048 / threads) * 8;
+  const long long blocks = want / threads < cap ? want / threads : cap;
+  const long long stride = blocks * threads;
+  if (row) {
+    const int cols4 = cols / 4;
+    binary_vec_kernel<ADD, true><<<(unsigned)blocks, threads, 0, s>>>(
+        x, y, out, 0, nv, 0, cols4, (int)(stride % cols4));
+  } else {
+    binary_vec_kernel<ADD, false><<<(unsigned)blocks, threads, 0, s>>>(
+        x, y, out, head, nv, tail, 1, 0);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -153,22 +242,11 @@ extern "C" int tina_binary(const void* x, const void* y, void* out,
       threads > 1024 || threads % 32 != 0 || (y_is_row && n % cols != 0))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const unsigned blocks = tina::grid_stride_blocks(n, threads);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(x);
   const auto* b = static_cast<const float*>(y);
   auto* o = static_cast<float*>(out);
-  if (op == 1) {
-    if (y_is_row)
-      binary_kernel<true, true><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
-    else
-      binary_kernel<true, false><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
-  } else {
-    if (y_is_row)
-      binary_kernel<false, true><<<blocks, threads, 0, s>>>(a, b, o, n, cols);
-    else
-      binary_kernel<false, false><<<blocks, threads, 0, s>>>(a, b, o, n,
-                                                             cols);
-  }
-  return cudaGetLastError();
+  return op == 1 ? launch_binary<true>(a, b, o, n, cols, y_is_row, threads, s)
+                 : launch_binary<false>(a, b, o, n, cols, y_is_row, threads,
+                                        s);
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // the 3xTF32 DFT and GEMM (dft.cu, matmul.cu, through tf32_gemm.cuh) and
-// the s8 GEMM and DFT (qmatmul.cu).  mbarriers, TMA tile
+// the s8 GEMM and DFTs (qmatmul.cu, qpfb.cu, through s8_gemm.cuh).
+// mbarriers, TMA tile
 // loads and the tensor maps that describe them, and the warpgroup MMA
 // (wgmma) descriptors and instructions, as inline PTX.
 //

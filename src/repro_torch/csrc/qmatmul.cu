@@ -31,19 +31,21 @@
 // warpgroups, each on 64 rows: four wgmma.m64n128k32.s32.s8.s8 a chunk,
 // A and B from shared memory, one group kept in flight while the chunk
 // before it is handed back to the producer.  The ring (s8_produce) and
-// the MMA loop (s8_consume) take the B operands as a list so that the
-// DFT's two Fourier planes can share them.  K past the array reads as
+// the MMA loop (s8_consume), in csrc/s8_gemm.cuh, take the B operands as
+// a list so that the DFT's two Fourier planes can share them.  K past the array reads as
 // zero (adds nothing), M and N past it are not stored.  TMA needs
 // 16-byte aligned rows: the wrapper makes zero-padded copies where K is
 // not a multiple of 16 or a row is not aligned (kernels/matmul.py).
 //
-// tina_dft_int8 runs on the same ring and MMA loop with two B operands,
+// tina_dft_int8 runs on the same ring and MMA loop with two B operands
+// (s8_gemm.cuh:dft_tiles, which qpfb.cu's DFT stage runs too),
 // the K-major copies of Fr and Fi (made once per device,
 // core/quantize.py:_qdfm_kmajor), so one A chunk of xq feeds both
 // planes.  Its epilogue writes interleaved complex64 straight from the
 // registers: a lane holds columns n and n + 1 of both planes and stores
 // (zr, zi, zr, zi) as one 16-byte streaming store (st.global.cs: the
-// output is not read again here), scalar stores only where N is odd.  At the spectrogram's L = N = 64 over half a million rows the
+// output is not read again here), scalar stores only where N is odd.
+// At the spectrogram's L = N = 64 over half a million rows the
 // kernel is bound by those writes (268 MB of its 302 MB), so it comes in
 // two tiles: 128 x 128 (m64n128k32) for wide N and 128 x 64 (m64n64k32)
 // for N <= 64, where the wide one would compute and skip half its
@@ -56,115 +58,13 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
-#include "int8.cuh"
+#include "s8_gemm.cuh"
 
 namespace {
 
-// ---- s8 wgmma: the TMA ring and the MMA loop -------------------------------
 namespace s8 {
 
-using namespace tina::hopper;
-
-constexpr int BM = 128;          // rows of a block: two warpgroups of 64
-constexpr int BKB = 128;         // K bytes per stage: one 128-byte row
-constexpr int STAGES = 4;
-constexpr int THREADS = 288;     // two consumer warpgroups + one producer
-constexpr int A_TILE = BM * BKB;
-
-// A ring of NB B operands of BN rows (the block's columns) per stage.
-template <int NB, int BN>
-struct Ring {
-  static constexpr int B_TILE = BN * BKB;
-  static constexpr int STAGE = A_TILE + NB * B_TILE;
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
-};
-
-template <int W>
-__device__ __forceinline__ void wgmma_s8(int (&d)[W], uint64_t a,
-                                         uint64_t b) {
-  static_assert(W == 32 || W == 64, "a 64- or 128-column tile");
-  if constexpr (W == 32)
-    wgmma_s8_m64n64k32(d, a, b);
-  else
-    wgmma_s8_m64n128k32(d, a, b);
-}
-
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);   // one arrival per consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-}
-
-// The producer lane: the A chunk (rows m0.., 128 K bytes) and the NB
-// B chunks (rows n0.. of each K-major B map) of every K step of one
-// output tile, in order.  `it` counts the stages this lane has filled so
-// far (across the tiles of a persistent block).
-template <int NB, int BN>
-__device__ __forceinline__ void s8_produce(uint8_t* smem, uint64_t* full,
-                                           uint64_t* empty,
-                                           const CUtensorMap* amap,
-                                           const CUtensorMap* const (&bmap)[NB],
-                                           int m0, int n0, int k_tiles,
-                                           int& it) {
-  using R = Ring<NB, BN>;
-  for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-    const int s = it % STAGES;
-    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-    uint8_t* st = smem + s * R::STAGE;
-    mbar_expect_tx(&full[s], R::STAGE);
-    tma_load_2d(st, amap, &full[s], BKB * kt, m0);
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      tma_load_2d(st + A_TILE + b * R::B_TILE, bmap[b], &full[s], BKB * kt,
-                  n0);
-  }
-}
-
-// A consumer warpgroup (wg = 0, 1: rows 64 wg.. of the tile): acc[b] =
-// A B_b^T over all of K of one output tile.  One wgmma group stays in
-// flight; the stage of the group before it goes back to the producer,
-// and the last one once the tile is done.  `it` counts the stages this
-// warp has consumed so far, as s8_produce's does.
-template <int NB, int BN>
-__device__ __forceinline__ void s8_consume(uint8_t* smem, uint64_t* full,
-                                           uint64_t* empty, int wg, int lane,
-                                           int k_tiles,
-                                           int (&acc)[NB][BN / 2], int& it) {
-  using R = Ring<NB, BN>;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
-  for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-    const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    const uint8_t* st = smem + s * R::STAGE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKB / 32; ++kk) {
-      const uint64_t a = desc_sw128(st + wg * (A_TILE / 2) + kk * 32);
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        wgmma_s8(acc[b], a,
-                 desc_sw128(st + A_TILE + b * R::B_TILE + kk * 32));
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
-  if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-}
+using namespace tina::s8;
 
 constexpr int MM_BN = 128;       // the GEMM's columns of a block
 
@@ -230,9 +130,8 @@ matmul_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// The int8 DFT: one xq chunk against Fr^T and Fi^T, interleaved complex64
-// out; persistent, tile t = blockIdx.x, blockIdx.x + gridDim.x, ...
-// (the n tiles of one row block neighbour each other).
+// The int8 DFT (s8_gemm.cuh:dft_tiles): one xq chunk against Fr^T and
+// Fi^T, interleaved complex64 out, persistent.
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 s8_dft_kernel(const __grid_constant__ CUtensorMap amap,
@@ -241,66 +140,9 @@ s8_dft_kernel(const __grid_constant__ CUtensorMap amap,
               const float* __restrict__ sx, const float* __restrict__ sr,
               const float* __restrict__ si, float2* __restrict__ out, int M,
               int N, int k_tiles, int n_blocks, int tiles) {
-  using R = Ring<2, BN>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * R::STAGE);
-  uint64_t* empty = full + STAGES;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  ring_init(full, empty);
-  int it = 0;
-
-  if (warp == 8) {
-    if (lane == 0) {
-      const CUtensorMap* const bm[2] = {&frmap, &fimap};
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-        s8_produce<2, BN>(smem, full, empty, &amap, bm, (t / n_blocks) * BM,
-                          (t % n_blocks) * BN, k_tiles, it);
-    }
-    return;
-  }
-
-  int acc[2][BN / 2];
-  const int wg = warp / 4;
-  const int g = lane / 4, q = lane % 4;
-  const bool pairs = (N % 2) == 0;   // 16-byte aligned (zr, zi) pairs
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / n_blocks) * BM, n0 = (t % n_blocks) * BN;
-    s8_consume<2, BN>(smem, full, empty, wg, lane, k_tiles, acc, it);
-
-    // epilogue: zr = (float(acc_r) * sx[m]) * sr[n], zi likewise with
-    // si; d[4 j + 2 h + e] is row 16 w + g + 8 h, column 8 j + 2 q + e
-    const int r0 = m0 + wg * 64 + (warp % 4) * 16 + g;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = r0 + 8 * h;
-      if (m >= M) continue;
-      const float sxm = __ldg(sx + m);
-      float2* row = out + (size_t)m * N;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * q;
-        if (n >= N) continue;
-        const int i = 4 * j + 2 * h;
-        const float zr0 = tina::rescale(acc[0][i], sxm, __ldg(sr + n));
-        const float zi0 = tina::rescale(acc[1][i], sxm, __ldg(si + n));
-        if (n + 1 < N) {
-          const float zr1 = tina::rescale(acc[0][i + 1], sxm, __ldg(sr + n + 1));
-          const float zi1 = tina::rescale(acc[1][i + 1], sxm, __ldg(si + n + 1));
-          if (pairs) {
-            __stcs(reinterpret_cast<float4*>(row + n),
-                   make_float4(zr0, zi0, zr1, zi1));
-          } else {
-            __stcs(row + n, make_float2(zr0, zi0));
-            __stcs(row + n + 1, make_float2(zr1, zi1));
-          }
-        } else {
-          __stcs(row + n, make_float2(zr0, zi0));
-        }
-      }
-    }
-  }
+  dft_tiles<BN>(smem_raw, &amap, &frmap, &fimap, sx, sr, si, out, M, N,
+                k_tiles, n_blocks, tiles);
 }
 
 cudaError_t launch(const CUtensorMap& am, const CUtensorMap& bm,
@@ -314,36 +156,6 @@ cudaError_t launch(const CUtensorMap& am, const CUtensorMap& bm,
   if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
   matmul_kernel<<<(unsigned)(nb * mb), THREADS, SMEM, s>>>(
       am, bm, sx, sy, out, M, N, (K + BKB - 1) / BKB, (int)nb);
-  return cudaGetLastError();
-}
-
-template <int BN>
-cudaError_t launch_dft(const CUtensorMap& am, const CUtensorMap& frm,
-                       const CUtensorMap& fim, const float* sx,
-                       const float* sr, const float* si, float2* out, int M,
-                       int N, int K, cudaStream_t s) {
-  constexpr int SMEM = Ring<2, BN>::SMEM;
-  auto* kern = s8_dft_kernel<BN>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return e;
-  const long long nb = (N + BN - 1) / BN, mb = (M + BM - 1) / BM;
-  if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
-  // one block per SM that fits, each walking the tiles
-  int device = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  device)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, SMEM)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = nb * mb;
-  const long long grid = tiles < (long long)sms * per_sm
-                             ? tiles : (long long)sms * per_sm;
-  kern<<<(unsigned)grid, THREADS, SMEM, s>>>(am, frm, fim, sx, sr, si, out,
-                                             M, N, (K + BKB - 1) / BKB,
-                                             (int)nb, (int)tiles);
   return cudaGetLastError();
 }
 
@@ -392,19 +204,14 @@ extern "C" int tina_dft_int8(const void* xq, const void* frt, const void* fit,
       !aligned16(xq) || !aligned16(frt) || !aligned16(fit))
     return cudaErrorInvalidValue;
   CUtensorMap am, frm, fim;
-  if (!tina::hopper::tile_map(&am, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, B,
-                              K, s8::BKB, s8::BM) ||
-      !tina::hopper::tile_map(&frm, frt, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
-                              K, s8::BKB, bn) ||
-      !tina::hopper::tile_map(&fim, fit, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, N,
-                              K, s8::BKB, bn))
+  if (!tina::s8::dft_maps(&am, &frm, &fim, xq, K, frt, fit, B, K, N, bn))
     return cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* o = static_cast<float2*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   return bn == 128
-             ? s8::launch_dft<128>(am, frm, fim, f(sx), f(sr), f(si), o, B, N,
-                                   K, s)
-             : s8::launch_dft<64>(am, frm, fim, f(sx), f(sr), f(si), o, B, N,
-                                  K, s);
+             ? tina::s8::launch_dft<128>(s8::s8_dft_kernel<128>, am, frm, fim,
+                                         f(sx), f(sr), f(si), o, B, N, K, s)
+             : tina::s8::launch_dft<64>(s8::s8_dft_kernel<64>, am, frm, fim,
+                                        f(sx), f(sr), f(si), o, B, N, K, s);
 }

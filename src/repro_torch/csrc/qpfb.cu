@@ -1,247 +1,314 @@
 // Fused int8 polyphase filter bank for Hopper (sm_90a): the int8 tier's
-// FIR bank over frames and DFT across branches in one kernel, the main
-// path of `pfb_power` at precision="int8".
+// FIR bank over frames and DFT across branches, the main path of
+// `pfb_power` at precision="int8".
 //
 // Replaces: src/repro/kernels/pfb.py:pfb_fused_int8 (Pallas, TPU).
 //
-// What it computes, for one batch row b, frames t < Tout = T - M + 1 and
-// branches p < P (repro_torch/core/quantize.py:qpfb, bit for bit):
+// What it computes, for one frame row r = (b, t), t < Tout = T - M + 1,
+// and branches p < P (repro_torch/core/quantize.py:qpfb, bit for bit):
 //   1. frontend: the (t, p) window x[b, t .. t+M-1, p] is quantized on
 //      its own (amax over its M values, s = scale_of(amax), q_m =
 //      quantize_one(x, s)); acc = sum_m q_m * tq[m, p] in int32;
 //      y[t, p] = (float(acc) * s) * ts[p].  tq is the int8 prototype as
 //      quantize_pfb_taps packs it (reversed: row m meets frame t + m).
-//   2. DFT stage: frame t's y is requantized over ALL P branches (its
-//      amax over p, ys = scale_of(amax), yq = quantize_one(y, ys)); then
-//      zr[t, n] = (float(sum_p yq[t, p] qr[p, n]) * ys) * sr[n], zi
-//      likewise with qi, si; qr / qi is the int8 Fourier matrix with its
-//      per-column scales.  Written as interleaved complex64.
+//      Frame t's y is then requantized over ALL P branches: its amax over
+//      p, ys[r] = scale_of(amax), yq[r, p] = quantize_one(y, ys[r]).
+//   2. DFT stage: zr[r, n] = (float(sum_p yq[r, p] qr[p, n]) * ys[r]) *
+//      sr[n], zi likewise with qi, si; qr / qi is the int8 Fourier matrix
+//      with its per-column scales.  Written as interleaved complex64.
 //
-// What bounds it on this card: bytes, against the int8 tensor cores.  At
-// the main path's full width (16 x 2^22 samples, P = N = 1024, M = 8) it
-// reads 268 MB of frames and writes 536 MB of complex64: 0.241 ms at
-// 3.35 TB/s, while its 274.4 G int ops (the DFT's 2 x 2 x B Tout P N
-// plus the frontend's) take 0.139 ms at 1,979 TOPS.  This kernel is SIMT
-// (__dp4a, ceiling near 134 TOPS): its DFT stage alone needs ~2.0 ms
-// there, so operations on the SIMT pipe, not bytes, are expected to set
-// its time.
+// What bounds it on this card: bytes.  At the main path's full width
+// (16 x 2^22 samples, P = N = 1024, M = 8) it reads 268 MB of frames and
+// writes 536 MB of complex64: 0.241 ms at 3.35 TB/s, while its 274.4 G
+// int ops take 0.139 ms at the 1,979 TOPS of the s8 tensor cores.  The
+// frontend's M + 1 correctly rounded divisions per (frame, branch) (603 M
+// there), each with a reciprocal, a rounding and a conversion on the
+// SIMT pipe's quarter-rate unit, are expected to set the frontend's time
+// rather than its bytes.
 //
-// What the design does about that: csrc/pfb.cu chunks P by 16 branches,
-// which cannot carry over: the requantization needs each frame's y over
-// all P before any of it is quantized.  So a block owns BT frames (16 or
-// 32) of one batch row across ALL P: it computes their y once into
-// shared memory (BT x P f32: 128 KB at P = 1024, BT = 32), reduces each
-// frame's amax with warp shuffles, packs yq k-major as int32 words of
-// four branches, and only then loops over the N columns in chunks of BN,
-// staging the matching rows of qr and qi (packed the same way) by chunks
-// of 32 branches, every thread accumulating a 4 x 4 micro-tile of each in
-// int32 with __dp4a.  The frontend is computed once per frame block, not
-// once per column block as the TPU kernel did.  The block reads its own
-// halo frames from device memory (no padding copy) and masks the frame
-// and column edges.  Shared memory grows with P; the wrapper raises on a
-// P whose rows do not fit the 227 KB a block may have.  mma.sync /
-// wgmma s8 for the DFT stage are later work.
+// What the design does about that: two kernels on the stream, because
+// the requantization needs each frame's y over all P before any of it is
+// quantized, and a 128-frame A tile of f32 y over P = 1024 (512 KB) does
+// not fit the 227 KB of a block.
+//   * frontend_kernel writes yq (B Tout, P_pad) int8 and ys (B Tout,)
+//     f32.  A frame belongs to tpf threads, a power of two: as many as
+//     its groups of four neighbouring branches, up to 64 (more only
+//     where P > 14,336 would not fit the y slots otherwise).  P = 16
+//     takes 4 threads a frame and 64 frames a pass of the 256-thread
+//     block; P = 1024 takes 64 threads of four groups each, 4 frames a
+//     pass, so that each thread has four groups of work between a
+//     frame's barriers.  A thread loads the M window rows of its groups
+//     16 bytes at a time where the rows are 16-byte aligned (scalar
+//     loads where they are not), keeps y in a shared-memory slot of its
+//     own, and stores four int8 branches as one 4-byte word; the frame's
+//     amax is reduced with shuffles (and across warps through shared
+//     memory where tpf > 32).  A block walks about 8,192 padded branches
+//     of consecutive frames, so the M - 1 window rows a frame shares with
+//     the next are read again from L1/L2, not from device memory.  P_pad
+//     is P rounded up to 16, so the TMA reads yq's rows directly; the pad
+//     bytes are written as zeros.  Extra traffic: yq written and read
+//     back, 67 MB at full width.
+//   * qpfb_dft_kernel is the int8 DFT of csrc/s8_gemm.cuh (dft_tiles, as
+//     tina_dft_int8 runs it): yq against the K-major copies of Fr and Fi
+//     (zero-padded to P_pad), s8 wgmma through a four-stage TMA ring,
+//     persistent, with ys as the per-row scale; 128 x 64 tiles for
+//     N <= 64.
+// The divisions keep csrc/int8.cuh's rules (never --use_fast_math).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "int8.cuh"
+#include "s8_gemm.cuh"
 
 namespace {
 
-constexpr int KW = 8;   // packed words (32 branches) of the DFM per chunk
+using namespace tina::s8;
 
-size_t smem_bytes(int bt, int bn, int P) {
-  const size_t pw = (P + 3) / 4;
-  return sizeof(int) * (pw * (bt + 4) + 2 * (size_t)KW * bn) +
-         sizeof(float) * ((size_t)bt * P + bt);
+constexpr int FT = 256;           // frontend threads per block
+constexpr int TPF_MAX = 64;       // frontend threads of one frame, at most
+constexpr int FB_WORK = 8192;     // frontend: padded branches per block
+constexpr int MAX_SMEM = 232448;
+
+// Four neighbouring values of row `row` from branch p0 on: a 16-byte
+// load where the row is aligned (VEC: P % 4 == 0, base aligned), else
+// scalar loads, zero past P.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* row, int p0, int P) {
+  if constexpr (VEC) return __ldg(reinterpret_cast<const float4*>(row + p0));
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = p0 + j < P ? __ldg(row + p0 + j) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-template <int BT, int BN>
-__global__ void __launch_bounds__((BT / 4) * (BN / 4))
-qpfb_kernel(const float* __restrict__ x, const int8_t* __restrict__ tq,
-            const float* __restrict__ ts, const int8_t* __restrict__ qr,
-            const int8_t* __restrict__ qi, const float* __restrict__ sr,
-            const float* __restrict__ si, float2* __restrict__ out, int T,
-            int P, int N, int M, int Tout) {
-  constexpr int NT = (BT / 4) * (BN / 4);
-  constexpr int LDA = BT + 4;   // int4-aligned rows of the packed yq
-  extern __shared__ int4 smem4[];
-  const int PW = (P + 3) / 4;
-  int* aq = reinterpret_cast<int*>(smem4);              // [PW][LDA]
-  int* br = aq + PW * LDA;                              // [KW][BN]
-  int* bi = br + KW * BN;                               // [KW][BN]
-  float* yf = reinterpret_cast<float*>(bi + KW * BN);   // [BT][P]
-  float* ysc = yf + BT * P;                             // [BT]
-
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * BT;
-  const size_t b = blockIdx.y;
-  const float* xb = x + b * (size_t)T * P;
-
-  // 1. frontend: per-(frame, branch) window quantize, int32 MAC, rescale
-  for (int i = tid; i < BT * P; i += NT) {
-    const int tt = i / P, p = i - tt * P;
-    const int t = t0 + tt;
-    float y = 0.f;
-    if (t < Tout) {
-      const float* xp = xb + (size_t)t * P + p;
-      float amax = 0.f;
-      for (int m = 0; m < M; ++m)
-        amax = fmaxf(amax, fabsf(__ldg(xp + (size_t)m * P)));
-      const float sc = tina::scale_of(amax);
-      int acc = 0;
-      for (int m = 0; m < M; ++m)
-        acc += tina::quantize_one(__ldg(xp + (size_t)m * P), sc) *
-               (int)__ldg(tq + (size_t)m * P + p);
-      y = tina::rescale(acc, sc, __ldg(ts + p));
-    }
-    yf[i] = y;
+template <bool VEC>
+__device__ __forceinline__ void load_taps(const int8_t* row, int p0, int P,
+                                          int (&t)[4]) {
+  if constexpr (VEC) {
+    const int w = __ldg(reinterpret_cast<const int*>(row + p0));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = (int)(int8_t)(w >> (8 * j));
+    return;
   }
-  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = p0 + j < P ? (int)__ldg(row + p0 + j) : 0;
+}
 
-  // 2. each frame's scale over all P branches (one warp per frame)
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int tt = warp; tt < BT; tt += NT / 32) {
-    float a = 0.f;
-    for (int p = lane; p < P; p += 32) a = fmaxf(a, fabsf(yf[tt * P + p]));
+// y of branches p0 .. p0+3 of one frame (xr: its first window row):
+// each (frame, branch) window quantized on its own, the int32 MAC with
+// the reversed taps, (float(acc) * s) * ts[p].  Branches past P give 0.
+template <bool VEC>
+__device__ __forceinline__ float4 branch4(const float* __restrict__ xr,
+                                          const int8_t* __restrict__ tq,
+                                          const float* __restrict__ ts,
+                                          int p0, int P, int M) {
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int m = 0; m < M; ++m) {
+    const float4 v = load4<VEC>(xr + (size_t)m * P, p0, P);
+    a[0] = fmaxf(a[0], fabsf(v.x));
+    a[1] = fmaxf(a[1], fabsf(v.y));
+    a[2] = fmaxf(a[2], fabsf(v.z));
+    a[3] = fmaxf(a[3], fabsf(v.w));
+  }
+  float sc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sc[j] = tina::scale_of(a[j]);
+  int acc[4] = {0, 0, 0, 0};
+  for (int m = 0; m < M; ++m) {   // the window again, from L1
+    const float4 v = load4<VEC>(xr + (size_t)m * P, p0, P);
+    int t[4];
+    load_taps<VEC>(tq + (size_t)m * P, p0, P, t);
+    acc[0] += tina::quantize_one(v.x, sc[0]) * t[0];
+    acc[1] += tina::quantize_one(v.y, sc[1]) * t[1];
+    acc[2] += tina::quantize_one(v.z, sc[2]) * t[2];
+    acc[3] += tina::quantize_one(v.w, sc[3]) * t[3];
+  }
+  const float4 s4 = load4<VEC>(ts, p0, P);
+  return make_float4(tina::rescale(acc[0], sc[0], s4.x),
+                     tina::rescale(acc[1], sc[1], s4.y),
+                     tina::rescale(acc[2], sc[2], s4.z),
+                     tina::rescale(acc[3], sc[3], s4.w));
+}
+
+__device__ __forceinline__ float amax4(float a, float4 v) {
+  return fmaxf(fmaxf(a, fmaxf(fabsf(v.x), fabsf(v.y))),
+               fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// The frontend: rows fb .. of the flat (b, t) frame index per block,
+// fpb = FT >> tpf_log2 frames at a time, each on tpf = 1 << tpf_log2
+// threads.  fb is a multiple of fpb.
+template <bool VEC>
+__global__ void __launch_bounds__(FT)
+frontend_kernel(const float* __restrict__ x, const int8_t* __restrict__ tq,
+                const float* __restrict__ ts, int8_t* __restrict__ yq,
+                float* __restrict__ ys, long long rows, int T, int Tout,
+                int P, int P_pad, int M, int tpf_log2, int fb) {
+  extern __shared__ float4 ybuf[];       // [fpb][gpt * tpf]
+  __shared__ float red[FT / 32];
+  const int tid = threadIdx.x;
+  const int tpf = 1 << tpf_log2, fpb = FT >> tpf_log2;
+  const int f = tid >> tpf_log2, lt = tid & (tpf - 1);
+  const int G = P_pad / 4;               // groups of four branches
+  const int gpt = (G + tpf - 1) >> tpf_log2;
+  float4* yrow = ybuf + (size_t)f * gpt * tpf;
+  const long long r0 = (long long)blockIdx.x * fb;
+  for (int i = 0; i < fb; i += fpb) {
+    const long long r = r0 + i + f;
+    const bool live = r < rows;
+    float amax = 0.f;
+    if (live) {
+      const long long b = r / Tout;
+      const float* xr = x + ((size_t)b * T + (size_t)(r - b * Tout)) * P;
+      for (int k = 0; k < gpt; ++k) {
+        const int g = lt + (k << tpf_log2);
+        float4 y4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (g < G && 4 * g < P) y4 = branch4<VEC>(xr, tq, ts, 4 * g, P, M);
+        yrow[(k << tpf_log2) + lt] = y4;
+        amax = amax4(amax, y4);
+      }
+    }
+    // the frame's amax over its tpf threads
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-    if (lane == 0) ysc[tt] = tina::scale_of(a);
-  }
-  __syncthreads();
-
-  // 3. requantize y and pack four branches per word, k-major
-  for (int i = tid; i < PW * BT; i += NT) {
-    const int tt = i / PW, pw = i - tt * PW;
-    const float sc = ysc[tt];
-    int q[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = 4 * pw + j;
-      q[j] = p < P ? tina::quantize_one(yf[tt * P + p], sc) : 0;
-    }
-    aq[pw * LDA + tt] = tina::pack4(q[0], q[1], q[2], q[3]);
-  }
-  __syncthreads();
-
-  // 4. int8 DFT over the columns, BN at a time
-  const int tx = tid % (BN / 4), ty = tid / (BN / 4);
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    int accr[4][4], acci[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) accr[i][j] = acci[i][j] = 0;
-    for (int kw0 = 0; kw0 < PW; kw0 += KW) {
-      for (int i = tid; i < KW * BN; i += NT) {
-        const int kwi = i / BN, nn = i - kwi * BN;
-        const int n = n0 + nn, k = 4 * (kw0 + kwi);
-        int wr = 0, wi = 0;
-        if (n < N && k < P) {
-          int r[4], c[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool ok = k + j < P;
-            const size_t at = (size_t)(k + j) * N + n;
-            r[j] = ok ? (int)__ldg(qr + at) : 0;
-            c[j] = ok ? (int)__ldg(qi + at) : 0;
-          }
-          wr = tina::pack4(r[0], r[1], r[2], r[3]);
-          wi = tina::pack4(c[0], c[1], c[2], c[3]);
-        }
-        br[i] = wr;
-        bi[i] = wi;
-      }
+      if (o < tpf) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (tpf > 32) {
+      if ((tid & 31) == 0) red[tid >> 5] = amax;
       __syncthreads();
-      const int kn = min(KW, PW - kw0);
-#pragma unroll
-      for (int kwi = 0; kwi < KW; ++kwi) {
-        if (kwi < kn) {
-          const int4 a4 = *reinterpret_cast<const int4*>(
-              aq + (kw0 + kwi) * LDA + ty * 4);
-          const int4 r4 =
-              *reinterpret_cast<const int4*>(br + kwi * BN + tx * 4);
-          const int4 c4 =
-              *reinterpret_cast<const int4*>(bi + kwi * BN + tx * 4);
-          const int av[4] = {a4.x, a4.y, a4.z, a4.w};
-          const int rv[4] = {r4.x, r4.y, r4.z, r4.w};
-          const int cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              accr[i][j] = __dp4a(av[i], rv[j], accr[i][j]);
-              acci[i][j] = __dp4a(av[i], cv[j], acci[i][j]);
-            }
-        }
-      }
-      __syncthreads();
+      const int w0 = (f << tpf_log2) >> 5;
+      amax = red[w0];
+      for (int w = 1; w < (tpf >> 5); ++w) amax = fmaxf(amax, red[w0 + w]);
+      __syncthreads();                   // red is written again next pass
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int tt = ty * 4 + i;
-      const int t = t0 + tt;
-      if (t >= Tout) continue;
-      const float sc = ysc[tt];
-      float2* orow = out + (b * (size_t)Tout + t) * N;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx * 4 + j;
-        if (n < N)
-          orow[n] = make_float2(tina::rescale(accr[i][j], sc, __ldg(sr + n)),
-                                tina::rescale(acci[i][j], sc, __ldg(si + n)));
+    if (live) {
+      const float sc = tina::scale_of(amax);
+      if (lt == 0) ys[r] = sc;
+      int8_t* qrow = yq + (size_t)r * P_pad;
+      for (int k = 0; k < gpt; ++k) {
+        const int g = lt + (k << tpf_log2);
+        if (g >= G) break;
+        const float4 y4 = yrow[(k << tpf_log2) + lt];
+        *reinterpret_cast<int*>(qrow + 4 * g) = tina::pack4(
+            tina::quantize_one(y4.x, sc), tina::quantize_one(y4.y, sc),
+            tina::quantize_one(y4.z, sc), tina::quantize_one(y4.w, sc));
       }
     }
   }
 }
 
-template <int BT, int BN>
-cudaError_t launch(const float* x, const int8_t* tq, const float* ts,
-                   const int8_t* qr, const int8_t* qi, const float* sr,
-                   const float* si, float2* out, int B, int T, int P, int N,
-                   int M, cudaStream_t stream) {
-  const int tout = T - M + 1;
-  const size_t smem = smem_bytes(BT, BN, P);
-  auto kernel = qpfb_kernel<BT, BN>;
+// The frontend's launch shape for a padded width: log2 of the threads a
+// frame (as many as its groups of four branches, up to TPF_MAX, or up to
+// the whole block where the y slots of FT / TPF_MAX frames a pass would
+// not fit), and the dynamic shared memory (one float4 slot per group of
+// four branches of each frame of a pass).
+size_t frontend_smem_at(int P_pad, int l) {
+  const int gpt = (P_pad / 4 + (1 << l) - 1) >> l;
+  return (size_t)(FT >> l) * gpt * (1 << l) * sizeof(float4);
+}
+
+int frontend_tpf_log2(int P_pad) {
+  const int G = P_pad / 4;
+  int l = 0;
+  while ((1 << l) < G && (1 << l) < TPF_MAX) ++l;
+  while (frontend_smem_at(P_pad, l) + sizeof(float) * (FT / 32) > MAX_SMEM &&
+         (1 << l) < FT)
+    ++l;
+  return l;
+}
+
+size_t frontend_smem(int P_pad) {
+  return frontend_smem_at(P_pad, frontend_tpf_log2(P_pad));
+}
+
+template <bool VEC>
+cudaError_t launch_frontend(const float* x, const int8_t* tq,
+                            const float* ts, int8_t* yq, float* ys,
+                            long long rows, int T, int Tout, int P,
+                            int P_pad, int M, cudaStream_t s) {
+  const int l = frontend_tpf_log2(P_pad);
+  const int fpb = FT >> l;
+  const int fb = (FB_WORK / P_pad > fpb ? FB_WORK / P_pad / fpb : 1) * fpb;
+  const size_t smem = frontend_smem(P_pad);
+  auto* kern = frontend_kernel<VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((tout + BT - 1) / BT, B);
-  kernel<<<grid, (BT / 4) * (BN / 4), smem, stream>>>(
-      x, tq, ts, qr, qi, sr, si, out, T, P, N, M, tout);
+  const long long grid = (rows + fb - 1) / fb;
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<(unsigned)grid, FT, smem, s>>>(x, tq, ts, yq, ys, rows, T, Tout, P,
+                                        P_pad, M, l, fb);
   return cudaGetLastError();
+}
+
+// The DFT stage (s8_gemm.cuh:dft_tiles) over yq, with ys as sx.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+qpfb_dft_kernel(const __grid_constant__ CUtensorMap amap,
+                const __grid_constant__ CUtensorMap frmap,
+                const __grid_constant__ CUtensorMap fimap,
+                const float* __restrict__ sx, const float* __restrict__ sr,
+                const float* __restrict__ si, float2* __restrict__ out,
+                int M, int N, int k_tiles, int n_blocks, int tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  dft_tiles<BN>(smem_raw, &amap, &frmap, &fimap, sx, sr, si, out, M, N,
+                k_tiles, n_blocks, tiles);
+}
+
+bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
 }  // namespace
 
-// frames (B, T, P) f32, tq (M, P) int8, ts (P,) f32, qr / qi (P, N) int8,
-// sr / si (N,) f32 -> out (B, T - M + 1, N) complex64, all contiguous on
-// the device.  (bt, bn) must be a compiled tile whose shared memory fits.
-// Launches on `stream`; returns the launch's cudaError_t.
+// frames (B, T, P) f32, tq (M, P) int8, ts (P,) f32; frt / fit (N, P_pad)
+// int8, the K-major copies of the int8 Fourier planes qr / qi (P, N),
+// zero past column P; sr / si (N,) f32; yq (B (T - M + 1), P_pad) int8
+// and ys (B (T - M + 1),) f32 scratch the frontend writes; out
+// (B, T - M + 1, N) complex64; all contiguous on the device, yq, frt and
+// fit 16-byte aligned, P_pad a multiple of 16 at least P.  (bt, bn) must
+// be a compiled tile of the DFT stage: (128, 128) or (128, 64).  Launches
+// the frontend then the DFT on `stream`; returns the first failing
+// launch's cudaError_t.
 extern "C" int tina_pfb_int8(const void* x, const void* tq, const void* ts,
-                             const void* qr, const void* qi, const void* sr,
-                             const void* si, void* out, int B, int T, int P,
-                             int N, int M, int bt, int bn, void* stream) {
-  if (B <= 0 || B > 65535 || P <= 0 || N <= 0 || M <= 0 || T - M + 1 <= 0 ||
-      P > tina::MAX_INT8_K || M > tina::MAX_INT8_K ||
-      smem_bytes(bt, bn, P) > 232448)
+                             const void* frt, const void* fit, const void* sr,
+                             const void* si, void* yq, void* ys, void* out,
+                             int B, int T, int P, int N, int M, int P_pad,
+                             int bt, int bn, void* stream) {
+  const long long rows = (long long)B * (T - M + 1);
+  if (B <= 0 || P <= 0 || N <= 0 || M <= 0 || T - M + 1 <= 0 ||
+      rows > INT_MAX || M > tina::MAX_INT8_K || P_pad % 16 || P_pad < P ||
+      P_pad > tina::MAX_INT8_K || bt != BM || (bn != 128 && bn != 64) ||
+      frontend_smem(P_pad) + sizeof(float) * (FT / 32) > MAX_SMEM ||
+      !aligned(yq, 16) ||
+      !aligned(frt, 16) || !aligned(fit, 16))
     return cudaErrorInvalidValue;
   const auto* xf = static_cast<const float*>(x);
   const auto* t8 = static_cast<const int8_t*>(tq);
   const auto* tsf = static_cast<const float*>(ts);
-  const auto* r8 = static_cast<const int8_t*>(qr);
-  const auto* i8 = static_cast<const int8_t*>(qi);
-  const auto* srf = static_cast<const float*>(sr);
-  const auto* sif = static_cast<const float*>(si);
-  auto* o = static_cast<float2*>(out);
+  auto* q8 = static_cast<int8_t*>(yq);
+  auto* ysf = static_cast<float*>(ys);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (bt == 32 && bn == 128)
-    return launch<32, 128>(xf, t8, tsf, r8, i8, srf, sif, o, B, T, P, N, M, s);
-  if (bt == 16 && bn == 128)
-    return launch<16, 128>(xf, t8, tsf, r8, i8, srf, sif, o, B, T, P, N, M, s);
-  return cudaErrorInvalidValue;
+  const bool vec = P % 4 == 0 && aligned(x, 16) && aligned(tq, 4) &&
+                   aligned(ts, 16);
+  cudaError_t e =
+      vec ? launch_frontend<true>(xf, t8, tsf, q8, ysf, rows, T, T - M + 1,
+                                  P, P_pad, M, s)
+          : launch_frontend<false>(xf, t8, tsf, q8, ysf, rows, T, T - M + 1,
+                                   P, P_pad, M, s);
+  if (e != cudaSuccess) return e;
+  CUtensorMap am, frm, fim;
+  if (!dft_maps(&am, &frm, &fim, yq, P_pad, frt, fit, (int)rows, P_pad, N,
+                bn))
+    return cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto* o = static_cast<float2*>(out);
+  return bn == 128
+             ? launch_dft<128>(qpfb_dft_kernel<128>, am, frm, fim, ysf,
+                               f(sr), f(si), o, (int)rows, N, P_pad, s)
+             : launch_dft<64>(qpfb_dft_kernel<64>, am, frm, fim, ysf, f(sr),
+                              f(si), o, (int)rows, N, P_pad, s);
 }

@@ -68,9 +68,10 @@ SIGNATURES = {
                       _P],
     # x, tq, ts, out, rows, n, K, bn, threads, stream
     "tina_fir_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # frames, tq, ts, qr, qi, sr, si, out, B, T, P, N, M, bt, bn, stream
-    "tina_pfb_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _P],
+    # frames, tq, ts, frt, fit (qr, qi K-major), sr, si, yq, ys, out, B,
+    # T, P, N, M, P_pad, bt, bn, stream
+    "tina_pfb_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

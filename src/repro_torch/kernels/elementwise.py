@@ -157,26 +157,36 @@ def elementwise_binary_plain(x: torch.Tensor, y: torch.Tensor,
     return x * y if op == "mul" else x + y
 
 
-def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
-            threads: int) -> torch.Tensor:
+def _binary(x: torch.Tensor, y: torch.Tensor, op: str, threads: int,
+            out: torch.Tensor | None) -> torch.Tensor:
     """x (..., C) float32, y of x's shape or a 1-D row of C values ->
     x op y; any other y raises on either device (``kernels.ops`` makes
-    every broadcast one of these two).  A CPU tensor runs
-    :func:`elementwise_binary_plain`; a CUDA tensor launches
-    ``tina_binary`` on the current stream or raises.  Both must be
+    every broadcast one of these two).  ``out``: a float32 tensor of x's
+    shape to write into (a view at any offset), else a new one.  A CPU
+    tensor runs :func:`elementwise_binary_plain`; a CUDA tensor launches
+    ``tina_binary`` on the current stream or raises.  All must be
     contiguous: a caller holding a strided view makes it contiguous first
-    (``kernels.ops`` does)."""
+    (``kernels.ops`` does).  The kernel moves 16 bytes at a time where
+    the views' offsets allow it (csrc/elementwise.cu says when)."""
     cols = x.shape[-1] if x.ndim else 1
     row = tuple(y.shape) != tuple(x.shape)
     if row and (y.ndim != 1 or y.numel() != cols):
         raise ValueError(f"elementwise_{op}: y {tuple(y.shape)} is neither "
                          f"x's shape {tuple(x.shape)} nor a row of {cols}")
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != tuple(x.shape)):
+        raise ValueError(f"elementwise_{op}: out {out.dtype}"
+                         f"{tuple(out.shape)} must be float32"
+                         f"{tuple(x.shape)}")
     dev = x.device
     if dev.type == "cpu":
-        return elementwise_binary_plain(x, y, op)
+        z = elementwise_binary_plain(x, y, op)
+        return z if out is None else out.copy_(z)
     if dev.type != "cuda":
         raise ValueError(f"elementwise_{op}: no kernel for device {dev}")
-    for name, t in (("x", x), ("y", y)):
+    if out is None:
+        out = torch.empty(x.shape, device=dev, dtype=torch.float32)
+    for name, t in (("x", x), ("y", y), ("out", out)):
         if t.dtype != torch.float32:
             raise TypeError(f"elementwise_{op}: {name} must be float32, got "
                             f"{t.dtype}")
@@ -186,7 +196,6 @@ def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
         if not t.is_contiguous():
             raise ValueError(f"elementwise_{op}: {name} must be contiguous")
     _check_threads(f"elementwise_{op}", threads)
-    out = torch.empty(x.shape, device=dev, dtype=torch.float32)
     code = _build.lib().tina_binary(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), max(cols, 1),
         int(row), _BINARY_CODES[op], threads,
@@ -198,15 +207,17 @@ def _binary(x: torch.Tensor, y: torch.Tensor, op: str,
 
 
 def elementwise_mult(x: torch.Tensor, y: torch.Tensor, *,
-                     threads: int = 256) -> torch.Tensor:
+                     threads: int = 256,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """x * y in one launch of the binary kernel (see :func:`_binary`)."""
-    return _binary(x, y, "mul", threads)
+    return _binary(x, y, "mul", threads, out)
 
 
 def elementwise_add(x: torch.Tensor, y: torch.Tensor, *,
-                    threads: int = 256) -> torch.Tensor:
+                    threads: int = 256,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """x + y in one launch of the binary kernel (see :func:`_binary`)."""
-    return _binary(x, y, "add", threads)
+    return _binary(x, y, "add", threads, out)
 
 
 __all__ = ["elementwise_chain", "elementwise_chain_plain",

@@ -347,7 +347,8 @@ def qpfb(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
          bt: int | None = None, bn: int | None = None) -> torch.Tensor:
     """Full fused int8 PFB against a quantize_pfb_taps pack ((M, P) int8
     reversed prototype and its (1, P) scales): (..., n_samples) ->
-    complex64 (..., n_frames − M + 1, P), one kernel launch."""
+    complex64 (..., n_frames − M + 1, P), one call of the fused kernel
+    (its frontend and its s8 DFT, fed the int8 DFM's K-major copies)."""
     m, p = tq.shape
     if x.shape[-1] % p:
         raise ValueError(f"n_samples {x.shape[-1]} not divisible by P={p}")
@@ -357,9 +358,10 @@ def qpfb(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
     cfg = _resolve(pfb_kernel.TUNE_SPACE_INT8, {"m": m, "p": p, "t": t},
                    bt=bt, bn=bn)
     qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(frames.device))
+    qrt, qit = quantize._qdfm_kmajor(p, False, str(frames.device))
     z = pfb_kernel.pfb_fused_int8(frames, tq.contiguous(),
                                   ts.reshape(-1).contiguous(), qr, qi, sr, si,
-                                  **cfg)
+                                  frt=qrt, fit=qit, **cfg)
     return z.reshape(batch + (t - m + 1, p))
 
 

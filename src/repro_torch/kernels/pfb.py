@@ -12,11 +12,12 @@ ragged edge.
 
 :func:`pfb_fused_int8` is the int8 tier's fused PFB: ``csrc/qpfb.cu``
 (``tina_pfb_int8``) replaces the reference's ``kernels/pfb.py:
-pfb_fused_int8``.  A block computes the subfiltered frames of its frame
-block across ALL P branches (each frame is requantized over P before the
-DFT), so its shared memory grows with P and the wrapper raises on a P
-that does not fit.  :func:`pfb_fused_int8_plain` is the same function in
-plain torch, equal bit for bit.
+pfb_fused_int8``.  Each frame is requantized over all P branches before
+the DFT, so one call launches two kernels: a frontend that writes each
+frame's int8 row yq (its stride P rounded up to 16) and its scale ys,
+then the s8 tensor-core DFT of ``csrc/s8_gemm.cuh`` over yq (IGMMA).
+:func:`pfb_fused_int8_plain` is the same function in plain torch, equal
+bit for bit; :func:`pfb_frontend_int8_plain` is the frontend's twin.
 """
 from __future__ import annotations
 
@@ -125,56 +126,90 @@ def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
 
 
 # -- int8 ------------------------------------------------------------------
-# Compiled tiles of csrc/qpfb.cu (frames x columns per block; 256 and
-# 128 threads, a 4 x 4 micro-tile of each of zr, zi per thread).
-TILES_INT8 = ((32, 128), (16, 128))
-KW_INT8 = 8      # packed DFM words (32 branches) staged per chunk
+# Compiled tiles of the DFT stage of csrc/qpfb.cu (frames x columns of a
+# tile, on the s8 ring of csrc/s8_gemm.cuh): 128 x 128 and 128 x 64.
+# 128 x 64 is the default at every N: at N <= 64 the wide tile computes
+# and skips half its columns, and at the pfb full width (65,424 frames,
+# N = 1024) it measured faster too (chip_smoke.py, int8_main's
+# ms_per_tile).
+TILES_INT8 = ((128, 128), (128, 64))
+FRONTEND_THREADS = 256   # csrc/qpfb.cu: FT, threads of a frontend block
+FRONTEND_TPF_MAX = 64    # csrc/qpfb.cu: TPF_MAX, threads of one frame
+FRONTEND_WORK = 8192     # csrc/qpfb.cu: FB_WORK, padded branches a block
+
+
+def padded_width(p: int) -> int:
+    """P_pad: the row stride of yq, P rounded up to a multiple of 16 so
+    that the TMA reads yq's rows directly."""
+    return -(-p // mm_kernel.INT8_K_ALIGN) * mm_kernel.INT8_K_ALIGN
+
+
+def frontend_shape(p: int) -> dict:
+    """The frontend's launch shape in csrc/qpfb.cu for P branches: a
+    frame on ``tpf`` threads (a power of two: as many as its groups of
+    four branches, up to 64, or more, up to the block, where the y slots
+    of 256 / 64 frames would not fit: P past 14,336), ``frames_per_pass``
+    frames at a time, ``frames_per_block`` frames a block (about 8,192
+    padded branches), and ``smem_bytes``: one 16-byte y slot per group of
+    each frame of a pass and the eight warps' amax words."""
+    p_pad = padded_width(p)
+    g = p_pad // 4
+
+    def smem(tpf):
+        return (FRONTEND_THREADS // tpf) * -(-g // tpf) * tpf * 16 \
+            + 4 * (FRONTEND_THREADS // 32)
+
+    tpf = 1
+    while tpf < g and tpf < FRONTEND_TPF_MAX:
+        tpf *= 2
+    while smem(tpf) > tune.SMEM_BUDGET and tpf < FRONTEND_THREADS:
+        tpf *= 2
+    fpb = FRONTEND_THREADS // tpf
+    return {"tpf": tpf, "frames_per_pass": fpb,
+            "frames_per_block": max(FRONTEND_WORK // p_pad // fpb, 1) * fpb,
+            "smem_bytes": smem(tpf)}
+
+
+def frontend_smem_bytes(p: int) -> int:
+    """Shared memory of one frontend block (:func:`frontend_shape`)."""
+    return frontend_shape(p)["smem_bytes"]
 
 
 def int8_smem_bytes(bt: int, bn: int, p: int) -> int:
-    """Dynamic shared memory of one block of csrc/qpfb.cu: the packed yq
-    ((P/4) x (bt + 4) words), two DFM chunks (8 x bn words each), y
-    (bt x P f32) and the bt frame scales."""
-    pw = -(-p // 4)
-    return 4 * (pw * (bt + 4) + 2 * KW_INT8 * bn) + 4 * (bt * p + bt)
+    """Shared memory the larger of the two kernels of csrc/qpfb.cu asks
+    for: the DFT stage's ring (per stage a bt x 128 chunk of yq and a
+    bn x 128 chunk of each of Fr^T and Fi^T) or the frontend's y slots."""
+    ring = mm_kernel.INT8_STAGES * (bt + 2 * bn) * 128 \
+        + 2 * mm_kernel.INT8_STAGES * 8 + 1024
+    return max(ring, frontend_smem_bytes(p))
 
 
 def _valid_int8(cfg: dict, ctx: dict) -> bool:
     return ((cfg["bt"], cfg["bn"]) in TILES_INT8
-            and max(ctx["p"], ctx["m"]) <= mm_kernel.MAX_INT8_K
+            and max(padded_width(ctx["p"]), ctx["m"]) <= mm_kernel.MAX_INT8_K
             and int8_smem_bytes(cfg["bt"], cfg["bn"], ctx["p"])
             <= tune.SMEM_BUDGET)
 
 
-def _default_int8(ctx: dict) -> dict:
-    fits = [t for t in TILES_INT8
-            if int8_smem_bytes(t[0], t[1], ctx["p"]) <= tune.SMEM_BUDGET]
-    bt, bn = fits[0] if fits else TILES_INT8[-1]
-    return {"bt": bt, "bn": bn}
-
-
 # ctx: {"m": taps per branch, "p": branches, "t": frames}.  Hard limits: a
-# compiled tile whose y rows over all P fit the 227 KB of shared memory
-# (P <= 2,669 at bt = 16).  The TPU formulas for VMEM do not apply.
+# compiled DFT tile, P_pad and M within MAX_INT8_K (the int32 sums), and
+# the frontend's y slots within the 227 KB of a block (P <= 57,344).  The
+# TPU formulas for VMEM do not apply.
 TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     kernel="pfb_int8",
     params=("bt", "bn"),
     candidates=lambda ctx: tuple({"bt": bt, "bn": bn}
                                  for bt, bn in TILES_INT8),
     valid=_valid_int8,
-    default=_default_int8,
+    default=lambda ctx: {"bt": 128, "bn": 64},
 ))
 
 
-def pfb_fused_int8_plain(frames: torch.Tensor, tq: torch.Tensor,
-                         ts: torch.Tensor, qr: torch.Tensor,
-                         qi: torch.Tensor, sr: torch.Tensor,
-                         si: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch (quantize.qpfb's decisions and
-    exact integer sums, without the windowed copy): each (frame, branch)
-    M-window quantized on its own, int32 MAC against tq, y = (acc * s) *
-    ts; each frame's y requantized over P; the exact int32 products with
-    qr and qi and ``(acc * ys) * sr`` / ``* si`` -> complex64."""
+def _subfiltered_int8(frames: torch.Tensor, tq: torch.Tensor,
+                      ts: torch.Tensor) -> torch.Tensor:
+    """y (..., T-M+1, P) float32 of the int8 frontend: each (frame,
+    branch) M-window quantized on its own, the int32 MAC against tq,
+    y = (acc * s) * ts."""
     m = tq.shape[0]
     tout = frames.shape[-2] - m + 1
     amax = frames[..., :tout, :].abs()
@@ -185,25 +220,72 @@ def pfb_fused_int8_plain(frames: torch.Tensor, tq: torch.Tensor,
     for k in range(m):
         acc += (quantize.quantize_with(frames[..., k:k + tout, :], scale)
                 .to(torch.int32) * tq[k].to(torch.int32))
-    y = acc.to(torch.float32) * scale * ts.reshape(-1)
-    yq, ys = quantize.quantize_symmetric(y, axis=-1)
+    return acc.to(torch.float32) * scale * ts.reshape(-1)
+
+
+def pfb_frontend_int8_plain(frames: torch.Tensor, tq: torch.Tensor,
+                            ts: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frontend kernel's function in plain torch: each frame's y
+    requantized over its P branches -> yq (B (T-M+1), P_pad) int8, zero
+    past column P, and ys (B (T-M+1),) float32."""
+    p = tq.shape[1]
+    yq, ys = quantize.quantize_symmetric(
+        _subfiltered_int8(frames, tq, ts).reshape(-1, p), axis=-1)
+    pad = torch.zeros((yq.shape[0], padded_width(p)), dtype=torch.int8,
+                      device=frames.device)
+    pad[:, :p] = yq
+    return pad, ys.reshape(-1)
+
+
+def pfb_fused_int8_plain(frames: torch.Tensor, tq: torch.Tensor,
+                         ts: torch.Tensor, qr: torch.Tensor,
+                         qi: torch.Tensor, sr: torch.Tensor,
+                         si: torch.Tensor) -> torch.Tensor:
+    """The function of both kernels in plain torch (quantize.qpfb's
+    decisions and exact integer sums, without the windowed copy): the
+    frontend's y, each frame's y requantized over P, the exact int32
+    products with qr and qi and ``(acc * ys) * sr`` / ``* si`` ->
+    complex64."""
+    yq, ys = quantize.quantize_symmetric(_subfiltered_int8(frames, tq, ts),
+                                         axis=-1)
     zr = quantize.int8_dot(yq, qr).to(torch.float32) * ys * sr.reshape(-1)
     zi = quantize.int8_dot(yq, qi).to(torch.float32) * ys * si.reshape(-1)
     return torch.complex(zr, zi)
 
 
+def _kmajor(ft: torch.Tensor | None, f: torch.Tensor,
+            p_pad: int) -> torch.Tensor:
+    """The DFT stage's B operand: f's K-major copy (N, P_pad), zero past
+    column P and 16-byte aligned; ``ft`` is the (N, P) copy the caller
+    made once, or None."""
+    if ft is None:
+        ft = f.t().contiguous()
+    if ft.shape[1] != p_pad or ft.data_ptr() % 16:
+        ft = mm_kernel.pad_k(ft, p_pad)
+    return ft
+
+
 def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
                    qr: torch.Tensor, qi: torch.Tensor, sr: torch.Tensor,
-                   si: torch.Tensor, *, bt: int = 32,
-                   bn: int = 128) -> torch.Tensor:
+                   si: torch.Tensor, *, frt: torch.Tensor | None = None,
+                   fit: torch.Tensor | None = None, bt: int = 128,
+                   bn: int = 64, scratch: tuple | None = None
+                   ) -> torch.Tensor:
     """frames (B, T, P) float32; tq (M, P) int8 reversed prototype and ts
     (P,) its per-branch scales (quantize_pfb_taps); qr / qi (P, N) the
     int8 Fourier matrix with per-column scales sr / si (N,) -> complex64
-    (B, T - M + 1, N).
+    (B, T - M + 1, N).  ``frt`` / ``fit``: the K-major (N, P) copies of
+    qr and qi, the tensor cores' B operands, where the caller made them
+    once (the int8 DFM: ``quantize._qdfm_kmajor``); None transposes here,
+    per call.  Where P is not a multiple of 16 they are copied into
+    zero-padded rows per call.  ``scratch``: (yq, ys) buffers of
+    :func:`pfb_frontend_int8_plain`'s shapes for the frontend to write,
+    which the caller may read afterwards; None allocates them.
 
     A CPU tensor runs :func:`pfb_fused_int8_plain`; a CUDA tensor
-    launches the kernel on the current stream or raises -- also when the
-    tile's rows over all P do not fit the shared memory of a block."""
+    launches the frontend and the DFT stage on the current stream (one
+    call, two kernels) or raises."""
     if frames.ndim != 3 or tq.ndim != 2 or qr.ndim != 2:
         raise ValueError(f"pfb_fused_int8: frames {tuple(frames.shape)}, "
                          f"taps {tuple(tq.shape)}, DFM {tuple(qr.shape)}")
@@ -223,21 +305,36 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
     tout = t - m + 1
     if tout <= 0:
         raise ValueError(f"pfb_fused_int8: {t} frames < {m} taps")
-    if not 0 < b <= 65535:
-        raise ValueError(f"pfb_fused_int8: batch {b} outside 1..65535")
+    rows = b * tout
+    if rows > 2 ** 31 - 1:
+        raise ValueError(f"pfb_fused_int8: {rows} frame rows > 2**31 - 1")
     if not _valid_int8({"bt": bt, "bn": bn}, {"p": p, "m": m}):
         raise ValueError(
-            f"pfb_fused_int8: tile ({bt}, {bn}) at P={p} does not fit the "
-            f"kernel (compiled tiles {TILES_INT8}; a block holds its frames "
-            f"over all P: {int8_smem_bytes(bt, bn, p)} B of shared memory, "
-            f"{tune.SMEM_BUDGET} B allowed)")
+            f"pfb_fused_int8: tile ({bt}, {bn}) at P={p}, M={m} does not "
+            f"fit the kernels (compiled tiles {TILES_INT8}; "
+            f"{int8_smem_bytes(bt, bn, p)} B of shared memory, "
+            f"{tune.SMEM_BUDGET} B allowed; P_pad and M <= "
+            f"{mm_kernel.MAX_INT8_K})")
+    p_pad = padded_width(p)
+    frt, fit = _kmajor(frt, qr, p_pad), _kmajor(fit, qi, p_pad)
+    mm_kernel.check_int8_args(
+        "pfb_fused_int8", dev, frt=(frt, torch.int8, (n, p_pad)),
+        fit=(fit, torch.int8, (n, p_pad)))
+    if scratch is None:
+        scratch = (torch.empty((rows, p_pad), dtype=torch.int8, device=dev),
+                   torch.empty((rows,), dtype=torch.float32, device=dev))
+    yq, ys = scratch
+    mm_kernel.check_int8_args(
+        "pfb_fused_int8", dev, yq=(yq, torch.int8, (rows, p_pad)),
+        ys=(ys, torch.float32, (rows,)))
+    if yq.data_ptr() % 16:
+        raise ValueError("pfb_fused_int8: yq must start 16-byte aligned")
     out = torch.empty((b, tout, n), device=dev, dtype=torch.complex64)
-    if out.numel() == 0:
-        return out
     code = _build.lib().tina_pfb_int8(
-        frames.data_ptr(), tq.data_ptr(), ts.data_ptr(), qr.data_ptr(),
-        qi.data_ptr(), sr.data_ptr(), si.data_ptr(), out.data_ptr(), b, t,
-        p, n, m, bt, bn, torch.cuda.current_stream(dev).cuda_stream)
+        frames.data_ptr(), tq.data_ptr(), ts.data_ptr(), frt.data_ptr(),
+        fit.data_ptr(), sr.data_ptr(), si.data_ptr(), yq.data_ptr(),
+        ys.data_ptr(), out.data_ptr(), b, t, p, n, m, p_pad, bt, bn,
+        torch.cuda.current_stream(dev).cuda_stream)
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "pfb_fused_int8")
@@ -246,5 +343,6 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
 
 __all__ = ["pfb_fused", "pfb_fused_plain", "TUNE_SPACE", "TILES",
            "LAUNCHES", "smem_bytes", "pfb_fused_int8", "pfb_fused_int8_plain",
-           "TUNE_SPACE_INT8", "TILES_INT8", "INT8_LAUNCHES",
-           "int8_smem_bytes"]
+           "pfb_frontend_int8_plain", "TUNE_SPACE_INT8", "TILES_INT8",
+           "INT8_LAUNCHES", "int8_smem_bytes", "frontend_smem_bytes",
+           "frontend_shape", "padded_width"]

@@ -139,6 +139,32 @@ def test_binary_exact(dev, op, row):
 
 
 @pytest.mark.parametrize("op", ["mul", "add"])
+@pytest.mark.parametrize("cols", [1, 3, 4, 64, 1024])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 3, 3),
+                                     (1, 2, 0), (0, 0, 1)])
+@pytest.mark.parametrize("row", [False, True], ids=["full", "row"])
+def test_binary_exact_at_offsets(dev, op, cols, offsets, row):
+    """x, y and out as views that start 0-3 floats past a 16-byte
+    boundary (the same offset: a scalar head then 16-byte vectors; other
+    offsets: the scalar loop), n not a multiple of 4 where cols is odd."""
+    rows = 37
+    n = rows * cols
+    ny = cols if row else n
+
+    def view(k, size):
+        return torch.randn(size + 4, device=dev)[k:k + size]
+
+    x = view(offsets[0], n).view(rows, cols)
+    y = view(offsets[1], ny).view((cols,) if row else (rows, cols))
+    out = view(offsets[2], n).view(rows, cols)
+    fn = ewk.elementwise_mult if op == "mul" else ewk.elementwise_add
+    got = fn(x, y, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, ewk.elementwise_binary_plain(x, y, op))
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
 def test_binary_column_is_no_row(dev, op):
     # y (C, 1) against x (C, C): a column, though it has C entries
     x = torch.randn(33, 33, device=dev)
@@ -532,23 +558,39 @@ def test_fir_valid_int8_every_tile_and_half_integers(dev):
         x.cpu(), tq.cpu(), ts.cpu()))
 
 
+# P not a multiple of 16 (20, 48, 1000: the padded yq stride) and of 4
+# (the scalar frontend loads), ragged frame counts, M from 3 to 16
 PFB_INT8_CASES = [(2, 301, 16, 4), (1, 203, 48, 8), (3, 130, 16, 16),
-                  (1, 75, 1024, 8), (2, 40, 20, 3)]
+                  (1, 75, 1024, 8), (2, 40, 20, 3), (1, 60, 1000, 8),
+                  (2, 50, 37, 5)]
 
 
 @pytest.mark.parametrize("b,t,p,m", PFB_INT8_CASES)
 @pytest.mark.parametrize("tile", pfbk.TILES_INT8)
-def test_pfb_fused_int8_bit_exact(dev, b, t, p, m, tile):
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_pfb_fused_int8_bit_exact(dev, b, t, p, m, tile, aligned):
     gen = torch.Generator(device=dev).manual_seed(b * t + p * m)
-    frames = torch.randn(b, t, p, device=dev, generator=gen)
+    frames = torch.randn(b * t * p + 1, device=dev, generator=gen)
+    # rows that do not start 16-byte aligned take the scalar loads
+    frames = (frames[:-1] if aligned else frames[1:]).view(b, t, p)
     tq, ts = quantize.quantize_pfb_taps(
         torch.randn(m, p, device=dev, generator=gen))
     qr, sr, qi, si = quantize._qdfm_tensors(p, False, str(dev))
+    qrt, qit = quantize._qdfm_kmajor(p, False, str(dev))
     args = (frames, tq, ts.reshape(-1), qr, qi, sr, si)
     bt, bn = tile
-    got = pfbk.pfb_fused_int8(*args, bt=bt, bn=bn)
+    rows = b * (t - m + 1)
+    yq = torch.full((rows, pfbk.padded_width(p)), 99, dtype=torch.int8,
+                    device=dev)
+    ys = torch.empty(rows, device=dev)
+    got = pfbk.pfb_fused_int8(*args, frt=qrt, fit=qit, bt=bt, bn=bn,
+                              scratch=(yq, ys))
     torch.cuda.synchronize()
     assert torch.equal(got, pfbk.pfb_fused_int8_plain(*args))
+    # the frontend's rows and scales, pad bytes included, as its twin's
+    wq, ws = pfbk.pfb_frontend_int8_plain(frames, tq, ts.reshape(-1))
+    assert torch.equal(yq, wq) and torch.equal(ys, ws)
 
 
 def test_pfb_fused_int8_half_integers(dev):
@@ -634,13 +676,18 @@ def test_int8_plans_launch_their_kernels(dev, name, g, shape, want):
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
-    frames = torch.randn(1, 20, 4096, device=dev)
-    tq = torch.zeros(4, 4096, dtype=torch.int8, device=dev)
-    ts = torch.ones(4096, device=dev)
-    qr = torch.zeros(4096, 8, dtype=torch.int8, device=dev)
+    p = 57_345          # one past the frontend's widest P
+    frames = torch.randn(1, 20, p, device=dev)
+    tq = torch.zeros(4, p, dtype=torch.int8, device=dev)
+    ts = torch.ones(p, device=dev)
+    qr = torch.zeros(p, 8, dtype=torch.int8, device=dev)
     s8 = torch.ones(8, device=dev)
     with pytest.raises(ValueError, match="does not fit"):   # P too wide
-        pfbk.pfb_fused_int8(frames, tq, ts, qr, qr, s8, s8, bt=16)
+        pfbk.pfb_fused_int8(frames, tq, ts, qr, qr, s8, s8)
+    with pytest.raises(ValueError, match="does not fit"):   # no such tile
+        pfbk.pfb_fused_int8(frames[..., :64].contiguous(),
+                            tq[:, :64].contiguous(),
+                            ts[:64], qr[:64], qr[:64], s8, s8, bt=16)
     with pytest.raises(ValueError, match="contiguous"):
         pfbk.pfb_fused_int8(frames[..., ::2], tq[:, ::2], ts[::2],
                             qr[::2], qr[::2], s8, s8)

@@ -674,14 +674,25 @@ def test_int8_tune_spaces_valid_at_pipeline_shapes():
             assert sp.valid(cfg, ctx), (kernel, ctx, cfg)
             assert sp.configs(ctx)[0] == cfg
     assert tune.space("pfb_int8") is pfbk.TUNE_SPACE_INT8
-    assert pfbk.int8_smem_bytes(32, 128, 1024) <= tune.SMEM_BUDGET
-    # a P whose frame rows do not fit any compiled tile is refused
-    big = {"m": 8, "p": 4096, "t": 64}
+    assert pfbk.int8_smem_bytes(128, 128, 1024) <= tune.SMEM_BUDGET
+    # the frontend keeps one 16-byte y slot per four branches of a frame:
+    # P = 4096 (past the SIMT kernel's 2,669) fits, and P = 57,344 is the
+    # widest that does; the next P past it is refused, as is a tile the
+    # DFT stage does not compile
+    assert pfbk.TUNE_SPACE_INT8.valid({"bt": 128, "bn": 128},
+                                      {"m": 8, "p": 4096, "t": 64})
+    assert pfbk.frontend_smem_bytes(57_344) <= tune.SMEM_BUDGET \
+        < pfbk.frontend_smem_bytes(57_345)
+    big = {"m": 8, "p": 57_345, "t": 64}
     assert not any(pfbk.TUNE_SPACE_INT8.valid({"bt": bt, "bn": bn}, big)
                    for bt, bn in pfbk.TILES_INT8)
     with pytest.raises(ValueError, match="invalid block config"):
-        ops.qpfb(torch.zeros(4096 * 10), torch.zeros(8, 4096, dtype=torch.int8),
-                 torch.ones(1, 4096), bt=16)
+        ops.qpfb(torch.zeros(57_345 * 10),
+                 torch.zeros(8, 57_345, dtype=torch.int8),
+                 torch.ones(1, 57_345), bt=128)
+    with pytest.raises(ValueError, match="invalid block config"):
+        ops.qpfb(torch.zeros(1024 * 10), torch.zeros(8, 1024, dtype=torch.int8),
+                 torch.ones(1, 1024), bt=16)
     with pytest.raises(ValueError, match="invalid block config"):
         ops.qmatmul(torch.zeros(4, 8), torch.zeros(8, 8, dtype=torch.int8),
                     torch.ones(8), bm=96)
