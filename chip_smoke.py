@@ -18,10 +18,16 @@ Prints one JSON line per phase:
             ``tina_matmul_int8``, ``tina_dft_int8`` and the DFT stage of
             ``tina_pfb_int8`` (the s8 GEMM and DFTs: IGMMA); a kernel
             without them fails, as does a ``__dp4a`` (IDP) left in any
-            kernel of ``tina_pfb_int8``
+            kernel of ``tina_pfb_int8``, or a warpgroup MMA or a spill in
+            the f32 PFB's frontend kernels (``tina_pfb``: its DFT stage is
+            ``tina_dft``'s kernel)
   kernel    each kernel against its plain version at ragged shapes
             (PFB and DFT: max|diff| <= 1e-4 * max|plain|, fp32 sums
-            taken in another order, the DFT at every compiled tile, with
+            taken in another order; the PFB also at P = 37 and on frames
+            that start unaligned, its frontend's y rows and the frontend
+            alone bit for bit against their twins, and at P = 1024
+            against a float64 product of the same y (1e-5 of max);
+            the DFT at every compiled tile, with
             the staging of x each case took and rows that start
             unaligned; matmul the same, at the JAX suite's
             shapes and K not a multiple of 4, every compiled tile and
@@ -58,7 +64,11 @@ Prints one JSON line per phase:
             path gives it, its plain version, and the one PyTorch call
             that computes the same function (``F.conv1d`` without TF32
             for the FIR, ``torch.matmul``, ``torch.add``, ``torch.mul``;
-            timed here only, the port never calls them); the binary
+            timed here only, the port never calls them); the f32 PFB's
+            two kernels apart at ``pfb_power`` full width and at
+            ``cascaded_channelizer`` (the frontend alone, the DFT stage
+            alone on its y, ``torch.fft.fft`` of y as the stage's
+            yardstick, the call against a float64 product); the binary
             kernel alone at each of its launches' shapes (stft,
             spectrogram, the Table-1 add) beside ``torch.mul`` /
             ``torch.add`` and its bytes bound; ``fir_decimate``'s first
@@ -86,7 +96,10 @@ Prints one JSON line per phase:
             taps both orientations, the PFB at P = 16, 20, 37, 48, 1000
             and 1024 on frames that start 16-byte aligned and not, its
             frontend's int8 rows and scales against their plain twin, and
-            inputs whose x / scale quotients are exact half-integers
+            inputs whose x / scale quotients are exact half-integers; the
+            quantize of ``csrc/int8.cuh`` against the division it
+            replaces on every float x in [-amax, amax] for some 320
+            scales (``csrc/qcheck.cu``): no int may differ
   int8_main ``pfb_power`` at ``precision="int8"``, kernel lowering, full
             width: node precisions and the abs2 downgrade, launches per
             call (pfb_fused_int8 1, chain 1), the whole output against
@@ -123,6 +136,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -220,21 +234,33 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return ((got - want).abs().max().item(), want.abs().max().item())
 
 
-def pfb_cost(b, t, p, n, m) -> tuple[int, int, int]:
+def dft_columns(n: int, hermitian: bool) -> int:
+    """The columns of F a real x's product needs: all N, or where F is
+    the N-point DFM (hermitian) columns 0 .. N/2, the others being their
+    conjugates."""
+    return n // 2 + 1 if hermitian else n
+
+
+def pfb_cost(b, t, p, n, m, hermitian=False) -> tuple[int, int, int]:
     """(bytes, FIR flops, DFT flops) the fused PFB must move and do:
-    frames, taps and F read once, complex output written once; the FIR's
-    M multiply-adds per (frame, branch), then two real products."""
+    frames, taps and the F columns it needs (:func:`dft_columns`; the
+    plan's call is hermitian) read once, complex output written once; the
+    FIR's M multiply-adds per (frame, branch), then two real products
+    over those columns."""
     tout = t - m + 1
-    nbytes = 4 * (b * t * p + m * p + 2 * p * n) + 8 * b * tout * n
-    return nbytes, 2 * m * b * tout * p, 4 * b * tout * p * n
+    cols = dft_columns(n, hermitian)
+    nbytes = 4 * (b * t * p + m * p + 2 * p * cols) + 8 * b * tout * n
+    return nbytes, 2 * m * b * tout * p, 4 * b * tout * p * cols
 
 
-def dft_cost(b, l, n, cplx) -> tuple[int, int]:
-    """(bytes, flops) of one 4mult DFT of b rows: x, fr and fi read once,
-    complex64 out written once; two real products for a real x, four for
-    a complex one."""
-    nbytes = (8 if cplx else 4) * b * l + 8 * l * n + 8 * b * n
-    return nbytes, 2 * (4 if cplx else 2) * b * l * n
+def dft_cost(b, l, n, cplx, hermitian=False) -> tuple[int, int]:
+    """(bytes, flops) of one 4mult DFT of b rows: x and the columns of fr
+    and fi it needs (:func:`dft_columns`) read once, complex64 out written
+    once; two real products over those columns for a real x, four for a
+    complex one."""
+    cols = dft_columns(n, hermitian)
+    nbytes = (8 if cplx else 4) * b * l + 8 * l * cols + 8 * b * n
+    return nbytes, 2 * (4 if cplx else 2) * b * l * cols
 
 
 def fir_cost(rows, n_in, n_out, k) -> tuple[int, int]:
@@ -346,13 +372,14 @@ TC_ENTRIES = {"tina_dft": "HGMMA", "tina_matmul": "HGMMA",
 def tc_kernel(mangled: str):
     """(entry point, label) of a tensor-core kernel of ``TC_ENTRIES``
     from its mangled name, else None; a label carries the template
-    arguments: <complex x, 3mult> of the DFT, the tile width of the
-    others."""
+    arguments: <complex x, 3mult, tile width> of the DFT, the tile width
+    of the others."""
     import re
     width = re.search(r"ILi(\d+)E", mangled)
     if "dft_tf32_kernel" in mangled:
         args = mangled.split("_kernel", 1)[1].split("Ev", 1)[0]
-        flags = ",".join(f for f in args if f in "01")
+        flags = ",".join(re.findall(r"Lb(\d)E", args)
+                         + re.findall(r"Li(\d+)E", args))
         return "tina_dft", f"dft_tf32_kernel<{flags}>"
     if "tf32_matmul_kernel" in mangled and width:
         return "tina_matmul", f"tf32_matmul_kernel<{width.group(1)}>"
@@ -365,12 +392,22 @@ def tc_kernel(mangled: str):
     return None
 
 
-def wgmma_counts(lib_path) -> tuple[dict, dict]:
+def pfb_frontend_label(mangled: str):
+    """The label of one of pfb.cu's frontend kernels (two bool template
+    arguments; qpfb.cu's has one), else None."""
+    import re
+    f = re.search(r"frontend_kernelILb(\d)ELb(\d)E", mangled)
+    return f"pfb_frontend_kernel<{f.group(1)},{f.group(2)}>" if f else None
+
+
+def wgmma_counts(lib_path) -> tuple[dict, dict, dict]:
     """({entry point: {kernel: {"HGMMA"/"IGMMA": count}}}, {kernel of
-    qpfb.cu: IDP count}): the warpgroup MMA instructions in the SASS of
-    the kernels of every entry point of ``TC_ENTRIES`` in the built
-    library, and the ``__dp4a`` (IDP) instructions left in each kernel of
-    the int8 PFB, from ``cuobjdump -sass``."""
+    qpfb.cu: IDP count}, {frontend kernel of pfb.cu: warpgroup MMA
+    count}): the warpgroup MMA instructions in the SASS of the kernels of
+    every entry point of ``TC_ENTRIES`` in the built library, the
+    ``__dp4a`` (IDP) instructions left in each kernel of the int8 PFB,
+    and the warpgroup MMAs in the f32 PFB's frontend (it has none: its DFT
+    stage is tina_dft's kernel), from ``cuobjdump -sass``."""
     import os
     import re
     import shutil
@@ -380,11 +417,15 @@ def wgmma_counts(lib_path) -> tuple[dict, dict]:
                           text=True, timeout=300, check=True).stdout
     out, fn = {entry: {} for entry in TC_ENTRIES}, None
     idp, pfb = {}, None
+    front, fk = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             k = tc_kernel(m.group(1))
             fn = out[k[0]].setdefault(k[1], {}) if k else None
+            fk = pfb_frontend_label(m.group(1))
+            if fk:
+                front.setdefault(fk, 0)
             pfb = None
             if "qpfb_cu" in m.group(1):
                 k = re.search(r"(frontend_kernel|qpfb_dft_kernel)IL[bi]"
@@ -397,13 +438,15 @@ def wgmma_counts(lib_path) -> tuple[dict, dict]:
             fn[op.group(1)] = fn.get(op.group(1), 0) + 1
         if pfb is not None and re.search(r"\bIDP\.", line):
             idp[pfb] += 1
-    return out, idp
+        if fk is not None and op:
+            front[fk] += 1
+    return out, idp, front
 
 
 def ptxas_usage(log: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of the tensor-core kernels
-    (``TC_ENTRIES``) and of the int8 PFB's frontend, from the build's
-    ``-Xptxas -v`` log."""
+    (``TC_ENTRIES``) and of the int8 and f32 PFBs' frontends, from the
+    build's ``-Xptxas -v`` log."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -411,7 +454,7 @@ def ptxas_usage(log: str) -> dict:
         if m:
             k = tc_kernel(m.group(1))
             f = re.search(r"frontend_kernelILb(\d)E", m.group(1))
-            name = k[1] if k else (
+            name = k[1] if k else pfb_frontend_label(m.group(1)) or (
                 f"frontend_kernel<{f.group(1)}>" if f else None)
             if name:
                 out[name] = {}
@@ -472,14 +515,17 @@ def main() -> int:
     from repro_torch.kernels import unfold as unfk
 
     def zero_counts() -> None:
-        pfbk.LAUNCHES = ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
+        pfbk.LAUNCHES = pfbk.FRONTEND_LAUNCHES = 0
+        ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
         dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
         firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
         mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = 0
         firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
 
     def counts() -> dict:
-        return {"pfb_fused": pfbk.LAUNCHES, "elementwise_chain": ew.LAUNCHES,
+        return {"pfb_fused": pfbk.LAUNCHES,
+                "pfb_frontend": pfbk.FRONTEND_LAUNCHES,
+                "elementwise_chain": ew.LAUNCHES,
                 "elementwise_binary": ew.BINARY_LAUNCHES,
                 "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
                 "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
@@ -543,7 +589,7 @@ def main() -> int:
          sources=[str(s.relative_to(ROOT)) for s in _build.sources()])
 
     # -- the tensor-core kernels' SASS holds warpgroup MMAs -----------------
-    mma, pfb_idp = wgmma_counts(_build.build())
+    mma, pfb_idp, pfb_front = wgmma_counts(_build.build())
     for entry, op in TC_ENTRIES.items():
         if not mma[entry] or not all(c.get(op, 0) > 0
                                      for c in mma[entry].values()):
@@ -551,8 +597,16 @@ def main() -> int:
     if len(pfb_idp) != 4 or any(pfb_idp.values()):
         fail(f"tina_pfb_int8: want its two frontend and two DFT kernels, none "
              f"with __dp4a (IDP): {pfb_idp}")
+    usage = ptxas_usage(_build.BUILD_INFO.get("ptxas", ""))
+    # spills are read from this run's build log (none when it reused a
+    # build of the same sources)
+    if len(pfb_front) != 4 or any(pfb_front.values()) or (usage and any(
+            usage.get(k, {}).get("spill_bytes", 1) for k in pfb_front)):
+        fail(f"tina_pfb: want its four frontend kernels, without warpgroup "
+             f"MMAs or spills: {pfb_front}, "
+             f"{ {k: usage.get(k) for k in pfb_front} }")
     emit(phase="sass", wgmma_instructions=mma, pfb_int8_idp=pfb_idp,
-         ptxas=ptxas_usage(_build.BUILD_INFO.get("ptxas", "")))
+         pfb_frontend_wgmma=pfb_front, ptxas=usage)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -560,28 +614,45 @@ def main() -> int:
         return torch.randn(*shape, device=dev, dtype=dtype, generator=gen)
 
     # -- kernels against their plain versions, ragged shapes -----------------
-    # Tout never a tile multiple; P below and above the 16-branch chunk;
-    # taps longer than a tile; taps needing > 48 KB of shared memory
-    pfb_cases = [(2, 301, 16, 4), (1, 203, 32, 8), (3, 130, 48, 16),
-                 (2, 517, 1024, 8), (1, 300, 16, 100), (1, 700, 16, 600)]
-    for i, (b, t, p, m) in enumerate(pfb_cases):
-        default = ops._resolve(pfbk.TUNE_SPACE, {"m": m, "p": p, "t": t})
-        tiles = pfbk.TILES if i == 1 else ((default["bt"], default["bn"]),)
-        for bt, bn in tiles:
-            x, taps = randn(b, t, p), randn(m, p)
-            fr, fi = ops._fourier(p, str(dev))
-            for f_im in (fi, None):
-                got = pfbk.pfb_fused(x, taps, fr, f_im, bt=bt, bn=bn)
-                torch.cuda.synchronize()
-                want = pfbk.pfb_fused_plain(x, taps, fr, f_im)
-                err, scale = rel_err(torch, got, want)
-                ok = err <= PFB_RTOL * scale
-                emit(phase="kernel", kernel="pfb_fused", shape=[b, t, p, m],
-                     tile=[bt, bn], complex_out=f_im is not None,
-                     max_abs_err=err, max_abs_plain=scale, ok=ok)
-                if not ok:
-                    fail(f"pfb_fused {(b, t, p, m)} tile {(bt, bn)}: "
-                         f"{err} > {PFB_RTOL} * {scale}")
+    # pfb_fused: B Tout never a multiple of the DFT stage's 128 rows; P of
+    # one K chunk and of many; 100 and 600 taps; P = 37 (y's stride padded
+    # to 40, scalar frontend loads); frames that start 4 bytes past a
+    # 16-byte boundary.  The frontend's y rows as the DFT stage reads them
+    # (written over NaN) and the frontend alone bit for bit against their
+    # twins; the output against the plain version (1e-4 of max) and at
+    # P = 1024 also against a float64 product of the same y (1e-5 of max)
+    pfb_cases = [(2, 301, 16, 4, True), (1, 203, 32, 8, True),
+                 (3, 130, 48, 16, True), (2, 517, 1024, 8, True),
+                 (1, 300, 16, 100, True), (1, 700, 16, 600, True),
+                 (2, 150, 37, 5, True), (2, 150, 37, 5, False),
+                 (2, 120, 64, 8, False)]
+    for b, t, p, m, aligned in pfb_cases:
+        buf, taps = randn(b * t * p + 1), randn(m, p)
+        x = (buf[:-1] if aligned else buf[1:]).view(b, t, p)
+        fr, fi = ops._fourier(p, str(dev))
+        rows = b * (t - m + 1)
+        want = pfbk.pfb_fused_plain(x, taps, fr, fi)
+        front = f"pfb_frontend {(b, t, p, m)} aligned={aligned}"
+        hold(torch, front, pfbk.pfb_frontend(x, taps),
+             pfbk.pfb_frontend_plain(x, taps))
+        y = pfbk.pfb_frontend(x, taps, out=torch.full(
+            (rows, pfbk.y_stride(p)), float("nan"), device=dev))
+        hold(torch, front + " y rows", y,
+             pfbk.pfb_frontend_rows_plain(x, taps))
+        for (bt, bn), herm in itertools.product(pfbk.TILES, (False, True)):
+            label = f"pfb_fused {(b, t, p, m)} tile {(bt, bn)} " \
+                f"hermitian={herm} aligned={aligned}"
+            got = pfbk.pfb_fused(x, taps, fr, fi, hermitian=herm, bt=bt,
+                                 bn=bn)
+            err = hold(torch, label, got, want, PFB_RTOL)
+            f64 = dft_f64_err(torch, y[:, :p], fr, fi, got.reshape(rows, p))
+            if p == 1024 and not f64 <= DFT_F64_RTOL:
+                fail(f"{label} vs float64: {f64} > {DFT_F64_RTOL} of max")
+            emit(phase="kernel", kernel="pfb_fused", shape=[b, t, p, m],
+                 tile=[bt, bn], hermitian=herm, frames_aligned=aligned,
+                 y_stride=pfbk.y_stride(p), max_abs_err=err,
+                 max_abs_plain=torch.view_as_real(want).abs().max().item(),
+                 max_rel_err_vs_float64=f64, frontend_exact=True, ok=True)
     z, a, c = randn(3, 1001, 33, dtype=torch.complex64), randn(3, 1001, 33), \
         randn(3, 1001, 33)
     for head, operands, steps, abs2_head in (
@@ -679,19 +750,23 @@ def main() -> int:
                                                     torch.float32, str(dev))
                     for variant in dftk.VARIANTS:
                         want = dftk.dft_plain(x, fr, fi, variant)
-                        for bm, bn in dftk.TILES:
-                            got = ops.dft(x, fr, fi, variant=variant, bm=bm,
-                                          bn=bn)
+                        herms = (False, True) if not cplx and \
+                            variant == "4mult" else (False,)
+                        for (bm, bn), herm in itertools.product(dftk.TILES,
+                                                                herms):
+                            got = dftk.dft(x, fr, fi, variant=variant, bm=bm,
+                                           bn=bn, hermitian=herm)
                             torch.cuda.synchronize()
                             err, scale = rel_err(torch, got, want)
                             worst = max(worst, err / scale)
                             if err > DFT_RTOL * scale:
                                 fail(f"dft rows={rows} n={n} complex={cplx}"
                                      f" inverse={inverse} {variant} tile "
-                                     f"{(bm, bn)}: {err} > {DFT_RTOL} * "
-                                     f"{scale}")
+                                     f"{(bm, bn)} hermitian={herm}: {err} > "
+                                     f"{DFT_RTOL} * {scale}")
             emit(phase="kernel", kernel="dft", rows=rows, n=n,
-                 cases="real+complex x forward+inverse x 4mult+3mult",
+                 cases="real+complex x forward+inverse x 4mult+3mult, "
+                       "real x at 4mult also hermitian",
                  tiles=[list(t) for t in dftk.TILES], staging=staged,
                  max_rel_err=worst, ok=True)
     fr, fi = functions._dfm_tensors(1024, False, torch.float32, str(dev))
@@ -813,6 +888,61 @@ def main() -> int:
                "direct TMA read bit for bit", staging=mmk.staging(xs),
          ok=True)
 
+    def pfb_stages(frames, taps_rev, fr, fi, planes, cfg) -> dict:
+        """The f32 PFB's two kernels apart, at a path's shapes (P a
+        multiple of 4, so that y's row stride is P): the whole call as the
+        plan makes it (Hermitian: half the columns computed), computing
+        every column, and on each compiled tile; the frontend alone; the
+        DFT stage alone both ways (tina_dft on the frontend's y rows);
+        torch.fft.fft over y's last axis as the DFT stage's yardstick
+        (timed here only); each stage's bound (the DFT's at TF32 over the
+        columns 0 .. P/2 the Hermitian call needs, beside it the bound of
+        every column and the 3xTF32 floor); and the call's output against
+        a float64 product of the same y (1e-5 of max).  Launches
+        pfb_fused, pfb_frontend and dft outside any counted run."""
+        b, t, p = frames.shape
+        rows = b * (t - taps_rev.shape[0] + 1)
+        y = pfbk.pfb_frontend(frames, taps_rev, out=torch.empty(
+            (rows, pfbk.y_stride(p)), device=dev))
+        z = pfbk.pfb_fused(frames, taps_rev, fr, fi, planes=planes,
+                           hermitian=True, **cfg)
+        yv = y.view(rows, p)
+        dcfg = {"bm": cfg["bt"], "bn": cfg["bn"]}
+        out = {
+            "call": device_ms(torch, lambda: pfbk.pfb_fused(
+                frames, taps_rev, fr, fi, planes=planes, hermitian=True,
+                **cfg)),
+            "call_all_columns": device_ms(torch, lambda: pfbk.pfb_fused(
+                frames, taps_rev, fr, fi, planes=planes, **cfg)),
+            "call_per_tile": {f"{bt}x{bn}": device_ms(
+                torch, lambda: pfbk.pfb_fused(
+                    frames, taps_rev, fr, fi, planes=planes, hermitian=True,
+                    bt=bt, bn=bn)) for bt, bn in pfbk.TILES},
+            "frontend": device_ms(
+                torch, lambda: pfbk.pfb_frontend(frames, taps_rev)),
+            "dft_stage": device_ms(torch, lambda: dftk.dft(
+                yv, fr, fi, variant="4mult", planes=planes, hermitian=True,
+                **dcfg)),
+            "dft_stage_all_columns": device_ms(torch, lambda: dftk.dft(
+                yv, fr, fi, variant="4mult", planes=planes, **dcfg)),
+            "dft_stage_fft": device_ms(
+                torch, lambda: torch.fft.fft(yv, dim=-1)),
+        }
+        dcost = dft_cost(rows, p, p, False, hermitian=True)
+        out["frontend_bound"] = bound(
+            4 * (frames.numel() + taps_rev.numel() + rows * p),
+            2 * taps_rev.shape[0] * rows * p)[0]
+        out["dft_stage_bound"] = bound_tf32(*dcost)[0]
+        out["dft_stage_bound_all_columns"] = bound_tf32(
+            *dft_cost(rows, p, p, False))[0]
+        out["dft_stage_bound_3xtf32"] = bound_3xtf32(*dcost)[0]
+        out["max_rel_err_vs_float64"] = dft_f64_err(
+            torch, yv, fr, fi, z.reshape(rows, p))
+        if not out["max_rel_err_vs_float64"] <= DFT_F64_RTOL:
+            fail(f"pfb_fused {(b, t, p)} vs float64: "
+                 f"{out['max_rel_err_vs_float64']} > {DFT_F64_RTOL} of max")
+        return out
+
     # -- main path: pfb_power end to end -------------------------------------
     table = {}
     for label, b, n, p, m in (("fig3", 1, 2 ** 18, 32, 8),
@@ -864,14 +994,19 @@ def main() -> int:
         taps_rev = torch.as_tensor(g.consts["taps"], device=dev).flip(0) \
             .contiguous()
         fr, fi = ops._fourier(p, str(dev))
+        planes = ops._fourier_planes(p, str(dev))
         cfg = ops._resolve(pfbk.TUNE_SPACE, {"m": m, "p": p, "t": t})
-        zk = pfbk.pfb_fused(frames, taps_rev, fr, fi, **cfg)
+        zk = pfbk.pfb_fused(frames, taps_rev, fr, fi, planes=planes,
+                            hermitian=True, **cfg)
         before = (pfbk.LAUNCHES, ew.LAUNCHES)
         ms = {
             "plan": median_ms(torch, lambda: plan(x)),
             "plan_native": median_ms(torch, lambda: native(x)),
+            "plan_back_to_back": device_ms(torch, lambda: plan(x)),
             "pfb_fused": device_ms(
-                torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi, **cfg)),
+                torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi,
+                                              planes=planes, hermitian=True,
+                                              **cfg)),
             "pfb_fused_plain": device_ms(
                 torch, lambda: pfbk.pfb_fused_plain(frames, taps_rev, fr, fi)),
             "elementwise_chain": device_ms(
@@ -883,8 +1018,8 @@ def main() -> int:
         }
         calls = REPEATS + 2
         grew = (pfbk.LAUNCHES - before[0], ew.LAUNCHES - before[1])
-        if grew != (2 * calls, 2 * calls):
-            # each plan call: 1 + 1; each lone kernel: 1 of its own
+        if grew != (3 * calls, 3 * calls):
+            # each plan call (two timings): 1 + 1; each lone kernel: 1
             fail(f"{label}: launches grew by {grew} over {calls} timed "
                  "plan calls and lone kernel calls, want one each per call")
         kerr, kscale = rel_err(torch, zk,
@@ -892,7 +1027,7 @@ def main() -> int:
         cerr, _ = rel_err(
             torch, ew.elementwise_chain(zk, (), (), abs2_head=True),
             ew.elementwise_chain_plain(zk, (), (), abs2_head=True))
-        pcost = pfb_cost(b, t, p, p, m)
+        pcost = pfb_cost(b, t, p, p, m, hermitian=True)
         n_out = b * tout * p
         chain_cost = (12 * n_out, 3 * n_out)
         emit(phase="main", size=label, x=[b, n], p=p, m=m, tile=cfg,
@@ -901,7 +1036,12 @@ def main() -> int:
              max_abs_oracle_row0=scale_oracle, ms=ms,
              plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
              pfb_bound_ms={"fir_fp32_dft_tf32": bound_pfb(*pcost)[0],
+                           "all_columns": bound_pfb(
+                               *pfb_cost(b, t, p, p, m))[0],
+                           "3xtf32": bound_3xtf32(pcost[0], pcost[1]
+                                                  + pcost[2])[0],
                            "fp32_pipe": fp32_pipe_ms(*pcost)},
+             pfb_stages=pfb_stages(frames, taps_rev, fr, fi, planes, cfg),
              plan_bound_ms=bound_pfb(*pcost)[0] + bound(*chain_cost)[0],
              plan_bound_ms_fp32_pipe=fp32_pipe_ms(*pcost)
              + bound(*chain_cost)[0],
@@ -1086,11 +1226,15 @@ def main() -> int:
     cost = {
         "unfold": (4 * (b * n + b * (n - j + 1) * j), 0),
         "elementwise_binary": (2 * 4 * (2 * rows_f * j + j), 2 * rows_f * j),
-        "dft": add_cost(dft_cost(rows_f, j, j, False),
+        # the forward's real frames against the J-point DFM need columns
+        # 0 .. J/2 (the kernel computes all J: dft_all)
+        "dft": add_cost(dft_cost(rows_f, j, j, False, hermitian=True),
                         dft_cost(rows_f, j, j, True)),
         "overlap_add": (4 * (b * t * j + b * nt * hop),
                         b * nt * hop * (j // hop)),
     }
+    dft_all = add_cost(dft_cost(rows_f, j, j, False),
+                       dft_cost(rows_f, j, j, True))
     emit(phase="main", path="stft_overlap_add", x=list(STFT_X), window=j,
          hop=hop, frames=rows_f, tiles={"unfold": ucfg, "dft": dcfg,
                                         "overlap_add": ocfg},
@@ -1098,11 +1242,12 @@ def main() -> int:
          plan_bound_ms=sum((bound_tf32 if k == "dft" else bound)(*c)[0]
                            for k, c in cost.items()),
          unfold_gb_s=cost["unfold"][0] / (ms["unfold"] * 1e-3) / 1e9,
-         dft_achieved_tflops=cost["dft"][1] / (ms["dft"] * 1e-3) / 1e12,
-         dft_achieved_tf32_tflops=3 * cost["dft"][1] / (ms["dft"] * 1e-3)
+         dft_achieved_tflops=dft_all[1] / (ms["dft"] * 1e-3) / 1e12,
+         dft_achieved_tf32_tflops=3 * dft_all[1] / (ms["dft"] * 1e-3)
          / 1e12,
          dft_bound_ms={"tf32": bound_tf32(*cost["dft"])[0],
-                       "3xtf32_method": bound_3xtf32(*cost["dft"])[0],
+                       "tf32_all_columns": bound_tf32(*dft_all)[0],
+                       "3xtf32_method": bound_3xtf32(*dft_all)[0],
                        "fp32_pipe": bound(*cost["dft"])[0]},
          dft_max_rel_err_vs_float64=f64,
          dft_plain_max_rel_err_vs_float64=plain_f64,
@@ -1185,14 +1330,15 @@ def main() -> int:
          max_abs_err_vs_plain=spec_errs, ms=ms,
          dft_max_rel_err_vs_float64=spec_f64, dft_staging=dftk.staging(xr),
          dft_bound_ms={
-             "tf32": bound_tf32(*dft_cost(nf, j, j, False))[0],
+             "tf32": bound_tf32(*dft_cost(nf, j, j, False, True))[0],
+             "tf32_all_columns": bound_tf32(*dft_cost(nf, j, j, False))[0],
              "3xtf32_method": bound_3xtf32(*dft_cost(nf, j, j, False))[0],
-             "fp32_pipe": bound(*dft_cost(nf, j, j, False))[0]},
+             "fp32_pipe": bound(*dft_cost(nf, j, j, False, True))[0]},
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          plan_bound_ms=sum(bound(*c)[0] for c in (
              (4 * (b * n + nf * j), 0), (4 * (2 * nf * j + j), nf * j),
              (12 * nf * j, 4 * nf * j)))
-         + bound_tf32(*dft_cost(nf, j, j, False))[0],
+         + bound_tf32(*dft_cost(nf, j, j, False, True))[0],
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     del plan, native, x, frames, fw, xr, z
 
@@ -1341,8 +1487,10 @@ def main() -> int:
     t = frames.shape[1]
     taps_rev = plan.consts["taps"].flip(0).contiguous()
     fr, fi = ops._fourier(p, str(dev))
+    planes = ops._fourier_planes(p, str(dev))
     pcfg = ops._resolve(pfbk.TUNE_SPACE, {"m": m, "p": p, "t": t})
-    zk = pfbk.pfb_fused(frames, taps_rev, fr, fi, **pcfg)
+    zk = pfbk.pfb_fused(frames, taps_rev, fr, fi, planes=planes,
+                        hermitian=True, **pcfg)
     pw = ew.elementwise_chain(zk, (), (), abs2_head=True)
     chan_errs = {
         "fir_valid": hold(torch, "cascaded fir", y,
@@ -1366,7 +1514,9 @@ def main() -> int:
         "downsample_copy": device_ms(
             torch, lambda: y[:, ::2].reshape(b, -1, p).contiguous()),
         "pfb_fused": device_ms(
-            torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi, **pcfg)),
+            torch, lambda: pfbk.pfb_fused(frames, taps_rev, fr, fi,
+                                          planes=planes, hermitian=True,
+                                          **pcfg)),
         "pfb_fused_plain": device_ms(
             torch, lambda: pfbk.pfb_fused_plain(frames, taps_rev, fr, fi)),
         "elementwise_chain": device_ms(
@@ -1381,7 +1531,7 @@ def main() -> int:
                {"fir_valid": 1, "pfb_fused": 1, "elementwise_chain": 1})
     n_out = pw.numel()
     chan_cost = {"fir_valid": fir_cost(b, n, y.shape[1], 31),
-                 "pfb_fused": pfb_cost(b, t, p, p, m),
+                 "pfb_fused": pfb_cost(b, t, p, p, m, hermitian=True),
                  "elementwise_chain": (12 * n_out, 3 * n_out)}
     emit(phase="main", path="cascaded_channelizer", x=list(CHAN_X), taps=31,
          p=p, m=m, tiles={"fir_valid": cc, "pfb_fused": pcfg},
@@ -1390,6 +1540,10 @@ def main() -> int:
          bound_ms={k: (bound_pfb if k == "pfb_fused" else bound)(*c)[0]
                    for k, c in chan_cost.items()},
          pfb_bound_ms_fp32_pipe=fp32_pipe_ms(*chan_cost["pfb_fused"]),
+         pfb_bound_ms_all_columns=bound_pfb(*pfb_cost(b, t, p, p, m))[0],
+         pfb_bound_ms_3xtf32=bound_3xtf32(
+             chan_cost["pfb_fused"][0], sum(chan_cost["pfb_fused"][1:]))[0],
+         pfb_stages=pfb_stages(frames, taps_rev, fr, fi, planes, pcfg),
          plan_bound_ms=sum((bound_pfb if k == "pfb_fused" else bound)(*c)[0]
                            for k, c in chan_cost.items()),
          plan_bound_ms_fp32_pipe=sum(fp32_pipe_ms(*c)
@@ -1423,7 +1577,8 @@ def main() -> int:
         "matmul": {"matmul": 1, "tf32_planes": 1}, "summation": {},
         "dft": {"dft": 1},
         "idft": {"dft": 1}, "fir": {"fir_valid": 1}, "unfold": {"unfold": 1},
-        "overlap_add": {"overlap_add": 1}, "pfb_frontend": {"pfb_fused": 1},
+        "overlap_add": {"overlap_add": 1},
+        "pfb_frontend": {"pfb_frontend": 1},
         "pfb": {"pfb_fused": 1}}
     # each kernel wrapper the sweep reaches: (module, attribute, plain
     # version, its tune params, hold tolerance: None is bit-exact)
@@ -1439,7 +1594,10 @@ def main() -> int:
         "overlap_add": (unfk, "overlap_add", unfk.overlap_add_plain,
                         unfk.OLA_TUNE_SPACE.params, None),
         "pfb_fused": (pfbk, "pfb_fused", pfbk.pfb_fused_plain,
-                      pfbk.TUNE_SPACE.params, PFB_RTOL),
+                      pfbk.TUNE_SPACE.params + ("planes", "hermitian"),
+                      PFB_RTOL),
+        "pfb_frontend": (pfbk, "pfb_frontend", pfbk.pfb_frontend_plain, (),
+                         None),
         "elementwise_mult": (
             ew, "elementwise_mult",
             lambda x, y: ew.elementwise_binary_plain(x, y, "mul"),
@@ -1841,6 +1999,35 @@ def main() -> int:
     emit(phase="int8_kernels", kernel="fir_valid_int8",
          cases="half-integer quotients, every tile, against the CPU",
          exact=True)
+    # csrc/int8.cuh's quantize (a reciprocal per scale, two FMAs, a
+    # magic-number add) against the division it replaces, on EVERY float x
+    # in [-amax, amax] (csrc/qcheck.cu): amax under the 1e-12 clamp, powers
+    # of two and 127 * 2^k, one ulp either side of each, and amax drawn
+    # log-uniform from 1e-30 to 1e30
+    f32 = np.float32
+    fmax = np.finfo(np.float32).max
+    base = [f32(2.0) ** k for k in range(-60, 61, 4)] \
+        + [f32(127) * f32(2.0) ** k for k in range(-60, 61, 4)] \
+        + [f32(1e30), f32(1e38), fmax]
+    with np.errstate(over="ignore"):     # FLT_MAX's upper neighbour: inf
+        near = [np.nextafter(v, d) for v in base
+                for d in (f32(0), f32(np.inf))]
+    tiny = f32(1e-12)
+    clamp = [f32(0), f32(1e-45), f32(1e-30), f32(1e-13), f32(5e-13),
+             np.nextafter(tiny, f32(0)), tiny, np.nextafter(tiny, f32(1))]
+    logu = 10.0 ** np.random.default_rng(11).uniform(-30, 30, 120)
+    amax = np.array([v for v in base + near + clamp + list(logu)
+                     if np.isfinite(f32(v))], dtype=np.float32)
+    amax_d = torch.as_tensor(amax, device=dev)
+    t0 = time.perf_counter()
+    diffs = firk.quantize_check(amax_d).cpu()
+    q_seconds = time.perf_counter() - t0
+    if int(diffs.sum()) != 0:
+        bad = [(float(a), int(d)) for a, d in zip(amax, diffs) if d]
+        fail(f"quantize_rcp differs from the division at {bad[:8]}")
+    emit(phase="int8_kernels", kernel="quantize_rcp", scales=len(amax),
+         pairs_checked=firk.quantize_check_pairs(amax_d),
+         ints_that_differ=0, seconds=q_seconds, exact=True)
     # pfb_fused_int8: P = 16, 20, 48, 1000 and 1024 (20, 48 and 1000 pad
     # yq's stride to 16; 37 takes the scalar frontend loads), ragged frame
     # counts, both tiles, frames whose rows start 16-byte aligned and not,
@@ -2205,13 +2392,16 @@ def main() -> int:
     fir8_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
         torch, lambda c=c: firk.fir_valid_int8(x, tq1, ts1, **c), repeats=5)
         for c in firk.TUNE_SPACE_INT8.configs({"k": 31})}
+    fir8_tiles_2 = {f"{c['bn']}/{c['threads']}": device_ms(
+        torch, lambda c=c: firk.fir_valid_int8(x2, tq2, ts2, **c), repeats=5)
+        for c in firk.TUNE_SPACE_INT8.configs({"k": 15})}
     fcost = add_cost(qfir_cost(b, n, y1.shape[1], 31),
                      qfir_cost(b, x2.shape[1], y2.shape[1], 15))
     emit(phase="int8_paths", path="fir_decimate", x=list(FIR_X),
          taps=[31, 15], tiles={"fir_1": c1, "fir_2": c2},
          max_abs_err_vs_plain={"fir_valid_int8": ferr}, ms=ms,
-         fir_1_ms_per_tile=fir8_tiles,
-         divisions_fir_1=int(y1.numel()) * 31,
+         fir_1_ms_per_tile=fir8_tiles, fir_2_ms_per_tile=fir8_tiles_2,
+         quantizes_fir_1=int(y1.numel()) * 31,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={"fir_1": bound8(*qfir_cost(b, n, y1.shape[1], 31))[0],
                    "fir_2": bound8(*qfir_cost(b, x2.shape[1], y2.shape[1],
@@ -2242,6 +2432,9 @@ def main() -> int:
     check_grew("int8 correlate", before, {"fir_valid_int8": 1})
     emit(phase="int8_paths", path="correlate", x=list(FIR_X), taps=63,
          tile=cc, max_abs_err_vs_plain={"fir_valid_int8": cerr}, ms=ms,
+         fir_ms_per_tile={f"{c['bn']}/{c['threads']}": device_ms(
+             torch, lambda c=c: firk.fir_valid_int8(x, tq, ts, **c),
+             repeats=5) for c in firk.TUNE_SPACE_INT8.configs({"k": 63})},
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={"fir_valid_int8": bound8(*qfir_cost(
              b, n, n - 62, 63))[0]}, **info)

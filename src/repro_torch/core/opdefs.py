@@ -409,9 +409,9 @@ def _qprep_fir(at, consts):
 
 
 def _qimpl_pfb_frontend(args, at, qpack, lowering="native", block=None):
-    # native only: the f32 kernel frontend rides pfb_fused with an
-    # identity DFT, which has no integer analogue (the identity would be
-    # quantized too); the torch int8 einsum is already integer compute
+    # native only, as in the reference: no int8 kernel computes the
+    # frontend alone (the int8 PFB's frontend requantizes each frame for
+    # its DFT); the torch int8 einsum is already integer compute
     return quantize.qpfb_frontend(args[0], args[1] if len(args) > 1 else None,
                                   qtaps=qpack)
 

@@ -26,7 +26,11 @@
 // by bytes instead: a block column covers all of N, so X is read once.
 //
 // What the design does about that: one block of 288 threads owns a
-// (128 x 64) tile of Z.  Warp 8 is the producer: one lane streams the
+// (128 x 64) tile of Z, or (128 x 16) where N <= 16 (the PFB's DFT stage
+// at P = 16: there a 64-wide tile computes 48 dead columns, and a block
+// with a quarter of the accumulators leaves room for more blocks on an
+// SM, to hide the latency of a K of one chunk).  Warp 8 is the producer:
+// one lane streams the
 // K = L chunks of 32 through a two-stage ring in shared memory with TMA
 // (mbarriers count the bytes in and the consumers out).  A chunk holds
 // the X tile (two 128-byte column halves for a complex X) and, for each
@@ -39,7 +43,8 @@
 // on 64 rows: for every 8-deep step a warp reads its X fragment from
 // shared memory into registers, de-interleaves a complex row, forms
 // Xr + Xi (3mult), splits each value into TF32 hi and lo
-// (cvt.rna.tf32.f32), and issues three wgmma.m64n64k8 per real product
+// (cvt.rna.tf32.f32), and issues three wgmma.m64n64k8 (m64n16k8) per
+// real product
 // (-Xi Fi of 4mult with the instruction's A scale at -1)
 // with A from registers and B from the swizzled tile, one group in
 // flight while the next fragment is split.  The tensor core's own f32
@@ -71,10 +76,10 @@ using tina::tf32::BM;
 using tina::tf32::BK;
 using tina::tf32::THREADS;
 
-constexpr int BN = 64;            // columns of a block
+constexpr int N_ALIGN = 64;       // the planes' N padding
 constexpr int STAGES = 2;
 
-template <bool CPLX, bool KARA>
+template <bool CPLX, bool KARA, int BN>
 struct Cfg {
   static constexpr int NP = (KARA && CPLX) ? 3 : 2;  // F planes (hi + lo)
   static constexpr int NA = CPLX ? (KARA ? 3 : 2) : 1;  // X-side operands
@@ -83,13 +88,13 @@ struct Cfg {
   static constexpr bool PROMOTE = NP == 2;
 };
 
-template <bool CPLX, bool KARA>
+template <bool CPLX, bool KARA, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap fmap,
-                float2* __restrict__ out, int B, int N, int n_pad,
-                int k_tiles, int n_blocks) {
-  using C = Cfg<CPLX, KARA>;
+                float2* __restrict__ out, int B, int N, int n_cols,
+                int n_pad, int k_tiles, int n_blocks) {
+  using C = Cfg<CPLX, KARA, BN>;
   using R = typename C::R;
   using tina::tf32::mma3;
   extern __shared__ uint8_t smem_raw[];
@@ -184,7 +189,8 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
 
-  // epilogue: interleaved complex64, two neighbouring columns a store
+  // epilogue: interleaved complex64, two neighbouring columns a store;
+  // columns n_cols .. N - 1 (Hermitian) as conjugates of N - n
   const bool pairs = (N % 2) == 0;   // 16-byte aligned (zr, zi) pairs
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -194,7 +200,7 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * q;
-      if (n >= N) continue;
+      if (n >= n_cols) continue;
       float zr[2], zi[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -207,35 +213,58 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
           zi[e] = acc[1][i];
         }
       }
-      if (pairs && n + 1 < N) {
+      if (pairs && n + 1 < n_cols) {
         *reinterpret_cast<float4*>(row + n) =
             make_float4(zr[0], zi[0], zr[1], zi[1]);
       } else {
         row[n] = make_float2(zr[0], zi[0]);
-        if (n + 1 < N) row[n + 1] = make_float2(zr[1], zi[1]);
+        if (n + 1 < n_cols) row[n + 1] = make_float2(zr[1], zi[1]);
+      }
+      if (n_cols < N) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n + e;
+          if (c >= 1 && c < n_cols && N - c >= n_cols)
+            row[N - c] = make_float2(zr[e], -zi[e]);
+        }
       }
     }
   }
 }
 
-template <bool CPLX, bool KARA>
+template <bool CPLX, bool KARA, int BN>
 cudaError_t launch(const CUtensorMap& xm, const CUtensorMap& fm,
-                   float2* out, int B, int N, int n_pad, int k_tiles,
-                   cudaStream_t s) {
-  constexpr int SMEM = Cfg<CPLX, KARA>::R::SMEM;
-  auto* kern = dft_tf32_kernel<CPLX, KARA>;
+                   float2* out, int B, int N, int n_cols, int n_pad,
+                   int k_tiles, cudaStream_t s) {
+  constexpr int SMEM = Cfg<CPLX, KARA, BN>::R::SMEM;
+  auto* kern = dft_tf32_kernel<CPLX, KARA, BN>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
-  const long long nb = (N + BN - 1) / BN, mb = (B + BM - 1) / BM;
+  const long long nb = (n_cols + BN - 1) / BN, mb = (B + BM - 1) / BM;
   if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
-  kern<<<(unsigned)(nb * mb), THREADS, SMEM, s>>>(xm, fm, out, B, N, n_pad,
-                                                 k_tiles, (int)nb);
+  kern<<<(unsigned)(nb * mb), THREADS, SMEM, s>>>(xm, fm, out, B, N, n_cols,
+                                                 n_pad, k_tiles, (int)nb);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int BN>
+cudaError_t dispatch(bool cplx, bool kara, const CUtensorMap& xm,
+                     const CUtensorMap& fm, float2* o, int B, int N,
+                     int n_cols, int n_pad, int k_tiles, cudaStream_t s) {
+  if (cplx)
+    return kara ? launch<true, true, BN>(xm, fm, o, B, N, n_cols, n_pad,
+                                         k_tiles, s)
+                : launch<true, false, BN>(xm, fm, o, B, N, n_cols, n_pad,
+                                          k_tiles, s);
+  return kara ? launch<false, true, BN>(xm, fm, o, B, N, n_cols, n_pad,
+                                        k_tiles, s)
+              : launch<false, false, BN>(xm, fm, o, B, N, n_cols, n_pad,
+                                         k_tiles, s);
 }
 
 }  // namespace
@@ -245,15 +274,21 @@ bool aligned16(const void* p) {
 // l_pad) f32, the hi and lo TF32 parts of each F plane, K-major
 // (P = 2 for 4mult: Fr, Fi; P = 3 for 3mult: Fr, Fi - Fr, Fr + Fi),
 // n_pad a multiple of 64 >= N, l_pad a multiple of 32 >= L; out (B, N)
-// complex64.  All contiguous on the device.  karatsuba selects 3mult.
-// Launches on `stream`; returns the launch's cudaError_t.
+// complex64.  All contiguous on the device.  karatsuba selects 3mult;
+// hermitian (a real x at 4mult only) says that F is a DFM, F[l, N - n] =
+// conj F[l, n], so that Z[N - n] = conj Z[n]: where that saves column
+// tiles, columns 0 .. N/2 are computed and the others written as their
+// conjugates, half the products.  (bm, bn) is the tile, (128, 64) or (128, 16).  Launches on
+// `stream`; returns the launch's cudaError_t.
 extern "C" int tina_dft(const void* x, int x_is_complex, int x_cols,
                         const void* planes, int n_pad, int l_pad, void* out,
-                        int B, int L, int N, int karatsuba, int bm, int bn,
-                        void* stream) {
+                        int B, int L, int N, int karatsuba, int hermitian,
+                        int bm, int bn, void* stream) {
   const int elem = x_is_complex ? 8 : 4;
   if (B <= 0 || L <= 0 || N <= 0 || bm != BM || x_cols < L ||
-      bn != BN || n_pad < N || n_pad % BN || l_pad < L || l_pad % BK ||
+      (hermitian && (x_is_complex || karatsuba)) ||
+      (bn != 64 && bn != 16) || n_pad < N || n_pad % N_ALIGN || l_pad < L ||
+      l_pad % BK ||
       (long long)x_cols * elem % 16 || !aligned16(x) || !aligned16(planes))
     return cudaErrorInvalidValue;
   CUtensorMap xm, fm;
@@ -262,14 +297,17 @@ extern "C" int tina_dft(const void* x, int x_is_complex, int x_cols,
                 (uint64_t)x_floats * 4, BK, BM) ||
       !tile_map(&fm, planes, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, l_pad,
                 (uint64_t)(karatsuba ? 6 : 4) * n_pad, (uint64_t)l_pad * 4,
-                BK, BN))
+                BK, bn))
     return cudaErrorInvalidValue;
   const int k_tiles = (L + BK - 1) / BK;
   const auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float2*>(out);
-  if (x_is_complex)
-    return karatsuba ? launch<true, true>(xm, fm, o, B, N, n_pad, k_tiles, s)
-                     : launch<true, false>(xm, fm, o, B, N, n_pad, k_tiles, s);
-  return karatsuba ? launch<false, true>(xm, fm, o, B, N, n_pad, k_tiles, s)
-                   : launch<false, false>(xm, fm, o, B, N, n_pad, k_tiles, s);
+  // the symmetry only where it saves column tiles (not at N <= bn)
+  const int half = N / 2 + 1;
+  const int n_cols =
+      hermitian && (half + bn - 1) / bn < (N + bn - 1) / bn ? half : N;
+  return bn == 64 ? dispatch<64>(x_is_complex, karatsuba, xm, fm, o, B, N,
+                                 n_cols, n_pad, k_tiles, s)
+                  : dispatch<16>(x_is_complex, karatsuba, xm, fm, o, B, N,
+                                 n_cols, n_pad, k_tiles, s);
 }

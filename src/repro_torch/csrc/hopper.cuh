@@ -194,6 +194,24 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // registers: a[2 c + h] is row 16 w + g + 8 h, column q + 4 c of the
 // 64 x 8 slice.
 
+// D (64 x 16, f32) = SA A (64 x 8, tf32, registers) * B (16 x 8, tf32,
+// K-major 128B-swizzled shared memory, descriptor b) + D, or + 0 where
+// scale_d is 0; SA is 1 or -1.
+template <int SA>
+__device__ __forceinline__ void wgmma_tf32_m64n16k8(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, %14, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(SA));
+}
+
 // D (64 x 64, f32) = SA A (64 x 8, tf32, registers) * B (64 x 8, tf32,
 // K-major 128B-swizzled shared memory, descriptor b) + D, or + 0 where
 // scale_d is 0; SA is 1 or -1.

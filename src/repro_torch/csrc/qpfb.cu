@@ -8,11 +8,14 @@
 // and branches p < P (repro_torch/core/quantize.py:qpfb, bit for bit):
 //   1. frontend: the (t, p) window x[b, t .. t+M-1, p] is quantized on
 //      its own (amax over its M values, s = scale_of(amax), q_m =
-//      quantize_one(x, s)); acc = sum_m q_m * tq[m, p] in int32;
+//      clip(rint(x / s), +-127)); acc = sum_m q_m * tq[m, p] in int32;
 //      y[t, p] = (float(acc) * s) * ts[p].  tq is the int8 prototype as
 //      quantize_pfb_taps packs it (reversed: row m meets frame t + m).
 //      Frame t's y is then requantized over ALL P branches: its amax over
-//      p, ys[r] = scale_of(amax), yq[r, p] = quantize_one(y, ys[r]).
+//      p, ys[r] = scale_of(amax), yq[r, p] = clip(rint(y / ys[r]), +-127).
+//      Every quantize is csrc/int8.cuh's quantize_rcp / quantize_bits,
+//      with one reciprocal per window and per frame: no division per
+//      value.
 //   2. DFT stage: zr[r, n] = (float(sum_p yq[r, p] qr[p, n]) * ys[r]) *
 //      sr[n], zi likewise with qi, si; qr / qi is the int8 Fourier matrix
 //      with its per-column scales.  Written as interleaved complex64.
@@ -21,10 +24,9 @@
 // (16 x 2^22 samples, P = N = 1024, M = 8) it reads 268 MB of frames and
 // writes 536 MB of complex64: 0.241 ms at 3.35 TB/s, while its 274.4 G
 // int ops take 0.139 ms at the 1,979 TOPS of the s8 tensor cores.  The
-// frontend's M + 1 correctly rounded divisions per (frame, branch) (603 M
-// there), each with a reciprocal, a rounding and a conversion on the
-// SIMT pipe's quarter-rate unit, are expected to set the frontend's time
-// rather than its bytes.
+// frontend's M + 1 quantizes per (frame, branch) (603 M there) take a
+// multiply, two FMAs, an add and a clamp each on the SIMT pipe, the
+// reciprocal once per window or frame (csrc/int8.cuh).
 //
 // What the design does about that: two kernels on the stream, because
 // the requantization needs each frame's y over all P before any of it is
@@ -53,7 +55,7 @@
 //     (zero-padded to P_pad), s8 wgmma through a four-stage TMA ring,
 //     persistent, with ys as the per-row scale; 128 x 64 tiles for
 //     N <= 64.
-// The divisions keep csrc/int8.cuh's rules (never --use_fast_math).
+// The quantizes keep csrc/int8.cuh's rules (never --use_fast_math).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -112,18 +114,21 @@ __device__ __forceinline__ float4 branch4(const float* __restrict__ xr,
     a[2] = fmaxf(a[2], fabsf(v.z));
     a[3] = fmaxf(a[3], fabsf(v.w));
   }
-  float sc[4];
+  float sc[4], rc[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) sc[j] = tina::scale_of(a[j]);
+  for (int j = 0; j < 4; ++j) {
+    sc[j] = tina::scale_of(a[j]);
+    rc[j] = __frcp_rn(sc[j]);
+  }
   int acc[4] = {0, 0, 0, 0};
   for (int m = 0; m < M; ++m) {   // the window again, from L1
     const float4 v = load4<VEC>(xr + (size_t)m * P, p0, P);
     int t[4];
     load_taps<VEC>(tq + (size_t)m * P, p0, P, t);
-    acc[0] += tina::quantize_one(v.x, sc[0]) * t[0];
-    acc[1] += tina::quantize_one(v.y, sc[1]) * t[1];
-    acc[2] += tina::quantize_one(v.z, sc[2]) * t[2];
-    acc[3] += tina::quantize_one(v.w, sc[3]) * t[3];
+    acc[0] += tina::quantize_rcp(v.x, sc[0], rc[0]) * t[0];
+    acc[1] += tina::quantize_rcp(v.y, sc[1], rc[1]) * t[1];
+    acc[2] += tina::quantize_rcp(v.z, sc[2], rc[2]) * t[2];
+    acc[3] += tina::quantize_rcp(v.w, sc[3], rc[3]) * t[3];
   }
   const float4 s4 = load4<VEC>(ts, p0, P);
   return make_float4(tina::rescale(acc[0], sc[0], s4.x),
@@ -184,6 +189,7 @@ frontend_kernel(const float* __restrict__ x, const int8_t* __restrict__ tq,
     }
     if (live) {
       const float sc = tina::scale_of(amax);
+      const float rc = __frcp_rn(sc);
       if (lt == 0) ys[r] = sc;
       int8_t* qrow = yq + (size_t)r * P_pad;
       for (int k = 0; k < gpt; ++k) {
@@ -191,8 +197,8 @@ frontend_kernel(const float* __restrict__ x, const int8_t* __restrict__ tq,
         if (g >= G) break;
         const float4 y4 = yrow[(k << tpf_log2) + lt];
         *reinterpret_cast<int*>(qrow + 4 * g) = tina::pack4(
-            tina::quantize_one(y4.x, sc), tina::quantize_one(y4.y, sc),
-            tina::quantize_one(y4.z, sc), tina::quantize_one(y4.w, sc));
+            tina::quantize_bits(y4.x, sc, rc), tina::quantize_bits(y4.y, sc, rc),
+            tina::quantize_bits(y4.z, sc, rc), tina::quantize_bits(y4.w, sc, rc));
       }
     }
   }

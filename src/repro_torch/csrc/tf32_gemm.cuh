@@ -127,8 +127,11 @@ template <int SA, int W>
 __device__ __forceinline__ void mma_tf32(float (&d)[W],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int sd) {
-  static_assert(W == 32 || W == 64, "a 64- or 128-column tile");
-  if constexpr (W == 32)
+  static_assert(W == 8 || W == 32 || W == 64,
+                "a 16-, 64- or 128-column tile");
+  if constexpr (W == 8)
+    wgmma_tf32_m64n16k8<SA>(d, a, b, sd);
+  else if constexpr (W == 32)
     wgmma_tf32_m64n64k8<SA>(d, a, b, sd);
   else
     wgmma_tf32_m64n128k8<SA>(d, a, b, sd);

@@ -36,9 +36,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> (argtypes); every one returns its cudaError_t.
 SIGNATURES = {
-    # x, taps_rev, fr, fi (nullable), out, B, T, P, N, M, bt, bn,
-    # complex_out, stream
-    "tina_pfb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, taps_rev, planes, n_pad, l_pad, y, y_cols, out, B, T, P, N, M,
+    # hermitian, bt, bn, stream
+    "tina_pfb": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _P],
+    # x, taps_rev, y, B, T, P, M, y_cols, stream
+    "tina_pfb_frontend": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # head, head_mode (0 real, 1 complex abs2, 2 real abs2), n, codes*,
     # consts*, operands**, n_steps, out, threads, stream
     "tina_chain": [_P, _I, ctypes.c_longlong, ctypes.POINTER(_I),
@@ -46,8 +49,9 @@ SIGNATURES = {
     # x, y, out, n, cols, y_is_row, op (0 mul, 1 add), threads, stream
     "tina_binary": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     # x, x_is_complex, x_cols, planes, n_pad, l_pad, out, B, L, N,
-    # karatsuba, bm, bn, stream
-    "tina_dft": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    # karatsuba, hermitian, bm, bn, stream
+    "tina_dft": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _P],
     # x, y, rows, n, J, bt, bj, stream
     "tina_unfold": [_P, _P, _I, _I, _I, _I, _I, _P],
     # frames, out, rows, T, J, hop, threads, stream
@@ -68,6 +72,8 @@ SIGNATURES = {
                       _P],
     # x, tq, ts, out, rows, n, K, bn, threads, stream
     "tina_fir_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # amax, diffs, n, blocks, stream (check-only: csrc/qcheck.cu)
+    "tina_quantize_check": [_P, _P, _I, _I, _P],
     # frames, tq, ts, frt, fit (qr, qi K-major), sr, si, yq, ys, out, B,
     # T, P, N, M, P_pad, bt, bn, stream
     "tina_pfb_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -38,10 +38,12 @@ import torch
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels import matmul as mm_kernel
 
-# The compiled tile of csrc/dft.cu (rows x columns per block): 128 rows,
+# The compiled tiles of csrc/dft.cu (rows x columns per block): 128 rows,
 # two consumer warpgroups of 64, by 64 columns (a second f32 accumulator
-# set per warpgroup, for accuracy, leaves no registers for 128).
-TILES = ((128, 64),)
+# set per warpgroup, for accuracy, leaves no registers for 128), or by 16
+# where N <= 16 (the PFB's DFT stage at P = 16: no dead columns past 16,
+# and a quarter of the registers, so more blocks share an SM).
+TILES = ((128, 64), (128, 16))
 VARIANTS = ("4mult", "3mult")
 BK = 32          # K per ring stage: one 128-byte row of f32
 STAGES = 2       # ring depth
@@ -60,7 +62,12 @@ def smem_bytes(bm: int, bn: int) -> int:
     return STAGES * stage + 2 * STAGES * 8 + 1024
 
 
-# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limit: the compiled
+def default_bn(n: int) -> int:
+    """The column tile for N output columns: 16 where N <= 16, else 64."""
+    return 16 if n <= 16 else 64
+
+
+# ctx: {"m": rows, "n": out cols, "k": inner}.  Hard limit: a compiled
 # tile, whose ring (160 KB at most: complex x, three planes) fits the
 # 227 KB of shared memory a block may use.
 TUNE_SPACE = tune.register(tune.TuneSpace(
@@ -70,7 +77,7 @@ TUNE_SPACE = tune.register(tune.TuneSpace(
     valid=lambda cfg, ctx: ((cfg["bm"], cfg["bn"]) in TILES
                             and smem_bytes(cfg["bm"], cfg["bn"])
                             <= tune.SMEM_BUDGET),
-    default=lambda ctx: {"bm": 128, "bn": 64},
+    default=lambda ctx: {"bm": 128, "bn": default_bn(ctx["n"])},
 ))
 
 
@@ -147,12 +154,17 @@ def _check(name, t, dtype, shape, device):
 
 def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
         variant: str = "3mult", bm: int = 128, bn: int = 64,
-        planes: torch.Tensor | None = None) -> torch.Tensor:
+        planes: torch.Tensor | None = None,
+        hermitian: bool = False) -> torch.Tensor:
     """x (B, L) complex64 or float32, fr/fi (L, N) float32 (the forward
     or inverse Fourier matrix) -> complex64 (B, N) = x (fr + i fi).
     ``planes``: :func:`tf32_planes` of (fr, fi, variant), made once by a
     caller whose matrix is a constant; None splits fr and fi here, per
-    call.
+    call.  ``hermitian`` (a real x at 4mult): the caller vouches that
+    fr + i fi is a DFM, F[l, N - n] = conj F[l, n], so the kernel may
+    compute columns 0 .. N/2 and write the others as their conjugates,
+    which it does where that saves column tiles (the plain version
+    computes every column).
 
     A CPU tensor runs :func:`dft_plain`; a CUDA tensor launches the
     kernel on the current stream or raises."""
@@ -172,6 +184,8 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
     if (bm, bn) not in TILES:
         raise ValueError(f"dft: tile ({bm}, {bn}) not compiled; have "
                          f"{TILES}")
+    if hermitian and (cplx or variant != "4mult"):
+        raise ValueError("dft: hermitian takes a real x at 4mult")
     if planes is None:
         planes = tf32_planes(fr, fi, variant)
     np_ = 2 if variant == "4mult" else 3
@@ -187,7 +201,7 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
     code = _build.lib().tina_dft(
         x.data_ptr(), int(cplx), x.shape[1], planes.data_ptr(),
         planes.shape[1], planes.shape[2], out.data_ptr(), b, l, n,
-        int(variant == "3mult"), bm, bn,
+        int(variant == "3mult"), int(hermitian), bm, bn,
         torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
@@ -295,6 +309,7 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
 
 
 __all__ = ["dft", "dft_plain", "TUNE_SPACE", "TILES", "VARIANTS",
+           "default_bn",
            "tf32_split", "tf32_planes", "staging", "smem_bytes",
            "LAUNCHES", "dft_int8", "dft_int8_plain", "TUNE_SPACE_INT8",
            "TILES_INT8", "INT8_LAUNCHES", "int8_smem_bytes"]

@@ -15,7 +15,9 @@ no reversed copy of its taps either.
 (``tina_fir_int8``) replaces the reference's ``kernels/fir.py:
 fir_valid_int8``; it quantizes every window in the kernel and runs an
 int32 MAC against int8 taps.  :func:`fir_valid_int8_plain` is the same
-function in plain torch, equal bit for bit.
+function in plain torch, equal bit for bit.  :func:`quantize_check`
+runs the check-only ``csrc/qcheck.cu``: the kernels' quantize against
+the division it replaces, on every float of a scale.
 """
 from __future__ import annotations
 
@@ -127,22 +129,28 @@ def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
 
 # -- int8 ------------------------------------------------------------------
 def int8_smem_bytes(bn: int, k: int) -> int:
-    """Dynamic shared memory of one block of csrc/qfir.cu: the bn + K - 1
-    samples its outputs read and the K taps widened to int."""
-    return 4 * (bn + k - 1) + 4 * k
+    """Dynamic shared memory of one block of csrc/qfir.cu: the bn + K4
+    samples its outputs read (K4: K rounded up to 4), its bn outputs on
+    their way out, and the taps packed four to a word, K4 bytes."""
+    k4 = -(-k // 4) * 4
+    return 4 * (2 * bn + k4) + k4
 
 
 def _valid_int8(cfg: dict, ctx: dict) -> bool:
     bn, threads = cfg["bn"], cfg["threads"]
     return (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0
-            and bn > 0 and ctx["k"] <= mm_kernel.MAX_INT8_K
+            and bn > 0 and bn % 4 == 0 and ctx["k"] <= mm_kernel.MAX_INT8_K
             and int8_smem_bytes(bn, ctx["k"]) <= tune.SMEM_BUDGET)
 
 
 # ctx: {"k": taps, "n": signal length, "rows": flattened batch rows}.  A
-# block owns bn outputs of one row, each thread every threads-th of them;
-# the hard limits are the threads per block and the shared memory of the
-# staged samples and taps (any K whose staging fits 227 KB).
+# block owns bn outputs of one row, each thread four neighbouring ones at
+# a time; the hard limits are bn a multiple of 4, the threads per block
+# and the shared memory of the staged samples, outputs and taps (any K
+# whose staging fits 227 KB).  The default, 1024 outputs on 128 threads
+# (two quads a thread), measured fastest or next to it at K = 15, 31 and
+# 63 at the fir_decimate and correlate widths (chip_smoke.py's
+# *_ms_per_tile).
 TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
     kernel="fir_int8",
     params=("bn", "threads"),
@@ -150,7 +158,7 @@ TUNE_SPACE_INT8 = tune.register(tune.TuneSpace(
                                  for bn in (512, 1024, 2048)
                                  for threads in (128, 256)),
     valid=_valid_int8,
-    default=lambda ctx: {"bn": 1024, "threads": 256},
+    default=lambda ctx: {"bn": 1024, "threads": 128},
 ))
 
 
@@ -174,7 +182,7 @@ def fir_valid_int8_plain(x: torch.Tensor, tq: torch.Tensor,
 
 
 def fir_valid_int8(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
-                   bn: int = 1024, threads: int = 256) -> torch.Tensor:
+                   bn: int = 1024, threads: int = 128) -> torch.Tensor:
     """x (R, N) float32; tq (K,) int8 taps as quantize_fir_taps packs them
     (already reversed for a true FIR); ts (1,) float32 their scale ->
     float32 (R, N - K + 1), every window quantized on its own.
@@ -211,7 +219,43 @@ def fir_valid_int8(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
     return out
 
 
+def quantize_check(amax: torch.Tensor) -> torch.Tensor:
+    """The check-only kernel of ``csrc/qcheck.cu``, called by no plan: for
+    each amax (a CUDA float32 vector, each finite and >= 0) the count of
+    float32 x in [-amax, amax] whose ``int8.cuh:quantize_rcp`` int
+    differs from the division's, clip(rint(x / s), ±127), s = scale_of
+    (amax).  Every such x is tried, so a count of 0 proves the two equal
+    at that scale.  Returns int64 counts on the card; raises for a CPU
+    tensor: its plain version would try some 2**31 values per scale."""
+    if amax.device.type != "cuda":
+        raise ValueError(f"quantize_check: needs a CUDA tensor, got "
+                         f"{amax.device}")
+    if amax.dtype != torch.float32 or amax.ndim != 1 \
+            or not amax.is_contiguous():
+        raise ValueError("quantize_check: amax must be a contiguous float32 "
+                         "vector")
+    if not bool(torch.isfinite(amax).all()) or bool((amax < 0).any()):
+        raise ValueError("quantize_check: every amax must be finite and "
+                         ">= 0")
+    diffs = torch.zeros(amax.shape, dtype=torch.int64, device=amax.device)
+    # 1056 block columns: eight 256-thread blocks on each of an H100's
+    # 132 SMs, walking the floats of each amax with a grid stride
+    code = _build.lib().tina_quantize_check(
+        amax.data_ptr(), diffs.data_ptr(), amax.numel(), 1056,
+        torch.cuda.current_stream(amax.device).cuda_stream)
+    _build.check(code, "quantize_check")
+    return diffs
+
+
+def quantize_check_pairs(amax: torch.Tensor) -> int:
+    """The (x, amax) pairs :func:`quantize_check` tries: for each amax,
+    every float32 in [-amax, amax], both zeros counted."""
+    bits = amax.cpu().contiguous().view(torch.int32).to(torch.int64)
+    return int((2 * (bits + 1)).sum())
+
+
 __all__ = ["fir_valid", "fir_valid_plain", "TUNE_SPACE",
            "LAUNCHES", "TAP_CHUNK", "PER_THREAD", "smem_bytes",
            "fir_valid_int8", "fir_valid_int8_plain", "TUNE_SPACE_INT8",
-           "INT8_LAUNCHES", "int8_smem_bytes"]
+           "INT8_LAUNCHES", "int8_smem_bytes", "quantize_check",
+           "quantize_check_pairs"]

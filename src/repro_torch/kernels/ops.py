@@ -8,9 +8,10 @@ instead of failing at launch.  The kernel wrappers below them take the
 plain torch version for a CPU tensor and launch the CUDA kernel for a
 CUDA tensor.
 
-The P x P Fourier matrix is built once per (P, device) and kept: under
-``jit`` the reference folded it into a constant, and rebuilding it per
-call here would be a host-to-device copy of 8 MB at P = 1024.
+The P x P Fourier matrix is built once per (P, device) and kept, with
+the TF32 planes the PFB's DFT stage reads: under ``jit`` the reference
+folded it into a constant, and rebuilding it per call here would be a
+host-to-device copy of 8 MB at P = 1024.
 
 The int8 wrappers (:func:`qmatmul`, :func:`qdft`, :func:`qfir`,
 :func:`qpfb`) quantize activations with the same
@@ -63,8 +64,10 @@ def _fourier(p: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 @functools.lru_cache(maxsize=16)
-def _eye(p: int, device: str) -> torch.Tensor:
-    return torch.eye(p, dtype=torch.float32, device=device)
+def _fourier_planes(p: int, device: str) -> torch.Tensor:
+    """The PFB's DFT stage's F side: ``dft.tf32_planes`` of
+    :func:`_fourier`'s own (fr, fi) at 4mult, made once per (P, device)."""
+    return dft_kernel.tf32_planes(*_fourier(p, device), "4mult")
 
 
 def _frames(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -74,27 +77,28 @@ def _frames(x: torch.Tensor, p: int) -> torch.Tensor:
 
 def pfb_fir(frames: torch.Tensor, taps: torch.Tensor, *,
             bt: int | None = None, bn: int | None = None) -> torch.Tensor:
-    """Frontend only: (..., T, P), (M, P) -> (..., T - M + 1, P).
-    Runs the fused kernel with the identity 'DFT' (F = I) so the FIR
-    path is exercised."""
+    """Frontend only: (..., T, P), (M, P) -> (..., T - M + 1, P), one
+    launch of the PFB's frontend kernel.  ``bt`` / ``bn`` are checked
+    against the pfb space (the reference's signature) and unused: the
+    frontend has no tile."""
     m, p = taps.shape
     batch = frames.shape[:-2]
     t = frames.shape[-2]
-    cfg = _resolve(pfb_kernel.TUNE_SPACE, {"m": m, "p": p, "t": t},
-                   bt=bt, bn=bn)
+    _resolve(pfb_kernel.TUNE_SPACE, {"m": m, "p": p, "t": t}, bt=bt, bn=bn)
     f3 = frames.reshape((-1, t, p)).contiguous()
-    eye = _eye(p, str(f3.device))
-    y = pfb_kernel.pfb_fused(f3, taps.flip(0).to(f3.dtype).contiguous(), eye,
-                             None, **cfg)
+    y = pfb_kernel.pfb_frontend(f3, taps.flip(0).to(f3.dtype).contiguous())
     return y.reshape(batch + (t - m + 1, p))
 
 
 def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
         bt: int | None = None, bn: int | None = None) -> torch.Tensor:
-    """Full fused PFB: (..., n_samples), (M, P) -> complex64
-    (..., n_frames - M + 1, P).  ``variant`` is accepted for the
-    reference's signature: a real input needs two real products, so
-    3mult and 4mult are the same kernel."""
+    """Full PFB: (..., n_samples), (M, P) -> complex64
+    (..., n_frames - M + 1, P), one call of the PFB kernels (the
+    frontend, then the DFT stage against the DFM's TF32 planes, made once
+    per (P, device), computing half the columns and conjugating the
+    rest).  ``variant`` is accepted for the reference's
+    signature: a real y needs two real products, so 3mult and 4mult are
+    the same kernel."""
     del variant
     m, p = taps.shape
     if x.shape[-1] % p:
@@ -104,9 +108,11 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
     t = frames.shape[1]
     cfg = _resolve(pfb_kernel.TUNE_SPACE, {"m": m, "p": p, "t": t},
                    bt=bt, bn=bn)
-    fr, fi = _fourier(p, str(frames.device))
+    dev = str(frames.device)
+    fr, fi = _fourier(p, dev)
+    planes = _fourier_planes(p, dev) if frames.is_cuda else None
     z = pfb_kernel.pfb_fused(frames, taps.flip(0).to(frames.dtype).contiguous(),
-                             fr, fi, **cfg)
+                             fr, fi, planes=planes, hermitian=True, **cfg)
     return z.reshape(batch + (t - m + 1, p))
 
 

@@ -1,14 +1,16 @@
-"""Fused polyphase filter bank kernel: the FIR bank over frames feeding
-the DFT across branches, with the subfiltered signal kept on chip.
+"""Polyphase filter bank kernel: the FIR bank over frames, then the DFT
+across branches.
 
-The CUDA kernel is ``csrc/pfb.cu`` (it replaces the JAX reference's
-``kernels/pfb.py:pfb_fused``; the source says what bounds it and how).
-:func:`pfb_fused` launches it for a CUDA tensor and runs
-:func:`pfb_fused_plain`, the same arithmetic in plain torch, for a CPU
-tensor.  Unlike the TPU kernel it needs no padded frame axis, no halo
-constraint between taps and the frame block, and no column blocking
-that divides N: the kernel loads its own halo rows and masks every
-ragged edge.
+The CUDA kernels are ``csrc/pfb.cu`` (they replace the JAX reference's
+``kernels/pfb.py:pfb_fused``; the source says what bounds them and how).
+:func:`pfb_fused` is one call of two kernels: a frontend that writes the
+FIR bank's output y as rows whose stride is P rounded up to 4 (zero past
+P), then the 3xTF32 tensor-core DFT of ``csrc/dft.cu`` on those rows.
+:func:`pfb_frontend` launches the frontend alone.  For a CPU tensor each
+runs its plain torch twin, :func:`pfb_fused_plain` and
+:func:`pfb_frontend_plain`; the frontend's y equals its twin bit for bit.
+Unlike the TPU kernel there is no padded frame axis and no halo rule
+between the taps and a frame block: the frontend reads any window.
 
 :func:`pfb_fused_int8` is the int8 tier's fused PFB: ``csrc/qpfb.cu``
 (``tina_pfb_int8``) replaces the reference's ``kernels/pfb.py:
@@ -25,49 +27,71 @@ import torch
 
 from repro_torch.core import quantize
 from repro_torch.kernels import _build, tune
+from repro_torch.kernels import dft as dft_kernel
 from repro_torch.kernels import matmul as mm_kernel
 
-# Compiled tile shapes of csrc/pfb.cu (frames x columns per block).
-TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
-BK = 16          # branches per K chunk, fixed in the kernel
+# Compiled tiles of the DFT stage (frames x columns of a tile): those of
+# csrc/dft.cu, whose kernel the stage is: 128 x 64, and 128 x 16 where
+# N = P <= 16.  The frontend has no tile.
+TILES = dft_kernel.TILES
+Y_ALIGN = 4      # y's row stride: P rounded up to 4 floats (16 bytes)
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
+FRONTEND_LAUNCHES = 0   # the same for pfb_frontend
 INT8_LAUNCHES = 0   # the same for pfb_fused_int8
 
 
-def smem_bytes(bt: int, bn: int, m: int, complex_out: bool = True) -> int:
-    """Dynamic shared memory one block of the kernel asks for."""
-    return 4 * (BK * (bt + 4) + BK * bn * (2 if complex_out else 1)
-                + (bt + m - 1) * BK)
+def y_stride(p: int) -> int:
+    """The row stride of the y rows the DFT stage reads: P rounded up to
+    a multiple of 4 floats, so that TMA reads the rows directly."""
+    return -(-p // Y_ALIGN) * Y_ALIGN
 
 
-# ctx: {"m": taps per branch, "p": branches, "t": frames}.  Hard limits:
-# a compiled tile shape, and the halo rows plus the y / F chunks within
-# the shared memory a block may have.
+# ctx: {"m": taps per branch, "p": branches, "t": frames}.  Hard limit: a
+# compiled tile of the DFT stage.  Neither the taps nor P is bounded by
+# shared memory: the frontend stages nothing, and the DFT stage's ring
+# holds 32-deep chunks of y.
 TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="pfb",
     params=("bt", "bn"),
     candidates=lambda ctx: tuple({"bt": bt, "bn": bn} for bt, bn in TILES),
-    valid=lambda cfg, ctx: (
-        (cfg["bt"], cfg["bn"]) in TILES
-        and smem_bytes(cfg["bt"], cfg["bn"], ctx["m"]) <= tune.SMEM_BUDGET),
-    default=lambda ctx: {"bt": 64, "bn": 32 if ctx["p"] <= 32 else 64},
+    valid=lambda cfg, ctx: (cfg["bt"], cfg["bn"]) in TILES,
+    default=lambda ctx: {"bt": 128, "bn": dft_kernel.default_bn(ctx["p"])},
 ))
 
 
-def pfb_fused_plain(frames: torch.Tensor, taps_rev: torch.Tensor,
-                    fr: torch.Tensor, fi: torch.Tensor | None) -> torch.Tensor:
-    """The kernel's function in plain torch: y = FIR bank, then y @ F.
-    Returns complex (B, T-M+1, N) when ``fi`` is given, else real y @ fr."""
+def pfb_frontend_plain(frames: torch.Tensor,
+                       taps_rev: torch.Tensor) -> torch.Tensor:
+    """The frontend's function in plain torch: frames (B, T, P), taps_rev
+    (M, P) -> y (B, T-M+1, P) = taps_rev[0] x[t], then + taps_rev[m]
+    x[t+m] in ascending m, each product and sum rounded on its own."""
     m = taps_rev.shape[0]
     tout = frames.shape[1] - m + 1
     y = taps_rev[0] * frames[:, 0:tout]
     for k in range(1, m):
         y = y + taps_rev[k] * frames[:, k:k + tout]
-    zr = torch.matmul(y, fr)
-    if fi is None:
-        return zr
-    return torch.complex(zr, torch.matmul(y, fi))
+    return y
+
+
+def pfb_frontend_rows_plain(frames: torch.Tensor,
+                            taps_rev: torch.Tensor) -> torch.Tensor:
+    """What the frontend writes inside :func:`pfb_fused`: y as
+    (B (T-M+1), y_stride(P)) rows, zero past column P."""
+    y = pfb_frontend_plain(frames, taps_rev)
+    p = y.shape[-1]
+    rows = torch.zeros((y.shape[0] * y.shape[1], y_stride(p)),
+                       dtype=y.dtype, device=y.device)
+    rows[:, :p] = y.reshape(-1, p)
+    return rows
+
+
+def pfb_fused_plain(frames: torch.Tensor, taps_rev: torch.Tensor,
+                    fr: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
+    """The kernels' function in plain torch: y = the FIR bank
+    (:func:`pfb_frontend_plain`), then complex (B, T-M+1, N) =
+    y fr + i y fi."""
+    y = pfb_frontend_plain(frames, taps_rev)
+    return torch.complex(torch.matmul(y, fr), torch.matmul(y, fi))
 
 
 def _check(name, t, shape, device):
@@ -83,42 +107,101 @@ def _check(name, t, shape, device):
         raise ValueError(f"pfb_fused: {name} must be contiguous")
 
 
-def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
-              fr: torch.Tensor, fi: torch.Tensor | None = None, *,
-              bt: int = 64, bn: int = 64) -> torch.Tensor:
-    """frames (B, T, P), taps_rev (M, P) pre-reversed taps, fr/fi (P, N)
-    Fourier matrix -> complex64 (B, T-M+1, N) = FIR(frames) @ (fr + i fi);
-    with ``fi=None`` the real float32 FIR(frames) @ fr.
-
-    A CPU tensor runs :func:`pfb_fused_plain`; a CUDA tensor launches the
-    kernel on the current stream or raises."""
+def _frontend_args(frames, taps_rev):
+    """(b, t, p, m, tout) of a CUDA call, its inputs checked."""
+    if frames.ndim != 3 or taps_rev.ndim != 2:
+        raise ValueError(f"pfb_fused: frames {tuple(frames.shape)}, taps "
+                         f"{tuple(taps_rev.shape)}")
     b, t, p = frames.shape
     m = taps_rev.shape[0]
-    n = fr.shape[1]
+    _check("frames", frames, (b, t, p), frames.device)
+    _check("taps_rev", taps_rev, (m, p), frames.device)
+    tout = t - m + 1
+    if tout <= 0:
+        raise ValueError(f"pfb_fused: {t} frames < {m} taps")
+    if b * tout > 2 ** 31 - 1:
+        raise ValueError(f"pfb_fused: {b * tout} frame rows > 2**31 - 1")
+    return b, t, p, m, tout
+
+
+def pfb_frontend(frames: torch.Tensor, taps_rev: torch.Tensor, *,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """frames (B, T, P), taps_rev (M, P) pre-reversed taps -> float32 y
+    (B, T-M+1, P), the FIR bank alone.  ``out``: a contiguous
+    (B (T-M+1), y_stride(P)) float32 buffer that receives y as the rows
+    :func:`pfb_fused`'s DFT stage reads, zero past column P
+    (:func:`pfb_frontend_rows_plain` is their twin), and is returned.
+
+    A CPU tensor runs :func:`pfb_frontend_plain`; a CUDA tensor launches
+    the frontend kernel on the current stream or raises."""
+    dev = frames.device
+    if dev.type == "cpu":
+        if out is None:
+            return pfb_frontend_plain(frames, taps_rev)
+        return out.copy_(pfb_frontend_rows_plain(frames, taps_rev))
+    if dev.type != "cuda":
+        raise ValueError(f"pfb_fused: no kernel for device {dev}")
+    b, t, p, m, tout = _frontend_args(frames, taps_rev)
+    if out is None:
+        y, cols = torch.empty((b, tout, p), device=dev,
+                              dtype=torch.float32), p
+    else:
+        y, cols = out, y_stride(p)
+        _check("out", y, (b * tout, cols), dev)
+    code = _build.lib().tina_pfb_frontend(
+        frames.data_ptr(), taps_rev.data_ptr(), y.data_ptr(), b, t, p, m,
+        cols, torch.cuda.current_stream(dev).cuda_stream)
+    global FRONTEND_LAUNCHES
+    FRONTEND_LAUNCHES += 1
+    _build.check(code, "pfb_frontend")
+    return y
+
+
+def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
+              fr: torch.Tensor, fi: torch.Tensor, *,
+              planes: torch.Tensor | None = None, hermitian: bool = False,
+              bt: int = 128, bn: int = 64) -> torch.Tensor:
+    """frames (B, T, P), taps_rev (M, P) pre-reversed taps, fr/fi (P, N)
+    Fourier matrix -> complex64 (B, T-M+1, N) = FIR(frames) @ (fr + i fi).
+    ``planes``: ``dft.tf32_planes(fr, fi, "4mult")``, made once by a
+    caller whose matrix is a constant; None splits fr and fi here, per
+    call.  ``hermitian``: the caller vouches that fr + i fi is the P-point
+    DFM (N = P), whose symmetry lets the DFT stage compute columns
+    0 .. P/2 and write the rest as their conjugates where that saves
+    column tiles (ops.pfb, the plan's path, vouches).  The frontend's y
+    rows go through a buffer made per call (:func:`pfb_frontend` with
+    ``out`` writes the same rows).
+
+    A CPU tensor runs :func:`pfb_fused_plain`; a CUDA tensor launches the
+    frontend and the DFT stage on the current stream (one call, two
+    kernels) or raises."""
     dev = frames.device
     if dev.type == "cpu":
         return pfb_fused_plain(frames, taps_rev, fr, fi)
     if dev.type != "cuda":
         raise ValueError(f"pfb_fused: no kernel for device {dev}")
-    _check("frames", frames, (b, t, p), dev)
-    _check("taps_rev", taps_rev, (m, p), dev)
+    b, t, p, m, tout = _frontend_args(frames, taps_rev)
+    n = fr.shape[1]
     _check("fr", fr, (p, n), dev)
-    if fi is not None:
-        _check("fi", fi, (p, n), dev)
-    tout = t - m + 1
-    if tout <= 0:
-        raise ValueError(f"pfb_fused: {t} frames < {m} taps")
+    _check("fi", fi, (p, n), dev)
     if (bt, bn) not in TILES:
         raise ValueError(f"pfb_fused: tile ({bt}, {bn}) not compiled; "
                          f"have {TILES}")
-    cplx = fi is not None
-    out = torch.empty((b, tout, n), device=dev,
-                      dtype=torch.complex64 if cplx else torch.float32)
-    lib = _build.lib()
-    code = lib.tina_pfb(
-        frames.data_ptr(), taps_rev.data_ptr(), fr.data_ptr(),
-        fi.data_ptr() if cplx else None, out.data_ptr(), b, t, p, n, m,
-        bt, bn, int(cplx), torch.cuda.current_stream(dev).cuda_stream)
+    if hermitian and n != p:
+        raise ValueError(f"pfb_fused: hermitian needs the P-point DFM, got "
+                         f"N = {n} for P = {p}")
+    if planes is None:
+        planes = dft_kernel.tf32_planes(fr, fi, "4mult")
+    n_pad = -(-n // dft_kernel.N_ALIGN) * dft_kernel.N_ALIGN
+    l_pad = -(-p // dft_kernel.BK) * dft_kernel.BK
+    _check("planes", planes, (4, n_pad, l_pad), dev)
+    cols = y_stride(p)
+    y = torch.empty((b * tout, cols), device=dev, dtype=torch.float32)
+    out = torch.empty((b, tout, n), device=dev, dtype=torch.complex64)
+    code = _build.lib().tina_pfb(
+        frames.data_ptr(), taps_rev.data_ptr(), planes.data_ptr(), n_pad,
+        l_pad, y.data_ptr(), cols, out.data_ptr(), b, t, p, n, m,
+        int(hermitian), bt, bn, torch.cuda.current_stream(dev).cuda_stream)
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "pfb_fused")
@@ -341,8 +424,10 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
     return out
 
 
-__all__ = ["pfb_fused", "pfb_fused_plain", "TUNE_SPACE", "TILES",
-           "LAUNCHES", "smem_bytes", "pfb_fused_int8", "pfb_fused_int8_plain",
+__all__ = ["pfb_fused", "pfb_fused_plain", "pfb_frontend",
+           "pfb_frontend_plain", "pfb_frontend_rows_plain", "y_stride",
+           "TUNE_SPACE", "TILES", "LAUNCHES", "FRONTEND_LAUNCHES",
+           "pfb_fused_int8", "pfb_fused_int8_plain",
            "pfb_frontend_int8_plain", "TUNE_SPACE_INT8", "TILES_INT8",
            "INT8_LAUNCHES", "int8_smem_bytes", "frontend_smem_bytes",
            "frontend_shape", "padded_width"]

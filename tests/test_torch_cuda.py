@@ -33,29 +33,83 @@ def dev():
     return torch.device("cuda")
 
 
-# ragged shapes: Tout not a tile multiple, P below and above the 16-branch
-# chunk, taps longer than a tile (no halo rule), and taps long enough to
-# need more than 48 KB of shared memory
+# ragged shapes: B Tout not a multiple of the DFT stage's 128 rows, P of
+# one K chunk and of many, taps longer than a DFT tile, P = 37 and 1
+# (y's row stride padded to 40 and 4, the frontend's scalar loads) and
+# P = 20 (a stride of 20, no pad)
 PFB_CASES = [(2, 301, 16, 4), (1, 203, 32, 8), (3, 130, 48, 16),
-             (1, 300, 16, 100), (1, 700, 16, 600)]
+             (1, 300, 16, 100), (1, 700, 16, 600), (2, 150, 37, 5),
+             (1, 75, 1024, 8), (2, 60, 1, 3), (3, 50, 20, 3)]
 
 
 @pytest.mark.parametrize("b,t,p,m", PFB_CASES)
 @pytest.mark.parametrize("tile", pfbk.TILES)
-def test_pfb_fused_matches_plain(dev, b, t, p, m, tile):
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_pfb_fused_matches_plain(dev, b, t, p, m, tile, aligned):
     gen = torch.Generator(device=dev).manual_seed(b * t + p * m)
-    x = torch.randn(b, t, p, device=dev, generator=gen)
+    buf = torch.randn(b * t * p + 1, device=dev, generator=gen)
+    # frames that do not start 16-byte aligned take the scalar loads
+    x = (buf[:-1] if aligned else buf[1:]).view(b, t, p)
     taps = torch.randn(m, p, device=dev, generator=gen)
     fr, fi = ops._fourier(p, str(dev))
     bt, bn = tile
-    for f_im in (fi, None):
-        got = pfbk.pfb_fused(x, taps, fr, f_im, bt=bt, bn=bn)
+    want = pfbk.pfb_fused_plain(x, taps, fr, fi)
+    w = torch.view_as_real(want)
+    for hermitian in (False, True):   # every column, or half and conjugates
+        got = pfbk.pfb_fused(x, taps, fr, fi, hermitian=hermitian, bt=bt,
+                             bn=bn)
         torch.cuda.synchronize()
-        want = pfbk.pfb_fused_plain(x, taps, fr, f_im)
-        g, w = ((torch.view_as_real(got), torch.view_as_real(want))
-                if got.is_complex() else (got, want))
-        # fp32 sums of P*M terms taken in another order
-        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+        # fp32 sums of P terms taken in another order
+        assert (torch.view_as_real(got) - w).abs().max() \
+            <= 1e-4 * w.abs().max()
+    # the frontend's y rows as the DFT stage reads them, zero pad columns
+    # written over NaN, and the frontend alone, bit for bit as their twins
+    y = torch.full((b * (t - m + 1), pfbk.y_stride(p)), float("nan"),
+                   device=dev)
+    pfbk.pfb_frontend(x, taps, out=y)
+    torch.cuda.synchronize()
+    assert torch.equal(y, pfbk.pfb_frontend_rows_plain(x, taps))
+    assert torch.equal(pfbk.pfb_frontend(x, taps),
+                       pfbk.pfb_frontend_plain(x, taps))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 16, 64, 1024])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_dft_hermitian_matches_every_column(dev, n, inverse):
+    """A real x at 4mult against a DFM: half the columns computed and the
+    rest written as their conjugates, at every tile, within the kernel's
+    tolerance of the plain version."""
+    x = torch.randn(300, n, device=dev)
+    fr, fi = functions._dfm_tensors(n, inverse, torch.float32, str(dev))
+    want = torch.view_as_real(dftk.dft_plain(x, fr, fi, "4mult"))
+    for bm, bn in dftk.TILES:
+        got = dftk.dft(x, fr, fi, variant="4mult", bm=bm, bn=bn,
+                       hermitian=True)
+        torch.cuda.synchronize()
+        assert (torch.view_as_real(got) - want).abs().max() \
+            <= 1e-4 * want.abs().max()
+    with pytest.raises(ValueError, match="hermitian"):
+        dftk.dft(x.to(torch.complex64), fr, fi, variant="4mult",
+                 hermitian=True)
+
+
+def test_pfb_fused_fp64_accuracy_and_planes(dev):
+    """At P = 1024 the 3xTF32 DFT stage is within 1e-5 of max of a
+    float64 product of the same y (one TF32 pass would be near 1e-3), and
+    the planes made once give the numbers of the planes made per call."""
+    b, t, p, m = 2, 300, 1024, 8
+    x = torch.randn(b, t, p, device=dev)
+    taps = torch.randn(m, p, device=dev)
+    fr, fi = ops._fourier(p, str(dev))
+    y = pfbk.pfb_frontend(x, taps).reshape(-1, p)
+    got = pfbk.pfb_fused(x, taps, fr, fi, planes=ops._fourier_planes(
+        p, str(dev)), hermitian=True)
+    assert torch.equal(got, pfbk.pfb_fused(x, taps, fr, fi, hermitian=True))
+    want = torch.complex(y.double() @ fr.double(), y.double() @ fi.double())
+    err = (torch.view_as_real(got).reshape(-1, p, 2).double()
+           - torch.view_as_real(want)).abs().max()
+    assert err <= 1e-5 * torch.view_as_real(want).abs().max()
 
 
 @pytest.mark.parametrize("steps,abs2_head,n_ops", [
@@ -86,6 +140,18 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
         pfbk.pfb_fused(x.double(), taps, fr, fi)
     with pytest.raises(ValueError, match="on cpu"):
         pfbk.pfb_fused(x, taps.cpu(), fr, fi)
+    with pytest.raises(ValueError, match="not compiled"):
+        pfbk.pfb_fused(x, taps, fr, fi, bt=64, bn=64)
+    with pytest.raises(ValueError, match="P-point DFM"):
+        pfbk.pfb_fused(x, taps, fr[:, :8].contiguous(),
+                       fi[:, :8].contiguous(), hermitian=True)
+    with pytest.raises(ValueError, match="planes has shape"):
+        pfbk.pfb_fused(x, taps, fr, fi, planes=torch.zeros(
+            2, 64, 32, device=dev))
+    with pytest.raises(ValueError, match="out has shape"):
+        pfbk.pfb_frontend(x, taps, out=torch.empty(37, 20, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        pfbk.pfb_frontend(torch.randn(1, 40, 32, device=dev)[..., ::2], taps)
     with pytest.raises(TypeError, match="complex64"):
         ewk.elementwise_chain(x.double(), (), (), abs2_head=True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -556,6 +622,19 @@ def test_fir_valid_int8_every_tile_and_half_integers(dev):
     # the same numbers as the CPU's plain version
     assert torch.equal(want.cpu(), firk.fir_valid_int8_plain(
         x.cpu(), tq.cpu(), ts.cpu()))
+
+
+def test_quantize_rcp_equals_the_division_on_every_float(dev):
+    """csrc/int8.cuh's quantize against the division it replaces, on
+    every float x in [-amax, amax] (csrc/qcheck.cu): amax under the 1e-12
+    clamp, 1, 127 2^-20 and one ulp either side (chip_smoke.py runs some
+    320 scales)."""
+    f32 = np.float32
+    amax = [f32(0), f32(5e-13), f32(1), f32(127 * 2.0 ** -20)]
+    amax += [np.nextafter(a, d) for a in amax[2:] for d in (f32(0), f32(2))]
+    a = torch.as_tensor(np.array(amax, dtype=np.float32), device=dev)
+    assert firk.quantize_check(a).tolist() == [0] * len(amax)
+    assert firk.quantize_check_pairs(a) > 4 * 2 ** 30
 
 
 # P not a multiple of 16 (20, 48, 1000: the padded yq stride) and of 4

@@ -17,6 +17,7 @@ import torch
 from repro.core import pfb as jpfb
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
 from repro_torch.kernels import ops, ref, tune
 from repro_torch.kernels import pfb as pfbk
@@ -197,12 +198,22 @@ def test_tune_spaces_describe_the_cuda_kernels():
     assert sp is pfbk.TUNE_SPACE and sp.params == ("bt", "bn")
     ctx = {"m": 8, "p": 1024, "t": 4096}
     assert {(c["bt"], c["bn"]) for c in sp.configs(ctx)} == set(pfbk.TILES)
-    # the TPU kernel's halo rule M - 1 <= bt is gone: 100 taps fit a
-    # 32-frame tile because the kernel loads its own halo rows
-    assert sp.valid({"bt": 32, "bn": 32}, {"m": 100, "p": 16, "t": 200})
-    # only shared memory bounds the taps now
-    huge = (tune.SMEM_BUDGET // (4 * pfbk.BK)) + 1
-    assert not sp.valid({"bt": 32, "bn": 32}, {"m": huge, "p": 16, "t": 200})
+    # the tiles are the DFT stage's, csrc/dft.cu's compiled ones
+    assert pfbk.TILES == dftk.TILES
+    assert sp.check({}, ctx) == {"bt": 128, "bn": 64}
+    # P <= 16 takes the 16-wide tile: no dead columns past 16
+    assert sp.check({}, {"m": 4, "p": 16, "t": 4096}) == {"bt": 128,
+                                                          "bn": 16}
+    assert sp.check({}, {"m": 4, "p": 17, "t": 4096})["bn"] == 64
+    # the TPU kernel's halo rule M - 1 <= bt is gone, and the frontend
+    # stages nothing in shared memory: 100 taps and more than a block's
+    # shared memory of taps are all valid
+    huge = tune.SMEM_BUDGET // 4 + 1
+    for m in (100, huge):
+        assert sp.valid({"bt": 128, "bn": 64}, {"m": m, "p": 16, "t": 200})
+    # a tile the DFT stage has not compiled is refused
+    assert not sp.valid({"bt": 64, "bn": 64}, {"m": 8, "p": 16, "t": 200})
+    assert not sp.valid({"bt": 128, "bn": 128}, ctx)
     with pytest.raises(ValueError, match="unknown block param"):
         sp.check({"order": "tc"}, ctx)
     assert tune.space("elementwise").check({}, {"rows": 1, "cols": 1,

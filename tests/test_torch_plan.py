@@ -174,8 +174,8 @@ def test_block_configs_reach_the_kernel_boundary():
     g = graph.build_pfb_power(P, M)
     x = torch.zeros(P * 16)
     ok = graph.compile(g, {"x": (P * 16,)}, lowering="kernel", device="cpu",
-                       block_configs={"pfb2": {"bt": 32, "bn": 32}})
-    assert ok.configs == {"pfb2": {"bt": 32, "bn": 32}}
+                       block_configs={"pfb2": {"bt": 128, "bn": 64}})
+    assert ok.configs == {"pfb2": {"bt": 128, "bn": 64}}
     ok(x)
     bad = graph.compile(g, {"x": (P * 16,)}, lowering="kernel", device="cpu",
                         block_configs={"pfb2": {"bt": 48}})

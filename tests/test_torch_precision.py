@@ -700,7 +700,7 @@ def test_int8_tune_spaces_valid_at_pipeline_shapes():
         ops.qfir(torch.zeros(2, 100), torch.zeros(5, 1, dtype=torch.int8),
                  torch.ones(1, 1), bn=1024, threads=100)
     assert dftk.TUNE_SPACE_INT8.params == ("bm", "bn", "bk")
-    assert firk.TUNE_SPACE_INT8.check({}, {"k": 31})["threads"] == 256
+    assert firk.TUNE_SPACE_INT8.check({}, {"k": 31})["threads"] == 128
 
 
 def test_cpu_int8_plans_launch_no_kernel():
@@ -712,3 +712,127 @@ def test_cpu_int8_plans_launch_no_kernel():
                        lowering="kernel", device="cpu")(_t(x))
     assert (mmk.INT8_LAUNCHES, dftk.INT8_LAUNCHES, firk.INT8_LAUNCHES,
             pfbk.INT8_LAUNCHES) == before
+
+
+# -- csrc/int8.cuh:quantize_rcp, emulated exactly on the CPU ---------------
+def _rn32(v):
+    """The Fraction v rounded to the nearest float32, ties to even,
+    subnormals kept (what one IEEE float32 operation returns)."""
+    from fractions import Fraction
+    if v == 0:
+        return np.float32(0.0)
+    a = abs(v)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    if Fraction(2) ** e > a:
+        e -= 1
+    ulp = Fraction(2) ** (max(e, -126) - 23)
+    m = a / ulp
+    n, rem = divmod(m.numerator, m.denominator)
+    if 2 * rem > m.denominator or (2 * rem == m.denominator and n % 2):
+        n += 1
+    return np.float32(float(n * ulp) * (1 if v > 0 else -1))
+
+
+def _quantize_rcp(x, s, r):
+    """csrc/int8.cuh:quantize_rcp step by step in float32: q0 = x r (one
+    rounding), the two FMAs with one rounding each (exact rational
+    arithmetic, then _rn32) and the magic-number add; no clamp, as the
+    kernels take none (the clip never binds on [-amax, amax])."""
+    from fractions import Fraction
+    q0 = np.float32(x * r)
+    e = _rn32(Fraction(float(x)) - Fraction(float(q0)) * Fraction(float(s)))
+    q1 = _rn32(Fraction(float(e)) * Fraction(float(r)) + Fraction(float(q0)))
+    t = np.float32(q1 + np.float32(12582912.0))
+    return int(np.array(t, dtype=np.float32).view(np.int32)) - 0x4B400000
+
+
+def _quantize_pairs():
+    """(x, amax) pairs over the quantizer's domain, x in [-amax, amax]:
+    amax log-uniform from 1e-30 to 1e30, powers of two, 127 2^k and one
+    ulp either side, under the 1e-12 clamp, and amax = 1.1162109375 2^k,
+    whose scale 9/1024 2^k puts x = (k + 1/2) s exactly on half-integer
+    quotients; x: +-amax, both zeros, subnormals, uniform draws, the
+    half-integers and one ulp either side of each."""
+    f32 = np.float32
+    rng = _rng("quantize_rcp")
+    base = [f32(2.0) ** k for k in range(-40, 41, 8)] \
+        + [f32(127) * f32(2.0) ** k for k in range(-40, 41, 8)]
+    amaxes = base + [np.nextafter(v, d) for v in base
+                     for d in (f32(0), f32(np.inf))]
+    amaxes += [f32(0), f32(1e-45), f32(1e-20), f32(5e-13), f32(1e-12)]
+    amaxes += list((10.0 ** rng.uniform(-30, 30, 160)).astype(np.float32))
+    half = [f32(1.1162109375) * f32(2.0) ** k for k in range(-30, 31, 6)]
+    pairs = []
+    for j, a in enumerate(amaxes + half):
+        s = f32(max(a, f32(1e-12)) * f32(f32(1.0) / f32(127.0)))
+        xs = [a, -a, f32(0.0), f32(-0.0), f32(1e-45), f32(-3e-42),
+              f32(1e-38)]
+        xs += list((rng.uniform(-1, 1, 300) * a).astype(np.float32))
+        # x nearest (k + 1/2) s and one ulp either side: quotients within
+        # an ulp of a half-integer, where x r alone often rounds wrong
+        near = (rng.integers(-127, 127, 40) + 0.5) * np.float64(s)
+        xs += [v for h in near.astype(np.float32)
+               for v in (h, np.nextafter(h, f32(-1)), np.nextafter(h, f32(1)))]
+        if any(a == h for h in half):
+            assert s == f32(9 / 1024) * (a / f32(1.1162109375))
+            hk = (np.arange(-127, 127) + 0.5).astype(np.float32) * s
+            assert np.all(hk / s - np.floor(hk / s) == f32(0.5))
+            xs += [v for h in hk for v in (h, np.nextafter(h, f32(-1)),
+                                           np.nextafter(h, f32(1)))]
+        pairs += [(f32(x), a) for x in xs if abs(x) <= a]
+    return pairs
+
+
+def test_quantize_rcp_sequence_equals_the_division_bit_for_bit():
+    """The reciprocal, two FMAs and the magic-number add of
+    csrc/int8.cuh:quantize_rcp, emulated exactly in float32, give the
+    ints of core/quantize.py (torch.round(x / s), clipped: the clip never
+    binds) on every pair:
+    half-integer quotients and their one-ulp neighbours, the 1e-12
+    clamp, zeros, subnormal x and +-amax among them."""
+    from fractions import Fraction
+    pairs = _quantize_pairs()
+    assert len(pairs) >= 100_000
+    xs = np.array([x for x, _ in pairs], dtype=np.float32)
+    am = np.array([a for _, a in pairs], dtype=np.float32)
+    s = quantize.scale_of(_t(am))
+    want = quantize.quantize_with(_t(xs), s).numpy().astype(int)
+    recip = {}
+    got = []
+    for x, sv in zip(xs, s.numpy()):
+        if sv not in recip:                          # __frcp_rn, per scale
+            recip[sv] = _rn32(1 / Fraction(float(sv)))
+        got.append(_quantize_rcp(x, sv, recip[sv]))
+    got = np.array(got)
+    assert np.array_equal(got, want), np.flatnonzero(got != want)[:8]
+    # the cases that matter were there: exact half-integer quotients
+    # rounded to even, the clamp, and quotients where the fix-up decides
+    # (x times the reciprocal alone rounds to another int)
+    sv = s.numpy()
+    q = xs / sv
+    assert np.sum(q - np.floor(q) == np.float32(0.5)) >= 1000
+    assert np.sum(np.abs(got) == 127) >= 100
+    r = np.array([recip[v] for v in sv], dtype=np.float32)
+    assert np.sum(np.rint(xs * r) != np.rint(q)) >= 1000
+
+
+def test_quantize_check_counts_and_refuses_the_cpu():
+    """The card's exhaustive check (csrc/qcheck.cu) tries every float x in
+    [-amax, amax]: 2 (bits(amax) + 1) pairs per scale.  It has no plain
+    version (some 2**31 values per scale) and refuses a CPU tensor."""
+    a = torch.tensor([0.0, 1e-45, 1.0], dtype=torch.float32)
+    assert firk.quantize_check_pairs(a) == 2 + 4 + 2 * (0x3F800000 + 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        firk.quantize_check(a)
+
+
+@pytest.mark.parametrize("k,k4", [(1, 4), (4, 4), (15, 16), (31, 32),
+                                  (63, 64)])
+def test_fir_int8_stages_taps_packed_and_padded(k, k4):
+    """csrc/qfir.cu stages bn + K4 samples, its bn outputs and the taps
+    packed four to a word, K padded with zero taps to K4; a thread takes
+    four neighbouring outputs, so bn is a multiple of 4."""
+    assert firk.int8_smem_bytes(1024, k) == 4 * (2 * 1024 + k4) + k4
+    sp = firk.TUNE_SPACE_INT8
+    assert sp.valid({"bn": 1024, "threads": 256}, {"k": k})
+    assert not sp.valid({"bn": 1022, "threads": 256}, {"k": k})

@@ -370,7 +370,9 @@ def test_tune_spaces_describe_the_cuda_kernels():
     assert dsp is dftk.TUNE_SPACE
     assert {(c["bm"], c["bn"]) for c in dsp.configs(
         {"m": 8188, "n": 1024, "k": 1024})} == set(dftk.TILES)
-    assert dsp.check({}, {"m": 4, "n": 7, "k": 7}) == {"bm": 128, "bn": 64}
+    # N <= 16 takes the 16-wide tile, wider N the 64-wide one
+    assert dsp.check({}, {"m": 4, "n": 7, "k": 7}) == {"bm": 128, "bn": 16}
+    assert dsp.check({}, {"m": 4, "n": 17, "k": 7}) == {"bm": 128, "bn": 64}
     # the largest ring (complex x, three planes) fits
     assert all(dftk.smem_bytes(bm, bn) <= tune.SMEM_BUDGET
                for bm, bn in dftk.TILES)
