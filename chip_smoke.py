@@ -12,7 +12,10 @@ Prints one JSON line per phase:
 
   card      the card's name and power limit (``nvidia-smi``), versions
   build     seconds spent building ``src/repro_torch/csrc/*.cu`` with nvcc
-  sass      the warpgroup MMA instructions (HGMMA, IGMMA) that
+  sass      ptxas registers and spills of the tensor-core kernels, the
+            PFB frontends, the f32 FIR's and the overlap-add's kernels,
+            and the FIR's ring in shared memory per tile at K = 15, 31, 63;
+            the warpgroup MMA instructions (HGMMA, IGMMA) that
             ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` and
             ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA) and
             ``tina_matmul_int8``, ``tina_dft_int8`` and the DFT stage of
@@ -38,9 +41,14 @@ Prints one JSON line per phase:
             (complex and real abs2 heads), binary (also x, y and out
             as views 0-3 floats past a 16-byte boundary, cols 1 to 1024,
             n not a multiple of 4), unfold, overlap-add
-            and FIR: exact equality -- the FIR at K = 1 to 4097, with
-            implicit padding, with the taps as given and reversed
-            (``flip``), and on strided rows)
+            and FIR: exact equality -- the overlap-add at hops that are
+            and are not multiples of 4 (6, 5, 3), on frames that start
+            16-byte aligned and not, at every thread count; the FIR at
+            K = 1 to 4097, with implicit padding, with the taps as given
+            and reversed (``flip``), on a grid of more tiles than
+            resident blocks, on outputs shorter than one tile, on strided
+            rows and on rows that start 1-3 floats past a 16-byte
+            boundary at every compiled tile)
   main      each pipeline through ``graph.compile(..., lowering=
             "kernel")`` then ``plan(x)``: ``pfb_power`` at the paper's
             Fig. 3 point and at full width (16 x 2**22 samples, P = 1024,
@@ -71,8 +79,13 @@ Prints one JSON line per phase:
             yardstick, the call against a float64 product); the binary
             kernel alone at each of its launches' shapes (stft,
             spectrogram, the Table-1 add) beside ``torch.mul`` /
-            ``torch.add`` and its bytes bound; ``fir_decimate``'s first
-            FIR and the matmul also at every tile of their tune spaces;
+            ``torch.add`` and its bytes bound; the FIRs at K = 31, 15
+            (``fir_decimate``) and 63 (``correlate``) and the matmul also
+            at every tile of their tune spaces, each FIR beside its
+            fp32-pipe floor (its separate multiply and add); the
+            overlap-add as the plan runs it (right after the multiply
+            that writes its frames) and with L2 emptied before each
+            call;
             the matmul plan's first call makes y's TF32 planes and its
             second launches the GEMM alone.
             Path ``table1``: every row of the Table-1 registry at the
@@ -225,6 +238,32 @@ def device_ms(torch, fn, repeats: int = REPEATS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def flushed_ms(torch, fn, repeats: int = REPEATS) -> float:
+    """Median device time of one call with L2 emptied before it: 256 MB
+    (five times the H100's 50 MB L2) written between calls, each call
+    timed with its own CUDA events, after one warm-up call."""
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(repeats):
+        scrub.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def fir_floor_ms(flops: int) -> float:
+    """The f32 FIR's own floor: its multiplies and adds are separate
+    fp32-pipe instructions (bit-exact, never an FMA), one instruction per
+    flop at half the pipe's 67 TFLOP/s FMA rate."""
+    return flops / (PEAK_F32_FLOPS / 2) * 1e3
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
@@ -443,9 +482,22 @@ def wgmma_counts(lib_path) -> tuple[dict, dict, dict]:
     return out, idp, front
 
 
+def simt_label(mangled: str):
+    """The label of one of the f32 FIR's kernels (fir.cu, T threads a
+    block) or of the overlap-add's (unfold.cu, the float4 route or
+    not), else None."""
+    import re
+    f = re.search(r"fir_cu\S*10fir_kernelILi(\d+)E", mangled)
+    if f:
+        return f"fir_kernel<{f.group(1)}>"
+    f = re.search(r"overlap_add_kernelILb(\d)E", mangled)
+    return f"overlap_add_kernel<{f.group(1)}>" if f else None
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel: {"registers", "spill_bytes"}} of the tensor-core kernels
-    (``TC_ENTRIES``) and of the int8 and f32 PFBs' frontends, from the
+    (``TC_ENTRIES``), of the int8 and f32 PFBs' frontends and of the f32
+    FIR's and overlap-add's kernels (:func:`simt_label`), from the
     build's ``-Xptxas -v`` log."""
     import re
     out, name = {}, None
@@ -455,7 +507,8 @@ def ptxas_usage(log: str) -> dict:
             k = tc_kernel(m.group(1))
             f = re.search(r"frontend_kernelILb(\d)E", m.group(1))
             name = k[1] if k else pfb_frontend_label(m.group(1)) or (
-                f"frontend_kernel<{f.group(1)}>" if f else None)
+                f"frontend_kernel<{f.group(1)}>" if f else None) or \
+                simt_label(m.group(1))
             if name:
                 out[name] = {}
             continue
@@ -605,8 +658,14 @@ def main() -> int:
         fail(f"tina_pfb: want its four frontend kernels, without warpgroup "
              f"MMAs or spills: {pfb_front}, "
              f"{ {k: usage.get(k) for k in pfb_front} }")
+    # the f32 FIR's ring (dynamic shared memory) at the pipelines' K, for
+    # every compiled tile
+    fir_smem = {f"{c['bn']}/{c['threads']}": {
+        k: firk.smem_bytes(c["bn"], k) for k in (15, 31, 63)}
+        for c in firk.TUNE_SPACE.configs({"k": 31})}
     emit(phase="sass", wgmma_instructions=mma, pfb_int8_idp=pfb_idp,
-         pfb_frontend_wgmma=pfb_front, ptxas=usage)
+         pfb_frontend_wgmma=pfb_front, ptxas=usage,
+         fir_smem_bytes=fir_smem, overlap_add_smem_bytes=0)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -684,18 +743,28 @@ def main() -> int:
              max_abs_err=rel_err(torch, got, want)[0], exact=ok)
         if not ok:
             fail(f"unfold {(rows, n)} J={j}: not equal to plain")
+    # overlap-add: hop % 4 == 0 takes float4 lanes, hops 6, 5 and 3 a
+    # sample a thread, and so do frames that start 4 bytes past a 16-byte
+    # boundary; every thread count of the tune space
     for shape, hop in (((2, 37, 64), 64), ((2, 37, 64), 32),
                        ((2, 37, 64), 16), ((2, 37, 64), 8),
-                       ((2, 8, 64), 8), ((1, 2047, 1024), 512)):
-        frames = randn(*shape)
-        got = ops.overlap_add(frames, hop)
-        torch.cuda.synchronize()
-        want = unfk.overlap_add_plain(frames, hop)
-        ok = torch.equal(got, want)
-        emit(phase="kernel", kernel="overlap_add", shape=list(shape),
-             hop=hop, max_abs_err=rel_err(torch, got, want)[0], exact=ok)
-        if not ok:
-            fail(f"overlap_add {shape} hop={hop}: not equal to plain")
+                       ((2, 8, 64), 8), ((1, 2047, 1024), 512),
+                       ((3, 41, 30), 6), ((2, 50, 15), 5), ((2, 33, 12), 3)):
+        size = shape[0] * shape[1] * shape[2]
+        for off in (0, 1):
+            frames = randn(size + 1)[off:off + size].view(shape)
+            want = unfk.overlap_add_plain(frames, hop)
+            err, ok = 0.0, True
+            for cfg in unfk.OLA_TUNE_SPACE.configs({}):
+                got = ops.overlap_add(frames, hop, **cfg)
+                torch.cuda.synchronize()
+                err = max(err, rel_err(torch, got, want)[0])
+                ok = ok and torch.equal(got, want)
+            emit(phase="kernel", kernel="overlap_add", shape=list(shape),
+                 hop=hop, offset_floats=off, max_abs_err=err, exact=ok)
+            if not ok:
+                fail(f"overlap_add {shape} hop={hop} offset {off}: not equal"
+                     " to plain")
     xb = randn(3, 1001, 33)
     for op, fn in (("mul", ops.elementwise_mult),
                    ("add", ops.elementwise_add)):
@@ -811,7 +880,7 @@ def main() -> int:
     # pads, taps as given and reversed (flip)
     for rows, n, k in ((3, 1000, 1), (2, 999, 8), (5, 4099, 15),
                        (1, 70001, 31), (7, 3000, 63), (2, 5003, 129),
-                       (2, 9001, 4097)):
+                       (2, 9001, 4097), (64, 100001, 31), (3, 50, 31)):
         x, kern = randn(rows, n), randn(k)
         for pads in ((0, 0), (k // 2, (k - 1) // 2), (k - 1, k - 1)):
             for flip in (False, True):
@@ -839,6 +908,21 @@ def main() -> int:
              exact=ok)
         if not ok:
             fail(f"fir_valid strided rows tile {cfg}: not bit-identical")
+    # rows that start 1-3 floats past a 16-byte boundary (3001-sample rows
+    # move it row by row): every lead of the staged spans, every tile
+    for off in (1, 2, 3):
+        xs = randn(5 * 3001 + 4)[off:off + 5 * 3001].view(5, 3001)
+        want = firk.fir_valid_plain(xs, kern, pad_left=15, pad_right=15,
+                                    flip=True)
+        for cfg in firk.TUNE_SPACE.configs({"k": 31}):
+            got = firk.fir_valid(xs, kern, pad_left=15, pad_right=15,
+                                 flip=True, **cfg)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"fir_valid rows {off} floats past 16 bytes, tile "
+                     f"{cfg}: not bit-identical")
+        emit(phase="kernel", kernel="fir_valid", shape=list(xs.shape),
+             offset_floats=off, tiles="every", exact=True)
     # matmul: the JAX suite's shapes (m, l, n), batched, every tile x
     # order; K not a multiple of 4 (the padded copy), odd N, y's planes
     # made per call and passed in; the split pass bit for bit against its
@@ -1219,6 +1303,15 @@ def main() -> int:
     if grew != {**dict.fromkeys(grew, 0), "elementwise_binary": 2 * calls,
                 "dft": 2 * calls, "unfold": calls, "overlap_add": calls}:
         fail(f"stft_overlap_add: lone kernel launches grew by {grew}")
+    # overlap-add as the plan runs it (its producer, the window multiply,
+    # has just written the frames: the pair less the multiply alone) and
+    # with L2 emptied before each call; launches outside the counted runs
+    ola_in_plan = device_ms(
+        torch, lambda: unfk.overlap_add(ew.elementwise_mult(r, win), hop,
+                                        **ocfg)) \
+        - device_ms(torch, lambda: ew.elementwise_mult(r, win))
+    ola_flushed = flushed_ms(
+        torch, lambda: unfk.overlap_add(rw, hop, **ocfg))
     stft_binary = [binary_yardstick(fd, win, "mul"),
                    binary_yardstick(r, win, "mul")]
     rows_f = b * t
@@ -1238,6 +1331,9 @@ def main() -> int:
     emit(phase="main", path="stft_overlap_add", x=list(STFT_X), window=j,
          hop=hop, frames=rows_f, tiles={"unfold": ucfg, "dft": dcfg,
                                         "overlap_add": ocfg},
+         overlap_add_ms_in_plan=ola_in_plan,
+         overlap_add_ms_l2_flushed=ola_flushed,
+         overlap_add_bound_ms=bound(*cost["overlap_add"])[0],
          max_abs_err_vs_plain=errs, ms=ms, plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          plan_bound_ms=sum((bound_tf32 if k == "dft" else bound)(*c)[0]
                            for k, c in cost.items()),
@@ -1400,10 +1496,13 @@ def main() -> int:
                                        lambda: conv1d(x2, h2))
     ms["fir_valid"] = ms["fir_1"] + ms["fir_2"]
     check_grew("fir_decimate", before, {"fir_valid": 2})
-    # FIR 1 at every tile of its tune space (for the next tuning PR)
+    # both FIRs at every tile of their tune space
     fir_1_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
         torch, lambda c=c: firk.fir_valid(x, t1, flip=True, **c))
         for c in firk.TUNE_SPACE.configs({"k": 31})}
+    fir_2_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
+        torch, lambda c=c: firk.fir_valid(x2, t2, flip=True, **c))
+        for c in firk.TUNE_SPACE.configs({"k": 15})}
     cost1 = fir_cost(b, n, y1.shape[1], 31)
     cost2 = fir_cost(b, x2.shape[1], y2.shape[1], 15)
     emit(phase="main", path="fir_decimate", x=list(FIR_X), taps=[31, 15],
@@ -1411,9 +1510,11 @@ def main() -> int:
          max_abs_err_vs_plain={"fir_valid": dec_err}, ms=ms,
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={"fir_1": bound(*cost1)[0], "fir_2": bound(*cost2)[0]},
+         fp32_pipe_floor_ms={"fir_1": fir_floor_ms(cost1[1]),
+                             "fir_2": fir_floor_ms(cost2[1])},
          plan_bound_ms=bound(*cost1)[0] + bound(*cost2)[0],
          fir_1_gb_s=cost1[0] / (ms["fir_1"] * 1e-3) / 1e9,
-         fir_1_ms_per_tile=fir_1_tiles,
+         fir_1_ms_per_tile=fir_1_tiles, fir_2_ms_per_tile=fir_2_tiles,
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     table["fir_decimate"] = dict(launches=info["launches_per_call"], ms=ms,
                                  cost=add_cost(cost1, cost2), err=dec_err)
@@ -1457,6 +1558,9 @@ def main() -> int:
     with fp32_convs():
         ms["fir_valid_library"] = device_ms(torch, lambda: conv1d(x, tmpl))
     check_grew("correlate", before, {"fir_valid": 1, "elementwise_chain": 1})
+    cor_tiles = {f"{c['bn']}/{c['threads']}": device_ms(
+        torch, lambda c=c: firk.fir_valid(x, tmpl, **c))
+        for c in firk.TUNE_SPACE.configs({"k": 63})}
     nout = y.numel()
     cor_cost = {"fir_valid": fir_cost(b, n, y.shape[1], 63),
                 "elementwise_chain": (8 * nout, 2 * nout)}
@@ -1466,6 +1570,9 @@ def main() -> int:
          bound_ms={k: bound(*c)[0] for k, c in cor_cost.items()},
          plan_bound_ms=sum(bound(*c)[0] for c in cor_cost.values()),
          fir_gb_s=cor_cost["fir_valid"][0] / (ms["fir_valid"] * 1e-3) / 1e9,
+         fp32_pipe_floor_ms={"fir_valid": fir_floor_ms(
+             cor_cost["fir_valid"][1])},
+         fir_ms_per_tile=cor_tiles,
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **info)
     del plan, native, x, y, pw
 
@@ -1539,6 +1646,8 @@ def main() -> int:
          plan_samples_per_s=b * n / (ms["plan"] * 1e-3),
          bound_ms={k: (bound_pfb if k == "pfb_fused" else bound)(*c)[0]
                    for k, c in chan_cost.items()},
+         fp32_pipe_floor_ms={"fir_valid": fir_floor_ms(
+             chan_cost["fir_valid"][1])},
          pfb_bound_ms_fp32_pipe=fp32_pipe_ms(*chan_cost["pfb_fused"]),
          pfb_bound_ms_all_columns=bound_pfb(*pfb_cost(b, t, p, p, m))[0],
          pfb_bound_ms_3xtf32=bound_3xtf32(
@@ -1979,7 +2088,7 @@ def main() -> int:
     # reversed, every tile, half-integer quotients inside the kernel
     for rows, n, k in ((3, 1000, 1), (2, 999, 8), (5, 4099, 15),
                        (1, 70001, 31), (7, 3000, 63), (2, 5003, 129),
-                       (2, 9001, 4097)):
+                       (2, 9001, 4097), (64, 100001, 31), (3, 50, 31)):
         x = randn(rows, n)
         for flip in (False, True):
             tq, ts = quantize.quantize_fir_taps(randn(k), flip=flip)

@@ -1,4 +1,5 @@
-// Helpers shared by the grid-stride kernels of elementwise.cu and unfold.cu.
+// Helpers shared by the grid-stride kernels of elementwise.cu and the
+// persistent grid of fir.cu.
 #pragma once
 
 #include <cuda_runtime.h>

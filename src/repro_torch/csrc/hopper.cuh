@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // the 3xTF32 DFT and GEMM (dft.cu, matmul.cu, through tf32_gemm.cuh) and
-// the s8 GEMM and DFTs (qmatmul.cu, qpfb.cu, through s8_gemm.cuh).
-// mbarriers, TMA tile
-// loads and the tensor maps that describe them, and the warpgroup MMA
+// the s8 GEMM and DFTs (qmatmul.cu, qpfb.cu, through s8_gemm.cuh), and
+// the f32 FIR's staging ring (fir.cu, cp.async).  mbarriers, TMA tile
+// loads and the tensor maps that describe them, cp.async, and the
+// warpgroup MMA
 // (wgmma) descriptors and instructions, as inline PTX.
 //
 // The tensor maps come from the driver's cuTensorMapEncodeTiled, reached
@@ -127,6 +128,33 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// Asynchronous copies into shared memory (cp.async), counted per thread
+// in commit groups: 16 bytes (both addresses 16-byte aligned, L1
+// bypassed) or 4 bytes (both 4-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major operand in a 128B-swizzled

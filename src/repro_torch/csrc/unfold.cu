@@ -25,15 +25,26 @@
 // tina_overlap_add computes, with K = J / hop and nt = T - K + 1,
 //   out[r, s] = sum_{m < K} frames[r, s / hop + m, (K - 1 - m) * hop + s % hop]
 // for s < nt * hop, the "valid" overlap-add.  Bytes bound it too (each
-// frame element is read at most once, each output written once).  One
-// thread per output sample; consecutive samples of a hop read
-// consecutive addresses.  The sum starts from 0.0f and adds in ascending
-// m with __fadd_rn, as the reference does, so it is bit-identical to the
-// plain version and to the reference's native lowering.
+// frame element is read at most once, each output written once: 0.015 ms
+// at the stft width, 4 x 2047 x 1024 frames in, 4 x 1,047,552 out).  A
+// block owns a run of OLA_ITEMS * threads * W output samples of one row
+// (W = 4 on the 16-byte route, else 1); the block's row and the frame and
+// column of its first sample take one division each per block, and each
+// thread's own start and step two 32-bit divisions, after which a thread
+// steps its (frame, column) position on by adding: no sample costs a
+// division.
+// Where hop % 4 == 0 and frames and out start on 16 bytes, every frame
+// segment of a hop is 16-byte aligned (J % hop == 0), so a thread takes
+// four neighbouring samples of a hop: one float4 load per overlapping
+// frame and one float4 streaming store.  Other hops take the same loop a
+// sample at a time.  A thread's OLA_ITEMS samples (or quads) are summed
+// side by side, m outermost, so their loads are in flight together.  The
+// sum starts from 0.0f and adds in ascending m with __fadd_rn, as the
+// reference does, so it is bit-identical to the plain version and to the
+// reference's native lowering.
 
 #include <cuda_runtime.h>
-
-#include "common.cuh"
+#include <stdint.h>
 
 namespace {
 
@@ -69,23 +80,81 @@ unfold_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
   }
 }
 
-__global__ void overlap_add_kernel(const float* __restrict__ f,
-                                   float* __restrict__ out, long long total,
-                                   long long per_row, int T, int J, int hop,
-                                   int K) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long r = i / per_row;
-    const long long s = i - r * per_row;
-    const long long q = s / hop;
-    const int rr = (int)(s - q * hop);
-    const float* src = f + (r * T + q) * (long long)J + (K - 1) * hop + rr;
-    float acc = 0.f;
-    for (int m = 0; m < K; ++m)
-      acc = __fadd_rn(acc, __ldg(src + (long long)m * (J - hop)));
-    out[i] = acc;
+constexpr int OLA_ITEMS = 4;   // output samples (quads) per thread
+
+// One thread's lane of the overlap-add: four neighbouring samples of a hop
+// (VEC, 16-byte loads and stores) or one.
+template <bool VEC>
+struct Lane {
+  using T = float4;
+  static constexpr int W = 4;
+  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   }
+  __device__ static T add(T a, T b) {
+    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                       __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  }
+  __device__ static void store(float* p, T v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+  }
+};
+
+template <>
+struct Lane<false> {
+  using T = float;
+  static constexpr int W = 1;
+  __device__ static T zero() { return 0.f; }
+  __device__ static T load(const float* p) { return __ldg(p); }
+  __device__ static T add(T a, T b) { return __fadd_rn(a, b); }
+  __device__ static void store(float* p, T v) { __stcs(p, v); }
+};
+
+// Block b: row b / bpr, samples from (b % bpr) * W * OLA_ITEMS * threads
+// on.
+template <bool VEC>
+__global__ void overlap_add_kernel(const float* __restrict__ f,
+                                   float* __restrict__ out, int T, int J,
+                                   int hop, int K, long long per_row,
+                                   int bpr) {
+  using L = Lane<VEC>;
+  const int r = blockIdx.x / bpr;
+  const int step = L::W * blockDim.x;
+  const long long s0 =
+      (long long)(blockIdx.x - r * bpr) * step * OLA_ITEMS;
+  const long long q0 = s0 / hop;          // the block's first frame
+  const int o = (int)(s0 - q0 * hop) + L::W * threadIdx.x;
+  const int dq = step / hop, du = step - dq * hop;
+  int q = o / hop;                        // the thread's, from the block's
+  int u = o - q * hop;
+  const float* fr = f + (long long)r * T * J + (K - 1) * hop;
+  const long long dm = J - hop;           // from frame q + m to q + m + 1
+  const float* src[OLA_ITEMS];
+  long long s[OLA_ITEMS];
+#pragma unroll
+  for (int it = 0; it < OLA_ITEMS; ++it) {
+    s[it] = s0 + L::W * threadIdx.x + (long long)it * step;
+    src[it] = fr + (q0 + q) * (long long)J + u;
+    q += dq;
+    u += du;
+    if (u >= hop) {
+      u -= hop;
+      ++q;
+    }
+  }
+  typename L::T acc[OLA_ITEMS];
+#pragma unroll
+  for (int it = 0; it < OLA_ITEMS; ++it) acc[it] = L::zero();
+  for (int m = 0; m < K; ++m) {
+#pragma unroll
+    for (int it = 0; it < OLA_ITEMS; ++it)
+      if (s[it] < per_row) acc[it] = L::add(acc[it], L::load(src[it] + m * dm));
+  }
+  float* orow = out + (long long)r * per_row;
+#pragma unroll
+  for (int it = 0; it < OLA_ITEMS; ++it)
+    if (s[it] < per_row) L::store(orow + s[it], acc[it]);
 }
 
 }  // namespace
@@ -126,11 +195,21 @@ extern "C" int tina_overlap_add(const void* frames, void* out, int rows,
     return cudaErrorInvalidValue;
   const int K = J / hop;
   const long long per_row = (long long)(T - K + 1) * hop;
-  const long long total = per_row * rows;
-  const unsigned blocks = tina::grid_stride_blocks(total, threads);
-  overlap_add_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames), static_cast<float*>(out), total,
-      per_row, T, J, hop, K);
+  const bool vec = hop % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(frames) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long per_block = (long long)(vec ? 4 : 1) * threads * OLA_ITEMS;
+  const long long bpr = (per_row + per_block - 1) / per_block;
+  if (bpr * rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(bpr * rows);
+  const auto* f = static_cast<const float*>(frames);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    overlap_add_kernel<true><<<blocks, threads, 0, s>>>(f, o, T, J, hop, K,
+                                                        per_row, (int)bpr);
+  else
+    overlap_add_kernel<false><<<blocks, threads, 0, s>>>(f, o, T, J, hop, K,
+                                                         per_row, (int)bpr);
   return cudaGetLastError();
 }

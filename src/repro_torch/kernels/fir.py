@@ -7,7 +7,9 @@ and how).  :func:`fir_valid` launches it for a CUDA tensor and runs
 :func:`fir_valid_plain`, the same ascending-k sum in plain torch, for a
 CPU tensor; the two agree bit for bit.  Unlike the TPU kernel there is
 no halo rule (K − 1 ≤ bn) and no padded copy: a block stages the samples
-its tile reads, and ``pad_left`` / ``pad_right`` zeros are implicit.
+each of its tiles reads, and ``pad_left`` / ``pad_right`` zeros are
+implicit.  :func:`smem_bytes` and :func:`tile_span` describe the
+kernel's ring and staged spans as ``csrc/fir.cu`` computes them.
 ``flip`` reads the taps reversed as they are staged, so a true FIR needs
 no reversed copy of its taps either.
 
@@ -27,39 +29,60 @@ from repro_torch.core import quantize
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels import matmul as mm_kernel
 
-TAP_CHUNK = 1024        # csrc/fir.cu: taps staged in shared memory at once
-PER_THREAD = 8          # csrc/fir.cu: outputs per thread (V)
+TAP_CHUNK = 1024    # csrc/fir.cu: taps of one job (a tile's K in chunks)
+STAGES = 3          # csrc/fir.cu: staged spans in a block's ring
+THREADS = (128, 256)   # csrc/fir.cu: threads a block (compiled)
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
 INT8_LAUNCHES = 0   # the same for fir_valid_int8
 
 
+def _round4(a: int) -> int:
+    return -(-a // 4) * 4
+
+
 def smem_bytes(bn: int, k: int) -> int:
-    """Dynamic shared memory one block asks for: a chunk of taps and the
-    samples its ``bn`` outputs read (``csrc/fir.cu:launch``)."""
-    kc = min(k, TAP_CHUNK)
-    return 4 * (-(-kc // 8) * 8 + -(-(bn + kc + 8) // 4) * 4)
+    """Dynamic shared memory one block asks for (``csrc/fir.cu:launch``):
+    ``STAGES`` stages, each a chunk's taps (K rounded up to 4, at most
+    TAP_CHUNK) and the samples a tile of ``bn`` outputs reads, bn + K
+    rounded up to 4 + 8 (the 0-3 sample lead and the window's float4
+    loaded a step ahead)."""
+    kc = _round4(min(k, TAP_CHUNK))
+    return 4 * STAGES * (2 * kc + bn + 8)
+
+
+def tile_span(t0: int, k0: int, kc: int, pad_left: int, bn: int,
+              x_start: int) -> tuple[int, int, int]:
+    """(a, pa, staged) of the job that runs taps k0 .. k0 + kc - 1 over
+    the tile of ``bn`` outputs from ``t0``, as ``csrc/fir.cu:job_at`` and
+    ``stage_job`` compute them: the lead ``a`` of its first sample from a
+    16-byte boundary, the row position ``pa`` of staged sample 0 and the
+    ``staged`` samples.  ``x_start`` is the floats by which the row
+    starts past a 16-byte boundary."""
+    p0 = t0 + k0 - pad_left
+    a = (x_start + p0) % 4
+    return a, p0 - a, bn + _round4(kc) + 8
 
 
 def _valid(cfg: dict, ctx: dict) -> bool:
     bn, threads = cfg["bn"], cfg["threads"]
-    return (0 < threads <= tune.MAX_THREADS and threads % tune.WARP == 0
-            and bn == threads * PER_THREAD
+    return (threads in THREADS and bn == 16 * threads
             and smem_bytes(bn, ctx["k"]) <= tune.SMEM_BUDGET)
 
 
 # ctx: {"k": taps, "n": signal length, "rows": flattened batch rows}.  A
-# block computes bn outputs of one row, bn / threads neighbouring outputs
-# per thread (the compiled 8); the hard limits are those, the threads per
-# block and the shared memory its taps and samples take.
+# block of 128 or 256 threads computes tiles of bn = 16 threads outputs
+# (four quads of four a thread): two compiled tiles; the shared memory of
+# its three-stage ring fits any K.  The default, 2048 outputs on 128
+# threads, measured fastest at K = 15, 31 and 63 at the fir_decimate and
+# correlate widths (chip_smoke.py's fir_*_ms_per_tile).
 TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="fir",
     params=("bn", "threads"),
     candidates=lambda ctx: tuple(
-        {"bn": threads * PER_THREAD, "threads": threads}
-        for threads in (128, 256)),
+        {"bn": 16 * threads, "threads": threads} for threads in THREADS),
     valid=_valid,
-    default=lambda ctx: {"bn": 2048, "threads": 256},
+    default=lambda ctx: {"bn": 2048, "threads": 128},
 ))
 
 
@@ -82,7 +105,7 @@ def fir_valid_plain(x: torch.Tensor, kern: torch.Tensor, *,
 
 def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
               pad_right: int = 0, flip: bool = False, bn: int = 2048,
-              threads: int = 256) -> torch.Tensor:
+              threads: int = 128) -> torch.Tensor:
     """x (R, N), kern (K,) -> (R, N + pad_left + pad_right − K + 1):
     out[r, t] = Σ_k xp[r, t + k]·h[k], xp the row between pad_left and
     pad_right zeros, h = kern, or kern reversed for ``flip`` (a true
@@ -255,7 +278,8 @@ def quantize_check_pairs(amax: torch.Tensor) -> int:
 
 
 __all__ = ["fir_valid", "fir_valid_plain", "TUNE_SPACE",
-           "LAUNCHES", "TAP_CHUNK", "PER_THREAD", "smem_bytes",
+           "LAUNCHES", "TAP_CHUNK", "STAGES", "THREADS", "smem_bytes",
+           "tile_span",
            "fir_valid_int8", "fir_valid_int8_plain", "TUNE_SPACE_INT8",
            "INT8_LAUNCHES", "int8_smem_bytes", "quantize_check",
            "quantize_check_pairs"]

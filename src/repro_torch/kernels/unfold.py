@@ -47,9 +47,9 @@ TUNE_SPACE = tune.register(tune.TuneSpace(
                          "bj": 1024},
 ))
 
-# ctx: {"j", "hop", "k": j // hop, "t": frames, "rows"}.  One thread per
-# output sample in a grid-stride loop: the threads per block are the one
-# tunable.
+# ctx: {"j", "hop", "k": j // hop, "t": frames, "rows"}.  A block owns a
+# run of output samples of one row, four samples (or quads of them) a
+# thread: the threads per block are the one tunable.
 OLA_TUNE_SPACE = tune.register(tune.TuneSpace(
     kernel="overlap_add",
     params=("threads",),

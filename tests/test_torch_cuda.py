@@ -182,15 +182,27 @@ def test_unfold_exact(dev, rows, n, j):
     assert torch.equal(got, unfk.unfold_plain(x, j))
 
 
-@pytest.mark.parametrize("shape,hop", [((2, 37, 64), 64), ((2, 37, 64), 32),
-                                       ((2, 37, 64), 16), ((2, 37, 64), 8),
-                                       ((2, 8, 64), 8),   # T = K exactly
-                                       ((1, 2047, 1024), 512)])
-def test_overlap_add_exact(dev, shape, hop):
-    frames = torch.randn(*shape, device=dev)
-    got = ops.overlap_add(frames, hop)
-    torch.cuda.synchronize()
-    assert torch.equal(got, unfk.overlap_add_plain(frames, hop))
+# hop % 4 == 0 takes float4 lanes, other hops (6, 5, 3) one sample a
+# thread; frames that start 4 bytes past a 16-byte boundary take the
+# scalar route too
+OLA_CASES = [((2, 37, 64), 64), ((2, 37, 64), 32), ((2, 37, 64), 16),
+             ((2, 37, 64), 8), ((2, 8, 64), 8),   # T = K exactly
+             ((1, 2047, 1024), 512), ((3, 41, 30), 6), ((2, 50, 15), 5),
+             ((2, 33, 12), 3)]
+
+
+@pytest.mark.parametrize("shape,hop", OLA_CASES)
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_overlap_add_exact(dev, shape, hop, aligned):
+    n = shape[0] * shape[1] * shape[2]
+    buf = torch.randn(n + 1, device=dev)
+    frames = (buf[:-1] if aligned else buf[1:]).view(shape)
+    want = unfk.overlap_add_plain(frames, hop)
+    for cfg in unfk.OLA_TUNE_SPACE.configs({}):
+        got = ops.overlap_add(frames, hop, **cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cfg
 
 
 @pytest.mark.parametrize("op", ["mul", "add"])
@@ -334,9 +346,12 @@ def test_chain_real_abs2_head_bit_exact(dev):
     assert torch.equal(ops.abs2(x), x * x)
 
 
-# K = 1 to K > TAP_CHUNK (4097), ragged rows and lengths
+# K = 1 to K > TAP_CHUNK (4097), ragged rows and lengths; a grid of more
+# tiles than resident blocks (64 rows of 49 tiles at the default 2048
+# outputs), nout shorter than one tile
 FIR_CASES = [(3, 1000, 1), (2, 999, 8), (5, 4099, 15), (1, 70001, 31),
-             (7, 3000, 63), (2, 5003, 129), (2, 9001, 4097)]
+             (7, 3000, 63), (2, 5003, 129), (2, 9001, 4097),
+             (64, 100001, 31), (3, 50, 31)]
 
 
 @pytest.mark.parametrize("rows,n,k", FIR_CASES)
@@ -368,6 +383,22 @@ def test_fir_every_tile_and_strided_rows(dev, tile):
     want = firk.fir_valid_plain(x.contiguous(), kern, pad_left=15,
                                 pad_right=15, flip=True)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tile", FIR_TILES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fir_rows_not_16_byte_aligned(dev, tile, offset):
+    # x starts 1-3 floats past a 16-byte boundary (and rows of 3001
+    # samples shift it row by row): every lead a = 0-3 of the staged spans
+    bn, threads = tile
+    buf = torch.randn(5 * 3001 + 4, device=dev)
+    x = buf[offset:offset + 5 * 3001].view(5, 3001)
+    kern = torch.randn(31, device=dev)
+    got = firk.fir_valid(x, kern, pad_left=15, pad_right=15, flip=True,
+                         bn=bn, threads=threads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, firk.fir_valid_plain(x, kern, pad_left=15,
+                                                 pad_right=15, flip=True))
 
 
 @pytest.mark.parametrize("mode", ["valid", "same", "full"])

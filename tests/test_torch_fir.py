@@ -397,12 +397,18 @@ def test_cpu_plans_launch_no_kernel():
 def test_tune_spaces_describe_the_cuda_kernels():
     sp = tune.space("fir")
     assert sp is firk.TUNE_SPACE and sp.params == ("bn", "threads")
-    # no halo rule: a 4097-tap filter fits the default tile
+    # the compiled tiles: four quads of outputs a thread on 128 or 256
+    # threads; no halo rule: a 4097-tap filter fits every tile's ring
     ctx = {"k": 4097, "n": 2 ** 20, "rows": 4}
-    assert sp.check({}, ctx) == {"bn": 2048, "threads": 256}
-    assert sp.valid({"bn": 2048, "threads": 256}, ctx)
+    assert {(c["bn"], c["threads"]) for c in sp.configs(ctx)} == {
+        (2048, 128), (4096, 256)}
+    assert sp.check({}, ctx) == {"bn": 2048, "threads": 128}
     assert all(sp.valid(c, ctx) for c in sp.configs(ctx))
-    assert firk.smem_bytes(2048, 4097) <= tune.SMEM_BUDGET
+    assert firk.smem_bytes(4096, 4097) <= tune.SMEM_BUDGET
+    # a tile is four quads a thread on 128 or 256 threads
+    for bn, threads in ((1024, 128), (1024, 256), (4096, 128),
+                        (8192, 512), (2048, 512)):
+        assert not sp.valid({"bn": bn, "threads": threads}, ctx)
     msp = tune.space("matmul")
     assert msp is mmk.TUNE_SPACE
     assert {(c["bm"], c["bn"], c["bk"], c["order"]) for c in msp.configs(
@@ -411,6 +417,89 @@ def test_tune_spaces_describe_the_cuda_kernels():
     assert msp.check({}, {"m": 4096, "n": 4096, "k": 4096})["bn"] == 128
     assert msp.check({}, {"m": 300, "n": 50, "k": 100})["bn"] == 64
     assert all(mmk.smem_bytes(*t) <= tune.SMEM_BUDGET for t in mmk.TILES)
+
+
+# ---------------------------------------------------------------------------
+# csrc/fir.cu's host side: each tile's staged span and the ring, as
+# kernels/fir.py describes them
+# ---------------------------------------------------------------------------
+def _fir_jobs(rows, n, k, pads, bn, xo, oo):
+    """Every job's (row, t0, k0, kc, a, pa, staged): a row's tiles start
+    0-3 outputs early, so that each quad of out is 16-byte aligned, and
+    run the taps in chunks of TAP_CHUNK."""
+    nout = n + pads[0] + pads[1] - k + 1
+    for r in range(rows):
+        e = (oo + r * nout) % 4
+        for i in range(-(-(nout + 3) // bn)):
+            for k0 in range(0, k, firk.TAP_CHUNK):
+                kc = min(firk.TAP_CHUNK, k - k0)
+                yield (r, i * bn - e, k0, kc) + firk.tile_span(
+                    i * bn - e, k0, kc, pads[0], bn, xo + r * n)
+
+
+FIR_GEOMETRY = [  # rows, n, k, pads, bn, x_offset, out_offset
+    (3, 1000, 1, (0, 0), 2048, 0, 0), (2, 999, 8, (4, 3), 2048, 1, 0),
+    (5, 4099, 15, (14, 14), 2048, 2, 3), (2, 70001, 31, (15, 15), 2048, 0, 1),
+    (3, 3000, 63, (0, 0), 4096, 3, 2),
+    (2, 9001, 4097, (2048, 2048), 2048, 1, 1),
+    (3, 50, 31, (0, 0), 2048, 0, 0), (2, 0, 3, (2, 2), 4096, 0, 0),
+    (4, 2 ** 16, 31, (0, 0), 4096, 0, 0)]
+
+
+@pytest.mark.parametrize("rows,n,k,pads,bn,xo,oo", FIR_GEOMETRY)
+def test_fir_staged_spans_cover_what_each_tile_reads(rows, n, k, pads, bn,
+                                                     xo, oo):
+    nout = n + pads[0] + pads[1] - k + 1
+    tr = -(-min(k, firk.TAP_CHUNK) // 4) * 4       # taps region of a stage
+    written = {r: [] for r in range(rows)}
+    chunks = {}
+    for r, t0, k0, kc, a, pa, staged in _fir_jobs(rows, n, k, pads, bn,
+                                                  xo, oo):
+        # staged sample 0 sits on a 16-byte boundary of x, a samples before
+        # the first one the tile reads
+        assert (xo + r * n + pa) % 4 == 0 and 0 <= a < 4
+        assert pa + a == t0 + k0 - pads[0]
+        # the last sample read, and the window's float4 loaded a step
+        # ahead (quad at bn - 4, group ceil(kc / 4) - 1, slots 0-2 and one
+        # more), fall inside the span, and the span inside its stage
+        assert t0 + bn - 1 + k0 + kc - 1 - pads[0] < pa + staged
+        assert (bn - 4) + 4 * (-(-kc // 4)) + 11 < staged
+        assert staged <= firk.smem_bytes(bn, k) // (4 * firk.STAGES) - tr
+        chunks.setdefault((r, t0), []).append((k0, kc))
+        if k0 + kc == k:
+            # quads start on 16 bytes of out
+            assert (oo + r * nout + t0) % 4 == 0
+            written[r].append(t0)
+    # chunks ascend and cover the taps once; tiles cover each row once
+    for got in chunks.values():
+        assert [k0 for k0, _ in got] == list(range(0, k, firk.TAP_CHUNK))
+        assert sum(kc for _, kc in got) == k
+    for starts in written.values():
+        assert starts[0] <= 0 and starts[-1] + bn >= nout > starts[-1]
+        assert all(b - a == bn for a, b in zip(starts, starts[1:]))
+    # the ring: three stages of taps and samples
+    assert firk.smem_bytes(bn, k) == 4 * firk.STAGES * (tr + bn + tr + 8)
+
+
+def test_fir_aligned_rows_copy_16_bytes_but_at_their_edges():
+    # 4 x 2**16, K = 31, 2048-output tiles: every 16-byte piece of a span
+    # inside its row is one 16-byte copy; sample by sample (or zeros) only
+    # in a row's first and last tiles, where the span crosses the row's
+    # edge
+    n, bn = 2 ** 16, 2048
+    last = -(-(n - 30 + 3) // bn) - 1
+    vec = edge = 0
+    for r, t0, k0, kc, a, pa, staged in _fir_jobs(4, n, 31, (0, 0), bn,
+                                                  0, 0):
+        inside = sum(1 for p in range(pa, pa + staged, 4)
+                     if p >= 0 and p + 4 <= n)
+        vec, edge = vec + inside, edge + staged // 4 - inside
+        tile = (t0 + 3) // bn
+        if 0 < tile < last:
+            assert staged // 4 == inside
+        if tile == last:
+            assert staged // 4 > inside
+    assert vec / (vec + edge) > 0.99
 
 
 # ---------------------------------------------------------------------------
@@ -511,8 +600,12 @@ def test_invalid_block_configs_raise():
     cases = [
         lambda: ops.fir(x, torch.randn(5), bn=1000),
         lambda: ops.fir(x, torch.randn(5), bn=256, threads=100),
-        lambda: ops.fir(x, torch.randn(5), bn=4096, threads=256),
+        # a tile is four quads a thread on 128 or 256 threads
         lambda: ops.fir(x, torch.randn(5), bn=1024, threads=256),
+        lambda: ops.fir(x, torch.randn(5), bn=1024, threads=128),
+        lambda: ops.fir(x, torch.randn(5), bn=1536, threads=128),
+        lambda: ops.fir(x, torch.randn(5), bn=8192, threads=256),
+        lambda: ops.fir(x, torch.randn(5), bn=2048, threads=512),
         lambda: ops.matmul(x, x.T, bm=96),
         lambda: ops.matmul(x, x.T, bk=16),
         lambda: ops.matmul(x, x.T, order="km"),

@@ -70,7 +70,8 @@ def test_unfold_exact_vs_jax(b, n, j):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("j,hop", [(64, 32), (16, 4), (8, 8)])
+@pytest.mark.parametrize("j,hop", [(64, 32), (16, 4), (8, 8), (30, 6),
+                                   (15, 5)])
 def test_overlap_add_exact_vs_jax(j, hop):
     frames = _rng("ola", j, hop).standard_normal((3, 29, j)) \
         .astype(np.float32)
