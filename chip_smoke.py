@@ -4,7 +4,7 @@ against its plain torch version, and drives the ``pfb_power``,
 ``stft_overlap_add``, ``spectrogram``, ``fir_decimate``, ``correlate``
 and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
 4096-cubed matmul end to end on one NVIDIA card, at f32, then at int8
-and bf16.
+and bf16; then streams every pipeline in chunks and autotunes plans.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -138,6 +138,37 @@ Prints one JSON line per phase:
             one call against [Fr | Fi])
   bf16      ``pfb_power`` at ``precision="bf16"``, kernel lowering, full
             width: launches, SQNR of row 0 (>= 30 dB), plan times
+  stream    every pipeline through ``graph.ChunkedRunner`` at
+            ``lowering="kernel"``, f32 and int8, at its cell's full width,
+            pushed in (batch, 2**18) chunks (spectrogram 2**14): launches
+            of the counted run (every count set to 0 just before, read
+            just after: the path's kernels once per plan call), the
+            concatenated output against the offline kernel plan (int8 bit
+            for bit; f32 within 1e-6 of max, the differing elements
+            counted), pushes, plan calls, plans compiled, the distinct
+            window lengths, the device ms of the whole stream between two
+            CUDA events (warm: every window's plan compiled; and cold)
+            beside the offline plan's back-to-back ms, input samples/s,
+            the median and max push (CUDA events; and the median push on
+            the host's clock, and a plan-cache hit of its compile alone),
+            peak memory; ``pfb_power`` and
+            ``fir_decimate`` once more on an irregular push schedule from
+            a seeded generator, free-running and with ``step_buckets``
+            (same bar; the bucketed runner must compile fewer windows)
+  autotune  ``TINA_AUTOTUNE=on`` with a cache in a temporary directory:
+            ``pfb_power`` at ``lowering="auto"`` and at
+            ``precision="auto"`` (kernel lowering), ``fir_decimate`` at
+            ``block_configs="auto"`` at f32 and int8, and the 4096-cubed
+            matmul at ``block_configs="auto"``, at full width: each
+            node's winner, seconds spent tuning, nodes measured, the
+            kernels the tuning launched (each of the case's must launch),
+            the tuned plan against the kernel plan at its tiers (bit for
+            bit where every winner is that plan's lowering and tile, else
+            1e-4 of max), a reduced tier that won held to its stored
+            budget verdict and its op's SQNR budget on row 0, what
+            ``pick_joint`` stored (times, SQNR), both plans' back-to-back
+            ms; then ``TINA_AUTOTUNE=cached`` with both caches cleared:
+            no new measurement, the same winners, the same output
   kernels   the kernel table, all 13 TPU kernels: launches, errors,
             times, bounds (an f32 product at the TF32 tensor-core peak;
             the fused PFB's FIR at the fp32 pipe beside its DFT at TF32;
@@ -151,9 +182,11 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -180,6 +213,8 @@ MM_F64_RTOL = 1e-5    # the 3xTF32 GEMM against a float64 product (as the
                       # DFT's; one TF32 pass would be near 1e-3)
 SWEEP_TOL = 2e-3      # Table-1 row vs numpy oracle (tests/test_opdefs.py)
 PLAN_TOL = 1e-5       # Table-1 row eager vs its single-node plan
+STREAM_RTOL = 1e-6    # streamed vs offline f32 plan, of max (the JAX suite's
+                      # streaming bar, tests/test_graph.py); int8: bit for bit
 STFT_J, STFT_HOP, STFT_X = 1024, 512, (4, 2 ** 20)
 SPEC_J, SPEC_X = 64, (8, 2 ** 16)
 FIR_X = (16, 2 ** 22)
@@ -2722,6 +2757,342 @@ def main() -> int:
          ms={"plan": median_ms(torch, lambda: planb(x)),
              "plan_back_to_back": device_ms(torch, lambda: planb(x))})
     del planb, nativeb, outb, x
+
+    # ======================================================================
+    # stream: every pipeline through ChunkedRunner at lowering="kernel", at
+    # f32 and int8, full width, held against its offline plan
+    # ======================================================================
+    from repro_torch.graph import autotune
+    from repro_torch.graph import plan as plan_lib
+
+    def chunks_of(n, size):
+        return [(i, min(size, n - i)) for i in range(0, n, size)]
+
+    def stream_run(g, x, pieces, prec, buckets=False, per_push=False):
+        """One stream of ``x`` through a fresh runner, pushed as the
+        (start, length) ``pieces`` of its last axis, then finalized: the
+        concatenated output, the runner, the device ms between two CUDA
+        events around the whole stream, each push's (device ms, host ms)
+        and the plan calls it made."""
+        runner = graph.ChunkedRunner(g, lowering="kernel", precision=prec,
+                                     step_buckets=buckets)
+        outs, marks = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            start.record()
+            for piece in pieces + [None]:
+                if per_push:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    h0 = time.perf_counter()
+                if piece is None:
+                    o = runner.finalize()
+                else:
+                    i, size = piece
+                    o = runner.push(x[..., i:i + size])
+                if per_push:
+                    h1 = time.perf_counter()
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e1.record()
+                    marks.append((e0, e1, (h1 - h0) * 1e3))
+                if o is not None:
+                    outs.append(o)
+            end.record()
+        end.synchronize()
+        out = torch.cat(outs, dim=runner.spec.concat_axis)
+        return (out, runner, start.elapsed_time(end),
+                [(a.elapsed_time(b), h) for a, b, h in marks], len(outs))
+
+    def hold_stream(label, got, want, prec) -> dict:
+        """int8: bit for bit; f32: max|diff| <= 1e-6 of max|offline|, the
+        count of differing elements printed either way."""
+        if got.shape != want.shape:
+            fail(f"{label}: streamed {tuple(got.shape)} vs offline "
+                 f"{tuple(want.shape)}")
+        diff = (got - want).abs()
+        n_diff = int((diff != 0).sum().item())
+        err, scale = diff.max().item(), want.abs().max().item()
+        if prec == "int8" and n_diff:
+            fail(f"{label}: int8 stream differs from offline in {n_diff} "
+                 f"elements (max |diff| {err})")
+        if not err <= STREAM_RTOL * scale:
+            fail(f"{label}: streamed vs offline {err} > {STREAM_RTOL} * "
+                 f"{scale} ({n_diff} elements differ)")
+        return {"differing_elements": n_diff, "elements": want.numel(),
+                "max_abs_diff": err, "max_abs_offline": scale}
+
+    stream_paths = (
+        ("pfb_power", graph.build_pfb_power(1024, 8), (16, 2 ** 22),
+         2 ** 18, {"pfb_fused": 1, "elementwise_chain": 1},
+         {"pfb_fused_int8": 1, "elementwise_chain": 1}),
+        ("stft_overlap_add", graph.build_stft_overlap_add(STFT_J, STFT_HOP),
+         STFT_X, 2 ** 18,
+         {"unfold": 1, "elementwise_binary": 2, "dft": 2, "overlap_add": 1},
+         {"unfold": 1, "elementwise_binary": 2, "dft_int8": 1,
+          "matmul_int8": 4, "overlap_add": 1}),
+        ("spectrogram", graph.build_spectrogram(SPEC_J), SPEC_X, 2 ** 14,
+         {"unfold": 1, "elementwise_binary": 1, "dft": 1,
+          "elementwise_chain": 1},
+         {"unfold": 1, "elementwise_binary": 1, "dft_int8": 1,
+          "elementwise_chain": 1}),
+        ("fir_decimate", graph.build_fir_decimate(31, 15), FIR_X, 2 ** 18,
+         {"fir_valid": 2}, {"fir_valid_int8": 2}),
+        ("correlate", graph.build_correlate(63), FIR_X, 2 ** 18,
+         {"fir_valid": 1, "elementwise_chain": 1},
+         {"fir_valid_int8": 1, "elementwise_chain": 1}),
+        ("cascaded_channelizer", graph.build_cascaded_channelizer(31, 16, 4),
+         CHAN_X, 2 ** 18,
+         {"fir_valid": 1, "pfb_fused": 1, "elementwise_chain": 1},
+         {"fir_valid_int8": 1, "pfb_fused_int8": 1,
+          "elementwise_chain": 1}))
+    for name, g, shape, chunk, want32, want8 in stream_paths:
+        x = torch.randn(*shape, device=dev, generator=gen)
+        for prec, per_call in (("f32", want32), ("int8", want8)):
+            label = f"stream {name} {prec}"
+            offline = compile_quiet(g, shape, lowering="kernel",
+                                    precision=prec)
+            want = offline(x)
+            offline_ms = device_ms(torch, lambda: offline(x))
+            pieces = chunks_of(shape[-1], chunk)
+            torch.cuda.synchronize()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            misses = graph.cache_stats()["misses"]
+            # the counted run: counts set to 0 just before, read just after
+            zero_counts()
+            out, runner, cold_ms, _, calls = stream_run(g, x, pieces, prec)
+            launches = counts()
+            plans = graph.cache_stats()["misses"] - misses
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            full_want = dict.fromkeys(launches, 0)
+            full_want.update({k: v * calls for k, v in per_call.items()})
+            if launches != full_want:
+                fail(f"{label}: launches over {calls} plan calls {launches}, "
+                     f"want {full_want}")
+            held = hold_stream(label, out, want, prec)
+            owned(label, out, x)
+            del out
+            # warm: every window's plan is compiled; the stream's own time,
+            # and the host's share of a push: the whole push on the host
+            # clock, and the plan-cache hit of its compile alone
+            _, _, warm_ms, push_ms, _ = stream_run(g, x, pieces, prec,
+                                                   per_push=True)
+            steady = {g.inputs[0]: (shape[0], max(runner.window_lens))}
+            hits = []
+            for _ in range(REPEATS):
+                h0 = time.perf_counter()
+                graph.compile(g, steady, lowering="kernel", precision=prec)
+                hits.append((time.perf_counter() - h0) * 1e3)
+            emit(phase="stream", path=name, precision=prec, x=list(shape),
+                 chunk=[shape[0], chunk], pushes=len(pieces),
+                 plan_calls=calls, plans_compiled=plans,
+                 window_lens=sorted(runner.window_lens),
+                 receptive=runner.spec.receptive, block=runner.spec.block,
+                 launches=launches, **held,
+                 ms={"stream": warm_ms, "stream_cold": cold_ms,
+                     "offline_back_to_back": offline_ms,
+                     "push_median": statistics.median(d for d, _ in push_ms),
+                     "push_max": max(d for d, _ in push_ms),
+                     "push_host_median": statistics.median(
+                         h for _, h in push_ms),
+                     "compile_hit_median": statistics.median(hits)},
+                 samples_per_s=shape[0] * shape[1] / (warm_ms * 1e-3),
+                 offline_samples_per_s=shape[0] * shape[1]
+                 / (offline_ms * 1e-3),
+                 peak_memory_gb=peak_gb, memory_before_gb=base_gb)
+            del want, offline
+        if name in ("pfb_power", "fir_decimate"):
+            # an irregular schedule from a seeded generator, free-running
+            # and bucketed: the bucketed runner compiles fewer windows
+            sched = np.random.default_rng(2026)
+            pieces, i = [], 0
+            while i < shape[-1]:
+                size = min(int(sched.integers(2 ** 16, 2 ** 19)),
+                           shape[-1] - i)
+                pieces.append((i, size))
+                i += size
+            want = compile_quiet(g, shape, lowering="kernel")(x)
+            lens = {}
+            for buckets in (False, True):
+                label = f"stream {name} f32 irregular buckets={buckets}"
+                torch.cuda.reset_peak_memory_stats()
+                misses = graph.cache_stats()["misses"]
+                zero_counts()
+                out, runner, ms_run, _, calls = stream_run(
+                    g, x, pieces, "f32", buckets=buckets)
+                launches = counts()
+                full_want = dict.fromkeys(launches, 0)
+                full_want.update({k: v * calls for k, v in want32.items()})
+                if launches != full_want:
+                    fail(f"{label}: launches {launches}, want {full_want}")
+                held = hold_stream(label, out, want, "f32")
+                lens[buckets] = sorted(runner.window_lens)
+                emit(phase="stream", path=name, precision="f32",
+                     schedule="irregular", step_buckets=buckets,
+                     pushes=len(pieces), plan_calls=calls,
+                     plans_compiled=graph.cache_stats()["misses"] - misses,
+                     window_lens=lens[buckets], launches=launches, **held,
+                     ms={"stream_cold": ms_run},
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                del out
+            if not len(lens[True]) < len(lens[False]):
+                fail(f"stream {name}: bucketed windows {lens[True]} not fewer "
+                     f"than free-running {lens[False]}")
+            del want
+        del x
+
+    # ======================================================================
+    # autotune: measure, persist, replay from "cached" with no measurement
+    # ======================================================================
+    tune_dir = tempfile.TemporaryDirectory(prefix="tina_autotune_")
+    tune_path = str(Path(tune_dir.name) / "autotune_torch.json")
+    os.environ["TINA_AUTOTUNE"] = "on"
+    os.environ["TINA_AUTOTUNE_CACHE"] = tune_path
+    autotune._MEM.clear()
+    mm_g = graph.Graph(f"matmul_{MM_N}_tune")
+    mm_g.output(mm_g.apply("matmul", mm_g.input("x"), mm_g.const(
+        np.random.default_rng(20).standard_normal((MM_N, MM_N),
+                                                  dtype=np.float32), "y")))
+    pfb_g = graph.build_pfb_power(1024, 8)
+    fir_g = graph.build_fir_decimate(31, 15)
+    # (label, graph, shape, options, kernels the tuning must launch)
+    tune_cases = (
+        ("pfb_power lowering=auto", pfb_g, (16, 2 ** 22),
+         {"lowering": "auto"}, ("pfb_fused", "elementwise_chain")),
+        ("pfb_power precision=auto", pfb_g, (16, 2 ** 22),
+         {"lowering": "kernel", "precision": "auto"},
+         ("pfb_fused", "pfb_fused_int8", "elementwise_chain")),
+        ("fir_decimate block_configs=auto", fir_g, FIR_X,
+         {"lowering": "kernel", "block_configs": "auto"}, ("fir_valid",)),
+        ("fir_decimate int8 block_configs=auto", fir_g, FIR_X,
+         {"lowering": "kernel", "block_configs": "auto",
+          "precision": "int8"}, ("fir_valid_int8",)),
+        ("matmul block_configs=auto", mm_g, (MM_N, MM_N),
+         {"lowering": "kernel", "block_configs": "auto"}, ("matmul",)))
+
+    def full_cfg(plan, node, cfg):
+        """A node's block config with the kernel defaults filled in (a
+        tuned default tile computes what {} computes)."""
+        av = plan_lib.infer(plan.graph, plan.input_specs)
+        sp = autotune.space_for(node.op, plan.precisions[node.name])
+        ctx = autotune.tune_ctx(node, [av[i] for i in node.inputs])
+        if sp is None or ctx is None or plan.lowerings[node.name] != "kernel":
+            return dict(cfg)
+        return sp.check(dict(cfg), ctx)
+
+    def winners(plan):
+        return {nd: {"lowering": plan.lowerings[nd],
+                     "config": plan.configs.get(nd, {}),
+                     "precision": plan.precisions[nd]}
+                for nd in plan.lowerings}
+
+    tuned_out = {}
+    for label, g, shape, opts, tuned_kernels in tune_cases:
+        x = torch.randn(*shape, device=dev, generator=gen)
+        st0 = autotune.stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        tuned = compile_quiet(g, shape, **opts)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        tuning_launches = counts()
+        st1 = autotune.stats()
+        if st1["measured"] == st0["measured"] or not all(
+                tuning_launches[k] for k in tuned_kernels):
+            fail(f"autotune {label}: measured "
+                 f"{st1['measured'] - st0['measured']} nodes, launches "
+                 f"{tuning_launches}; want each of {tuned_kernels}")
+        # the kernel plan at the tiers the tuned plan runs
+        kplan = compile_quiet(g, shape, lowering="kernel",
+                              precision=dict(tuned.precisions))
+        ref = kplan(x)
+        zero_counts()
+        out = tuned(x)
+        torch.cuda.synchronize()
+        call_launches = counts()
+        same = all(tuned.lowerings[nd.name] == kplan.lowerings[nd.name]
+                   and full_cfg(tuned, nd, tuned.configs.get(nd.name, {}))
+                   == full_cfg(kplan, nd, {})
+                   for nd in tuned.graph.topo()
+                   if nd.op not in ("input", "const"))
+        if same and not torch.equal(out, ref):
+            fail(f"autotune {label}: the winner is the kernel plan's "
+                 "lowering/config but its output is not bit-identical")
+        err, scale = rel_err(torch, out, ref)
+        if not same and not err <= NATIVE_RTOL * scale:
+            fail(f"autotune {label}: tuned vs kernel plan {err} > "
+                 f"{NATIVE_RTOL} * {scale}")
+        # a reduced tier that won: its stored verdict passed, and the plan
+        # output's row 0 meets the op's budget against the f32 kernel plan
+        entries = autotune._load(tune_path)
+        reduced = {}
+        for nd in tuned.graph.topo():
+            prec = tuned.precisions.get(nd.name, "f32")
+            if prec == "f32":
+                continue
+            f32_row0 = compile_quiet(g, shape, lowering="kernel")(x)[0]
+            b = opdefs.OPDEFS[nd.op].budget(prec)
+            sq = opdefs.sqnr_db(f32_row0.cpu(), out[0].cpu())
+            stored = [v.get("accuracy", {}).get(prec)
+                      for k, v in entries.items()
+                      if k.startswith(nd.op + "|")
+                      and k.endswith("|prec=auto")]
+            if opts.get("precision") == "auto" and not (
+                    stored and all(s and s.get("ok") for s in stored)):
+                fail(f"autotune {label}: {nd.name} won at {prec} without a "
+                     f"passing budget verdict: {stored}")
+            if b is not None and not sq >= b.sqnr_db:
+                fail(f"autotune {label}: {nd.name} at {prec}: row 0 at {sq} "
+                     f"dB < its op's {b.sqnr_db} dB budget")
+            reduced[nd.name] = {"precision": prec,
+                                "budget_db": b.sqnr_db if b else None,
+                                "row0_sqnr_db_vs_f32_plan": sq,
+                                "stored_verdicts": stored}
+            del f32_row0
+        # why pick_joint chose what it chose: the times and SQNR it stored
+        why = ({k: {f: v.get(f) for f in ("precision", "lowering", "config",
+                                           "accuracy", "times_us")}
+                for k, v in entries.items() if k.endswith("|prec=auto")}
+               if opts.get("precision") == "auto" else None)
+        emit(phase="autotune", case=label, x=list(shape), options=opts,
+             winners=winners(tuned), same_as_kernel_plan=same,
+             max_abs_err_vs_kernel_plan=err, max_abs_kernel_plan=scale,
+             tune_seconds=tune_s,
+             measured=st1["measured"] - st0["measured"],
+             pruned=st1["pruned"] - st0["pruned"],
+             tuning_launches=tuning_launches, launches_per_call=call_launches,
+             reduced_tiers=reduced or None, pick_joint=why,
+             ms={"tuned_back_to_back": device_ms(torch, lambda: tuned(x)),
+                 "kernel_plan_back_to_back": device_ms(torch,
+                                                       lambda: kplan(x))},
+             stats=autotune.stats())
+        tuned_out[label] = (out, winners(tuned), x)
+        del ref, kplan, tuned
+    # replay: TINA_AUTOTUNE=cached, a cleared plan cache and file mirror
+    os.environ["TINA_AUTOTUNE"] = "cached"
+    graph.clear_cache()
+    autotune._MEM.clear()
+    m0 = autotune.stats()["measured"]
+    for label, g, shape, opts, _ in tune_cases:
+        out0, win0, x = tuned_out[label]
+        again = compile_quiet(g, shape, **opts)
+        if autotune.stats()["measured"] != m0:
+            fail(f"autotune {label}: cached mode measured "
+                 f"{autotune.stats()['measured'] - m0} candidates")
+        if winners(again) != win0:
+            fail(f"autotune {label}: cached winners {winners(again)} vs "
+                 f"tuned {win0}")
+        if not torch.equal(again(x), out0):
+            fail(f"autotune {label}: cached plan's output differs")
+    emit(phase="autotune", case="cached replay", cases=len(tune_cases),
+         new_measurements=autotune.stats()["measured"] - m0,
+         stats=autotune.stats(), cache_entries=len(autotune._load(tune_path)))
+    del tuned_out
+    os.environ.pop("TINA_AUTOTUNE")
+    os.environ.pop("TINA_AUTOTUNE_CACHE")
+    tune_dir.cleanup()
 
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]

@@ -20,6 +20,9 @@ planner, the fuser and the kernels' tune spaces all derive from.
     ``lowering="kernel"`` routing to the int8 CUDA kernels per
     ``q_lowerings``) and ``qprep`` quantizes const weights once at plan
     build (``(attrs, {argpos: const}) -> qpack``).
+  * streaming view -- ``stream`` (:class:`StreamRule`) says how the op
+    maps the streamed time axis; ``graph.stream.stream_spec`` composes
+    the rules down a graph as conv stride and receptive-field arithmetic.
   * kernel view -- ``kprep`` (``(attrs, {argpos: const}) -> kpack``)
     gives an f32 node at the ``kernel`` lowering a slot for the
     kernel-side form of its const weights (the f32 GEMM's TF32 planes of
@@ -31,9 +34,9 @@ The port declares every op of the reference: the eleven Table-1 ops
 ``fir``, ``unfold``, ``overlap_add``, ``pfb_frontend``, ``pfb``) and the
 graph-only glue (``window``, ``abs2``, ``scale``, ``real``,
 ``downsample``, ``frame_decimate``, ``fused_ew``), in the reference's
-order, with the reference's precision declarations.  The streaming
-fields come with their slice; a graph naming an op missing here fails
-to compile with the reference's "unknown op" error.
+order, with the reference's precision and stream declarations; a graph
+naming an op missing here fails to compile with the reference's
+"unknown op" error.
 """
 from __future__ import annotations
 
@@ -129,6 +132,29 @@ class Attr:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamRule:
+    """How an op maps the streamed (time) axis.
+
+    ``kind``:
+      * ``"pointwise"`` -- per-element; multiple streamed inputs OK.
+      * ``"frame"``     -- mixes the last axis; legal only after the
+                          stream has been framed (unfold/pfb).
+      * ``"time"``      -- consumes the raw time axis; ``spec`` gives
+                          (block, receptive, tail_delta) in *samples*.
+      * ``"framed"``    -- consumes the frame axis after framing;
+                          ``spec`` gives the same triple in *frames*.
+
+    ``spec(attrs, taps_shape)`` returns ``(block, receptive,
+    tail_delta)``; ``taps_shape`` is the shape of the node's second
+    (const) input when ``needs_taps`` -- FIR/PFB read their reach off
+    the baked taps.
+    """
+    kind: str
+    spec: Callable[[dict, tuple | None], tuple] | None = None
+    needs_taps: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class OpDef:
     name: str                                  # graph op name (canonical)
     impl: Callable                             # (args, attrs, lowering, block)
@@ -152,6 +178,7 @@ class OpDef:
                                                # non-array make_args entries
     tune_space: str | None = None              # kernels.tune space key
     tune_ctx: Callable | None = None           # (attrs, in_shapes) -> dict
+    stream: StreamRule | None = None           # streaming behaviour
     precisions: tuple[str, ...] = ("f32", "bf16")
     # tiers the op supports; "int8" needs a qimpl or a precision-
     # transparent op (pure data movement: its f32 impl IS its int8 one)
@@ -489,6 +516,34 @@ def _ctx_fused(at, shapes):
 
 
 # ---------------------------------------------------------------------------
+# stream rules
+# ---------------------------------------------------------------------------
+_POINTWISE = StreamRule("pointwise")
+_FRAME = StreamRule("frame")
+
+
+def _stream_fir(at, taps):
+    if at["mode"] != "valid":
+        raise ValueError("streaming fir supports mode='valid' only")
+    return 1, taps[-1], 0
+
+
+def _stream_overlap_add(at, taps):
+    if not at["window"]:
+        raise ValueError("streaming overlap_add needs the window attr "
+                         "(frame length is not known graph-statically)")
+    if at["window"] % at["hop"]:
+        raise ValueError(
+            f"overlap_add: hop {at['hop']} must divide window "
+            f"{at['window']}")
+    return 1, at["window"] // at["hop"], -1
+
+
+def _stream_pfb(at, taps):
+    return taps[1], taps[0] * taps[1], 1
+
+
+# ---------------------------------------------------------------------------
 # the declarations -- Table-1 ops (make_args as the reference's, so a test
 # feeds both packages the same inputs)
 # ---------------------------------------------------------------------------
@@ -507,7 +562,8 @@ register(OpDef(
     section="3.1", building_block="depthwise conv",
     eager=functions.elementwise_mult, oracle=lambda x, y: x * y,
     make_args=_NN, table_name="elementwise_mult",
-    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary,
+    stream=_POINTWISE))
 
 register(OpDef(
     "ew_add", _ew_binary("add"), ("native", "conv", "kernel"),
@@ -515,7 +571,8 @@ register(OpDef(
     section="3.3", building_block="depthwise conv",
     eager=functions.elementwise_add, oracle=lambda x, y: x + y,
     make_args=_NN, table_name="elementwise_add",
-    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary,
+    stream=_POINTWISE))
 
 def _impl_matmul(a, at, lw, b=None, kpack=None):
     planes = (_tf32_kmajor(kpack, a[1])
@@ -555,7 +612,8 @@ register(OpDef(
     budgets=(("int8", Budget(sqnr_db=28.0)),),
     qimpl=_qimpl_matmul, qprep=_qprep_matmul,
     q_lowerings=("native", "kernel"), qtune_space="matmul_int8",
-    kprep=_kprep_matmul))
+    kprep=_kprep_matmul,
+    stream=_FRAME))
 
 register(OpDef(
     "summation",
@@ -580,7 +638,8 @@ register(OpDef(
     precisions=("f32", "bf16", "int8"),
     budgets=(("int8", Budget(sqnr_db=26.0)),),
     qimpl=_qimpl_dft,
-    q_lowerings=("native", "kernel"), qtune_space="dft_int8"))
+    q_lowerings=("native", "kernel"), qtune_space="dft_int8",
+    stream=_FRAME))
 
 register(OpDef(
     "idft",
@@ -598,7 +657,8 @@ register(OpDef(
     precisions=("f32", "bf16", "int8"),
     budgets=(("int8", Budget(sqnr_db=26.0)),),
     qimpl=_qimpl_idft,
-    q_lowerings=("native", "kernel"), qtune_space="dft_int8"))
+    q_lowerings=("native", "kernel"), qtune_space="dft_int8",
+    stream=_FRAME))
 
 register(OpDef(
     "fir",
@@ -615,7 +675,8 @@ register(OpDef(
     budgets=(("int8", Budget(sqnr_db=30.0)),),
     qimpl=_qimpl_fir, qprep=_qprep_fir,
     qok=lambda at: at["mode"] == "valid",
-    q_lowerings=("native", "kernel"), qtune_space="fir_int8"))
+    q_lowerings=("native", "kernel"), qtune_space="fir_int8",
+    stream=StreamRule("time", _stream_fir, needs_taps=True)))
 
 register(OpDef(
     "unfold",
@@ -630,7 +691,8 @@ register(OpDef(
     tune_space="unfold", tune_ctx=_ctx_unfold,
     # precision-transparent: pure data movement, the f32 impl IS the
     # int8 behavior, so int8 requests pass through instead of downgrading
-    precisions=("f32", "bf16", "int8")))
+    precisions=("f32", "bf16", "int8"),
+    stream=StreamRule("time", lambda at, taps: (1, at["window"], 1))))
 
 register(OpDef(
     "overlap_add", _impl_overlap_add, ("native", "conv", "kernel"),
@@ -640,7 +702,8 @@ register(OpDef(
     make_args=lambda rng, n: (
         rng.standard_normal((max(2, n // 8), 64), dtype=np.float32), 32),
     table_name="overlap_add", arg_attrs=("hop",),
-    tune_space="overlap_add", tune_ctx=_ctx_overlap_add))
+    tune_space="overlap_add", tune_ctx=_ctx_overlap_add,
+    stream=StreamRule("framed", _stream_overlap_add)))
 
 register(OpDef(
     "pfb_frontend",
@@ -654,7 +717,8 @@ register(OpDef(
     table_name="pfb_frontend", tune_space="pfb", tune_ctx=_ctx_pfb,
     precisions=("f32", "bf16", "int8"),
     budgets=(("int8", Budget(sqnr_db=26.0)),),
-    qimpl=_qimpl_pfb_frontend, qprep=_qprep_pfb))
+    qimpl=_qimpl_pfb_frontend, qprep=_qprep_pfb,
+    stream=StreamRule("time", _stream_pfb, needs_taps=True)))
 
 register(OpDef(
     "pfb",
@@ -670,7 +734,8 @@ register(OpDef(
     precisions=("f32", "bf16", "int8"),
     budgets=(("int8", Budget(sqnr_db=26.0)),),
     qimpl=_qimpl_pfb, qprep=_qprep_pfb,
-    q_lowerings=("native", "kernel"), qtune_space="pfb_int8"))
+    q_lowerings=("native", "kernel"), qtune_space="pfb_int8",
+    stream=StreamRule("time", _stream_pfb, needs_taps=True)))
 
 # ---------------------------------------------------------------------------
 # glue primitives (graph-only: no Table-1 row)
@@ -682,40 +747,47 @@ register(OpDef(
     "window", _ew_binary("mul"), ("native", "conv", "kernel"),
     elementwise=True, fuse_step=lambda at: ("mul",),
     section="3.1", building_block="depthwise conv",
-    tune_space="elementwise", tune_ctx=_ctx_ew_binary))
+    tune_space="elementwise", tune_ctx=_ctx_ew_binary,
+    stream=_POINTWISE))
 
 register(OpDef(
     "abs2", _impl_abs2, ("native", "conv", "kernel"),
     elementwise=True, fuse_step=lambda at: ("abs2",),
     section="3.1+3.3", building_block="depthwise conv",
-    tune_space="elementwise", tune_ctx=_ctx_abs2))
+    tune_space="elementwise", tune_ctx=_ctx_abs2,
+    stream=_POINTWISE))
 
 register(OpDef(
     "scale",
     lambda a, at, lw, b=None: a[0] * at["factor"],
     ("native",), elementwise=True,
     fuse_step=lambda at: ("scale", at["factor"]),
-    lowering_agnostic=True, attrs=(Attr("factor"),)))
+    lowering_agnostic=True, attrs=(Attr("factor"),),
+    stream=_POINTWISE))
 
 register(OpDef(
     "real",
     lambda a, at, lw, b=None: a[0].real,
-    ("native",), lowering_agnostic=True))
+    ("native",), lowering_agnostic=True,
+    stream=_POINTWISE))
 
 register(OpDef(
     "downsample",     # pure data movement: the same view every lowering
     lambda a, at, lw, b=None: a[0][..., ::at["factor"]],
-    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),)))
+    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),),
+    stream=StreamRule("time", lambda at, taps: (at["factor"], 1, 0))))
 
 register(OpDef(
     "frame_decimate",  # keep every factor-th frame (hop on a framed axis)
     lambda a, at, lw, b=None: a[0][..., ::at["factor"], :],
-    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),)))
+    ("native",), lowering_agnostic=True, attrs=(Attr("factor"),),
+    stream=StreamRule("framed", lambda at, taps: (at["factor"], 1, 0))))
 
 register(OpDef(
     "fused_ew", _impl_fused, ("native", "conv", "kernel"),
     attrs=(Attr("steps"), Attr("members", ())),
-    tune_space="elementwise", tune_ctx=_ctx_fused))
+    tune_space="elementwise", tune_ctx=_ctx_fused,
+    stream=_POINTWISE))
 
 
 # ---------------------------------------------------------------------------
@@ -726,5 +798,5 @@ def table_ops() -> list[OpDef]:
     return [d for d in OPDEFS.values() if d.table_name is not None]
 
 
-__all__ = ["OpDef", "Attr", "OPDEFS", "REQUIRED", "register", "table_ops",
-           "Budget", "sqnr_db", "bf16_round", "PRECISIONS"]
+__all__ = ["OpDef", "Attr", "StreamRule", "OPDEFS", "REQUIRED", "register",
+           "table_ops", "Budget", "sqnr_db", "bf16_round", "PRECISIONS"]

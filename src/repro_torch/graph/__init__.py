@@ -5,6 +5,9 @@ cached plans that run on the card.
                 signatures hash the same) and ``load_graph``
   plan.py       planner: shape specialization, elementwise fusion,
                 lowering and precision selection, memoized plans
+  autotune.py   measuring lowering/config/precision/fusion autotuner,
+                on-disk cache (``~/.cache/tina/autotune_torch.json``)
+  stream.py     chunked streaming executor (offline-identical output)
   pipelines.py  built-in workloads (``spectrogram``, ``pfb_power``,
                 ``fir_decimate``, ``stft_overlap_add``, ``correlate``,
                 ``cascaded_channelizer``)
@@ -17,9 +20,17 @@ Quick use::
     power = plan(x)                     # x: a float32 tensor on the card
     plan8 = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="kernel",
                           precision="int8")   # the int8 kernels
+    runner = graph.ChunkedRunner(g, lowering="kernel")
+    parts = [runner.push(c) for c in chunks]   # (16, n) chunks -> steps
+    chunked = graph.stream_execute(g, x, chunk_len=2 ** 18,
+                                   lowering="kernel")   # == power
+    tuned = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="auto")
+
+``device="cpu"`` runs any of these on the CPU (the kernels' plain
+versions).
 """
 from repro_torch.core.opdefs import OPDEFS, OpDef
-from repro_torch.graph import pipelines, plan
+from repro_torch.graph import autotune, pipelines, plan, stream
 from repro_torch.graph.graph import Graph, Node, load_graph
 from repro_torch.graph.pipelines import (BUILTINS,
                                          build_cascaded_channelizer,
@@ -33,13 +44,17 @@ from repro_torch.graph.pipelines import (BUILTINS,
                                          stft_overlap_add_oracle)
 from repro_torch.graph.plan import (CompileOptions, Plan, cache_stats,
                                     clear_cache, compile)
+from repro_torch.graph.stream import (ChunkedRunner, stream_execute,
+                                      stream_spec)
 
 __all__ = [
     "Graph", "Node", "load_graph", "OpDef", "OPDEFS", "Plan",
-    "CompileOptions", "compile", "cache_stats", "clear_cache", "BUILTINS",
+    "CompileOptions", "compile", "cache_stats", "clear_cache",
+    "ChunkedRunner", "stream_execute", "stream_spec", "BUILTINS",
     "build_pfb_power", "pfb_power_oracle", "build_spectrogram",
     "spectrogram_oracle", "build_fir_decimate", "fir_decimate_oracle",
     "build_stft_overlap_add", "stft_overlap_add_oracle", "build_correlate",
     "correlate_oracle", "build_cascaded_channelizer",
-    "cascaded_channelizer_oracle", "pipelines", "plan",
+    "cascaded_channelizer_oracle", "autotune", "pipelines", "plan",
+    "stream",
 ]

@@ -4,8 +4,8 @@ nodes, pick each node's lowering, and memoize the compiled plan.
 ``compile(graph, shapes, lowering=..., precision=..., device=...)``
 returns a :class:`Plan`; the cache key is ``(graph.signature, input
 shapes and dtypes, device, lowering, precision, quantize engine, block
-configs, fuse)``, so a second identical call is a dict lookup that
-returns the same Plan.
+configs, fuse, tuner state)``, so a second identical call is a dict
+lookup that returns the same Plan.
 
 Op catalog: every node's implementation, lowerings, attr schema and
 fusion trait come from :mod:`repro_torch.core.opdefs` (:data:`OPS` *is*
@@ -35,6 +35,22 @@ Fusion: maximal runs of adjacent single-consumer elementwise nodes
 chain kernel under ``kernel``.  A dict precision is a fusion boundary:
 a run whose members ask for different tiers stays unfused.
 
+Autotuning (:mod:`repro_torch.graph.autotune`): ``lowering="auto"``
+picks each node's lowering and block config by measurement on the plan's
+device; ``block_configs="auto"`` tunes the block configs of the lowering
+each node ends up with; ``precision="auto"`` (also as one node's entry
+of a dict) searches the tier jointly with the lowering, gated by the
+op's accuracy Budget; ``fuse="auto"`` measures each elementwise chain
+fused against unfused.  ``fuse=None`` is ``"auto"`` for a
+``lowering="auto"`` plan and ``True`` otherwise.  ``autotune_kwargs``
+pass to the tuner (``repeats``, ``path``, ``lowerings``).  A tuned plan's
+cache key holds the tuner's mode, cache path, the cache file's mtime and
+those kwargs, so a mode switch or a new cache write never returns a
+stale plan; the plan it replaces (same shapes and options, older mtime)
+leaves the cache.  ``"auto"`` is a plan-wide lowering only: a per-node
+lowering dict that holds it raises.  Unmeasured (``TINA_AUTOTUNE=off``
+or a cached miss), a tuned node runs its kernel at the default tile.
+
 Outputs: as the reference's jit outputs, each is dense and owns its
 memory: a view is made contiguous and an output sharing storage with a
 plan input or const is copied (``_owned``).
@@ -44,9 +60,7 @@ asking for CUDA without a card raises RuntimeError.  Graph consts become
 device tensors once, here, not per call.  Shape inference runs the
 native lowering on ``"meta"`` tensors.
 
-Not yet ported (each raises ValueError): ``precision="auto"``,
-``lowering="auto"``, ``block_configs="auto"``, ``fuse="auto"`` and
-``mesh``.
+Not yet ported: ``mesh`` (multi-device plans) raises ValueError.
 """
 from __future__ import annotations
 
@@ -427,11 +441,12 @@ class CompileOptions:
 
     dtype: str = "float32"
     device: str | None = None
-    lowering: object = "native"       # str | {node: str}
-    block_configs: dict | None = None  # None | {node: {param: int}}
-    fuse: bool = True
-    precision: object = "f32"          # str | {node: str}
+    lowering: object = "native"       # str | "auto" | {node: str}
+    block_configs: object = None      # None | "auto" | {node: {param: int}}
+    fuse: object = None               # None | bool | "auto"
+    precision: object = "f32"          # str | "auto" | {node: str}
     mesh: object = None
+    autotune_kwargs: dict | None = None
 
     def replace(self, **changes) -> "CompileOptions":
         """A copy with the given fields changed (``dataclasses.replace``)."""
@@ -445,30 +460,27 @@ def _check_ported(o: CompileOptions) -> None:
     if bad:
         raise ValueError(f"precision: unknown tier(s) {sorted(bad)}; "
                          f"expected one of {TIERS} or a per-node dict")
-    if "auto" in tiers:
-        raise ValueError("precision='auto' (the budget-gated autotuner) is "
-                         "not yet ported; see ROADMAP.md")
-    if o.lowering == "auto" or (isinstance(o.lowering, dict)
-                                and "auto" in o.lowering.values()):
-        raise ValueError("lowering='auto' (the autotuner) is not yet ported; "
-                         "see ROADMAP.md")
-    if o.block_configs is not None and not isinstance(o.block_configs, dict):
-        raise ValueError(f"block_configs={o.block_configs!r} is not yet "
-                         "ported (None or a {node: {param: int}} dict); "
-                         "see ROADMAP.md")
-    if not isinstance(o.fuse, bool):
-        raise ValueError(f"fuse={o.fuse!r} is not yet ported (True or "
-                         "False); see ROADMAP.md")
+    if not (o.block_configs in (None, "auto")
+            or isinstance(o.block_configs, dict)):
+        raise ValueError(f"block_configs={o.block_configs!r}: expected None, "
+                         "'auto' or a {node: {param: int}} dict")
+    if o.fuse not in (None, True, False, "auto"):
+        raise ValueError(f"fuse={o.fuse!r}: expected None, True, False or "
+                         "'auto'")
     if o.mesh is not None:
         raise ValueError("mesh= (multi-device plans) is not yet ported; "
                          "see ROADMAP.md")
+    if isinstance(o.lowering, dict) and "auto" in o.lowering.values():
+        raise ValueError("lowering: 'auto' tunes the whole plan "
+                         "(lowering='auto'); a per-node dict names fixed "
+                         f"lowerings, one of {LOWERINGS}")
     requested = (set(o.lowering.values()) if isinstance(o.lowering, dict)
                  else {o.lowering})
-    bad = requested - set(LOWERINGS) - {"reference"}
+    bad = requested - set(LOWERINGS) - {"reference", "auto"}
     if bad:
         raise ValueError(f"unknown lowering(s) {sorted(bad)}; expected one "
-                         f"of {LOWERINGS} (the reference's 'pallas' is "
-                         "'kernel' here)")
+                         f"of {LOWERINGS}, 'auto' or 'reference' (the "
+                         "reference's 'pallas' is 'kernel' here)")
 
 
 def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
@@ -480,13 +492,19 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
 
         compile(g, {"x": (16, 4096)}, lowering="kernel")            # cuda
         compile(g, {"x": (4096,)}, lowering="kernel", device="cpu")
+        compile(g, {"x": (16, 4096)}, lowering="auto")    # measured
 
-    ``lowering``: one name for every node or a {node: lowering} dict
+    ``lowering``: one name for every node, a {node: lowering} dict
     (post- or pre-fusion names; a fused node honors its members' request
-    when they agree).  ``precision``: ``"f32"``, ``"bf16"``, ``"int8"``
-    or a {node: tier} dict (module docstring).  ``block_configs``:
-    {node: {param: int}} kernel block sizes, validated at the kernel
-    boundary.  ``fuse``: collapse elementwise chains (default True).
+    when they agree), or ``"auto"`` (the autotuner picks per node).
+    ``precision``: ``"f32"``, ``"bf16"``, ``"int8"``, ``"auto"`` or a
+    {node: tier} dict (module docstring).  ``block_configs``: None
+    (kernel defaults; with ``lowering="auto"`` tuned with the lowering),
+    ``"auto"`` (tuned for each node's lowering) or {node: {param: int}}
+    kernel block sizes, validated at the kernel boundary (explicit
+    entries win over tuned ones).  ``fuse``: collapse elementwise chains
+    (True), never (False), or as measured (``"auto"``); None is
+    ``"auto"`` for ``lowering="auto"`` and True otherwise.
     """
     o = options or CompileOptions()
     if changes:
@@ -500,6 +518,14 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
         lowering = {n: ("native" if lw == "reference" else lw)
                     for n, lw in lowering.items()}
     precision = o.precision if o.precision is not None else "f32"
+    fuse = o.fuse
+    if fuse is None:
+        fuse = "auto" if lowering == "auto" else True
+    block_configs = o.block_configs
+    tune_kw = dict(o.autotune_kwargs or {})
+    prec_auto = (precision == "auto"
+                 or (isinstance(precision, dict)
+                     and "auto" in precision.values()))
     specs = _norm_specs(graph, shapes, o.dtype)
     spec_key = tuple((n, specs[n][0], str(specs[n][1])) for n in graph.inputs)
     low_key = (tuple(sorted(lowering.items()))
@@ -507,12 +533,23 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     prec_key = (tuple(sorted(precision.items()))
                 if isinstance(precision, dict) else precision)
     cfg_key = (tuple(sorted((n, tuple(sorted(c.items())))
-                            for n, c in o.block_configs.items()))
-               if o.block_configs else None)
+                            for n, c in block_configs.items()))
+               if isinstance(block_configs, dict) else block_configs)
+    tune_key = None
+    if (lowering == "auto" or block_configs == "auto" or fuse == "auto"
+            or prec_auto):
+        # tuned selections depend on the autotune mode, the cache file
+        # (path AND content: another process's entries must reach plans
+        # compiled after its write, hence the mtime) and the tuner kwargs;
+        # none of these may return a stale memoized plan
+        from repro_torch.graph import autotune
+        path = tune_kw.get("path") or autotune.cache_path()
+        tune_key = (autotune.mode(), path, autotune._mtime(path),
+                    repr(sorted(tune_kw.items())))
     # the quantize engine is part of the key: an engine_override("ref")
     # compile must not collide with the default "int" plans
     key = (graph.signature, spec_key, str(device), low_key, prec_key,
-           quantize.engine(), cfg_key, o.fuse)
+           quantize.engine(), cfg_key, fuse, tune_key)
     plan = _CACHE.get(key)
     if plan is not None:
         _HITS.add()
@@ -542,15 +579,35 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
             return precision.get(name, "f32")
 
         with obs.span("plan.fuse", cat="compile", graph=graph.name,
-                      mode=str(o.fuse)):
-            # precision boundaries are fusion boundaries: a fused node
-            # runs at ONE tier, so a run whose members ask for different
-            # tiers stays unfused
-            keep = (None if not isinstance(precision, dict) else
-                    lambda run: len({req_prec(n.name) for n in run}) == 1)
-            g = fuse_elementwise(graph, avals, keep=keep) if o.fuse else graph
+                      mode=str(fuse)):
+            keeps: list[Callable] = []
+            if isinstance(precision, dict):
+                # precision boundaries are fusion boundaries: a fused node
+                # runs at ONE tier, so a run whose members ask for
+                # different tiers stays unfused
+                keeps.append(lambda run: len(
+                    {req_prec(n.name) for n in run}) == 1)
+            if fuse == "auto":
+                from repro_torch.graph import autotune
+                # a fixed plan-wide lowering is what the verdict is about;
+                # for auto or per-node requests measure where it matters:
+                # the chain kernel (one launch) against per-member kernels
+                probe_lw = (lowering if isinstance(lowering, str)
+                            and lowering in LOWERINGS else "kernel")
+                keeps.append(lambda run: autotune.pick_fusion(
+                    graph, run, avals, device=device, lowering=probe_lw,
+                    **tune_kw))
+            if fuse:
+                keep = (None if not keeps else
+                        lambda run: all(k(run) for k in keeps))
+                g = fuse_elementwise(graph, avals, keep=keep)
+            else:
+                g = graph
+        if g is not graph:
+            avals = infer(g, specs)
 
         lowerings: dict[str, str] = {}
+        configs: dict[str, dict] = {}
         downgrades: dict[str, str] = {}
         precisions: dict[str, str] = {}
 
@@ -574,28 +631,12 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                 return members_agree(node, precision) or "f32"
             return "f32"
 
-        compute = [n for n in g.topo() if n.op not in ("input", "const")]
-        for node in compute:
-            if isinstance(lowering, dict):
-                req = lowering.get(node.name)
-                if req is None and node.op == "fused_ew":
-                    req = members_agree(node, lowering)
-            else:
-                req = lowering
-            d = OPS[node.op]
-            if req is not None and req in d.lowerings:
-                lowerings[node.name] = req
-            else:
-                lowerings[node.name] = "native"
-                if req not in (None, "native") and not d.lowering_agnostic:
-                    tag_downgrade(node.name, "lowering", req)
-        for node in compute:
-            # int8 with a quantized impl keeps the lowering when the qimpl
-            # has it (q_lowerings: the int8 CUDA kernels); else it quietly
-            # runs native, the torch integer path -- not a downgrade, the
-            # integer path IS the tier.  An unsupported tier runs f32,
-            # recorded, unless the op is pure data movement.
-            rp = req_prec_node(node)
+        def resolve_prec(node: Node, rp: str) -> None:
+            """int8 with a quantized impl keeps the lowering when the qimpl
+            has it (q_lowerings: the int8 CUDA kernels); else it quietly
+            runs native, the torch integer path -- not a downgrade, the
+            integer path IS the tier.  An unsupported tier runs f32,
+            recorded, unless the op is pure data movement."""
             d = OPS[node.op]
             if rp == "f32":
                 precisions[node.name] = "f32"
@@ -604,13 +645,101 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                 if rp == "int8" and d.qimpl is not None \
                         and lowerings[node.name] not in d.q_lowerings:
                     lowerings[node.name] = "native"
+                    configs.pop(node.name, None)
             else:
                 precisions[node.name] = "f32"
                 if not d.lowering_agnostic:
                     tag_downgrade(node.name, "precision", rp)
-        if downgrades:
-            _DOWNGRADES.add(len(downgrades))
-            _warn_downgrades(g, downgrades)
+
+        compute = [n for n in g.topo() if n.op not in ("input", "const")]
+        with obs.span("plan.autotune", cat="autotune", graph=g.name,
+                      mode=(lowering if isinstance(lowering, str)
+                            else "per-node")):
+            def tuned(node: Node, prec: str = "f32", **kw):
+                """One node's (lowering, config) from the tuner."""
+                from repro_torch.graph import autotune
+                with obs.span("plan.lower", cat="autotune",
+                              node=node.name, op=node.op):
+                    return autotune.pick(g, node, avals, device=device,
+                                         precision=prec, **{**tune_kw, **kw})
+
+            def tune_prec(node: Node, only=None) -> None:
+                """precision="auto" for one node: the joint (precision x
+                lowering x block) search, budget-gated (``only``
+                restricts the lowerings when the caller fixed one)."""
+                from repro_torch.graph import autotune
+                kw = dict(tune_kw)
+                if only is not None:
+                    kw["lowerings"] = only
+                with obs.span("plan.lower", cat="autotune",
+                              node=node.name, op=node.op):
+                    lw, cfg, prec = autotune.pick_joint(
+                        g, node, avals, device=device, **kw)
+                lowerings[node.name] = lw
+                configs[node.name] = cfg
+                precisions[node.name] = prec
+
+            if lowering == "auto":
+                for node in compute:
+                    rp = req_prec_node(node)
+                    d = OPS[node.op]
+                    if rp == "auto":
+                        tune_prec(node)
+                    elif (rp == "int8" and d.qimpl is not None
+                          and d.supports_precision(rp, d.bind(node.attr))):
+                        # the integer path has its own lowering x block
+                        # search (q_lowerings / qtune_space)
+                        lowerings[node.name], configs[node.name] = tuned(
+                            node, "int8")
+                        precisions[node.name] = "int8"
+                    else:
+                        lowerings[node.name], configs[node.name] = tuned(
+                            node)
+                        resolve_prec(node, rp)
+            else:
+                for node in compute:
+                    if isinstance(lowering, dict):
+                        req = lowering.get(node.name)
+                        if req is None and node.op == "fused_ew":
+                            req = members_agree(node, lowering)
+                    else:
+                        req = lowering
+                    d = OPS[node.op]
+                    if req is not None and req in d.lowerings:
+                        lowerings[node.name] = req
+                    else:
+                        lowerings[node.name] = "native"
+                        if req not in (None, "native") \
+                                and not d.lowering_agnostic:
+                            tag_downgrade(node.name, "lowering", req)
+                for node in compute:
+                    rp = req_prec_node(node)
+                    if rp == "auto":
+                        tune_prec(node, only=(lowerings[node.name],))
+                    else:
+                        resolve_prec(node, rp)
+            if downgrades:
+                _DOWNGRADES.add(len(downgrades))
+                _warn_downgrades(g, downgrades)
+
+            if block_configs == "auto" and lowering != "auto":
+                # tune block configs for the lowerings chosen above
+                for node in compute:
+                    _, configs[node.name] = tuned(
+                        node, precisions[node.name],
+                        lowerings=(lowerings[node.name],))
+            elif isinstance(block_configs, dict):
+                configs.update({n: dict(c)
+                                for n, c in block_configs.items()})
+
+        if tune_key is not None:
+            # tuning above may have written the cache file (bumping its
+            # mtime): store the plan under the post-save key, so the next
+            # identical compile is the cache hit a stream push relies on
+            from repro_torch.graph import autotune
+            path = tune_key[1]
+            key = key[:-1] + ((tune_key[0], path, autotune._mtime(path),
+                               tune_key[3]),)
 
         consts = {n.name: _const_tensor(g.consts[n.name], device)
                   for n in g.topo() if n.op == "const"}
@@ -641,12 +770,19 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
 
         plan = Plan(graph=g, input_names=tuple(g.inputs),
                     lowerings=lowerings, key=key, device=device,
-                    input_specs=specs,
-                    configs={n: dict(c)
-                             for n, c in (o.block_configs or {}).items()},
+                    input_specs=specs, configs=configs,
                     downgrades=downgrades, consts=consts,
                     precisions=precisions, qconsts=qconsts,
                     kconsts=kconsts)
+        if tune_key is not None:
+            # a tuner write orphans the plans keyed on the older mtime:
+            # drop the one for these shapes and options, so a stream's
+            # windows keep one plan (and one set of consts) each
+            for k in [k for k in _CACHE if k[:-1] == key[:-1]
+                      and k[-1] is not None and k[-1][:2] == key[-1][:2]
+                      and k[-1][3] == key[-1][3]]:
+                del _CACHE[k]
+                _EVICTIONS.add()
         _CACHE[key] = plan
     return plan
 

@@ -191,8 +191,11 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     assert graph.CompileOptions().device is None
 
 
-# int8 and bf16 are ported; what is not yet is the budget-gated
-# precision="auto", also as one node's entry of a dict beside them
+# the options the port once refused: each now compiles (under
+# TINA_AUTOTUNE=cached with a cold cache, so nothing is measured and every
+# tuned choice is its default: the kernel at its default tile) and equals
+# the kernel plan of the precisions it resolved bit for bit; only mesh= is
+# still not ported
 @pytest.mark.parametrize("changes", [
     {"precision": {"pfb2": "int8", "abs23": "auto"}},
     {"precision": {"pfb2": "auto", "abs23": "bf16"}},
@@ -200,10 +203,26 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     {"block_configs": "auto"}, {"fuse": "auto"}, {"mesh": 2}],
     ids=["int8", "bf16", "precision-auto", "lowering-auto", "blocks-auto",
          "fuse-auto", "mesh"])
-def test_not_yet_ported_options_raise(changes):
+def test_not_yet_ported_options_raise(changes, tmp_path, monkeypatch):
+    monkeypatch.setenv("TINA_AUTOTUNE", "cached")
+    monkeypatch.setenv("TINA_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
     g = graph.build_pfb_power(P, M)
-    with pytest.raises(ValueError, match="not yet ported"):
-        graph.compile(g, {"x": (P * 16,)}, device="cpu", **changes)
+    if "mesh" in changes:
+        with pytest.raises(ValueError, match="not yet ported"):
+            graph.compile(g, {"x": (P * 16,)}, device="cpu", **changes)
+        return
+    opts = {"lowering": "kernel", **changes}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        plan = graph.compile(g, {"x": (P * 16,)}, device="cpu", **opts)
+        want = graph.compile(g, {"x": (P * 16,)}, device="cpu",
+                             lowering="kernel", precision=plan.precisions)
+    assert not (tmp_path / "tune.json").exists()    # nothing measured
+    assert set(plan.precisions.values()) <= {"f32", "int8", "bf16"}
+    x = _rng("auto", str(changes)).standard_normal(P * 16).astype(np.float32)
+    assert set(plan.lowerings.values()) == {"kernel"}
+    assert not any(plan.configs.values()) and not any(want.configs.values())
+    assert torch.equal(plan(x), want(x))
 
 
 def test_unknown_lowering_and_op_raise():
@@ -217,6 +236,13 @@ def test_unknown_lowering_and_op_raise():
                       attrs) for name, op, inputs, attrs in spec["nodes"]]
     with pytest.raises(ValueError, match="unknown op 'fir_int8'"):
         graph.compile(graph.load_graph(spec), {"x": (256,)}, device="cpu")
+
+
+def test_per_node_lowering_auto_raises():
+    g = graph.build_pfb_power(P, M)
+    with pytest.raises(ValueError, match="tunes the whole plan"):
+        graph.compile(g, {"x": (P * 16,)}, device="cpu",
+                      lowering={"pfb2": "auto", "abs23": "kernel"})
 
 
 def test_per_node_lowering_dict():

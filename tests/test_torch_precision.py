@@ -529,18 +529,27 @@ def test_int_and_ref_engines_bit_identical():
         quantize.int8_dot(xq.to("meta"), wq.to("meta"))
 
 
-def test_unknown_tier_and_auto_raise():
+def test_unknown_tier_and_auto_raise(tmp_path, monkeypatch):
+    """An unknown tier raises; precision="auto" (plan-wide or one node's
+    entry) compiles, and under TINA_AUTOTUNE=cached with a cold cache it
+    measures nothing and answers f32: the kernel f32 plan, bit for bit."""
     g = graph.build_spectrogram()
     with pytest.raises(ValueError, match="unknown tier"):
         graph.compile(g, {"x": (512,)}, precision="fp4", device="cpu")
     with pytest.raises(ValueError, match="unknown tier"):
         graph.compile(g, {"x": (512,)}, precision={"dft2": "int4"},
                       device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        graph.compile(g, {"x": (512,)}, precision="auto", device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        graph.compile(g, {"x": (512,)}, precision={"dft2": "auto"},
-                      device="cpu")
+    monkeypatch.setenv("TINA_AUTOTUNE", "cached")
+    monkeypatch.setenv("TINA_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    x = _rng("auto-tier").standard_normal(512).astype(np.float32)
+    want = graph.compile(g, {"x": (512,)}, lowering="kernel",
+                         device="cpu")(x)
+    for prec in ("auto", {"dft2": "auto"}):
+        plan = graph.compile(g, {"x": (512,)}, precision=prec,
+                             lowering="kernel", device="cpu")
+        assert set(plan.node_precisions.values()) == {"f32"}
+        assert torch.equal(plan(x), want)
+    assert not (tmp_path / "tune.json").exists()
 
 
 def test_precision_downgrades_recorded_and_warned_once():
