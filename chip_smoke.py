@@ -4,7 +4,8 @@ against its plain torch version, and drives the ``pfb_power``,
 ``stft_overlap_add``, ``spectrogram``, ``fir_decimate``, ``correlate``
 and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
 4096-cubed matmul end to end on one NVIDIA card, at f32, then at int8
-and bf16; then streams every pipeline in chunks and autotunes plans.
+and bf16; then streams every pipeline in chunks, autotunes plans, and
+serves ``pfb_power`` and the spectrogram through ``PipelineService``.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -169,6 +170,43 @@ Prints one JSON line per phase:
             ``pick_joint`` stored (times, SQNR), both plans' back-to-back
             ms; then ``TINA_AUTOTUNE=cached`` with both caches cleared:
             no new measurement, the same winners, the same output
+  serve     ``PipelineService`` on the card: ``pfb_power`` at full width
+            (P = 1024, M = 8, requests of 2**22 samples, batch 16,
+            continuous, kernel lowering), overlapped and not in the
+            order on, off, off, on, each run from an empty page-locked
+            host cache: the first request alone (its batch's latency
+            reported apart,
+            after the plan cache and the lazily made DFT state were
+            cleared), then 256 requests (64 signals, each four times)
+            from 4 threads, half rt and half batch, then an int8 tenant
+            (``add_tenant``) the same way with 128; every future resolves, ``replay_batches`` equal bit
+            for bit on every request, three responses per tenant against
+            the numpy oracle (f32 within 2e-3 of max, int8 >= 26 dB),
+            launches per batch (``pfb_fused`` 1 + chain 1, int8
+            ``pfb_fused_int8`` 1 + chain 1), nothing degraded or
+            quarantined, the service's plans the offline plans' cache
+            entries, at most two page-locked output buffers per bucket,
+            the first result unchanged after every later
+            batch; printed: requests/s, input samples/s, latency
+            percentiles, host ms per batch by part (pack, copy in, plan,
+            copy out, deliver), the card's ms per batch by part (CUDA
+            events), the device track's and the card's busy share of the
+            window, peak memory, beside the offline plans' back-to-back
+            ms.  Then one overlapped f32 window without a replay log,
+            whose clients drop each result once they have checked it
+            (the rate users see).  Then faults (``TINA_FAULTS``): a
+            transient fault retried once and two poison rows isolated by
+            bisection, the healthy rows replayed bit for bit; an f32
+            kernel bucket forced past ``degrade_after`` fails its request
+            with the fault and recompiles nothing (no plain version
+            stands in for a kernel on the card); an int8 kernel bucket
+            degrades to the f32 kernel plan on the card, equal to it bit
+            for bit.  Then ``launch.dsp_serve.main`` in
+            process: the spectrogram cell at the kernel lowering (its four
+            kernels once a batch, 4 responses against the oracle), at
+            ``lowering="auto"`` with ``--prewarm`` in a temporary tuner
+            cache, and under ``--torch-profiler`` (the top five host ops
+            per batch by self time)
   kernels   the kernel table, all 13 TPU kernels: launches, errors,
             times, bounds (an f32 product at the TF32 tensor-core peak;
             the fused PFB's FIR at the fp32 pipe beside its DFT at TF32;
@@ -180,6 +218,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -187,6 +226,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -3093,6 +3133,451 @@ def main() -> int:
     os.environ.pop("TINA_AUTOTUNE")
     os.environ.pop("TINA_AUTOTUNE_CACHE")
     tune_dir.cleanup()
+
+    # ======================================================================
+    # serve: PipelineService at full width on the card, the fault path,
+    # and the launcher
+    # ======================================================================
+    from repro_torch import obs
+    from repro_torch.core.registry import PIPELINES as SERVE_PIPES
+    from repro_torch.graph import service as service_lib
+    from repro_torch.launch import dsp_serve
+    from repro_torch.obs import faults
+
+    serve_n, serve_p, serve_m, serve_b = 2 ** 22, 1024, 8, 16
+    pfb_oracle = graph.pfb_power_oracle(serve_p, serve_m)
+    req_rng = np.random.default_rng(2021)
+    # the first request alone, then 256 f32 and 128 int8 requests: 64
+    # and 32 distinct signals, each sent four times (a window of 16 and 8
+    # full batches, so the buffers a service makes at its first batches
+    # do not set the medians)
+    f32_reqs = [req_rng.standard_normal(serve_n, dtype=np.float32)
+                for _ in range(65)]
+    i8_reqs = [req_rng.standard_normal(serve_n, dtype=np.float32)
+               for _ in range(33)]
+    f32_reqs = f32_reqs[:1] + f32_reqs[1:] * 4
+    i8_reqs = i8_reqs[:1] + i8_reqs[1:] * 4
+
+    def fresh_histograms(s) -> None:
+        """Start a service's latency and per-part histograms anew (after
+        its first batch, which is reported apart)."""
+        for book in (s._lat, s._host, s._card):
+            for k, h in book.items():
+                book[k] = obs.Histogram(h.name, unit=h.unit)
+
+    def drive_threads(s, reqs, tenant=None, keep=True):
+        """Submit ``reqs`` from 4 threads, half rt and half batch; the
+        futures in request order and each request's latency (ms).  With
+        ``keep=False`` a client drops each result once it has checked its
+        shape and finiteness, but for the three the oracle reads."""
+        futs = [None] * len(reqs)
+        lat = [None] * len(reqs)
+        errs = []
+        kept = {0, len(reqs) // 2, len(reqs) - 1}
+
+        def producer(k):
+            try:
+                mine = []
+                for i in range(k, len(reqs), 4):
+                    t_sub = time.perf_counter()
+                    f = s.submit(reqs[i], tenant=tenant,
+                                 priority="rt" if i % 2 else "batch")
+                    futs[i] = f
+                    mine.append((i, f, t_sub))
+                for i, f, t_sub in mine:
+                    row = f.result(timeout=600)
+                    lat[i] = (time.perf_counter() - t_sub) * 1e3
+                    if not keep and i not in kept:
+                        if row.ndim != 2 or not np.isfinite(row).all():
+                            raise AssertionError(
+                                f"response {i}: {row.shape}, not finite")
+                        futs[i] = None
+            except Exception as e:   # noqa: BLE001 — reported below
+                errs.append(e)
+
+        threads = [threading.Thread(target=producer, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if errs or any(t.is_alive() for t in threads):
+            fail(f"serve: a producer failed or hung: {errs!r}")
+        return futs, lat
+
+    def pct(values, q):
+        return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+    def summary(book):
+        return {k: {"p50": v["p50"], "p99": v["p99"], "count": v["count"]}
+                for k, v in book.items()}
+
+    def serve_window(s, reqs, tenant, keep=True):
+        """The first request alone (its batch's latency reported apart),
+        then the rest from 4 threads: rates, latencies, parts, busy
+        share, the futures."""
+        t0 = time.perf_counter()
+        first_fut = s.submit(reqs[0], tenant=tenant)
+        first = first_fut.result(timeout=600)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        kept = first.copy()
+        fresh_histograms(s)
+        b0 = s.stats()["tenants"][tenant or "default"]["batches"]
+        ev0 = len(obs.events())
+        w0 = time.perf_counter()
+        futs, lat = drive_threads(s, reqs[1:], tenant, keep)
+        window_s = time.perf_counter() - w0
+        st = s.stats()
+        runs = [e for e in obs.events()[ev0:]
+                if e["name"] == "service.device_run"]
+        busy_ms = sum(e["dur"] for e in runs) / 1e3
+        card_busy_ms = st["card_ms"]["batch"]["mean"] * \
+            st["card_ms"]["batch"]["count"] \
+            if st["card_ms"]["batch"]["count"] else 0.0
+        n = len(reqs) - 1
+        return first_fut, kept, futs, {
+            "first_batch_ms": first_ms,
+            "requests": n, "window_s": window_s,
+            "batches": st["tenants"][tenant or "default"]["batches"] - b0,
+            "requests_per_s": n / window_s,
+            "samples_per_s": n * serve_n / window_s,
+            "latency_ms": {"total": {"p50": pct(lat, 50),
+                                     "p99": pct(lat, 99)},
+                           **summary(st["latency_ms"])},
+            "host_ms_per_batch": summary(st["host_ms"]),
+            "card_ms_per_batch": summary(st["card_ms"]),
+            "device_track_busy_share": busy_ms / (window_s * 1e3),
+            "card_busy_share": card_busy_ms / (window_s * 1e3),
+            "device_track_spans": len(runs)}
+
+    def hold_oracle(label, reqs, futs, prec):
+        worst = []
+        for i in (0, len(reqs) // 2, len(reqs) - 1):
+            want = pfb_oracle(reqs[i])
+            got = futs[i].result(timeout=0)
+            if got.shape != want.shape:
+                fail(f"{label}: response {i} {got.shape} vs oracle "
+                     f"{want.shape}")
+            if prec == "f32":
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                if not err <= ORACLE_RTOL:
+                    fail(f"{label}: response {i} {err} of max > "
+                         f"{ORACLE_RTOL} against the oracle")
+            else:
+                err = opdefs.sqnr_db(want, got)
+                if not err >= 26.0:
+                    fail(f"{label}: response {i} at {err} dB < the pfb "
+                         "budget's 26 dB")
+            worst.append(err)
+        return worst
+
+    pfb_g = graph.build_pfb_power(serve_p, serve_m)
+    offline_ms = {}
+    for prec in ("f32", "int8"):
+        xd = torch.randn(serve_b, serve_n, device=dev, generator=gen)
+        plan = compile_quiet(pfb_g, (serve_b, serve_n), lowering="kernel",
+                             precision=prec)
+        offline_ms[prec] = device_ms(torch, lambda: plan(xd))
+        del xd, plan
+    obs.enable()
+    # each run starts from an empty page-locked host cache (a run that
+    # reused the blocks an earlier one freed would skip the cudaHostAlloc
+    # of every batch's results), in the order on, off, off, on
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    for run, overlap in enumerate((True, False, False, True)):
+        label = f"serve pfb_power overlap={overlap} run {run}"
+        # the first-call cost shows: plans compiled and the lazily made
+        # device state (the PFB's DFT planes, the int8 DFM) made anew
+        graph.clear_cache()
+        ops._fourier_planes.cache_clear()
+        quantize._qdfm_kmajor.cache_clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        if empty_host is not None:
+            empty_host()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        # the counted run: counts set to 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        s = graph.PipelineService(pfb_g, serve_n, batch_size=serve_b,
+                                  batching="continuous", lowering="kernel",
+                                  record_batches=True, overlap=overlap)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            s.add_tenant("pfb_int8", pfb_g, serve_n, lowering="kernel",
+                         precision="int8")
+        construct_s = time.perf_counter() - t0
+        # the bucket plans are the offline plans' cache entries
+        if s.plan is not compile_quiet(pfb_g, (serve_b, serve_n),
+                                       lowering="kernel") \
+                or s.stream() is None:
+            fail(f"{label}: the service's plan is not the offline plan, or "
+                 f"stream {s.stream()}")
+        s.start()
+        f_first, f_kept, f_futs, f_res = serve_window(s, f32_reqs, None)
+        i_first, i_kept, i_futs, i_res = serve_window(s, i8_reqs,
+                                                      "pfb_int8")
+        s.close()
+        launches = counts()
+        st = s.stats()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        f_batches = st["tenants"]["default"]["batches"]
+        i_batches = st["tenants"]["pfb_int8"]["batches"]
+        want = dict.fromkeys(launches, 0)
+        want.update(pfb_fused=f_batches, pfb_frontend=0,
+                    elementwise_chain=f_batches + i_batches,
+                    pfb_fused_int8=i_batches)
+        if launches != want:
+            fail(f"{label}: launches {launches} over {f_batches} f32 and "
+                 f"{i_batches} int8 batches, want {want}")
+        if st["degraded"] or st["quarantined"] or any(
+                t.downgrades for t in s.tenants.values()):
+            fail(f"{label}: degraded {st['degraded']}, quarantined "
+                 f"{st['quarantined']}, downgrades "
+                 f"{ {n: t.downgrades for n, t in s.tenants.items()} }")
+        # a result taken at delivery is unchanged after every later batch
+        for lab, fut, kept in (("f32", f_first, f_kept),
+                               ("int8", i_first, i_kept)):
+            if not np.array_equal(fut.result(timeout=0), kept):
+                fail(f"{label}: the first {lab} result changed after "
+                     "later batches")
+        errs = {"f32_max_abs_err_of_max": hold_oracle(
+            label, f32_reqs[1:], f_futs, "f32"),
+                "int8_sqnr_db": hold_oracle(label, i8_reqs[1:], i_futs,
+                                            "int8")}
+        replayed = service_lib.replay_batches(s)
+        if replayed != len(f32_reqs) + len(i8_reqs):
+            fail(f"{label}: replay checked {replayed} of "
+                 f"{len(f32_reqs) + len(i8_reqs)} requests")
+        # page-locked output buffers are reused, not made per batch
+        out_buffers = {f"{n}/{b}": len(v) for n, t in s.tenants.items()
+                       for b, v in t._free_outs.items()}
+        if not all(1 <= v <= 2 for v in out_buffers.values()):
+            fail(f"{label}: page-locked output buffers {out_buffers}")
+        emit(phase="serve", case="pfb_power", overlap=overlap, run=run,
+             host_cache_emptied=empty_host is not None,
+             x=[serve_n], p=serve_p, m=serve_m, batch_size=serve_b,
+             buckets=list(s.buckets), construct_s=construct_s,
+             launches=launches, f32_batches=f_batches,
+             int8_batches=i_batches, bucket_batches=st["bucket_batches"],
+             replayed_bit_for_bit=replayed, **errs,
+             f32=f_res, int8=i_res,
+             offline_back_to_back_ms=offline_ms,
+             offline_samples_per_s={k: serve_b * serve_n / (v * 1e-3)
+                                    for k, v in offline_ms.items()},
+             peak_memory_gb=peak_gb, memory_before_gb=base_gb,
+             out_buffers=out_buffers,
+             degraded=st["degraded"], quarantined=st["quarantined"])
+        del s, f_futs, i_futs, f_first, i_first, f_kept, i_kept
+    # the rate users see: no replay log, and clients drop their results
+    label = "serve pfb_power results dropped"
+    gc.collect()
+    zero_counts()
+    s = graph.PipelineService(pfb_g, serve_n, batch_size=serve_b,
+                              batching="continuous", lowering="kernel")
+    s.start()
+    f_first, f_kept, f_futs, f_res = serve_window(s, f32_reqs, None,
+                                                  keep=False)
+    s.close()
+    launches = counts()
+    st = s.stats()
+    want = dict.fromkeys(launches, 0)
+    want.update(pfb_fused=st["batches"], elementwise_chain=st["batches"])
+    if launches != want or st["degraded"] or st["quarantined"] \
+            or s.downgrades or not np.array_equal(
+                f_first.result(timeout=0), f_kept):
+        fail(f"{label}: launches {launches}, want {want}; degraded "
+             f"{st['degraded']}, quarantined {st['quarantined']}")
+    emit(phase="serve", case="pfb_power results dropped", overlap=True,
+         record_batches=False, x=[serve_n], batch_size=serve_b,
+         launches=launches, f32_batches=st["batches"],
+         f32_max_abs_err_of_max=hold_oracle(label, f32_reqs[1:], f_futs,
+                                            "f32"),
+         f32=f_res, offline_back_to_back_ms=offline_ms["f32"])
+    del s, f_futs, f_first, f_kept
+    obs.disable()
+    del f32_reqs, i8_reqs
+
+    # faults on the card: poison rows and a transient fault, then a
+    # bucket forced past degrade_after
+    fault_rng = np.random.default_rng(2022)
+    reqs = [fault_rng.standard_normal(serve_n, dtype=np.float32)
+            for _ in range(serve_b)]
+    poison = {3, 11}
+    for i in poison:
+        reqs[i][serve_n // 3] = np.nan
+    # the transient entry first: the first check fires it (one retry),
+    # then the poison entry fails the batch and bisection isolates rows
+    os.environ["TINA_FAULTS"] = "device_run:once,device_run:nan"
+    faults.reset()
+    try:
+        s = graph.PipelineService(pfb_g, serve_n, batch_size=serve_b,
+                                  batching="continuous", lowering="kernel",
+                                  record_batches=True, retry_backoff_ms=0.0)
+        futs = [s.submit(x) for x in reqs]
+        s.flush()
+        s.close()
+        injected = faults.stats()
+    finally:
+        os.environ.pop("TINA_FAULTS")
+        faults.reset()
+    failed = {i for i, f in enumerate(futs) if f.exception(timeout=0)}
+    st = s.stats()
+    if failed != poison or not all(isinstance(futs[i].exception(timeout=0),
+                                              faults.InjectedFault)
+                                   for i in poison):
+        fail(f"serve faults: failed requests {sorted(failed)}, want exactly "
+             f"the poisoned {sorted(poison)}")
+    if st["quarantined"] != len(poison) or st["retries"] != 1:
+        fail(f"serve faults: quarantined {st['quarantined']}, retries "
+             f"{st['retries']}; want {len(poison)} and 1")
+    replayed = service_lib.replay_batches(s)
+    if replayed != serve_b - len(poison):
+        fail(f"serve faults: replay checked {replayed} healthy rows, want "
+             f"{serve_b - len(poison)}")
+    del s, futs, reqs
+    # a failing f32 kernel bucket: the request gets the fault, and no
+    # plain version is compiled in the kernel's place
+    x_deg = fault_rng.standard_normal(serve_n, dtype=np.float32)
+    x_pair = torch.from_numpy(np.stack([x_deg, np.zeros_like(x_deg)]))
+    os.environ["TINA_FAULTS"] = "device_run@kernel:always"
+    faults.reset()
+    try:
+        s = graph.PipelineService(pfb_g, serve_n, batch_size=2,
+                                  lowering="kernel", max_retries=0,
+                                  degrade_after=1, record_batches=True)
+        kernel_plan = s.plans[2]
+        fut = s.submit(x_deg)
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            s.flush()
+        s.close()
+    finally:
+        os.environ.pop("TINA_FAULTS")
+        faults.reset()
+    err = fut.exception(timeout=0)
+    if not isinstance(err, faults.InjectedFault) or s.downgrades \
+            or s.stats()["degraded"] or s.plans[2] is not kernel_plan \
+            or any("recompiled" in str(w.message) for w in warned):
+        fail(f"serve f32 kernel failure: error {err!r}, downgrades "
+             f"{s.downgrades}, plan replaced {s.plans[2] is not kernel_plan}"
+             f", warnings {[str(w.message) for w in warned]}")
+    f32_failure = {"error": type(err).__name__, "downgrades": s.downgrades,
+                   "degraded": s.stats()["degraded"]}
+    del s, kernel_plan
+    # a failing int8 kernel bucket degrades to the f32 kernel plan
+    f32_plan = compile_quiet(pfb_g, (2, serve_n), lowering="kernel")
+    want_k = f32_plan(x_pair.to(dev))[0].cpu().numpy()
+    os.environ["TINA_FAULTS"] = "device_run@kernel:once"
+    faults.reset()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            s = graph.PipelineService(pfb_g, serve_n, batch_size=2,
+                                      lowering="kernel", precision="int8",
+                                      max_retries=0, degrade_after=1,
+                                      record_batches=True)
+        fut = s.submit(x_deg)
+        zero_counts()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            s.flush()
+        deg_launches = counts()
+        s.close()
+    finally:
+        os.environ.pop("TINA_FAULTS")
+        faults.reset()
+    deg_plan = s.plans[2]
+    got = fut.result(timeout=0)
+    if s.downgrades != {2: "precision:int8"} or deg_plan is not f32_plan \
+            or deg_plan.device.type != "cuda" \
+            or deg_launches["pfb_fused"] != 1 \
+            or deg_launches["pfb_fused_int8"] != 0 \
+            or not any("f32 at its own lowering" in str(w.message)
+                       for w in warned):
+        fail(f"serve int8 degrade: downgrades {s.downgrades}, plan on "
+             f"{deg_plan.device}, launches {deg_launches}")
+    if not np.array_equal(got, want_k):
+        fail("serve int8 degrade: the degraded request differs from the f32 "
+             "kernel plan's row")
+    if service_lib.replay_batches(s) != 1:
+        fail("serve int8 degrade: the degraded batch does not replay")
+    emit(phase="serve", case="faults", x=[serve_n], batch_size=serve_b,
+         poisoned=sorted(poison), failed=sorted(failed),
+         quarantined=st["quarantined"], retries=st["retries"],
+         failed_batches=st["failed_batches"], injected=injected,
+         healthy_replayed_bit_for_bit=replayed,
+         f32_kernel_failure=f32_failure,
+         int8_degrade={"downgrades": s.downgrades,
+                       "plan_device": str(deg_plan.device),
+                       "lowerings": deg_plan.lowerings,
+                       "precisions": deg_plan.precisions,
+                       "launches": {k: v for k, v in deg_launches.items()
+                                    if v},
+                       "equal_to_f32_kernel_plan": True})
+    del s, deg_plan, f32_plan, want_k, x_pair
+
+    # the launcher, in process: the spectrogram cell at the kernel
+    # lowering, then lowering=auto with --prewarm in a temporary cache,
+    # then a short run under torch.profiler
+    spec_args = ["--pipeline", "spectrogram", "--batching", "continuous",
+                 "--batch", "8", "--signal-len", str(SPEC_X[1])]
+    zero_counts()
+    out = dsp_serve.main(spec_args + ["--lowering", "kernel", "--requests",
+                                      "32", "--check", "4"])
+    launches = counts()
+    batches = out["stats"]["batches"]
+    want = dict.fromkeys(launches, 0)
+    want.update(unfold=batches, elementwise_binary=batches, dft=batches,
+                elementwise_chain=batches)
+    if out["served"] != 32 or out["checked"] != 4 or launches != want:
+        fail(f"serve launcher: served {out['served']}, checked "
+             f"{out['checked']}, launches {launches}; want {want}")
+    emit(phase="serve", case="dsp_serve kernel", args=spec_args,
+         served=out["served"], checked=out["checked"],
+         seconds=out["seconds"], launches=launches, batches=batches,
+         compiled_while_serving=out["compiled_while_serving"],
+         requests_per_s=out["served"] / out["seconds"],
+         latency_ms={k: {"p50": v["p50"], "p99": v["p99"]}
+                     for k, v in out["stats"]["latency_ms"].items()},
+         host_ms_per_batch=summary(out["stats"]["host_ms"]),
+         card_ms_per_batch=summary(out["stats"]["card_ms"]))
+    with tempfile.TemporaryDirectory(prefix="tina_serve_") as tmp:
+        os.environ["TINA_AUTOTUNE_CACHE"] = str(Path(tmp) / "tune.json")
+        autotune._MEM.clear()
+        m0 = autotune.stats()["measured"]
+        zero_counts()
+        out = dsp_serve.main(spec_args + ["--lowering", "auto", "--prewarm",
+                                          "--tune-repeats", "1",
+                                          "--requests", "16", "--check",
+                                          "4"])
+        tuned = counts()
+        os.environ.pop("TINA_AUTOTUNE_CACHE")
+        if out["served"] != 16 or out["checked"] != 4 \
+                or autotune.stats()["measured"] == m0:
+            fail(f"serve launcher auto: served {out['served']}, checked "
+                 f"{out['checked']}, measured "
+                 f"{autotune.stats()['measured'] - m0}")
+        emit(phase="serve", case="dsp_serve auto prewarm",
+             served=out["served"], checked=out["checked"],
+             measured=autotune.stats()["measured"] - m0,
+             seconds=out["seconds"], launches_incl_tuning=tuned)
+        out = dsp_serve.main(spec_args + ["--lowering", "kernel",
+                                          "--requests", "64", "--check",
+                                          "2", "--torch-profiler",
+                                          str(Path(tmp) / "prof")])
+        prof = out["profile"]
+        if out["served"] != 64 or not prof["top_host_ops"]:
+            fail(f"serve launcher profiler: served {out['served']}, "
+                 f"profile {prof}")
+        emit(phase="serve", case="dsp_serve torch.profiler",
+             served=out["served"], batches=prof["batches"],
+             top_host_ops_per_batch=prof["top_host_ops"],
+             device_self_us=prof["device_self_us"],
+             device_self_us_per_batch=prof["device_self_us"]
+             / max(1, prof["batches"]),
+             trace_bytes=os.path.getsize(prof["trace"]))
 
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]

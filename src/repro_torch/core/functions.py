@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import made_once
 from repro_torch.core import blocks
 
 Tensor = torch.Tensor
@@ -157,13 +158,14 @@ def _dfm_tensors(n: int, inverse: bool, dtype: torch.dtype,
             torch.as_tensor(fi, device=device))
 
 
-@functools.lru_cache(maxsize=64)
+@made_once(64)
 def _dfm_tf32_tensors(n: int, inverse: bool, variant: str,
                       device: str) -> Tensor:
     """The f32 DFT kernel's F side: the hi and lo TF32 parts of the
     (I)DFM's planes, K-major and zero-padded
     (``kernels/dft.py:tf32_planes``), made once per (n, inverse, variant,
-    device) beside :func:`_dfm_tensors`."""
+    device) beside :func:`_dfm_tensors`, and read from any stream
+    (:func:`repro_torch.made_once`)."""
     from repro_torch.kernels import dft as dft_kernel
     fr, fi = _dfm_tensors(n, inverse, torch.float32, device)
     return dft_kernel.tf32_planes(fr, fi, variant)

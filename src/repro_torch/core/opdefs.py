@@ -46,6 +46,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import Made
 from repro_torch.core import functions, pfb, quantize
 
 
@@ -385,6 +386,14 @@ def _qimpl_matmul(args, at, qpack, lowering="native", block=None):
     return quantize.qmatmul(x, wq, ws.reshape(-1))
 
 
+class Pack(list):
+    """A plan's weight pack: its slots, and the :class:`repro_torch.Made`
+    of the slot that its first kernel launch fills, read from every
+    stream that calls the plan."""
+
+    made: Made | None = None
+
+
 def _qprep_matmul(at, consts):
     """[wq, ws, None]: the int8 weight pack, with a slot for its K-major
     copy that :func:`_int8_kmajor` fills where a kernel launch needs it."""
@@ -392,17 +401,18 @@ def _qprep_matmul(at, consts):
     if w is None:
         return None
     wq, ws = quantize.quantize_weights(w)
-    return [wq, ws.reshape(-1), None]
+    return Pack([wq, ws.reshape(-1), None])
 
 
 def _int8_kmajor(qpack: list) -> torch.Tensor:
     """The K-major (N, K) copy of a matmul pack's int8 weight, the B
     operand of the s8 tensor-core GEMM: made at the first launch that
     asks for it and kept in the pack, so native and CPU plans never hold
-    a second copy of the weight."""
+    a second copy of the weight (:class:`Pack`)."""
     if qpack[2] is None:
-        qpack[2] = qpack[0].t().contiguous()
-    return qpack[2]
+        qpack.made = Made(qpack[0].t().contiguous())
+        qpack[2] = qpack.made.value
+    return qpack.made.get()
 
 
 def _qimpl_dft(args, at, qpack, lowering="native", block=None):
@@ -585,7 +595,7 @@ def _impl_matmul(a, at, lw, b=None, kpack=None):
 def _kprep_matmul(at, consts):
     """[None]: a slot for the TF32 planes of a const y, which
     :func:`_tf32_kmajor` fills at the first kernel launch on the card."""
-    return [None] if 1 in consts else None
+    return Pack([None]) if 1 in consts else None
 
 
 def _tf32_kmajor(kpack: list, y: torch.Tensor) -> torch.Tensor:
@@ -596,8 +606,9 @@ def _tf32_kmajor(kpack: list, y: torch.Tensor) -> torch.Tensor:
     CPU plans hold no second copy of the weight."""
     if kpack[0] is None:
         from repro_torch.kernels import matmul as mm_kernel
-        kpack[0] = mm_kernel.tf32_planes(y)
-    return kpack[0]
+        kpack.made = Made(mm_kernel.tf32_planes(y))
+        kpack[0] = kpack.made.value
+    return kpack.made.get()
 
 
 register(OpDef(

@@ -44,6 +44,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import made_once
+
 Tensor = torch.Tensor
 
 _ENGINES = ("int", "ref")
@@ -211,12 +213,13 @@ def _qdfm_tensors(n: int, inverse: bool, device: str
     return tuple(torch.as_tensor(a, device=device) for a in (qr, sr, qi, si))
 
 
-@functools.lru_cache(maxsize=16)
+@made_once(16)
 def _qdfm_kmajor(n: int, inverse: bool, device: str
                  ) -> tuple[Tensor, Tensor]:
     """(qr^T, qi^T): the int8 DFM's K-major (n, n) copies, the B operand
     the s8 tensor-core GEMM takes (kernels/matmul.py:matmul_int8), made
-    once per (n, inverse, device) like :func:`_qdfm_tensors`."""
+    once per (n, inverse, device) like :func:`_qdfm_tensors`, and read
+    from any stream (:func:`repro_torch.made_once`)."""
     qr, _, qi, _ = _qdfm_tensors(n, inverse, device)
     return qr.t().contiguous(), qi.t().contiguous()
 

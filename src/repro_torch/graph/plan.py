@@ -55,6 +55,12 @@ Outputs: as the reference's jit outputs, each is dense and owns its
 memory: a view is made contiguous and an output sharing storage with a
 plan input or const is copied (``_owned``).
 
+Streams: a plan made or first called on one CUDA stream may be called on
+another.  Its consts and int8 weight packs, and the packs made at its
+first kernel launch, are kept with the event recorded after they were
+made (:class:`repro_torch.Made`), and every call orders its stream after
+that event on the card.
+
 Device: plans run on ``"cuda"`` unless ``device=`` says otherwise;
 asking for CUDA without a card raises RuntimeError.  Graph consts become
 device tensors once, here, not per call.  Shape inference runs the
@@ -71,7 +77,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch import obs, resolve_device
+from repro_torch import Made, obs, resolve_device
 from repro_torch.core import quantize
 from repro_torch.core.opdefs import OPDEFS, bf16_round
 from repro_torch.graph.graph import Graph, Node
@@ -297,6 +303,8 @@ class Plan:
     kconsts: dict[str, list] = dataclasses.field(default_factory=dict)
     # node name -> an f32 kernel node's pack from the OpDef's kprep (the
     # GEMM's TF32 planes of its const y), filled at its first launch
+    made: Made | None = None
+    # consts and qconsts with the event recorded after compile made them
 
     @property
     def node_lowerings(self) -> dict[str, str]:
@@ -311,6 +319,8 @@ class Plan:
         return self.precisions
 
     def __call__(self, *args, **kwargs):
+        if self.made is not None:
+            self.made.get()
         arrays = list(args)
         for name in self.input_names[len(arrays):]:
             arrays.append(kwargs[name])
@@ -774,6 +784,11 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                     downgrades=downgrades, consts=consts,
                     precisions=precisions, qconsts=qconsts,
                     kconsts=kconsts)
+        # consts and weight packs were made on the current stream: every
+        # call, on whichever stream, waits for them on the card
+        plan.made = Made([*consts.values(),
+                          *(t for qp in qconsts.values() for t in qp
+                            if isinstance(t, torch.Tensor))])
         if tune_key is not None:
             # a tuner write orphans the plans keyed on the older mtime:
             # drop the one for these shapes and options, so a stream's

@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import made_once
 from repro_torch.core import quantize
 from repro_torch.kernels import dft as dft_kernel
 from repro_torch.kernels import elementwise as ew_kernel
@@ -63,10 +64,11 @@ def _fourier(p: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
             torch.as_tensor(f.imag.astype(np.float32), device=device))
 
 
-@functools.lru_cache(maxsize=16)
+@made_once(16)
 def _fourier_planes(p: int, device: str) -> torch.Tensor:
     """The PFB's DFT stage's F side: ``dft.tf32_planes`` of
-    :func:`_fourier`'s own (fr, fi) at 4mult, made once per (P, device)."""
+    :func:`_fourier`'s own (fr, fi) at 4mult, made once per (P, device)
+    and read from any stream."""
     return dft_kernel.tf32_planes(*_fourier(p, device), "4mult")
 
 

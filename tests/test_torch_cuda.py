@@ -818,3 +818,143 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
                       *(torch.zeros(8, 8, dtype=torch.int8, device=dev),) * 2,
                       *(torch.ones(n, device=dev) for n in (4, 8, 8)),
                       bm=128, bn=96)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: the service's stream, staging buffers and events
+# ---------------------------------------------------------------------------
+def _serve_counts() -> dict:
+    return {"pfb_fused": pfbk.LAUNCHES, "pfb_fused_int8": pfbk.INT8_LAUNCHES,
+            "chain": ewk.LAUNCHES, "binary": ewk.BINARY_LAUNCHES,
+            "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES}
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap",
+                                                        "blocking"])
+def test_service_kernel_plans_on_the_card(dev, overlap):
+    """An overlapped (and a blocking) continuous service at the kernel
+    lowering: every future resolves, on the host; replay is bit for bit;
+    each batch launches its plan's kernels once; nothing degrades; a
+    result taken at delivery is unchanged by every later batch."""
+    from repro_torch.graph.service import PipelineService, replay_batches
+    g = graph.build_pfb_power(32, 8)
+    n = 32 * 300
+    svc = PipelineService(g, n, batch_size=4, batching="continuous",
+                          lowering="kernel", overlap=overlap,
+                          record_batches=True)
+    # the bucket plans are the offline plans' cache entries
+    assert svc.plan is graph.compile(g, {"x": (4, n)}, lowering="kernel")
+    assert svc.plan.device.type == "cuda" and svc.stream() is not None
+    assert svc.stream() != torch.cuda.current_stream(dev)
+    rng = np.random.default_rng(7)
+    xs = [rng.standard_normal(n).astype(np.float32) for _ in range(19)]
+    before = _serve_counts()
+    with svc:
+        first = svc.submit(xs[0]).result(timeout=120)
+        kept = first.copy()
+        outs = [f.result(timeout=120) for f in
+                [svc.submit(x, priority="rt" if i % 2 else "batch")
+                 for i, x in enumerate(xs[1:])]]
+    grew = {k: v - before[k] for k, v in _serve_counts().items()}
+    batches = svc.stats()["batches"]
+    assert grew == {"pfb_fused": batches, "pfb_fused_int8": 0,
+                    "chain": batches, "binary": 0, "dft": 0, "unfold": 0}
+    assert isinstance(first, np.ndarray)
+    np.testing.assert_array_equal(first, kept)
+    oracle = graph.pfb_power_oracle(32, 8)
+    for x, o in zip(xs, [first, *outs]):
+        want = oracle(x)
+        assert np.abs(o - want).max() <= 2e-3 * np.abs(want).max()
+    assert replay_batches(svc) == len(xs)
+    s = svc.stats()
+    assert s["degraded"] == s["quarantined"] == 0 and svc.downgrades == {}
+    assert s["card_ms"]["plan"]["count"] == batches
+    # each bucket reuses its page-locked output buffers
+    assert all(1 <= len(v) <= 2 for v in svc._default._free_outs.values())
+
+
+def test_plan_shared_between_streams_gives_equal_bits(dev):
+    """One cached plan, at f32 and at int8, called first on the service's
+    stream and then on the default stream, and the reverse, gives the
+    same bits on both: its consts and packs, the DFM's TF32 planes and
+    the int8 K-major DFM are made on whichever stream calls first and
+    read from the other."""
+    from repro_torch.graph.service import PipelineService
+    rng = np.random.default_rng(8)
+    n = 4096
+    for prec in ("f32", "int8"):
+        for service_first in (True, False):
+            graph.clear_cache()
+            functions._dfm_tf32_tensors.cache_clear()
+            quantize._qdfm_kmajor.cache_clear()
+            g = graph.build_spectrogram(64)
+            x2 = np.stack([rng.standard_normal(n).astype(np.float32)
+                           for _ in range(2)])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                if not service_first:     # first call: the default stream
+                    plan = graph.compile(g, {"x": (2, n)},
+                                         lowering="kernel", precision=prec)
+                    offline = plan(torch.from_numpy(x2).to(dev)).cpu()
+                svc = PipelineService(g, n, batch_size=2, lowering="kernel",
+                                      precision=prec, batching="continuous")
+            if not service_first:
+                assert svc.plans[2] is plan
+            futs = [svc.submit(x) for x in x2]
+            svc.flush()
+            served = np.stack([f.result(timeout=120) for f in futs])
+            if service_first:             # then the default stream
+                offline = svc.plans[2](torch.from_numpy(x2).to(dev)).cpu()
+            assert np.array_equal(offline.numpy(), served), \
+                (prec, service_first)
+            svc.close()
+
+
+def test_service_degrades_on_the_card(dev):
+    """On the card a failing f32 kernel bucket never gives way to the
+    plain version: the batch's future gets the error and nothing is
+    recompiled.  A failing int8 kernel bucket degrades to the f32 kernel
+    plan, on the card, and still launches the hand-written kernel."""
+    from repro_torch.graph.service import PipelineService, replay_batches
+    from repro_torch.obs import faults
+    g = graph.build_pfb_power(32, 8)
+    n = 32 * 200
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(n).astype(np.float32)
+    faults.configure("device_run@kernel:always", seed=0)
+    try:
+        svc = PipelineService(g, n, batch_size=1, lowering="kernel",
+                              max_retries=0, degrade_after=1,
+                              record_batches=True)
+        kernel_plan = svc.plans[1]
+        f = svc.submit(x)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")    # no degrade warning
+            svc.flush()
+    finally:
+        faults.reset()
+    assert isinstance(f.exception(timeout=0), faults.InjectedFault)
+    assert svc.downgrades == {} and svc.stats()["degraded"] == 0
+    assert svc.plans[1] is kernel_plan
+    svc.close()
+    # int8: one failure, then the f32 kernel plan serves
+    f32_plan = graph.compile(g, {"x": (1, n)}, lowering="kernel")
+    want = f32_plan(torch.from_numpy(x[None]).to(dev)).cpu().numpy()[0]
+    faults.configure("device_run@kernel:once", seed=0)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            svc = PipelineService(g, n, batch_size=1, lowering="kernel",
+                                  precision="int8", max_retries=0,
+                                  degrade_after=1, record_batches=True)
+        f = svc.submit(x)
+        before = pfbk.LAUNCHES
+        with pytest.warns(UserWarning, match="f32 at its own lowering"):
+            svc.flush()
+    finally:
+        faults.reset()
+    assert svc.downgrades == {1: "precision:int8"}
+    assert svc.plans[1] is f32_plan and pfbk.LAUNCHES == before + 1
+    np.testing.assert_array_equal(f.result(timeout=60), want)
+    assert replay_batches(svc) == 1
+    svc.close()
