@@ -4,8 +4,9 @@ against its plain torch version, and drives the ``pfb_power``,
 ``stft_overlap_add``, ``spectrogram``, ``fir_decimate``, ``correlate``
 and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
 4096-cubed matmul end to end on one NVIDIA card, at f32, then at int8
-and bf16; then streams every pipeline in chunks, autotunes plans, and
-serves ``pfb_power`` and the spectrogram through ``PipelineService``.
+and bf16; then streams every pipeline in chunks, autotunes plans,
+serves ``pfb_power`` and the spectrogram through ``PipelineService``,
+and serves olmo_1b (prefill + decode) through the model zoo's port.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -18,7 +19,8 @@ Prints one JSON line per phase:
             and the FIR's ring in shared memory per tile at K = 15, 31, 63;
             the warpgroup MMA instructions (HGMMA, IGMMA) that
             ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` and
-            ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA) and
+            ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA),
+            ``tina_matmul_bf16`` (the bf16 GEMM: HGMMA; a spill fails) and
             ``tina_matmul_int8``, ``tina_dft_int8`` and the DFT stage of
             ``tina_pfb_int8`` (the s8 GEMM and DFTs: IGMMA); a kernel
             without them fails, as does a ``__dp4a`` (IDP) left in any
@@ -207,10 +209,31 @@ Prints one JSON line per phase:
             ``lowering="auto"`` with ``--prewarm`` in a temporary tuner
             cache, and under ``--torch-profiler`` (the top five host ops
             per batch by self time)
-  kernels   the kernel table, all 13 TPU kernels: launches, errors,
-            times, bounds (an f32 product at the TF32 tensor-core peak;
-            the fused PFB's FIR at the fp32 pipe beside its DFT at TF32;
-            the fp32-pipe figures print beside them in the path lines)
+  lm        the model zoo's serving path at olmo_1b's full width (16
+            layers, d_model 2048, vocab 50304, bf16 compute, f32 weights
+            from a seeded CUDA generator) through ``distributed.step`` at
+            the kernel lowering: batch 8 x prompt 512, then 32 greedy
+            decode steps; launches (the bf16 GEMM 112 per prefill and per
+            step, the f32 GEMM none: the tied unembed is a plain f32
+            product); the logits against the native lowering (2e-2 of
+            max) over the prefill and 4 steps fed the same tokens, and
+            both beside the model at f32 compute (a diagnostic); each GEMM
+            shape of the path (the model's own K-major weights) against
+            ``matmul_bf16_plain`` within one bf16 ulp (``bf16_ulps``: the
+            ulp floored at 2^-8 of max; also counted at |plain| and
+            against a float64 product), timed beside ``torch.matmul`` at
+            bf16 (timed here only) and its bound; prefill and decode ms,
+            tokens/s, a decode step's device time by kernel group
+            (``torch.profiler``), its runtime launches and the card's idle
+            share; a 2-layer f32 run (the 3xTF32 GEMM) whose decode
+            equals its teacher-forced forward within 2e-2
+  kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
+            the GEMM (per decode step of the lm phase: its 112 launches'
+            device ms, bounds, plain and torch.matmul times summed):
+            launches, errors, times, bounds (an f32 product at the TF32
+            tensor-core peak; a bf16 one at the bf16 peak; the fused
+            PFB's FIR at the fp32 pipe beside its DFT at TF32; the
+            fp32-pipe figures print beside them in the path lines)
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without CUDA, or outside a checkout, the script
@@ -261,6 +284,15 @@ FIR_X = (16, 2 ** 22)
 CHAN_X = (16, 4_194_333)     # pipelines._chan_len(2 ** 22, 31, 16, 4)
 MM_N = 4096
 SWEEP_N = 2048
+PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor-core flop/s
+LM_ARCH = "olmo_1b"        # the lm phase: its full config, random weights
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 512, 32
+LM_SEED = 1234
+LM_RTOL = 2e-2        # kernel vs native lowering logits, of max: the JAX
+                      # suite's decode tolerance (bf16 rounds at every
+                      # layer; the two GEMMs sum in other f32 orders)
+LM_DECODE_TOL = 2e-2  # decode vs teacher-forced forward, rtol and atol
+                      # (tests/test_system.py::test_decode_matches_forward)
 
 
 T0 = time.perf_counter()
@@ -479,6 +511,7 @@ def hold(torch, what, got, want, rtol=None) -> float:
 
 # entry point -> the warpgroup MMA its kernels must hold
 TC_ENTRIES = {"tina_dft": "HGMMA", "tina_matmul": "HGMMA",
+              "tina_matmul_bf16": "HGMMA",
               "tina_matmul_int8": "IGMMA", "tina_dft_int8": "IGMMA",
               "tina_pfb_int8": "IGMMA"}
 
@@ -495,6 +528,8 @@ def tc_kernel(mangled: str):
         flags = ",".join(re.findall(r"Lb(\d)E", args)
                          + re.findall(r"Li(\d+)E", args))
         return "tina_dft", f"dft_tf32_kernel<{flags}>"
+    if "bf16_matmul_kernel" in mangled:
+        return "tina_matmul_bf16", "bf16_matmul_kernel"
     if "tf32_matmul_kernel" in mangled and width:
         return "tina_matmul", f"tf32_matmul_kernel<{width.group(1)}>"
     if "s8_dft_kernel" in mangled and width:
@@ -617,6 +652,310 @@ def mm_f64_err(torch, x, y, got) -> float:
     return ((got.double() - want).abs().max() / want.abs().max()).item()
 
 
+def bound_bf16(nbytes: int, flops: int) -> tuple[float, str]:
+    """The bound of a bf16 product: its flops at the dense bf16
+    tensor-core peak, or its bytes."""
+    return bound(nbytes, flops, PEAK_BF16_FLOPS)
+
+
+def bf16_gemm_cost(m: int, k: int, n: int) -> tuple[int, int]:
+    """(bytes, flops) of a bf16 GEMM: x, y read once, bf16 out written
+    once; a multiply and an add per product."""
+    return 2 * (m * k + k * n + m * n), 2 * m * k * n
+
+
+def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
+    """The model zoo's serving path at ``LM_ARCH``'s full width (phase
+    ``lm``); returns the kernel table's row of the bf16 GEMM."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH).scaled(tina_lowering="kernel")
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+             cfg.vocab_size, cfg.compute_dtype, cfg.param_dtype,
+             cfg.tie_embeddings)
+    if shape != (16, 2048, 16, 8192, 50304, "bfloat16", "float32", True):
+        fail(f"lm: {LM_ARCH} is not the config this phase was written for: "
+             f"{shape}")
+    b, s, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    max_len = s + steps
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model_lib.prepare(model_lib.init_model(cfg, generator=gen), cfg)
+    batch = {"tokens": torch.as_tensor(
+        make_batch(cfg, b, s, seed=LM_SEED)["tokens"], device=dev)}
+    ncfg = cfg.scaled(tina_lowering="native")
+    steps_of = {c.tina_lowering: (
+        step_lib.make_prefill_step(c, batch_size=b, seq_len=s),
+        step_lib.make_decode_step(c, batch_size=b, cache_len=max_len))
+        for c in (cfg, ncfg)}
+    prefill, decode = steps_of["kernel"]
+
+    def caches():
+        return model_lib.init_caches(cfg, b, max_len, device=dev)
+
+    # warm-up (the library's first launches, cuBLAS's handles), then the
+    # counted run: counts set to 0 just before the prefill, read after it
+    # and after the last decode step
+    c = caches()
+    _, c = prefill(params, batch, c)
+    tok = torch.zeros(b, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        tok, _, c = decode(params, tok, c)
+    del c
+    c = caches()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    logits0, c = prefill(params, batch, c)
+    tok = torch.argmax(logits0, -1).to(torch.int32)
+    e1.record()
+    e1.synchronize()
+    prefill_host_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = counts()
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, logits, c = decode(params, tok, c)
+        toks.append(tok)
+    e2.record()
+    e2.synchronize()
+    decode_host_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    per_step = 7 * cfg.n_layers          # wq, wk, wv, wo, up, gate, down
+    want_prefill = {**dict.fromkeys(launches, 0), "matmul_bf16": per_step}
+    want = {**want_prefill, "matmul_bf16": per_step * (steps + 1)}
+    if at_prefill != want_prefill or launches != want:
+        fail(f"lm: launches {at_prefill} after the prefill and {launches} "
+             f"after {steps} decode steps; want {want_prefill} and {want}")
+    gen_toks = torch.stack(toks, 1)
+    if tuple(gen_toks.shape) != (b, steps + 1) or not bool(
+            ((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()) or \
+            tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all() and torch.isfinite(logits0).all()):
+        fail(f"lm: tokens {tuple(gen_toks.shape)}, logits "
+             f"{tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    prefill_ms = e0.elapsed_time(e1)
+    decode_ms = e1.elapsed_time(e2) / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del c
+
+    # the kernel lowering against the native one (torch.matmul at bf16),
+    # the same weights, fed the counted run's tokens: the prefill's last
+    # logits and the first 4 decode steps'
+    def teacher_forced(lowering, n):
+        pre, dec = steps_of[lowering]
+        cc = caches()
+        lg, cc = pre(params, batch, cc)
+        out = [lg]
+        for i in range(n):
+            _, lg, cc = dec(params, gen_toks[:, i], cc)
+            out.append(lg)
+        return out
+    kern, nat = teacher_forced("kernel", 4), teacher_forced("native", 4)
+    vs_native = []
+    for i, (k_, n_) in enumerate(zip(kern, nat)):
+        err, scale = rel_err(torch, k_, n_)
+        vs_native.append(err / scale)
+        if not err <= LM_RTOL * scale:
+            fail(f"lm: {'prefill' if i == 0 else f'decode step {i}'} logits "
+                 f"kernel vs native {err} > {LM_RTOL} * {scale}")
+    if not torch.equal(torch.argmax(kern[0], -1).to(torch.int32),
+                       gen_toks[:, 0]):
+        fail("lm: the prefill's greedy tokens differ between two runs of "
+             "the kernel lowering")
+    # a diagnostic: both bf16 lowerings against the same model computed
+    # at f32 (native lowering, its own caches), fed the same tokens: how
+    # far bf16 rounding alone moves the logits
+    f32cfg = ncfg.scaled(compute_dtype="float32")
+    steps_of["f32"] = (
+        step_lib.make_prefill_step(f32cfg, batch_size=b, seq_len=s),
+        step_lib.make_decode_step(f32cfg, batch_size=b, cache_len=max_len))
+    c_f32 = model_lib.init_caches(f32cfg, b, max_len, device=dev)
+    ref32 = [steps_of["f32"][0](params, batch, c_f32)[0]]
+    for i in range(4):
+        ref32.append(steps_of["f32"][1](params, gen_toks[:, i], c_f32)[1])
+    vs_f32 = {name: [e / sc for e, sc in (rel_err(torch, a, r)
+                                          for a, r in zip(got, ref32))]
+              for name, got in (("kernel", kern), ("native", nat))}
+    del kern, nat, ref32, c_f32
+
+    # every GEMM shape of the path against the plain version, with the
+    # model's own K-major weights (layer 0): within one bf16 ulp
+    # (mmk.bf16_ulps; also counted at |plain| and against a float64
+    # product rounded to bf16), and timed beside torch.matmul and the bound
+    blk = params["stack"][0]["sub0"]
+    wts = {"qkvo": blk["attn"]["wq"]["wt"], "up_gate": blk["ffn"]["up"]["wt"],
+           "down": blk["ffn"]["down"]["wt"]}
+    per_layer = {"qkvo": 4, "up_gate": 2, "down": 1}
+    shapes, worst_abs = [], 0.0
+    for rows, where in ((b * s, "prefill"), (b, "decode")):
+        for name, wt in wts.items():
+            n, k = wt.shape
+            x = torch.randn(rows, k, device=dev, generator=gen).to(
+                torch.bfloat16)
+            y = wt.t()
+            got = mmk.matmul(x, y, yt=wt)
+            want_ = mmk.matmul_bf16_plain(x, y)
+            exact = (x.double() @ y.double()).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            ulps = mmk.bf16_ulps(got, want_).max().item()
+            strict = mmk.bf16_ulps(got, want_, floor=0)
+            k_exact = (mmk.bf16_ulps(got, exact, floor=0) > 1).sum().item()
+            p_exact = (mmk.bf16_ulps(want_, exact, floor=0) > 1).sum().item()
+            abs_err = (got.float() - want_.float()).abs().max().item()
+            worst_abs = max(worst_abs, abs_err)
+            if not ulps <= 1.0:
+                fail(f"lm: matmul_bf16 {(rows, k, n)} is {ulps} bf16 ulps "
+                     "from its plain version")
+            nbytes, flops = bf16_gemm_cost(rows, k, n)
+            b_ms, b_by = bound_bf16(nbytes, flops)
+            rec = {"where": where, "gemm": name, "mkn": [rows, k, n],
+                   "per_layer": per_layer[name], "max_ulps": ulps,
+                   "max_ulps_at_plain": strict.max().item(),
+                   "n_beyond_1_ulp_at_plain": int((strict > 1).sum()),
+                   "n": got.numel(), "n_beyond_1_ulp_of_float64":
+                   {"kernel": k_exact, "plain": p_exact},
+                   "max_abs_err": abs_err,
+                   "ms": device_ms(torch, lambda: mmk.matmul(x, y, yt=wt)),
+                   "torch_matmul_ms": device_ms(
+                       torch, lambda: torch.matmul(x, y)),
+                   "plain_ms": device_ms(
+                       torch, lambda: mmk.matmul_bf16_plain(x, y)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            shapes.append(rec)
+            emit(phase="lm", case="gemm", nvidia_smi=card, **rec)
+            del x, got, want_, exact, strict
+
+    # a decode step's 112 GEMMs, each shape's figure times its launches
+    dec = [r for r in shapes if r["where"] == "decode"]
+
+    def step_sum(key):
+        return cfg.n_layers * sum(r[key] * r["per_layer"] for r in dec)
+
+    # where a decode step's time goes: torch.profiler's kernel times and
+    # runtime launches over three steps (the card's busy time), grouped
+    # as the bf16 GEMMs, cuBLAS's f32 products (the decode attention's
+    # two einsums and the tied unembed), the softmax and the rest
+    # (norms, rope, casts, copies, residual adds); the f32 unembed alone
+    # (its one product, CUDA events); beside the counted run's step
+    c = caches()
+    _, c = prefill(params, batch, c)
+    tok = gen_toks[:, 0]
+    h = torch.randn(b, 1, cfg.d_model, device=dev, generator=gen).to(
+        torch.bfloat16)
+    unembed_ms = device_ms(torch, lambda: layers.unembed(params["embed"], h,
+                                                         cfg))
+    prof_steps, groups, launches_rt = 3, {}, 0
+    top = {}
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(prof_steps):
+                decode(params, tok, c)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    for ev in events:
+        if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches_rt += ev.count
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        ms = (getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0)) or 0.0) \
+            / prof_steps / 1e3
+        name = ev.key
+        group = ("bf16_gemm" if "bf16_matmul" in name else
+                 "cublas_f32" if "gemm" in name or "gemv" in name else
+                 "softmax" if "softmax" in name else "rest")
+        groups[group] = groups.get(group, 0.0) + ms
+        top[name[:72]] = top.get(name[:72], 0.0) + ms
+    busy = sum(groups.values())
+    del c
+    breakdown = {
+        "step_ms": decode_ms, "step_host_ms": decode_host_ms / steps,
+        "device_busy_ms": busy or None,
+        "device_idle_share": 1 - busy / decode_ms if busy else None,
+        "device_ms_by_group": groups,
+        "bf16_gemm_share_of_device": (groups.get("bf16_gemm", 0.0) / busy
+                                      if busy else None),
+        "bf16_gemm_share_of_step": (groups.get("bf16_gemm", 0.0) / decode_ms
+                                    if busy else None),
+        "bf16_gemms_alone_ms": step_sum("ms"),
+        "unembed_f32_alone_ms": unembed_ms,
+        "runtime_launches_per_step": launches_rt / prof_steps,
+        "top_kernels_ms": dict(sorted(top.items(),
+                                      key=lambda kv: -kv[1])[:6])}
+
+    # reduced depth at f32 compute (the 3xTF32 GEMM): decode equals the
+    # teacher-forced forward, as the JAX suite asks
+    cfg32 = get(LM_ARCH).scaled(n_layers=2, compute_dtype="float32",
+                                tina_lowering="kernel")
+    p32 = model_lib.prepare(model_lib.init_model(cfg32, generator=gen),
+                            cfg32)
+    b32, s32 = 2, 64
+    t32 = torch.randint(0, cfg32.vocab_size, (b32, s32), device=dev,
+                        generator=gen, dtype=torch.int32)
+    zero_counts()
+    full, _, _ = model_lib.forward(p32, {"tokens": t32}, cfg32)
+    torch.cuda.synchronize()
+    f32_launches = {k_: v for k_, v in counts().items() if v}
+    if f32_launches.get("matmul") != 7 * cfg32.n_layers or \
+            f32_launches.get("matmul_bf16"):
+        fail(f"lm f32: a forward launched {f32_launches}, want matmul "
+             f"{7 * cfg32.n_layers} and no bf16 GEMM")
+    c32 = model_lib.init_caches(cfg32, b32, s32, device=dev)
+    _, c32, _ = model_lib.forward(p32, {"tokens": t32[:, :s32 - 4]}, cfg32,
+                                  caches=c32)
+    dec_err = 0.0
+    for i in range(s32 - 4, s32):
+        lg, c32 = model_lib.decode_step(p32, t32[:, i], c32, cfg32)
+        d = (lg - full[:, i]).abs()
+        dec_err = max(dec_err, d.max().item())
+        if not bool((d <= LM_DECODE_TOL + LM_DECODE_TOL
+                     * full[:, i].abs()).all()):
+            fail(f"lm f32: decode step {i} differs from the forward by "
+                 f"{d.max().item()}")
+    del p32, c32, full
+
+    emit(phase="lm", case="serve", nvidia_smi=card, arch=LM_ARCH,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         compute_dtype=cfg.compute_dtype, lowering=cfg.tina_lowering,
+         batch=b, prompt=s, decode_steps=steps,
+         launches_prefill=at_prefill["matmul_bf16"],
+         launches_total={k_: v for k_, v in launches.items() if v},
+         prefill_ms=prefill_ms, prefill_host_ms=prefill_host_ms,
+         prefill_tokens_per_s=b * s / (prefill_ms / 1e3),
+         decode_ms_per_step=decode_ms,
+         decode_host_ms_per_step=decode_host_ms / steps,
+         decode_tokens_per_s=b / (decode_ms / 1e3),
+         kernel_vs_native_rel_err=vs_native,
+         bf16_vs_f32_compute_rel_err=vs_f32, peak_memory_gb=peak_gb,
+         first_tokens=gen_toks[0, :8].tolist(),
+         decode_breakdown=breakdown,
+         f32_reduced={"layers": cfg32.n_layers, "batch": b32, "seq": s32,
+                      "forward_launches": f32_launches,
+                      "decode_vs_forward_max_abs": dec_err},
+         seconds=time.perf_counter() - t_phase)
+    return {"name": "matmul_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/bf16_gemm.cu",
+            "replaces": "src/repro/kernels/matmul.py:122",
+            "launches": launches["matmul_bf16"], "max_abs_err": worst_abs,
+            "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"),
+            "bound_ms": step_sum("bound_ms"),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in dec) else "operations",
+            "library_ms": step_sum("torch_matmul_ms")}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: run from the root of a checkout: "
@@ -647,7 +986,7 @@ def main() -> int:
         ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
         dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
         firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
-        mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = 0
+        mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = mmk.BF16_LAUNCHES = 0
         firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
 
     def counts() -> dict:
@@ -658,6 +997,7 @@ def main() -> int:
                 "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
                 "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
                 "matmul": mmk.LAUNCHES, "tf32_planes": mmk.PLANES_LAUNCHES,
+                "matmul_bf16": mmk.BF16_LAUNCHES,
                 "matmul_int8": mmk.INT8_LAUNCHES,
                 "dft_int8": dftk.INT8_LAUNCHES,
                 "fir_valid_int8": firk.INT8_LAUNCHES,
@@ -726,6 +1066,9 @@ def main() -> int:
         fail(f"tina_pfb_int8: want its two frontend and two DFT kernels, none "
              f"with __dp4a (IDP): {pfb_idp}")
     usage = ptxas_usage(_build.BUILD_INFO.get("ptxas", ""))
+    if usage and usage.get("bf16_matmul_kernel", {}).get("spill_bytes", 1):
+        fail(f"tina_matmul_bf16: its kernel spills or is missing from the "
+             f"build log: {usage.get('bf16_matmul_kernel')}")
     # spills are read from this run's build log (none when it reused a
     # build of the same sources)
     if len(pfb_front) != 4 or any(pfb_front.values()) or (usage and any(
@@ -3579,6 +3922,9 @@ def main() -> int:
              / max(1, prof["batches"]),
              trace_bytes=os.path.getsize(prof["trace"]))
 
+    # -- lm: the model zoo's serving path at olmo_1b full width ------------
+    lm_row = lm_phase(torch, dev, card, zero_counts, counts)
+
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
     rows = []
@@ -3645,6 +3991,7 @@ def main() -> int:
                      "plain_ms": ms[name + "_plain"],
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": ms[lib] if lib else None})
+    rows.append(lm_row)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

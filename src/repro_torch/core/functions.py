@@ -100,16 +100,19 @@ def elementwise_add(x: Tensor, y: Tensor, *, lowering: str = "native",
 # ---------------------------------------------------------------------------
 def matmul(x: Tensor, y: Tensor, *, lowering: str = "native",
            block: Optional[dict] = None,
-           yt_planes: Optional[Tensor] = None) -> Tensor:
+           yt_planes: Optional[Tensor] = None,
+           yt: Optional[Tensor] = None) -> Tensor:
     """Z = X @ Y via pointwise conv: X (.., M, L) becomes the conv input
     (T, C_in=L, 1, W=M); the kernel is Y (L, N) (paper Eq. 9).  ``kernel``
-    runs the fp32 GEMM kernel; ``yt_planes`` (that lowering only) are
-    y's TF32 planes where a caller made them once."""
+    runs the GEMM kernel of the operands' dtype (fp32 or bf16); that
+    lowering only: ``yt_planes`` are an fp32 y's TF32 planes and ``yt`` a
+    bf16 y's K-major copy, where a caller made them once."""
     _check_lowering("matmul", lowering)
     if y.ndim != 2:
         raise ValueError("TINA matmul kernel (conv weight) must be 2-D")
     if lowering == "kernel":
-        return _kops().matmul(x, y, yt_planes=yt_planes, **(block or {}))
+        return _kops().matmul(x, y, yt_planes=yt_planes, yt=yt,
+                              **(block or {}))
     if lowering == "native":
         return torch.matmul(x, y)
     m, l = x.shape[-2], x.shape[-1]

@@ -280,7 +280,7 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
         frt = fr.t().contiguous()
     if fit is None:
         fit = fi.t().contiguous()
-    mm_kernel.check_int8_args(
+    mm_kernel.check_args(
         "dft_int8", dev, xq=(xq, torch.int8, (b, l)),
         fr=(fr, torch.int8, (l, n)), fi=(fi, torch.int8, (l, n)),
         frt=(frt, torch.int8, (n, l)), fit=(fit, torch.int8, (n, l)),

@@ -222,7 +222,7 @@ def fir_valid_int8(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
         return fir_valid_int8_plain(x, tq, ts)
     if dev.type != "cuda":
         raise ValueError(f"fir_valid_int8: no kernel for device {dev}")
-    mm_kernel.check_int8_args(
+    mm_kernel.check_args(
         "fir_valid_int8", dev, x=(x, torch.float32, (rows, n)),
         tq=(tq, torch.int8, (k,)), ts=(ts, torch.float32, (1,)))
     if not _valid_int8({"bn": bn, "threads": threads}, {"k": k}):

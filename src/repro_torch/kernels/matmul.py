@@ -23,8 +23,18 @@ cores, TMA loads) replaces ``kernels/matmul.py:matmul_int8``:
 tensor; the two agree bit for bit.  The tensor cores take B K-major:
 callers whose yq is a constant pass its transpose made once (``yt``).
 
-Neither pads M or N to block multiples; the sources say what bounds
-them and how.
+``csrc/bf16_gemm.cu`` (``tina_matmul_bf16``, bf16 ``wgmma`` on the
+tensor cores, TMA loads) replaces the same ``kernels/matmul.py:matmul``
+on bf16 operands, whose output the reference gives x's dtype:
+:func:`matmul` launches it for bf16 CUDA tensors and runs
+:func:`matmul_bf16_plain` (exact products summed in f32, rounded once to
+bf16) for bf16 CPU tensors.  The tensor cores take B K-major here too:
+callers whose y is a constant pass its K-major copy made once (``yt``).
+
+:func:`matmul` chooses the kernel by dtype: float32 goes to the 3xTF32
+kernel, bfloat16 to the bf16 one; on the card any other dtype raises.
+None pads M or N to block multiples; the sources say what bounds them
+and how.
 """
 from __future__ import annotations
 
@@ -156,25 +166,38 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
-           yt_planes: torch.Tensor | None = None, bm: int = 128,
-           bn: int = 128, bk: int = BK, order: str = "mn") -> torch.Tensor:
-    """x (M, K) @ y (K, N) -> (M, N), float32.  ``yt_planes``:
-    :func:`tf32_planes` of y, made once by a caller whose y is a
-    constant; None splits y here, per call.
+           yt_planes: torch.Tensor | None = None,
+           yt: torch.Tensor | None = None, bm: int | None = None,
+           bn: int | None = None, bk: int | None = None,
+           order: str = "mn") -> torch.Tensor:
+    """x (M, K) @ y (K, N) -> (M, N) in x's dtype, the kernel chosen by
+    dtype: float32 operands run the 3xTF32 kernel, bfloat16 ones the
+    bf16 kernel.  ``yt_planes`` (float32): :func:`tf32_planes` of y;
+    ``yt`` (bfloat16): y's K-major copy (N, K); each made once by a
+    caller whose y is a constant, or None to make it here, per call.
+    The tile (bm, bn, bk) defaults to the dtype's first compiled one.
 
-    A CPU tensor runs :func:`matmul_plain`; a CUDA tensor launches the
-    kernel on the current stream or raises."""
+    A CPU tensor runs :func:`matmul_bf16_plain` (both bfloat16) or
+    :func:`matmul_plain`; a CUDA tensor launches the kernel on the
+    current stream or raises."""
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(x.shape)} @ "
                          f"{tuple(y.shape)}")
     dev = x.device
+    bf16 = x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16
     if dev.type == "cpu":
-        return matmul_plain(x, y)
+        return matmul_bf16_plain(x, y) if bf16 else matmul_plain(x, y)
     if dev.type != "cuda":
         raise ValueError(f"matmul: no kernel for device {dev}")
+    if bf16:
+        return _matmul_bf16(x, y, yt, bm, bn, bk, order)
+    bm, bn, bk = (TILES[0][0] if bm is None else bm,
+                  TILES[0][1] if bn is None else bn,
+                  BK if bk is None else bk)
     for name, t in (("x", x), ("y", y)):
         if t.dtype != torch.float32:
-            raise TypeError(f"matmul: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"matmul: {name} must be float32 (or both x "
+                            f"and y bfloat16), got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"matmul: {name} on {t.device}, x on {dev}")
         if not t.is_contiguous():
@@ -210,6 +233,83 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "matmul")
+    return out
+
+
+# -- bf16 ------------------------------------------------------------------
+# The compiled tile of csrc/bf16_gemm.cu, (bm, bn, bk): 128 rows (two
+# consumer warpgroups of 64) by 128 columns, K in 64-deep (128-byte)
+# chunks through a four-stage TMA ring.
+TILES_BF16 = ((128, 128, 64),)
+BF16_K_ALIGN = 8      # TMA: rows of x and yt must be 16-byte multiples
+BF16_LAUNCHES = 0     # kernel launches since the last reset (plain excluded)
+
+
+def matmul_bf16_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's function in plain torch: x (M, K) @ y (K, N)
+    with exact products summed in float32, rounded once to bfloat16
+    (``torch.backends.cuda.matmul.allow_tf32`` must stay False)."""
+    return (x.float() @ y.float()).to(torch.bfloat16)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              floor: float = 2.0 ** -8) -> torch.Tensor:
+    """|got - want| in bf16 ulps of want (float32 tensors of the same
+    shape), the ulp (2^(e - 7) for |want| in [2^e, 2^(e+1))) taken at
+    max(|want|, floor * max|want|).  Two bf16 products that differ only
+    in the order of their f32 sums round to values one ulp apart at
+    most, except near zero: where a sum cancels, the f32 orders' own
+    difference (~2^-24 sqrt(K) of the terms) can exceed a bf16 ulp of
+    the element, and ``floor`` counts such elements in ulps of a value
+    2^8 below the largest.  ``floor=0`` gives the ulps at |want|."""
+    g, w = got.float(), want.float()
+    ref = w.abs().clamp_min(floor * w.abs().max().item())
+    ref = ref.clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    return (g - w).abs() / ulp
+
+
+def bf16_tile(bm: int | None = None, bn: int | None = None,
+              bk: int | None = None, order: str = "mn") -> tuple:
+    """(bm, bn, bk) of the bf16 kernel, None filled from its compiled
+    tile; ValueError on a tile it has not compiled or an order but
+    "mn" (its blocks walk the M tiles)."""
+    tile = tuple(d if v is None else int(v)
+                 for v, d in zip((bm, bn, bk), TILES_BF16[0]))
+    if tile not in TILES_BF16 or order != "mn":
+        raise ValueError(f"matmul_bf16: invalid block config {tile} order "
+                         f"{order!r}; compiled: {TILES_BF16}, order 'mn'")
+    return tile
+
+
+def _matmul_bf16(x: torch.Tensor, y: torch.Tensor, yt: torch.Tensor | None,
+                 bm: int | None, bn: int | None, bk: int | None,
+                 order: str) -> torch.Tensor:
+    """:func:`matmul` for bfloat16 CUDA operands: launches the kernel."""
+    tile = bf16_tile(bm, bn, bk, order)
+    m, k = x.shape
+    n = y.shape[1]
+    dev = x.device
+    if yt is None:
+        yt = y.t().contiguous()
+    check_args("matmul", dev, x=(x, torch.bfloat16, (m, k)),
+               yt=(yt, torch.bfloat16, (n, k)))
+    if y.device != dev:
+        raise ValueError(f"matmul: y on {y.device}, x on {dev}")
+    out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    if (k % BF16_K_ALIGN or x.data_ptr() % 16 or yt.data_ptr() % 16):
+        kp = -(-k // BF16_K_ALIGN) * BF16_K_ALIGN
+        x, yt = pad_k(x, kp), pad_k(yt, kp)
+    code = _build.lib().tina_matmul_bf16(
+        x.data_ptr(), yt.data_ptr(), out.data_ptr(), m, n, x.shape[1],
+        *tile, torch.cuda.current_stream(dev).cuda_stream)
+    global BF16_LAUNCHES
+    BF16_LAUNCHES += 1
+    _build.check(code, "matmul_bf16")
     return out
 
 
@@ -253,7 +353,7 @@ def matmul_int8_plain(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
     return acc * sx.reshape(-1, 1) * sy.reshape(1, -1)
 
 
-def check_int8_args(what: str, dev: torch.device, **tensors) -> None:
+def check_args(what: str, dev: torch.device, **tensors) -> None:
     """Raise unless each (tensor, dtype, shape) lies on ``dev``,
     contiguous, with its dtype and shape."""
     for name, (t, dtype, shape) in tensors.items():
@@ -309,9 +409,9 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
         raise ValueError(f"matmul_int8: no kernel for device {dev}")
     if yt is None:
         yt = yq.t().contiguous()
-    check_int8_args("matmul_int8", dev, xq=(xq, torch.int8, (m, k)),
-                    yq=(yq, torch.int8, (k, n)), yt=(yt, torch.int8, (n, k)),
-                    sx=(sx, torch.float32, (m,)), sy=(sy, torch.float32, (n,)))
+    check_args("matmul_int8", dev, xq=(xq, torch.int8, (m, k)),
+               yq=(yq, torch.int8, (k, n)), yt=(yt, torch.int8, (n, k)),
+               sx=(sx, torch.float32, (m,)), sy=(sy, torch.float32, (n,)))
     if (bm, bn, bk) not in TILES_INT8:
         raise ValueError(f"matmul_int8: tile {(bm, bn, bk)} not compiled; "
                          f"have {TILES_INT8}")
@@ -334,8 +434,9 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
     return out
 
 
-__all__ = ["matmul", "matmul_plain", "TUNE_SPACE", "TILES", "ORDERS",
-           "LAUNCHES", "PLANES_LAUNCHES", "tf32_split", "tf32_planes",
+__all__ = ["matmul", "matmul_plain", "matmul_bf16_plain", "TILES_BF16",
+           "BF16_LAUNCHES", "bf16_ulps", "bf16_tile", "TUNE_SPACE", "TILES",
+           "ORDERS", "LAUNCHES", "PLANES_LAUNCHES", "tf32_split", "tf32_planes",
            "tf32_planes_plain", "planes_shape", "staging", "smem_bytes",
            "matmul_int8", "matmul_int8_plain", "TUNE_SPACE_INT8",
            "TILES_INT8", "INT8_LAUNCHES", "MAX_INT8_K", "int8_staging",

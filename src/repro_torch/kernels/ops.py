@@ -119,23 +119,34 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *,
-           yt_planes: torch.Tensor | None = None, bm: int | None = None,
+           yt_planes: torch.Tensor | None = None,
+           yt: torch.Tensor | None = None, bm: int | None = None,
            bn: int | None = None, bk: int | None = None,
            order: str | None = None) -> torch.Tensor:
-    """x (..., M, L) @ y (L, N) through the fp32 GEMM kernel, the leading
-    dims of x flattened into rows.  ``yt_planes``: y's TF32 planes
-    (``mm_kernel.tf32_planes``), made once by a caller whose y is a
-    constant, or None to split y per call."""
+    """x (..., M, L) @ y (L, N) through the GEMM kernel of their dtype,
+    the leading dims of x flattened into rows: the fp32 kernel (its tile
+    from its tune space) or, for bfloat16 operands, the bf16 kernel (its
+    one compiled tile).  ``yt_planes`` (fp32): y's TF32 planes
+    (``mm_kernel.tf32_planes``); ``yt`` (bf16): y's K-major copy (N, L);
+    each made once by a caller whose y is a constant, or None to make it
+    per call."""
     if x.ndim < 2 or y.ndim != 2:
         raise ValueError(f"matmul: x {tuple(x.shape)} must be (..., M, L) "
                          f"and y {tuple(y.shape)} (L, N)")
     m, l = x.shape[-2], x.shape[-1]
     n = y.shape[1]
-    cfg = _resolve(mm_kernel.TUNE_SPACE,
-                   {"m": tune.leading_rows(x.shape), "n": n, "k": l},
-                   bm=bm, bn=bn, bk=bk, order=order)
-    out = mm_kernel.matmul(x.reshape((-1, l)).contiguous(), y.contiguous(),
-                           yt_planes=yt_planes, **cfg)
+    x2 = x.reshape((-1, l)).contiguous()
+    if x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16:
+        order = order or "mn"
+        bm, bn, bk = mm_kernel.bf16_tile(bm, bn, bk, order)
+        out = mm_kernel.matmul(x2, y, yt=yt, bm=bm, bn=bn, bk=bk,
+                               order=order)
+    else:
+        cfg = _resolve(mm_kernel.TUNE_SPACE,
+                       {"m": tune.leading_rows(x.shape), "n": n, "k": l},
+                       bm=bm, bn=bn, bk=bk, order=order)
+        out = mm_kernel.matmul(x2, y.contiguous(), yt_planes=yt_planes,
+                               **cfg)
     return out.reshape(x.shape[:-2] + (m, n))
 
 

@@ -380,7 +380,7 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
         return pfb_fused_int8_plain(frames, tq, ts, qr, qi, sr, si)
     if dev.type != "cuda":
         raise ValueError(f"pfb_fused_int8: no kernel for device {dev}")
-    mm_kernel.check_int8_args(
+    mm_kernel.check_args(
         "pfb_fused_int8", dev, frames=(frames, torch.float32, (b, t, p)),
         tq=(tq, torch.int8, (m, p)), ts=(ts, torch.float32, (p,)),
         qr=(qr, torch.int8, (p, n)), qi=(qi, torch.int8, (p, n)),
@@ -400,14 +400,14 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
             f"{mm_kernel.MAX_INT8_K})")
     p_pad = padded_width(p)
     frt, fit = _kmajor(frt, qr, p_pad), _kmajor(fit, qi, p_pad)
-    mm_kernel.check_int8_args(
+    mm_kernel.check_args(
         "pfb_fused_int8", dev, frt=(frt, torch.int8, (n, p_pad)),
         fit=(fit, torch.int8, (n, p_pad)))
     if scratch is None:
         scratch = (torch.empty((rows, p_pad), dtype=torch.int8, device=dev),
                    torch.empty((rows,), dtype=torch.float32, device=dev))
     yq, ys = scratch
-    mm_kernel.check_int8_args(
+    mm_kernel.check_args(
         "pfb_fused_int8", dev, yq=(yq, torch.int8, (rows, p_pad)),
         ys=(ys, torch.float32, (rows,)))
     if yq.data_ptr() % 16:

@@ -958,3 +958,96 @@ def test_service_degrades_on_the_card(dev):
     np.testing.assert_array_equal(f.result(timeout=60), want)
     assert replay_batches(svc) == 1
     svc.close()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GEMM (csrc/bf16_gemm.cu) and the model zoo's kernel lowering
+# ---------------------------------------------------------------------------
+# ragged M, N and K (K not a multiple of the 64-deep chunk; 77 and 3 not
+# of 8: the padded copy), the decode and prefill shapes of olmo_1b's
+# layers, and leading dims through ops.matmul
+BF16_CASES = [((1, 72), (72, 5)), ((33, 200), (200, 300)), ((7, 77), (77, 9)),
+              ((130, 3), (3, 257)), ((8, 2048), (2048, 8192)),
+              ((512, 8192), (8192, 2048)), ((3, 5, 40, 24), (24, 17))]
+
+
+@pytest.mark.parametrize("xs,ys", BF16_CASES)
+def test_matmul_bf16_matches_plain(dev, xs, ys):
+    gen = torch.Generator(device=dev).manual_seed(xs[-1] * ys[-1])
+    x = torch.randn(*xs, device=dev, generator=gen).bfloat16()
+    y = (torch.randn(*ys, device=dev, generator=gen)
+         * ys[0] ** -0.5).bfloat16()
+    before = mmk.BF16_LAUNCHES
+    got = ops.matmul(x, y)
+    torch.cuda.synchronize()
+    assert mmk.BF16_LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    x2 = x.reshape(-1, xs[-1])
+    want = mmk.matmul_bf16_plain(x2, y).reshape(got.shape)
+    # one bf16 ulp: f32 sums of the same exact products in another order
+    assert mmk.bf16_ulps(got, want).max().item() <= 1.0
+    # y's K-major copy made once gives the same bits
+    yt = y.t().contiguous()
+    assert torch.equal(mmk.matmul(x2, y, yt=yt).reshape(got.shape), got)
+
+
+def test_matmul_bf16_unaligned_rows_take_the_padded_copy(dev):
+    x = torch.randn(37, 256, device=dev).bfloat16()
+    y = torch.randn(256, 96, device=dev).bfloat16()
+    buf = torch.empty(37 * 256 + 1, device=dev, dtype=torch.bfloat16)
+    xs = buf[1:].view(37, 256)
+    xs.copy_(x)
+    assert torch.equal(mmk.matmul(xs, y), mmk.matmul(x, y))
+
+
+def test_matmul_bf16_refuses_misfits(dev):
+    x = torch.randn(8, 64, device=dev).bfloat16()
+    y = torch.randn(64, 32, device=dev).bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        mmk.matmul(x.half(), y.half())
+    with pytest.raises(TypeError, match="float32"):
+        mmk.matmul(x, y.float())
+    with pytest.raises(ValueError, match="has shape"):
+        mmk.matmul(x, y, yt=y.contiguous())
+    with pytest.raises(TypeError, match="bfloat16"):
+        mmk.matmul(x, y, yt=y.t().contiguous().float())
+    with pytest.raises(ValueError, match="contiguous"):
+        mmk.matmul(torch.randn(8, 128, device=dev).bfloat16()[:, ::2], y)
+    with pytest.raises(ValueError, match="invalid block config"):
+        mmk.matmul(x, y, bk=32)
+    with pytest.raises(ValueError, match="invalid block config"):
+        mmk.matmul(x, y, order="nm")
+
+
+def test_lm_kernel_lowering_on_the_card(dev):
+    """The reduced olmo at bf16 compute: every dense layer launches the
+    bf16 GEMM once per call, and the logits agree with the native
+    lowering (torch.matmul at bf16) within the JAX suite's decode
+    tolerance, 2e-2 of max."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import model as model_lib
+    cfg = get_reduced("olmo_1b").scaled(compute_dtype="bfloat16",
+                                        tina_lowering="kernel")
+    ncfg = cfg.scaled(tina_lowering="native")
+    params = model_lib.prepare(model_lib.init_model(cfg, seed=0, device=dev),
+                               cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=dev,
+                           dtype=torch.int32)
+    out = {}
+    for c in (cfg, ncfg):
+        pre = step_lib.make_prefill_step(c, batch_size=2, seq_len=12)
+        dec = step_lib.make_decode_step(c, batch_size=2, cache_len=16)
+        caches = model_lib.init_caches(c, 2, 16, device=dev)
+        before = (mmk.BF16_LAUNCHES, mmk.LAUNCHES)
+        lg, caches = pre(params, {"tokens": tokens[:, :12]}, caches)
+        logits = [lg]
+        for i in range(12, 16):
+            _, lg, caches = dec(params, tokens[:, i], caches)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        out[c.tina_lowering] = (logits, (mmk.BF16_LAUNCHES - before[0],
+                                         mmk.LAUNCHES - before[1]))
+    assert out["kernel"][1] == (7 * cfg.n_layers * 5, 0)
+    assert out["native"][1] == (0, 0)
+    for k, n in zip(out["kernel"][0], out["native"][0]):
+        assert (k - n).abs().max() <= 2e-2 * n.abs().max()

@@ -19,6 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
+from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import ops, ref, tune
 from repro_torch.kernels import pfb as pfbk
 
@@ -218,3 +219,60 @@ def test_tune_spaces_describe_the_cuda_kernels():
         sp.check({"order": "tc"}, ctx)
     assert tune.space("elementwise").check({}, {"rows": 1, "cols": 1,
                                                 "n_in": 1}) == {"threads": 256}
+
+
+# ---------------------------------------------------------------------------
+# the GEMM at bf16: what the model zoo's dense layers run
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m", [1, 4, 33, 128])
+def test_matmul_bf16_plain_matches_jax_kernel(m):
+    """On bf16 operands the Pallas GEMM (interpret mode) sums exact
+    products in its f32 scratch and rounds once to x's dtype, bf16;
+    ``matmul_bf16_plain``, what the bf16 CUDA kernel computes, is within
+    one bf16 ulp of it in every element (``bf16_ulps``: the two sum in
+    other f32 orders).  K = 200 and N = 300 fit neither the Pallas
+    blocks (128) nor the CUDA tile (128 x 128 x 64)."""
+    rng = _rng("matmul_bf16", m)
+    k, n = 200, 300
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    y = jnp.asarray(rng.standard_normal((k, n)) * k ** -0.5, jnp.bfloat16)
+    want = jops.matmul(x, y)
+    assert want.dtype == jnp.bfloat16 and want.shape == (m, n)
+    xt, yt = (_t(np.asarray(a.astype(jnp.float32))).bfloat16()
+              for a in (x, y))
+    got = mmk.matmul_bf16_plain(xt, yt)
+    assert got.dtype == torch.bfloat16
+    ulps = mmk.bf16_ulps(got, _t(np.asarray(want.astype(jnp.float32))))
+    assert ulps.max().item() <= 1.0
+    # the wrappers take the plain version for CPU tensors: no launch
+    before = mmk.BF16_LAUNCHES
+    assert torch.equal(mmk.matmul(xt, yt), got)
+    assert torch.equal(ops.matmul(xt[None], yt)[0], got)
+    assert mmk.BF16_LAUNCHES == before
+
+
+def test_matmul_chooses_by_dtype_and_refuses_misfits():
+    x, y = torch.randn(5, 24), torch.randn(24, 7)
+    assert mmk.matmul(x, y).dtype == torch.float32
+    assert torch.equal(mmk.matmul(x.bfloat16(), y.bfloat16()),
+                       mmk.matmul_bf16_plain(x.bfloat16(), y.bfloat16()))
+    # the K-major copy a caller made once is not read off the card
+    assert torch.equal(
+        ops.matmul(x.bfloat16(), y.bfloat16(), yt=y.bfloat16().t()),
+        mmk.matmul_bf16_plain(x.bfloat16(), y.bfloat16()))
+    with pytest.raises(ValueError, match="invalid block config"):
+        ops.matmul(x.bfloat16(), y.bfloat16(), bk=32)
+    with pytest.raises(ValueError, match="invalid block config"):
+        ops.matmul(x.bfloat16(), y.bfloat16(), order="km")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        mmk.matmul(torch.empty(2, 8, device="meta", dtype=torch.bfloat16),
+                   torch.empty(8, 3, device="meta", dtype=torch.bfloat16))
+
+
+def test_bf16_ulps_counts_in_units_of_the_last_place():
+    want = torch.tensor([1.0, 1.5, -3.0, 0.0, 256.0])
+    got = want + torch.tensor([2 ** -7, 2 ** -6, -2 ** -6, 0.0, 2.0])
+    assert mmk.bf16_ulps(got, want).tolist() == [1.0, 2.0, 1.0, 0.0, 1.0]
+    # near zero the ulp is taken at 2^-8 of the largest |want|
+    assert mmk.bf16_ulps(torch.tensor([2 ** -7, 256.0]),
+                         torch.tensor([0.0, 256.0])).tolist() == [1.0, 0.0]
