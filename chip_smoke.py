@@ -20,7 +20,9 @@ Prints one JSON line per phase:
             the warpgroup MMA instructions (HGMMA, IGMMA) that
             ``cuobjdump -sass`` finds in each kernel of ``tina_dft`` and
             ``tina_matmul`` (the 3xTF32 DFT and GEMM: HGMMA),
-            ``tina_matmul_bf16`` (the bf16 GEMM: HGMMA; a spill fails) and
+            ``tina_matmul_bf16`` (the bf16 GEMM's skinny and tiled
+            kernels, both present, each with HGMMA; a spill fails; ptxas's
+            notes that it serialized a kernel's wgmmas are printed) and
             ``tina_matmul_int8``, ``tina_dft_int8`` and the DFT stage of
             ``tina_pfb_int8`` (the s8 GEMM and DFTs: IGMMA); a kernel
             without them fails, as does a ``__dp4a`` (IDP) left in any
@@ -220,11 +222,17 @@ Prints one JSON line per phase:
             both beside the model at f32 compute (a diagnostic); each GEMM
             shape of the path (the model's own K-major weights) against
             ``matmul_bf16_plain`` within one bf16 ulp (``bf16_ulps``: the
-            ulp floored at 2^-8 of max; also counted at |plain| and
-            against a float64 product), timed beside ``torch.matmul`` at
-            bf16 (timed here only) and its bound; prefill and decode ms,
+            ulp floored at 2^-8 of max; also counted at |plain|, and
+            against a float64 product: no more elements beyond one ulp of
+            it than the plain version), timed beside ``torch.matmul`` at
+            bf16 (timed here only) and its bound, the decode shapes also
+            over the 16 layers' own weights in turn (no L2 reuse) and at
+            every split count; each shape's route (``bf16_route``:
+            skinny or tiled, splits) and the wrapper's host microseconds
+            a call; prefill and decode ms,
             tokens/s, a decode step's device time by kernel group
-            (``torch.profiler``), its runtime launches and the card's idle
+            (``torch.profiler``; a step without a bf16 GEMM kernel
+            fails), its runtime launches by launch API and the card's idle
             share; a 2-layer f32 run (the 3xTF32 GEMM) whose decode
             equals its teacher-forced forward within 2e-2
   kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
@@ -519,8 +527,9 @@ TC_ENTRIES = {"tina_dft": "HGMMA", "tina_matmul": "HGMMA",
 def tc_kernel(mangled: str):
     """(entry point, label) of a tensor-core kernel of ``TC_ENTRIES``
     from its mangled name, else None; a label carries the template
-    arguments: <complex x, 3mult, tile width> of the DFT, the tile width
-    of the others."""
+    arguments: <complex x, 3mult, tile width> of the DFT, <x rows> of the
+    bf16 skinny kernel, <tile width, promotion interval> of the bf16
+    tiled one, the tile width of the others."""
     import re
     width = re.search(r"ILi(\d+)E", mangled)
     if "dft_tf32_kernel" in mangled:
@@ -528,8 +537,14 @@ def tc_kernel(mangled: str):
         flags = ",".join(re.findall(r"Lb(\d)E", args)
                          + re.findall(r"Li(\d+)E", args))
         return "tina_dft", f"dft_tf32_kernel<{flags}>"
-    if "bf16_matmul_kernel" in mangled:
-        return "tina_matmul_bf16", "bf16_matmul_kernel"
+    if "bf16_matmul_skinny_kernel" in mangled and width:
+        return ("tina_matmul_bf16",
+                f"bf16_matmul_skinny_kernel<{width.group(1)}>")
+    if "bf16_matmul_tiled_kernel" in mangled:
+        args = mangled.split("tiled_kernel", 1)[1].split("Ev", 1)[0]
+        return "tina_matmul_bf16", ("bf16_matmul_tiled_kernel<"
+                                    + ",".join(re.findall(r"Li(\d+)E", args))
+                                    + ">")
     if "tf32_matmul_kernel" in mangled and width:
         return "tina_matmul", f"tf32_matmul_kernel<{width.group(1)}>"
     if "s8_dft_kernel" in mangled and width:
@@ -670,6 +685,7 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import _build
     from repro_torch.kernels import matmul as mmk
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
@@ -790,14 +806,21 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
     # every GEMM shape of the path against the plain version, with the
     # model's own K-major weights (layer 0): within one bf16 ulp
     # (mmk.bf16_ulps; also counted at |plain| and against a float64
-    # product rounded to bf16), and timed beside torch.matmul and the bound
-    blk = params["stack"][0]["sub0"]
-    wts = {"qkvo": blk["attn"]["wq"]["wt"], "up_gate": blk["ffn"]["up"]["wt"],
-           "down": blk["ffn"]["down"]["wt"]}
+    # product rounded to bf16: the kernel may lie there no more often than
+    # the plain f32 product), and timed beside torch.matmul and the bound;
+    # each shape's route, and the wrapper's host time a call.  A decode
+    # shape's weight (8.4 MB or 33.6 MB) timed alone stays in the 50 MB
+    # L2: it is also timed over the 16 layers' own weights in turn
+    def layer_wts(name):
+        return [sb["sub0"]["attn"]["wq"]["wt"] if name == "qkvo" else
+                sb["sub0"]["ffn"]["up" if name == "up_gate" else "down"]["wt"]
+                for sb in params["stack"]]
     per_layer = {"qkvo": 4, "up_gate": 2, "down": 1}
     shapes, worst_abs = [], 0.0
     for rows, where in ((b * s, "prefill"), (b, "decode")):
-        for name, wt in wts.items():
+        for name in per_layer:
+            ws = layer_wts(name)
+            wt = ws[0]
             n, k = wt.shape
             x = torch.randn(rows, k, device=dev, generator=gen).to(
                 torch.bfloat16)
@@ -815,9 +838,26 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
             if not ulps <= 1.0:
                 fail(f"lm: matmul_bf16 {(rows, k, n)} is {ulps} bf16 ulps "
                      "from its plain version")
+            if k_exact > p_exact:
+                fail(f"lm: matmul_bf16 {(rows, k, n)}: {k_exact} elements "
+                     f"beyond one bf16 ulp of the float64 product, the plain "
+                     f"version {p_exact}")
             nbytes, flops = bf16_gemm_cost(rows, k, n)
             b_ms, b_by = bound_bf16(nbytes, flops)
+            kind, route = mmk.bf16_route(rows, n, k)
+            for _ in range(3):
+                mmk.matmul(x, y, yt=wt)
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(50):      # enqueue only: no sync inside
+                t1 = time.perf_counter()
+                mmk.matmul(x, y, yt=wt)
+                host.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
             rec = {"where": where, "gemm": name, "mkn": [rows, k, n],
+                   "route": kind, "splits": route.get("splits"),
+                   "route_params": route,
+                   "host_us_per_call": statistics.median(host) * 1e6,
                    "per_layer": per_layer[name], "max_ulps": ulps,
                    "max_ulps_at_plain": strict.max().item(),
                    "n_beyond_1_ulp_at_plain": int((strict > 1).sum()),
@@ -830,6 +870,36 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
                    "plain_ms": device_ms(
                        torch, lambda: mmk.matmul_bf16_plain(x, y)),
                    "bound_ms": b_ms, "bound_by": b_by}
+            if where == "decode":
+                # the skinny kernel at every split count over the 16
+                # layers' weights in turn (the route takes the fewest
+                # that give a block per SM): what a split costs
+                k_tiles = -(-k // mmk.BF16_BK)
+                sweep = {}
+                for sp in range(1, mmk.BF16_MAX_SPLITS + 1):
+                    ch = -(-k_tiles // sp)
+                    sp = -(-k_tiles // ch)
+                    if sp in sweep:
+                        continue
+                    o = torch.empty(rows, n, device=dev, dtype=torch.bfloat16)
+
+                    def split_run(sp=sp, ch=ch, o=o):
+                        for w in ws:
+                            _build.check(_build.lib().tina_matmul_bf16(
+                                x.data_ptr(), w.data_ptr(), o.data_ptr(),
+                                rows, n, k, 0, route["rows"], sp, ch,
+                                torch.cuda.current_stream(dev).cuda_stream),
+                                "matmul_bf16 (split sweep)")
+                    sweep[sp] = device_ms(torch, split_run) / len(ws)
+                rec["split_sweep_ms_16_layers_in_turn"] = sweep
+                rec["ms_16_layers_in_turn"] = device_ms(
+                    torch, lambda: [mmk.matmul(x, w.t(), yt=w)
+                                    for w in ws]) / len(ws)
+                rec["torch_matmul_ms_16_layers_in_turn"] = device_ms(
+                    torch, lambda: [torch.matmul(x, w.t())
+                                    for w in ws]) / len(ws)
+            rec["x_torch_matmul"] = rec["ms"] / rec["torch_matmul_ms"]
+            rec["x_bound"] = rec["ms"] / b_ms
             shapes.append(rec)
             emit(phase="lm", case="gemm", nvidia_smi=card, **rec)
             del x, got, want_, exact, strict
@@ -864,9 +934,13 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
                 decode(params, tok, c)
             torch.cuda.synchronize()
         events = prof.key_averages()
+    by_api = {}
     for ev in events:
+        # cudaLaunchKernel, cuLaunchKernel and their Ex forms (the bf16
+        # skinny kernel's cluster launch is cudaLaunchKernelExC)
         if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             launches_rt += ev.count
+            by_api[ev.key] = by_api.get(ev.key, 0) + ev.count / prof_steps
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue
         ms = (getattr(ev, "self_device_time_total",
@@ -879,6 +953,9 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
         groups[group] = groups.get(group, 0.0) + ms
         top[name[:72]] = top.get(name[:72], 0.0) + ms
     busy = sum(groups.values())
+    if busy and not groups.get("bf16_gemm"):
+        fail(f"lm: the profiler found no bf16 GEMM kernel in a decode step: "
+             f"{sorted(top)}")
     del c
     breakdown = {
         "step_ms": decode_ms, "step_host_ms": decode_host_ms / steps,
@@ -890,8 +967,12 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
         "bf16_gemm_share_of_step": (groups.get("bf16_gemm", 0.0) / decode_ms
                                     if busy else None),
         "bf16_gemms_alone_ms": step_sum("ms"),
+        "bf16_gemms_16_layers_in_turn_ms": step_sum("ms_16_layers_in_turn"),
+        "torch_matmul_16_layers_in_turn_ms": step_sum(
+            "torch_matmul_ms_16_layers_in_turn"),
         "unembed_f32_alone_ms": unembed_ms,
         "runtime_launches_per_step": launches_rt / prof_steps,
+        "runtime_launches_per_step_by_api": by_api,
         "top_kernels_ms": dict(sorted(top.items(),
                                       key=lambda kv: -kv[1])[:6])}
 
@@ -1065,10 +1146,20 @@ def main() -> int:
     if len(pfb_idp) != 4 or any(pfb_idp.values()):
         fail(f"tina_pfb_int8: want its two frontend and two DFT kernels, none "
              f"with __dp4a (IDP): {pfb_idp}")
+    bf16_kinds = {k.split("<")[0] for k in mma["tina_matmul_bf16"]}
+    if bf16_kinds != {"bf16_matmul_skinny_kernel", "bf16_matmul_tiled_kernel"}:
+        fail(f"tina_matmul_bf16: want its skinny and tiled kernels in the "
+             f"SASS: {mma['tina_matmul_bf16']}")
     usage = ptxas_usage(_build.BUILD_INFO.get("ptxas", ""))
-    if usage and usage.get("bf16_matmul_kernel", {}).get("spill_bytes", 1):
-        fail(f"tina_matmul_bf16: its kernel spills or is missing from the "
-             f"build log: {usage.get('bf16_matmul_kernel')}")
+    if usage and any(usage.get(k, {}).get("spill_bytes", 1)
+                     for k in mma["tina_matmul_bf16"]):
+        seen = {k: usage.get(k) for k in mma["tina_matmul_bf16"]}
+        fail(f"tina_matmul_bf16: a kernel spills or is missing from the "
+             f"build log: {seen}")
+    # ptxas's notes that it serialized a kernel's warpgroup MMAs
+    serialized = sorted({line.split("function ", 1)[-1].strip(" '")
+                         for line in _build.BUILD_INFO.get("ptxas", "")
+                         .splitlines() if "Performance Loss" in line})
     # spills are read from this run's build log (none when it reused a
     # build of the same sources)
     if len(pfb_front) != 4 or any(pfb_front.values()) or (usage and any(
@@ -1083,6 +1174,7 @@ def main() -> int:
         for c in firk.TUNE_SPACE.configs({"k": 31})}
     emit(phase="sass", wgmma_instructions=mma, pfb_int8_idp=pfb_idp,
          pfb_frontend_wgmma=pfb_front, ptxas=usage,
+         ptxas_serialized_wgmma=serialized,
          fir_smem_bytes=fir_smem, overlap_add_smem_bytes=0)
 
     gen = torch.Generator(device=dev).manual_seed(1234)

@@ -3,9 +3,10 @@
 // the s8 GEMM and DFTs (qmatmul.cu, qpfb.cu, through s8_gemm.cuh) and
 // the bf16 GEMM (bf16_gemm.cu), and
 // the f32 FIR's staging ring (fir.cu, cp.async).  mbarriers, TMA tile
-// loads and the tensor maps that describe them, cp.async, and the
-// warpgroup MMA
-// (wgmma) descriptors and instructions, as inline PTX.
+// loads and stores and the tensor maps that describe them, bulk groups,
+// cp.async, named barriers, register rebalancing (setmaxnreg), and the
+// warpgroup MMA (wgmma) descriptors and instructions, as inline PTX; on
+// the host, a kernel's shared-memory limit set once and the SM count.
 //
 // The tensor maps come from the driver's cuTensorMapEncodeTiled, reached
 // through the runtime's cudaGetDriverEntryPointByVersion: the library
@@ -15,6 +16,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace tina {
 namespace hopper {
@@ -66,6 +69,39 @@ inline bool tile_map(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared memory limit of `kern` raised to `bytes` on the
+// current device, once per process: `done` (one per kernel, zero at
+// start) keeps a bit per device id below 64.
+inline cudaError_t smem_limit_once(std::atomic<uint64_t>& done,
+                                   const void* kern, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && bit) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// The current device's SM count, asked once per device (0 on error).
+inline int sm_count() {
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev >= 64) {
+    int n = 0;
+    return cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+                   cudaSuccess ? n : 0;
+  }
+  int n = sms[dev].load(std::memory_order_relaxed);
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                       dev) == cudaSuccess)
+    sms[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // -------------------------------------------------------------- device --
@@ -129,6 +165,61 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// TMA store: the tile at shared memory src to element (c0, c1) (column,
+// row) of `map`; elements past the array are not written.  Counted in
+// this thread's bulk groups (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared memory (bulk_wait_read) or are unfinished (bulk_wait).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Make this thread's plain shared-memory writes visible to the async
+// proxy (a TMA store that reads them next).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) among `threads` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(void* p, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(smem_u32(p)), "r"(v)
+               : "memory");
+}
+
+// A warpgroup gives up registers down to N a thread, or takes them up
+// to N (all four warps of the warpgroup execute it).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // Asynchronous copies into shared memory (cp.async), counted per thread
@@ -330,22 +421,93 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// D (64 x 128, f32) = A (64 x 16, bf16) * B (128 x 16, bf16) + D, or + 0
+// D (64 x 8, f32) = A (64 x 16, bf16) * B (8 x 16, bf16) + D, or + 0
 // where scale_d is 0; both K-major 128B-swizzled shared memory
 // (descriptors a, b), neither transposed.
-__device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64],
+__device__ __forceinline__ void wgmma_bf16_m64n8k16(float (&d)[4],
+                                                    uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 16, f32) = A (64 x 16, bf16) * B (16 x 16, bf16) + D, or + 0
+// where scale_d is 0; as wgmma_bf16_m64n8k16.
+__device__ __forceinline__ void wgmma_bf16_m64n16k16(float (&d)[8],
+                                                     uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 32, f32) = A (64 x 16, bf16) * B (32 x 16, bf16) + D, or + 0
+// where scale_d is 0; as wgmma_bf16_m64n8k16.
+__device__ __forceinline__ void wgmma_bf16_m64n32k16(float (&d)[16],
+                                                     uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = A (64 x 16, bf16) * B (64 x 16, bf16) + D, or + 0
+// where scale_d is 0; as wgmma_bf16_m64n8k16.
+__device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32],
+                                                     uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 192, f32) = A (64 x 16, bf16) * B (192 x 16, bf16) + D, or + 0
+// where scale_d is 0; as wgmma_bf16_m64n8k16.
+__device__ __forceinline__ void wgmma_bf16_m64n192k16(float (&d)[96],
                                                       uint64_t a, uint64_t b,
                                                       int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -358,8 +520,28 @@ __device__ __forceinline__ void wgmma_bf16_m64n128k16(float (&d)[64],
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The bf16 wgmma of a tile W = N / 2 accumulator registers wide.
+template <int W>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[W], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  static_assert(W == 4 || W == 8 || W == 16 || W == 32 || W == 96,
+                "N = 8, 16, 32, 64 or 192");
+  if constexpr (W == 4) wgmma_bf16_m64n8k16(d, a, b, scale_d);
+  else if constexpr (W == 8) wgmma_bf16_m64n16k16(d, a, b, scale_d);
+  else if constexpr (W == 16) wgmma_bf16_m64n32k16(d, a, b, scale_d);
+  else if constexpr (W == 32) wgmma_bf16_m64n64k16(d, a, b, scale_d);
+  else wgmma_bf16_m64n192k16(d, a, b, scale_d);
 }
 
 // D (64 x 64, s32) += A (64 x 32, s8) * B (64 x 32, s8), both K-major

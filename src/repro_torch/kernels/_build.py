@@ -64,8 +64,10 @@ SIGNATURES = {
     "tina_matmul": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # y, planes, K, N, n_pad, k_pad, stream
     "tina_tf32_planes": [_P, _P, _I, _I, _I, _I, _P],
-    # x, yt (y K-major), out, M, N, K, bm, bn, bk, stream
-    "tina_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, yt (y K-major), out, M, N, K, kind (0 skinny, 1 tiled), width,
+    # splits (tiled: promotion interval), chunks, stream
+    # (kernels/matmul.py:bf16_route)
+    "tina_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # xq, yt (yq K-major), sx, sy, out, M, N, K, bm, bn, bk, stream
     "tina_matmul_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # xq, frt, fit (Fr, Fi K-major), sx, sr, si, out, B, K, N, bm, bn,

@@ -30,6 +30,13 @@ on bf16 operands, whose output the reference gives x's dtype:
 :func:`matmul_bf16_plain` (exact products summed in f32, rounded once to
 bf16) for bf16 CPU tensors.  The tensor cores take B K-major here too:
 callers whose y is a constant pass its K-major copy made once (``yt``).
+One launch a call, through one of two kernels that :func:`bf16_route`
+picks by shape: for M <= 64 (decode) a skinny kernel that streams y's
+K-major copy in 64-row slabs against x's rows, K split over a cluster of
+up to 8 blocks whose f32 partials are summed in rank order (the same
+bits on every run and stream); above it a persistent, warp-specialised
+kernel on 128 x 192 tiles (:data:`TILES_BF16`) whose sums go into the
+result every :data:`BF16_PROMOTE` chunks with round-to-nearest f32 adds.
 
 :func:`matmul` chooses the kernel by dtype: float32 goes to the 3xTF32
 kernel, bfloat16 to the bf16 one; on the card any other dtype raises.
@@ -37,6 +44,8 @@ None pads M or N to block multiples; the sources say what bounds them
 and how.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -237,12 +246,62 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
 
 
 # -- bf16 ------------------------------------------------------------------
-# The compiled tile of csrc/bf16_gemm.cu, (bm, bn, bk): 128 rows (two
-# consumer warpgroups of 64) by 128 columns, K in 64-deep (128-byte)
-# chunks through a four-stage TMA ring.
-TILES_BF16 = ((128, 128, 64),)
+# The compiled tile of csrc/bf16_gemm.cu's tiled kernel (M > 64), (bm, bn,
+# bk): 128 rows (two consumer warpgroups of 64) by 192 columns, K in
+# 64-deep (128-byte) chunks through a four-stage TMA ring, persistent
+# blocks; the sums of BF16_PROMOTE chunks at a time go into the result
+# with round-to-nearest f32 adds.
+BF16_BK = 64          # K per ring stage (both kernels): one 128-byte row
+TILES_BF16 = ((128, 192, BF16_BK),)
+BF16_PROMOTE = 3
 BF16_K_ALIGN = 8      # TMA: rows of x and yt must be 16-byte multiples
 BF16_LAUNCHES = 0     # kernel launches since the last reset (plain excluded)
+# The skinny kernel (M <= 64): 64 columns of y a block against x's rows
+# rounded up to one of BF16_SKINNY_ROWS, K split over a cluster of at
+# most BF16_MAX_SPLITS blocks, the fewest splits that give a block to
+# each of H100_SMS.  chip_smoke.py's lm phase sweeps the split count at
+# olmo_1b's decode shapes: there fewer splits (a wave short of the SMs)
+# are 3-9 % faster, ~0.07 ms of a decode step that the host bounds at
+# 20-36 ms (PERF.md), and more are slower.  The rule stays a block a SM:
+# it does not depend on the shape, and the sweep's per-shape optima come
+# from three shapes of one model.
+BF16_SKINNY_ROWS = (8, 16, 32, 64)
+BF16_SKINNY_COLS = 64
+BF16_MAX_SPLITS = 8
+H100_SMS = 132        # SMs of an H100 SXM
+
+
+def bf16_route(m: int, n: int, k: int) -> tuple[str, dict]:
+    """Which bf16 kernel an (M, K) @ (K, N) product runs, and how:
+    ``("skinny", {"rows", "splits", "chunks", "blocks"})`` for M <= 64:
+    x's rows rounded up to ``rows``, K's 64-deep chunks cut into
+    ``splits`` runs of ``chunks`` (the last may be shorter, none is
+    empty), ``blocks`` in all; else ``("tiled", {"bm", "bn", "bk",
+    "promote", "tiles"})``: the compiled tile, its promotion interval in
+    chunks and the count of output tiles."""
+    k_tiles = -(-k // BF16_BK)
+    if m <= BF16_SKINNY_ROWS[-1]:
+        rows = next(r for r in BF16_SKINNY_ROWS if r >= m)
+        slabs = -(-n // BF16_SKINNY_COLS)
+        splits = max(1, min(BF16_MAX_SPLITS, k_tiles,
+                            -(-H100_SMS // slabs)))
+        chunks = -(-k_tiles // splits)
+        splits = -(-k_tiles // chunks)
+        return "skinny", {"rows": rows, "splits": splits, "chunks": chunks,
+                          "blocks": slabs * splits}
+    bm, bn, bk = TILES_BF16[0]
+    return "tiled", {"bm": bm, "bn": bn, "bk": bk, "promote": BF16_PROMOTE,
+                     "tiles": -(-m // bm) * -(-n // bn)}
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_launch_args(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """:func:`bf16_route` as the C entry's (kind, width, splits, chunks),
+    kept per shape: a model calls the same few shapes on every step."""
+    kind, r = bf16_route(m, n, k)
+    if kind == "skinny":
+        return 0, r["rows"], r["splits"], r["chunks"]
+    return 1, r["bn"], r["promote"], 0
 
 
 def matmul_bf16_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -271,9 +330,10 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
 
 def bf16_tile(bm: int | None = None, bn: int | None = None,
               bk: int | None = None, order: str = "mn") -> tuple:
-    """(bm, bn, bk) of the bf16 kernel, None filled from its compiled
-    tile; ValueError on a tile it has not compiled or an order but
-    "mn" (its blocks walk the M tiles)."""
+    """(bm, bn, bk) of the bf16 tiled kernel, None filled from its
+    compiled tile; ValueError on a tile it has not compiled or an order
+    but "mn" (its blocks walk groups of M tiles).  The skinny kernel
+    (M <= 64) has no tile to choose; the check holds for every call."""
     tile = tuple(d if v is None else int(v)
                  for v, d in zip((bm, bn, bk), TILES_BF16[0]))
     if tile not in TILES_BF16 or order != "mn":
@@ -286,7 +346,7 @@ def _matmul_bf16(x: torch.Tensor, y: torch.Tensor, yt: torch.Tensor | None,
                  bm: int | None, bn: int | None, bk: int | None,
                  order: str) -> torch.Tensor:
     """:func:`matmul` for bfloat16 CUDA operands: launches the kernel."""
-    tile = bf16_tile(bm, bn, bk, order)
+    bf16_tile(bm, bn, bk, order)
     m, k = x.shape
     n = y.shape[1]
     dev = x.device
@@ -306,7 +366,8 @@ def _matmul_bf16(x: torch.Tensor, y: torch.Tensor, yt: torch.Tensor | None,
         x, yt = pad_k(x, kp), pad_k(yt, kp)
     code = _build.lib().tina_matmul_bf16(
         x.data_ptr(), yt.data_ptr(), out.data_ptr(), m, n, x.shape[1],
-        *tile, torch.cuda.current_stream(dev).cuda_stream)
+        *_bf16_launch_args(m, n, x.shape[1]),
+        torch.cuda.current_stream(dev).cuda_stream)
     global BF16_LAUNCHES
     BF16_LAUNCHES += 1
     _build.check(code, "matmul_bf16")
@@ -435,7 +496,8 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
 
 
 __all__ = ["matmul", "matmul_plain", "matmul_bf16_plain", "TILES_BF16",
-           "BF16_LAUNCHES", "bf16_ulps", "bf16_tile", "TUNE_SPACE", "TILES",
+           "BF16_LAUNCHES", "bf16_ulps", "bf16_tile", "bf16_route",
+           "BF16_PROMOTE", "TUNE_SPACE", "TILES",
            "ORDERS", "LAUNCHES", "PLANES_LAUNCHES", "tf32_split", "tf32_planes",
            "tf32_planes_plain", "planes_shape", "staging", "smem_bytes",
            "matmul_int8", "matmul_int8_plain", "TUNE_SPACE_INT8",

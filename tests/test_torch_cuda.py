@@ -1018,6 +1018,126 @@ def test_matmul_bf16_refuses_misfits(dev):
         mmk.matmul(x, y, order="nm")
 
 
+# both routes at their boundary M (the skinny kernel up to 64 rows, the
+# tiled one above), N and K off every tile and split multiple: K = 999
+# takes the padded copy, N = 77 and 300 the tiled kernel's plain stores,
+# N = 520 its TMA stores
+BF16_EDGE_M = [1, 8, 63, 64, 65, 129]
+BF16_EDGE_KN = [(1000, 300), (4104, 520), (999, 77)]
+
+
+@pytest.mark.parametrize("k,n", BF16_EDGE_KN)
+@pytest.mark.parametrize("m", BF16_EDGE_M)
+def test_matmul_bf16_routes_at_their_edges(dev, m, k, n):
+    gen = torch.Generator(device=dev).manual_seed(m * k + n)
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    y = (torch.randn(k, n, device=dev, generator=gen) * k ** -0.5).bfloat16()
+    before = mmk.BF16_LAUNCHES
+    got = mmk.matmul(x, y)
+    torch.cuda.synchronize()
+    assert mmk.BF16_LAUNCHES == before + 1
+    want = mmk.matmul_bf16_plain(x, y)
+    assert mmk.bf16_ulps(got, want).max().item() <= 1.0
+    # y's K-major copy made once gives the same bits
+    assert torch.equal(mmk.matmul(x, y, yt=y.t().contiguous()), got)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 8192), (8192, 2048),
+                                 (1000, 300)])
+def test_matmul_bf16_skinny_is_bitwise_repeatable(dev, k, n):
+    """The split-K sums are added in rank order: the same bits on every
+    call and on two streams running at once."""
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn(8, k, device=dev, generator=gen).bfloat16()
+    yt = (torch.randn(n, k, device=dev, generator=gen) * k ** -0.5).bfloat16()
+    kind, route = mmk.bf16_route(8, n, k)
+    assert kind == "skinny" and route["splits"] > 1
+    first = mmk.matmul(x, yt.t(), yt=yt)
+    again = mmk.matmul(x, yt.t(), yt=yt)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(mmk.matmul(x, yt.t(), yt=yt))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert all(torch.equal(first, o) for o in outs)
+    assert mmk.bf16_ulps(first, mmk.matmul_bf16_plain(x, yt.t())).max() \
+        .item() <= 1.0
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (1000, 300)])
+def test_matmul_bf16_skinny_sums_its_splits_in_rank_order(dev, k, n):
+    """The skinny kernel's result is its splits' f32 partials added in
+    rank order and rounded once, bit for bit.  Each split of K holds one
+    nonzero product per element (x: +-1 at the split's first column; y:
+    +-1, +-3 or +-2^24), so every partial is exact and only the order of
+    the adds across splits can round: another order, or a split dropped
+    or counted twice, changes some bits."""
+    m = 8
+    kind, r = mmk.bf16_route(m, n, k)
+    assert kind == "skinny" and r["splits"] > 2
+    starts = [64 * r["chunks"] * i for i in range(r["splits"])]
+    rng = np.random.default_rng(k + n)
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], (r["splits"], m)))
+    val = torch.from_numpy(rng.choice([-2.0 ** 24, -3.0, -1.0, 1.0, 3.0,
+                                       2.0 ** 24], (r["splits"], n)))
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    yt = torch.zeros(n, k, dtype=torch.bfloat16)
+    for i, a in enumerate(starts):
+        x[:, a] = sign[i].bfloat16()
+        yt[:, a] = val[i].bfloat16()
+    parts = [(sign[i][:, None] * val[i][None, :]).float()
+             for i in range(r["splits"])]
+
+    def added(order):
+        total = parts[order[0]]
+        for i in order[1:]:
+            total = total + parts[i]
+        return total.to(torch.bfloat16)
+
+    ranks = list(range(r["splits"]))
+    want = added(ranks)
+    # the probe tells the orders apart
+    assert not torch.equal(want, added(ranks[::-1]))
+    for i in ranks:
+        assert not torch.equal(want, added(ranks[:i] + ranks[i + 1:]))
+        assert not torch.equal(want, added(ranks + [i]))
+    got = mmk.matmul(x.to(dev), yt.t().to(dev), yt=yt.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_matmul_bf16_route_is_not_a_knob(dev):
+    """The route is the wrapper's choice: a tile the tiled kernel has not
+    compiled raises at every M, and the C entry point refuses splits that
+    leave one empty or miss part of K."""
+    from repro_torch.kernels import _build
+    y = torch.randn(256, 64, device=dev).bfloat16()
+    for m in (8, 256):
+        x = torch.randn(m, 256, device=dev).bfloat16()
+        with pytest.raises(ValueError, match="invalid block config"):
+            mmk.matmul(x, y, bn=128)
+    x = torch.randn(8, 256, device=dev).bfloat16()
+    yt = y.t().contiguous()
+    out = torch.empty(8, 64, device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for splits, chunks in ((4, 1), (3, 2), (1, 3), (9, 1)):  # K: 4 chunks
+        code = _build.lib().tina_matmul_bf16(
+            x.data_ptr(), yt.data_ptr(), out.data_ptr(), 8, 64, 256, 0, 8,
+            splits, chunks, stream)
+        assert (code == 0) == ((splits, chunks) == (4, 1))
+    # the tiled kernel is compiled at one tile and promotion interval
+    x = torch.randn(256, 256, device=dev).bfloat16()
+    out = torch.empty(256, 64, device=dev, dtype=torch.bfloat16)
+    for width, interval in ((192, 3), (256, 0), (192, 0), (128, 3)):
+        code = _build.lib().tina_matmul_bf16(
+            x.data_ptr(), yt.data_ptr(), out.data_ptr(), 256, 64, 256, 1,
+            width, interval, 0, stream)
+        assert (code == 0) == ((width, interval) == (192, 3))
+
+
 def test_lm_kernel_lowering_on_the_card(dev):
     """The reduced olmo at bf16 compute: every dense layer launches the
     bf16 GEMM once per call, and the logits agree with the native

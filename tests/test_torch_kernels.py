@@ -276,3 +276,73 @@ def test_bf16_ulps_counts_in_units_of_the_last_place():
     # near zero the ulp is taken at 2^-8 of the largest |want|
     assert mmk.bf16_ulps(torch.tensor([2 ** -7, 256.0]),
                          torch.tensor([0.0, 256.0])).tolist() == [1.0, 0.0]
+
+
+# olmo_1b's dense layers as (K, N): wq/wk/wv/wo, up/gate, down
+OLMO_GEMMS = [(2048, 2048), (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("k,n", OLMO_GEMMS + [(72, 5), (1000, 300),
+                                              (999, 77), (64, 1), (4104, 520)])
+@pytest.mark.parametrize("m", [1, 8, 63, 64, 65, 4096])
+def test_bf16_route_covers_k_and_fills_the_card(m, k, n):
+    """The route the bf16 wrapper hands the kernel: the skinny kernel at
+    M <= 64 with x's rows rounded up to a compiled width, its splits
+    covering K's 64-deep chunks exactly with none empty, at most a
+    portable cluster of 8, and at least 132 blocks on every olmo_1b
+    decode shape; the tiled kernel above, at its compiled tile."""
+    kind, r = mmk.bf16_route(m, n, k)
+    k_tiles = -(-k // 64)
+    if m > 64:
+        assert kind == "tiled"
+        assert (r["bm"], r["bn"], r["bk"]) == mmk.TILES_BF16[0]
+        assert r["tiles"] == -(-m // r["bm"]) * -(-n // r["bn"])
+        return
+    assert kind == "skinny"
+    assert r["rows"] in mmk.BF16_SKINNY_ROWS and r["rows"] >= m
+    assert r["rows"] == 8 or r["rows"] // 2 < m    # the smallest that fits
+    assert 1 <= r["splits"] <= mmk.BF16_MAX_SPLITS
+    # every split starts inside K and together they reach its end
+    assert (r["splits"] - 1) * r["chunks"] < k_tiles <= r["splits"] * r["chunks"]
+    assert r["blocks"] == -(-n // 64) * r["splits"]
+    if (k, n) in OLMO_GEMMS:
+        assert r["blocks"] >= 132
+
+
+def _skinny_order(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The skinny kernel's order of sums, in plain torch: one f32
+    partial per split of K (bf16_route's splits of 64-deep chunks), the
+    partials added in rank order, rounded once to bf16."""
+    _, r = mmk.bf16_route(x.shape[0], y.shape[1], x.shape[1])
+    step = 64 * r["chunks"]
+    parts = [x[:, a:a + step].float() @ y[a:a + step].float()
+             for a in range(0, x.shape[1], step)]
+    assert len(parts) == r["splits"]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("k,n", [(1000, 200), (4104, 72)])
+def test_bf16_split_k_order_matches_jax_kernel(m, k, n):
+    """The numerics of the skinny kernel's order of sums (per-split f32
+    partials in rank order, one rounding), emulated in torch: within one
+    bf16 ulp of the Pallas GEMM in interpret mode, with K a multiple of
+    neither 64 nor a split's depth (the last split is shorter).  This
+    runs no kernel; tests/test_torch_cuda.py holds the kernel to that
+    order bit for bit."""
+    kind, r = mmk.bf16_route(m, n, k)
+    assert kind == "skinny" and r["splits"] > 1
+    assert k % (64 * r["chunks"]) != 0
+    rng = _rng("matmul_bf16_split", m, k, n)
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    y = jnp.asarray(rng.standard_normal((k, n)) * k ** -0.5, jnp.bfloat16)
+    want = _t(np.asarray(jops.matmul(x, y).astype(jnp.float32)))
+    xt, yt = (_t(np.asarray(a.astype(jnp.float32))).bfloat16()
+              for a in (x, y))
+    got = _skinny_order(xt, yt)
+    assert mmk.bf16_ulps(got, want).max().item() <= 1.0
+    assert mmk.bf16_ulps(got, mmk.matmul_bf16_plain(xt, yt)).max().item() \
+        <= 1.0
