@@ -6,7 +6,9 @@ and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
 4096-cubed matmul end to end on one NVIDIA card, at f32, then at int8
 and bf16; then streams every pipeline in chunks, autotunes plans,
 serves ``pfb_power`` and the spectrogram through ``PipelineService``,
-and serves olmo_1b (prefill + decode) through the model zoo's port.
+runs every pipeline, a stream and a service batch-sharded over a
+1-device mesh and over 4 logical shards of the card, and serves olmo_1b
+(prefill + decode) through the model zoo's port.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -211,6 +213,21 @@ Prints one JSON line per phase:
             ``lowering="auto"`` with ``--prewarm`` in a temporary tuner
             cache, and under ``--torch-profiler`` (the top five host ops
             per batch by self time)
+  mesh      every pipeline above at full width, f32 and int8, through
+            ``graph.compile(..., mesh=)`` on ``make_batch_mesh(1)`` and on
+            4 logical shards of the card (``BatchMesh((cuda:0,) * 4)``,
+            each shard on a CUDA stream of its own; and on every card
+            where there are more): bit for bit the per-shard plans run on
+            each slice, launches per call the shard count times the
+            unsharded plan's, outputs dense and their own; device ms of
+            20 back-to-back calls and host microseconds a call, sharded
+            beside unsharded; the fig3 point (batch 1 on 1 device, batch
+            4 on 4 shards); pfb full streamed through
+            ``ChunkedRunner(mesh=)`` on 4 shards (int8 bit for bit, f32
+            within 1e-6 of max of offline); a serving window (pfb full,
+            an int8 tenant) on an unsharded, a 1-device and a 4-shard
+            service in the order u, 1, 4, 4, 1, u: ladder from the shard
+            count, launches, oracle, replay bit for bit, requests/s
   lm        the model zoo's serving path at olmo_1b's full width (16
             layers, d_model 2048, vocab 50304, bf16 compute, f32 weights
             from a seeded CUDA generator) through ``distributed.step`` at
@@ -238,8 +255,9 @@ Prints one JSON line per phase:
   kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
             the GEMM (per decode step of the lm phase: its 112 launches'
             device ms, bounds, plain and torch.matmul times summed):
-            launches, errors, times, bounds (an f32 product at the TF32
-            tensor-core peak; a bf16 one at the bf16 peak; the fused
+            launches, errors, times, the launches in the mesh phase's
+            counted runs (``mesh_launches``), bounds (an f32 product at
+            the TF32 tensor-core peak; a bf16 one at the bf16 peak; the fused
             PFB's FIR at the fp32 pipe beside its DFT at TF32; the
             fp32-pipe figures print beside them in the path lines)
 
@@ -4014,6 +4032,243 @@ def main() -> int:
              / max(1, prof["batches"]),
              trace_bytes=os.path.getsize(prof["trace"]))
 
+    # ======================================================================
+    # mesh: every pipeline batch-sharded (graph.compile(..., mesh=)) over a
+    # 1-device mesh and over 4 logical shards of the card (and over every
+    # card where there are more), f32 and int8, at full width; pfb full
+    # streamed on 4 shards; a serving window on each mesh
+    # ======================================================================
+    from repro_torch.launch.mesh import BatchMesh, make_batch_mesh
+
+    n_cards = torch.cuda.device_count()
+    meshes = [("1 device", make_batch_mesh(1)),
+              ("4 logical shards", BatchMesh((dev,) * 4))]
+    if n_cards > 1:
+        meshes.append((f"{n_cards} cards", make_batch_mesh(n_cards)))
+    mesh_launches: dict = {}
+
+    def host_us(fn) -> float:
+        """Host microseconds to enqueue one call: ``REPEATS`` back-to-back
+        calls on the host clock, after two warm-up calls, while a spin
+        kernel keeps the card busy (so no call waits for the card)."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(REPEATS):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / REPEATS
+        torch.cuda.synchronize()
+        return us
+
+    def host_pair(sharded, unsharded, rounds: int = 3) -> dict:
+        """``host_us`` of both, in turns (s, u, u, s, ...): each one's
+        median over the rounds, and every reading."""
+        got = {"sharded": [], "unsharded": []}
+        for r in range(rounds):
+            pair = (("sharded", sharded), ("unsharded", unsharded))
+            for k, fn in (pair if r % 2 == 0 else pair[::-1]):
+                got[k].append(host_us(fn))
+        return {**{k: statistics.median(v) for k, v in got.items()},
+                "readings": got}
+
+    def per_shard_want(g, x, mesh, prec):
+        """The per-shard single-device plan of each mesh device run on its
+        slice, one after another, concatenated on the first device."""
+        k = x.shape[0] // mesh.size
+        parts = []
+        for i, d in enumerate(mesh.devices):
+            with torch.cuda.device(d):
+                one = compile_quiet(g, (k, x.shape[1]), lowering="kernel",
+                                    precision=prec, device=str(d))
+                parts.append(one(x[i * k:(i + 1) * k].to(d)).to(x.device))
+        return torch.cat(parts)
+
+    def mesh_run(label, g, x, mesh, prec, per_call):
+        """One counted call of the sharded plan (counts at 0 just before,
+        read just after), held bit for bit against the per-shard plans."""
+        plan = compile_quiet(g, tuple(x.shape), lowering="kernel",
+                             precision=prec, mesh=mesh)
+        want = per_shard_want(g, x, mesh, prec)
+        torch.cuda.synchronize()
+        zero_counts()
+        got = plan(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        full = dict.fromkeys(launches, 0)
+        full.update({k: mesh.size * v for k, v in per_call.items()})
+        if launches != full:
+            fail(f"{label}: launches {launches}, want {full} (the shard "
+                 "count times the unsharded plan's)")
+        for k, v in launches.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        n_diff = int((got != want).sum().item())
+        if got.shape != want.shape or n_diff:
+            fail(f"{label}: {tuple(got.shape)} vs the per-shard plans' "
+                 f"{tuple(want.shape)}, {n_diff} elements differ")
+        owned(label, got, x)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{label}: output not finite")
+        return plan, launches
+
+    t_mesh = time.perf_counter()
+    side = torch.cuda.Stream(dev)
+    for name, g, shape, _chunk, want32, want8 in stream_paths:
+        x = torch.randn(*shape, device=dev, generator=gen)
+        for prec, per_call in (("f32", want32), ("int8", want8)):
+            base = compile_quiet(g, shape, lowering="kernel", precision=prec)
+            base_ms = device_ms(torch, lambda: base(x))
+            # the unsharded plan on a stream other than the default one
+            # (a shard's stream is one): what the stream alone changes
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                side_ms = device_ms(torch, lambda: base(x))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            for mlabel, mesh in meshes:
+                label = f"mesh {name} {prec} {mlabel}"
+                plan, launches = mesh_run(label, g, x, mesh, prec, per_call)
+                ms = device_ms(torch, lambda: plan(x))
+                emit(phase="mesh", path=name, precision=prec, mesh=mlabel,
+                     shards=mesh.size,
+                     devices=[str(d) for d in mesh.distinct], x=list(shape),
+                     launches=launches, bit_for_bit=True,
+                     ms={"sharded": ms, "unsharded": base_ms,
+                         "unsharded_side_stream": side_ms},
+                     sharded_over_unsharded=ms / base_ms,
+                     host_us=host_pair(lambda: plan(x), lambda: base(x)))
+                del plan
+            del base
+            torch.cuda.empty_cache()
+        del x
+
+    # the fig3 point (host-bound): a 1-device mesh at batch 1, 4 logical
+    # shards at batch 4, each beside its unsharded plan
+    fig3_g = graph.build_pfb_power(32, 8)
+    for mlabel, mesh, b in (("1 device", meshes[0][1], 1),
+                            ("4 logical shards", meshes[1][1], 4)):
+        x = torch.randn(b, 2 ** 18, device=dev, generator=gen)
+        label = f"mesh fig3 {mlabel}"
+        plan, launches = mesh_run(label, fig3_g, x, mesh, "f32",
+                                  {"pfb_fused": 1, "elementwise_chain": 1})
+        base = compile_quiet(fig3_g, (b, 2 ** 18), lowering="kernel")
+        emit(phase="mesh", path="pfb_power fig3", precision="f32",
+             mesh=mlabel, shards=mesh.size, x=[b, 2 ** 18], p=32, m=8,
+             launches=launches, bit_for_bit=True,
+             ms={"sharded": device_ms(torch, lambda: plan(x)),
+                 "unsharded": device_ms(torch, lambda: base(x)),
+                 "sharded_median_call": median_ms(torch, lambda: plan(x)),
+                 "unsharded_median_call": median_ms(torch, lambda: base(x))},
+             host_us=host_pair(lambda: plan(x), lambda: base(x), 5))
+        del x, plan, base
+
+    # pfb full streamed over 4 logical shards: equal to offline
+    name, g, shape, chunk, want32, want8 = stream_paths[0]
+    x = torch.randn(*shape, device=dev, generator=gen)
+    mesh4 = meshes[1][1]
+    for prec, per_call in (("f32", want32), ("int8", want8)):
+        label = f"mesh stream {name} {prec}"
+        want = compile_quiet(g, shape, lowering="kernel", precision=prec)(x)
+        runner = graph.ChunkedRunner(g, lowering="kernel", precision=prec,
+                                     mesh=mesh4)
+        outs = []
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for i, size in chunks_of(shape[-1], chunk):
+                o = runner.push(x[..., i:i + size])
+                if o is not None:
+                    outs.append(o)
+            o = runner.finalize()
+            if o is not None:
+                outs.append(o)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = counts()
+        full = dict.fromkeys(launches, 0)
+        full.update({k: 4 * v * len(outs) for k, v in per_call.items()})
+        if launches != full:
+            fail(f"{label}: launches {launches} over {len(outs)} pushes, "
+                 f"want {full}")
+        for k, v in launches.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        out = torch.cat(outs, dim=runner.spec.concat_axis)
+        held = hold_stream(label, out, want, prec)
+        emit(phase="mesh", path=f"stream {name}", precision=prec,
+             mesh="4 logical shards", x=list(shape), chunk=[shape[0], chunk],
+             plan_calls=len(outs), window_lens=sorted(runner.window_lens),
+             launches=launches, wall_s=wall_s, **held)
+        del want, out, outs, runner
+    del x
+    torch.cuda.empty_cache()
+
+    # a serving window on an unsharded, a 1-device and a 4-shard service
+    # (in the order u, 1, 4, 4, 1, u): pfb_power full width, f32 with an
+    # int8 tenant, replay bit for bit; the first request alone, then 128
+    # f32 and 64 int8 requests (32 and 16 signals, four times each: 8 and
+    # 4 full batches) from 4 client threads
+    obs.enable()
+    mesh_rng = np.random.default_rng(2024)
+    m_f32 = [mesh_rng.standard_normal(serve_n, dtype=np.float32)
+             for _ in range(33)]
+    m_i8 = [mesh_rng.standard_normal(serve_n, dtype=np.float32)
+            for _ in range(17)]
+    m_f32 = m_f32[:1] + m_f32[1:] * 4
+    m_i8 = m_i8[:1] + m_i8[1:] * 4
+    order = [("unsharded", None)] + meshes[:2]
+    for run, (mlabel, mesh) in enumerate(order + order[::-1]):
+        label = f"mesh serve {mlabel} run {run}"
+        shards = 1 if mesh is None else mesh.size
+        zero_counts()
+        s = graph.PipelineService(pfb_g, serve_n, batch_size=serve_b,
+                                  batching="continuous", lowering="kernel",
+                                  record_batches=True, mesh=mesh)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            s.add_tenant("pfb_int8", pfb_g, serve_n, lowering="kernel",
+                         precision="int8", mesh=mesh)
+        if s.buckets[0] != shards:
+            fail(f"{label}: ladder {s.buckets} does not start at {shards}")
+        s.start()
+        _, _, f_futs, f_res = serve_window(s, m_f32, None)
+        _, _, i_futs, i_res = serve_window(s, m_i8, "pfb_int8")
+        s.close()
+        launches = counts()
+        st = s.stats()
+        f_batches = st["tenants"]["default"]["batches"]
+        i_batches = st["tenants"]["pfb_int8"]["batches"]
+        want = dict.fromkeys(launches, 0)
+        want.update(pfb_fused=shards * f_batches,
+                    elementwise_chain=shards * (f_batches + i_batches),
+                    pfb_fused_int8=shards * i_batches)
+        if launches != want:
+            fail(f"{label}: launches {launches}, want {want}")
+        if mesh is not None:
+            for k, v in launches.items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + v
+        if st["degraded"] or st["quarantined"]:
+            fail(f"{label}: degraded {st['degraded']}, quarantined "
+                 f"{st['quarantined']}")
+        errs = {"f32_max_abs_err_of_max": hold_oracle(
+            label, m_f32[1:], f_futs, "f32"),
+                "int8_sqnr_db": hold_oracle(label, m_i8[1:], i_futs,
+                                            "int8")}
+        replayed = service_lib.replay_batches(s)
+        if replayed != len(m_f32) + len(m_i8):
+            fail(f"{label}: replay checked {replayed} of "
+                 f"{len(m_f32) + len(m_i8)} requests")
+        emit(phase="mesh", case="serve", mesh=mlabel, run=run,
+             shards=shards, buckets=list(s.buckets), x=[serve_n],
+             batch_size=serve_b, launches=launches, replayed_bit_for_bit=replayed, **errs,
+             f32=f_res, int8=i_res)
+        del s, f_futs, i_futs
+    obs.disable()
+    del m_f32, m_i8
+    emit(phase="mesh", case="done", seconds=time.perf_counter() - t_mesh,
+         launches=mesh_launches)
+
     # -- lm: the model zoo's serving path at olmo_1b full width ------------
     lm_row = lm_phase(torch, dev, card, zero_counts, counts)
 
@@ -4084,6 +4339,9 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": ms[lib] if lib else None})
     rows.append(lm_row)
+    for row in rows:
+        # the kernel's launches in the mesh phase's counted runs
+        row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,18 @@ __version__ = "0.1.0"
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another; RuntimeError when CUDA is asked for and there is no card."""
+    another; RuntimeError when CUDA is asked for and there is no card.
+    A card is always indexed (``"cuda"`` is the current card, so a plan,
+    its cache key and a service's streams name one card, not whichever
+    is current when they are used)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -4,20 +4,25 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace tina {
 
 // Streaming multiprocessors of the current device (an H100 SXM's 132 if
-// the query fails), asked once.
+// the query fails), asked once per device: a process may launch on
+// several cards, each under its own current device.
 inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  int n = dev < 64 ? sms[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 132;
+    if (dev < 64) sms[dev].store(n, std::memory_order_relaxed);
   }
-  return sms;
+  return n;
 }
 
 // Blocks of `threads` for a grid-stride loop over n elements: one per

@@ -4,7 +4,8 @@ cached plans that run on the card.
   graph.py      declarative graph IR (a copy of the reference's, so
                 signatures hash the same) and ``load_graph``
   plan.py       planner: shape specialization, elementwise fusion,
-                lowering and precision selection, memoized plans
+                lowering and precision selection, memoized plans, batch
+                sharding over a ``launch.mesh.BatchMesh``
   autotune.py   measuring lowering/config/precision/fusion autotuner,
                 on-disk cache (``~/.cache/tina/autotune_torch.json``)
   stream.py     chunked streaming executor (offline-identical output)
@@ -32,6 +33,8 @@ Quick use::
     chunked = graph.stream_execute(g, x, chunk_len=2 ** 18,
                                    lowering="kernel")   # == power
     tuned = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="auto")
+    sharded = graph.compile(g, {"x": (16, 2 ** 22)}, lowering="kernel",
+                            mesh=2)        # the batch over two cards
     svc = graph.PipelineService(g, 2 ** 22, batch_size=16,
                                 batching="continuous", lowering="kernel")
     with svc:

@@ -23,6 +23,11 @@ Winners persist to a JSON cache (schema v2) so the measurement cost is
 paid once per (op, shapes, dtype, card) -- across processes, not just per
 session.  The key's backend is the card (``"cuda:<device name>"``) or
 ``"cpu"``, so a winner measured on one card is not taken on another.
+Under a mesh the tuner sees the per-shard problem: a sharded compile
+tunes the per-shard plan of the mesh's first device first (its keys
+carry the per-shard batch), and the other devices' per-shard plans read
+those winners from the cache -- the reason a mesh of cards with
+different names raises (:mod:`repro_torch.launch.mesh`).
 v1 caches (flat ``key -> {lowering, ...}`` maps) are migrated on load;
 their entries keep their lowering and fall back to default block
 configs.

@@ -61,16 +61,30 @@ first kernel launch, are kept with the event recorded after they were
 made (:class:`repro_torch.Made`), and every call orders its stream after
 that event on the card.
 
-Device: plans run on ``"cuda"`` unless ``device=`` says otherwise;
+Device: plans run on ``"cuda"`` unless ``device=`` (or ``backend=``,
+the device type: ``"cpu"``, ``"cuda"`` or ``"gpu"``) says otherwise;
 asking for CUDA without a card raises RuntimeError.  Graph consts become
 device tensors once, here, not per call.  Shape inference runs the
 native lowering on ``"meta"`` tensors.
 
-Not yet ported: ``mesh`` (multi-device plans) raises ValueError.
+Mesh sharding: ``compile(..., mesh=...)`` (or ``shard="batch"``) splits
+the batch axis -- the leading dim of every graph input -- across a
+:class:`~repro_torch.launch.mesh.BatchMesh`.  A sharded plan holds one
+per-shard plan per distinct device of the mesh, each this module's
+single-device plan compiled at the per-shard shape for that device, so
+its consts and kernel packs live there; shape inference, fusion and the
+autotuner see per-shard shapes.  Logical shards of one device share its
+per-shard plan.  Each shard runs under ``torch.cuda.device(d)`` on a
+CUDA stream of its own, after the caller's stream; the output is the
+shards' outputs concatenated on the mesh's first device, bit for bit
+the per-shard plan run on each slice (every row is computed apart).
+:meth:`Plan.run_shards` leaves each shard's output on its device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import warnings
 from typing import Callable, Sequence
 
@@ -81,6 +95,8 @@ from repro_torch import Made, obs, resolve_device
 from repro_torch.core import quantize
 from repro_torch.core.opdefs import OPDEFS, bf16_round
 from repro_torch.graph.graph import Graph, Node
+from repro_torch.launch.mesh import (BatchMesh, BatchSharding, Shards,
+                                     make_batch_mesh)
 
 OPS = OPDEFS
 LOWERINGS = ("native", "conv", "kernel")
@@ -305,6 +321,11 @@ class Plan:
     # GEMM's TF32 planes of its const y), filled at its first launch
     made: Made | None = None
     # consts and qconsts with the event recorded after compile made them
+    mesh: BatchMesh | None = None   # the device mesh of a sharded plan
+    batch_axis: str | None = None   # the mesh axis carrying the batch dim
+    input_shardings: tuple = ()     # a BatchSharding per input (sharded)
+    shard_plans: dict = dataclasses.field(default_factory=dict)
+    # device -> the per-shard single-device plan run there (sharded)
 
     @property
     def node_lowerings(self) -> dict[str, str]:
@@ -318,12 +339,89 @@ class Plan:
         support appear as ``f32`` here and in :attr:`downgrades`)."""
         return self.precisions
 
-    def __call__(self, *args, **kwargs):
-        if self.made is not None:
-            self.made.get()
+    def _arrays(self, args, kwargs) -> list:
         arrays = list(args)
         for name in self.input_names[len(arrays):]:
             arrays.append(kwargs[name])
+        return arrays
+
+    def shard_inputs(self, *arrays):
+        """Split each input's batch and put slice i on the mesh's device
+        i ahead of the call (a :class:`~repro_torch.launch.mesh.Shards`
+        per input; one input gives one); unsharded, the inputs as they
+        are."""
+        if not self.input_shardings:
+            return arrays if len(arrays) > 1 else arrays[0]
+        out = tuple(self._place(name, a, s) for name, a, s in zip(
+            self.input_names, arrays, self.input_shardings))
+        return out if len(out) > 1 else out[0]
+
+    def _place(self, name: str, a, sharding: BatchSharding) -> Shards:
+        if isinstance(a, Shards):
+            return a
+        shape, dtype = self.input_specs[name]
+        if tuple(a.shape) != shape:
+            raise ValueError(
+                f"plan for {self.graph.name!r} was compiled for {name} "
+                f"{dtype}{shape}, got {tuple(a.shape)}")
+        return sharding.place(a)
+
+    def run_shards(self, *args, **kwargs) -> list:
+        """Run a sharded plan and leave each shard's output (a tensor, or
+        a tuple of them) on its own device, in mesh order.  Inputs are
+        whole batches or :meth:`shard_inputs`' result.  On the card shard
+        i runs under ``torch.cuda.device(d)`` on a stream of its own,
+        ordered after the current stream of ``d`` at the call; on return
+        the current stream of every mesh device is ordered after its
+        shards, so the outputs are ready there.  The shard streams belong
+        to that current stream (one set per caller stream), so memory a
+        shard frees is reused only by work ordered after the caller's:
+        no ``record_stream``, whose deferred frees would make every call
+        allocate anew while the card is behind.  On the CPU the shards
+        run one after another."""
+        if self.mesh is None:
+            raise ValueError(f"plan for {self.graph.name!r} is not sharded")
+        parts = [self._place(name, a, s) for name, a, s in zip(
+            self.input_names, self._arrays(args, kwargs),
+            self.input_shardings)]
+        devices = self.mesh.devices
+        for p in parts:
+            if len(p) != len(devices):
+                raise ValueError(f"{len(p)} shards for a mesh of "
+                                 f"{len(devices)}")
+        if self.mesh.device_type != "cuda":
+            return [self.shard_plans[d](*(p[i] for p in parts))
+                    for i, d in enumerate(devices)]
+        callers = {d: torch.cuda.current_stream(d) for d in self.mesh.distinct}
+        streams = _shard_streams(callers, devices)
+        outs = []
+        for i, d in enumerate(devices):
+            s = streams[i]
+            s.wait_stream(callers[d])
+            with torch.cuda.device(d), torch.cuda.stream(s):
+                outs.append(self.shard_plans[d](*(p[i] for p in parts)))
+        for i, d in enumerate(devices):
+            callers[d].wait_stream(streams[i])
+        return outs
+
+    def gather(self, outs: list):
+        """The shards' outputs (:meth:`run_shards`) as one batch on the
+        mesh's first device: a tensor of its own, never a view of a
+        shard's output (one shard's output is that tensor already)."""
+        if len(outs) == 1:
+            return outs[0]
+        d0 = self.mesh.devices[0]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[j].to(d0) for o in outs])
+                         for j in range(len(outs[0])))
+        return torch.cat([o.to(d0) for o in outs])
+
+    def __call__(self, *args, **kwargs):
+        if self.mesh is not None:
+            return self.gather(self.run_shards(*args, **kwargs))
+        if self.made is not None:
+            self.made.get()
+        arrays = self._arrays(args, kwargs)
         env = dict(self.consts)
         for name, a in zip(self.input_names, arrays):
             t = torch.as_tensor(a, device=self.device)
@@ -368,6 +466,33 @@ def _owned(out: torch.Tensor, held: list[torch.Tensor]) -> torch.Tensor:
     if any(_overlaps(out, t) for t in held):
         return out.clone()
     return out
+
+
+_STREAMS: dict[tuple, torch.cuda.Stream] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _shard_streams(callers: dict, devices: tuple) -> list:
+    """The CUDA stream of each shard on ``devices`` for the caller's
+    streams ``callers`` (device -> its current stream): one per (caller
+    stream, shard index), made once and shared by every plan.  Each is
+    drawn from torch's high-priority pool, apart from the default-priority
+    streams callers make (a service's), and no two keys share one while
+    the pool's 32 streams a device last: memory one caller's shard frees
+    must not be handed to another caller's work."""
+    want = [(d, callers[d].cuda_stream, i) for i, d in enumerate(devices)]
+    if any(k not in _STREAMS for k in want):
+        with _STREAMS_LOCK:
+            for k in want:
+                if k in _STREAMS:
+                    continue
+                taken = {s.cuda_stream for s in _STREAMS.values()}
+                for _ in range(32):
+                    s = torch.cuda.Stream(k[0], priority=-1)
+                    if s.cuda_stream not in taken:
+                        break
+                _STREAMS[k] = s
+    return [_STREAMS[k] for k in want]
 
 
 _CACHE: dict[tuple, Plan] = {}
@@ -447,20 +572,88 @@ def _norm_specs(graph: Graph, shapes, dtype) -> dict[str, tuple]:
 @dataclasses.dataclass(frozen=True)
 class CompileOptions:
     """Every compile-time knob in one value object; derive variants with
-    :meth:`replace`.  ``device=None`` means ``"cuda"``."""
+    :meth:`replace`.  ``device=None`` means ``backend``'s device type,
+    and with no backend ``"cuda"``; a mesh's plans run on its devices."""
 
     dtype: str = "float32"
     device: str | None = None
+    backend: str | None = None        # device type: "cpu", "cuda" or "gpu"
     lowering: object = "native"       # str | "auto" | {node: str}
     block_configs: object = None      # None | "auto" | {node: {param: int}}
     fuse: object = None               # None | bool | "auto"
     precision: object = "f32"          # str | "auto" | {node: str}
-    mesh: object = None
+    mesh: object = None               # BatchMesh | int shard count | None
+    shard: str | None = None          # "batch": shard over every device
     autotune_kwargs: dict | None = None
 
     def replace(self, **changes) -> "CompileOptions":
         """A copy with the given fields changed (``dataclasses.replace``)."""
         return dataclasses.replace(self, **changes)
+
+
+BACKENDS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def _device_request(o: CompileOptions):
+    """``device=``, checked against ``backend=``; else the backend's
+    device type (None: the card)."""
+    if o.backend is None:
+        return o.device
+    kind = BACKENDS.get(o.backend)
+    if kind is None:
+        raise ValueError(f"backend={o.backend!r}: expected one of "
+                         f"{sorted(BACKENDS)}")
+    if o.device is not None and torch.device(o.device).type != kind:
+        raise ValueError(f"backend={o.backend!r} contradicts "
+                         f"device={str(o.device)!r}")
+    return kind if o.device is None else o.device
+
+
+def _norm_mesh(mesh, shard, device=None
+               ) -> tuple[BatchMesh | None, str | None]:
+    """Normalize ``(mesh=, shard=)`` into (BatchMesh, batch-axis name).
+
+    ``mesh`` may be a BatchMesh, a device count (a mesh of that many
+    devices of ``device``'s type, by
+    :func:`repro_torch.launch.mesh.make_batch_mesh`), or None;
+    ``shard="batch"`` alone shards over every visible card (one logical
+    shard on the CPU).  A ``device`` that names another device than the
+    mesh's first raises."""
+    if mesh is None and shard is None:
+        return None, None
+    if shard not in (None, "batch"):
+        raise ValueError(
+            f"shard={shard!r}: only 'batch' (data-parallel over the "
+            "leading input dim) is supported")
+    if mesh is None:
+        mesh = make_batch_mesh(device=device)
+    elif isinstance(mesh, int) and not isinstance(mesh, bool):
+        mesh = make_batch_mesh(mesh, device=device)
+    elif not isinstance(mesh, BatchMesh):
+        raise TypeError(f"mesh= expects a BatchMesh, an int device count, "
+                        f"or None; got {type(mesh).__name__}")
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device_type or (
+                want.index is not None and want != mesh.devices[0]):
+            raise ValueError(
+                f"device={str(device)!r} contradicts the mesh's devices "
+                f"{[str(d) for d in mesh.devices]}")
+    return mesh, mesh.axis
+
+
+def normalize_mesh(o: CompileOptions
+                   ) -> tuple[CompileOptions, BatchMesh | None, torch.device]:
+    """``o`` with its ``mesh=``/``shard=`` made one BatchMesh (so every
+    later compile of a runner or a service keys on that mesh, and
+    ``mesh=1`` is not rebuilt per push), the mesh (None: unsharded), and
+    the device its plans run on: the mesh's first device, else
+    ``device=``/``backend=`` (default: the card)."""
+    req = _device_request(o)
+    mesh, _ = _norm_mesh(o.mesh, o.shard, req)
+    if mesh is None:
+        return o, None, resolve_device(req)
+    return o.replace(mesh=mesh, shard=None), mesh, mesh.devices[0]
 
 
 def _check_ported(o: CompileOptions) -> None:
@@ -477,9 +670,6 @@ def _check_ported(o: CompileOptions) -> None:
     if o.fuse not in (None, True, False, "auto"):
         raise ValueError(f"fuse={o.fuse!r}: expected None, True, False or "
                          "'auto'")
-    if o.mesh is not None:
-        raise ValueError("mesh= (multi-device plans) is not yet ported; "
-                         "see ROADMAP.md")
     if isinstance(o.lowering, dict) and "auto" in o.lowering.values():
         raise ValueError("lowering: 'auto' tunes the whole plan "
                          "(lowering='auto'); a per-node dict names fixed "
@@ -515,12 +705,20 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     entries win over tuned ones).  ``fuse``: collapse elementwise chains
     (True), never (False), or as measured (``"auto"``); None is
     ``"auto"`` for ``lowering="auto"`` and True otherwise.
+    ``mesh`` / ``shard``: a BatchMesh or a device count shards the batch
+    axis (every input's leading dim, which the shard count must divide)
+    across the mesh; ``shard="batch"`` alone shards over every card.  The
+    cache key holds the mesh's axis, shard count and devices, so
+    ``mesh=1`` and ``make_batch_mesh(1)`` share an entry (module
+    docstring).
     """
     o = options or CompileOptions()
     if changes:
         o = o.replace(**changes)
     _check_ported(o)
-    device = resolve_device(o.device)
+    req = _device_request(o)
+    mesh, batch_axis = _norm_mesh(o.mesh, o.shard, req)
+    device = mesh.devices[0] if mesh is not None else resolve_device(req)
     lowering = o.lowering
     if lowering == "reference":
         lowering = "native"
@@ -537,6 +735,18 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                  or (isinstance(precision, dict)
                      and "auto" in precision.values()))
     specs = _norm_specs(graph, shapes, o.dtype)
+    if mesh is not None:
+        for name in graph.inputs:
+            shape = specs[name][0]
+            if len(shape) < 2:
+                raise ValueError(
+                    f"sharded plans need a batch axis: input {name!r} has "
+                    f"shape {shape}; provide (batch, ...) inputs")
+            if shape[0] % mesh.size:
+                raise ValueError(
+                    f"batch divisibility: input {name!r} batch dim "
+                    f"{shape[0]} is not divisible by the mesh's "
+                    f"{batch_axis!r} axis ({mesh.size} shards)")
     spec_key = tuple((n, specs[n][0], str(specs[n][1])) for n in graph.inputs)
     low_key = (tuple(sorted(lowering.items()))
                if isinstance(lowering, dict) else lowering)
@@ -559,12 +769,15 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     # the quantize engine is part of the key: an engine_override("ref")
     # compile must not collide with the default "int" plans
     key = (graph.signature, spec_key, str(device), low_key, prec_key,
-           quantize.engine(), cfg_key, fuse, tune_key)
+           quantize.engine(), cfg_key, fuse,
+           None if mesh is None else mesh.key, tune_key)
     plan = _CACHE.get(key)
     if plan is not None:
         _HITS.add()
         return plan
     _MISSES.add()
+    if mesh is not None:
+        return _store(key, _compile_sharded(graph, specs, o, mesh), tune_key)
     with obs.span("plan.compile", cat="compile", graph=graph.name,
                   device=str(device), lowering=str(low_key),
                   precision=str(prec_key),
@@ -742,15 +955,6 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                 configs.update({n: dict(c)
                                 for n, c in block_configs.items()})
 
-        if tune_key is not None:
-            # tuning above may have written the cache file (bumping its
-            # mtime): store the plan under the post-save key, so the next
-            # identical compile is the cache hit a stream push relies on
-            from repro_torch.graph import autotune
-            path = tune_key[1]
-            key = key[:-1] + ((tune_key[0], path, autotune._mtime(path),
-                               tune_key[3]),)
-
         consts = {n.name: _const_tensor(g.consts[n.name], device)
                   for n in g.topo() if n.op == "const"}
         # quantize const weights ONCE, here, on the plan's device: the
@@ -789,19 +993,57 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
         plan.made = Made([*consts.values(),
                           *(t for qp in qconsts.values() for t in qp
                             if isinstance(t, torch.Tensor))])
-        if tune_key is not None:
-            # a tuner write orphans the plans keyed on the older mtime:
-            # drop the one for these shapes and options, so a stream's
-            # windows keep one plan (and one set of consts) each
-            for k in [k for k in _CACHE if k[:-1] == key[:-1]
-                      and k[-1] is not None and k[-1][:2] == key[-1][:2]
-                      and k[-1][3] == key[-1][3]]:
-                del _CACHE[k]
-                _EVICTIONS.add()
-        _CACHE[key] = plan
+    return _store(key, plan, tune_key)
+
+
+def _store(key: tuple, plan: Plan, tune_key) -> Plan:
+    """Cache ``plan`` under ``key``.  A tuned plan goes under the key of
+    the tuner cache's mtime now: tuning may have written the file, and the
+    next identical compile must be the cache hit a stream push relies on.
+    That write orphans the plans keyed on the older mtime: the one for
+    these shapes and options leaves the cache, so a stream's windows keep
+    one plan (and one set of consts) each."""
+    if tune_key is not None:
+        from repro_torch.graph import autotune
+        path = tune_key[1]
+        key = key[:-1] + ((tune_key[0], path, autotune._mtime(path),
+                           tune_key[3]),)
+        for k in [k for k in _CACHE if k[:-1] == key[:-1]
+                  and k[-1] is not None and k[-1][:2] == key[-1][:2]
+                  and k[-1][3] == key[-1][3]]:
+            del _CACHE[k]
+            _EVICTIONS.add()
+    plan.key = key
+    _CACHE[key] = plan
     return plan
 
 
-__all__ = ["OPS", "LOWERINGS", "TIERS", "Plan", "CompileOptions", "apply_node",
-           "compile", "infer", "fuse_elementwise", "run_to_steps",
-           "cache_stats", "clear_cache"]
+def _compile_sharded(graph: Graph, specs: dict, o: CompileOptions,
+                     mesh: BatchMesh) -> Plan:
+    """A sharded plan: the single-device plan at the per-shard shape,
+    compiled (and cached) once per distinct device of ``mesh``, under
+    that device.  The first device compiles first, so a tuned plan
+    measures there and the others read its winners from the tuner's
+    cache (their cards have its name)."""
+    n = mesh.size
+    shard_specs = {name: ((shape[0] // n, *shape[1:]), dt)
+                   for name, (shape, dt) in specs.items()}
+    per = o.replace(mesh=None, shard=None, backend=None)
+    plans = {}
+    for d in mesh.distinct:
+        with (torch.cuda.device(d) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            plans[d] = compile(graph, shard_specs,
+                               options=per.replace(device=str(d)))
+    first = plans[mesh.devices[0]]
+    return dataclasses.replace(
+        first, device=mesh.devices[0], input_specs=dict(specs), made=None,
+        mesh=mesh, batch_axis=mesh.axis,
+        input_shardings=tuple(BatchSharding(mesh)
+                              for _ in first.input_names),
+        shard_plans=plans)
+
+
+__all__ = ["OPS", "LOWERINGS", "TIERS", "BACKENDS", "Plan", "CompileOptions",
+           "apply_node", "compile", "infer", "fuse_elementwise",
+           "run_to_steps", "normalize_mesh", "cache_stats", "clear_cache"]

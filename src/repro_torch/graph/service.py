@@ -105,7 +105,18 @@ started service raises (two consumers would split a batch).  ``close()``
 stops the thread (the in-flight batch is completed first), wakes any
 submitter blocked at admission, and marks the service closed.
 
-Not yet ported: ``mesh=`` (a sharded service) raises ValueError.
+Sharded mode: ``mesh=`` (a BatchMesh or a device count) shards every
+batch's leading axis across the mesh.  The tenant normalizes the mesh
+once, and the continuous ladder starts at the shard count
+(``bucket_ladder(batch_size, shards)``), so every bucket splits evenly.
+The service keeps one CUDA stream per device of the mesh; a batch is
+packed into one staging buffer, shard i's rows are copied from it to
+device i, the plan's ``run_shards`` runs each shard on a stream of its
+own (ordered after the service's stream of that device), and each
+shard's output is copied back into its rows of the bucket's page-locked
+output buffer.  A batch is done when every device's copy out is; its
+card ms for a part is the slowest device's (on one card the service's
+stream spans every shard, so its plan part is the slowest shard's).
 """
 from __future__ import annotations
 
@@ -121,11 +132,12 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from repro_torch import obs, resolve_device
+from repro_torch import obs
 from repro_torch.graph import plan as plan_lib
 from repro_torch.graph.errors import (DeadlineExceeded, InvalidRequest,
                                       Overloaded)
 from repro_torch.graph.graph import Graph
+from repro_torch.launch.mesh import Shards
 from repro_torch.obs import faults
 
 #: Priority classes, highest first: ``"rt"`` requests preempt queue
@@ -175,14 +187,14 @@ _INVALID = obs.counter("service.invalid")
 
 
 class _Stage:
-    """A reused page-locked staging buffer and the event recorded after
-    its last copy to the card."""
+    """A reused page-locked staging buffer and the events recorded after
+    its last copies to the cards (one per device)."""
 
     __slots__ = ("host", "copied")
 
     def __init__(self, shape, dtype):
         self.host = torch.empty(shape, dtype=dtype, pin_memory=True)
-        self.copied: torch.cuda.Event | None = None
+        self.copied: list[torch.cuda.Event] = []
 
 
 class Tenant:
@@ -200,21 +212,28 @@ class Tenant:
             # a tuple-returning plan would make out[i] index outputs,
             # not batch rows — reject instead of corrupting responses
             raise ValueError("serving supports single-output graphs")
-        plan_lib._check_ported(options)      # mesh= raises here
+        plan_lib._check_ported(options)
         self.name = name
         self.graph = graph
         self.signal_len = int(signal_len)
         self.batch_size = int(batch_size)
         self.dtype = np.dtype(options.dtype)
-        self.options = options
-        self.device = resolve_device(options.device)
+        # the mesh is made once: every bucket plan shares it, and the
+        # ladder needs its shard count before any plan compiles
+        self.options, self.mesh, self.device = plan_lib.normalize_mesh(
+            options)
+        # every device a batch runs on, each once
+        self.devices = ((self.device,) if self.mesh is None
+                        else self.mesh.distinct)
+        shards = 1 if self.mesh is None else self.mesh.size
         if batching == "continuous":
-            self.buckets = bucket_ladder(self.batch_size)
+            self.buckets = bucket_ladder(self.batch_size, shards)
         else:
             self.buckets = (self.batch_size,)
         # compile every bucket's serving plan up front: requests never
         # pay compile cost, and with lowering="auto" (or
-        # block_configs="auto") each bucket runs its own shape's winners
+        # block_configs="auto") each bucket runs its own shape's winners;
+        # compile checks that the shard count divides each bucket
         self.plans = {
             b: plan_lib.compile(
                 graph, {graph.inputs[0]: (b, self.signal_len)},
@@ -268,8 +287,8 @@ class Tenant:
         i = self._turn.get(bucket, 0)
         self._turn[bucket] = i ^ 1
         st = ring[i]
-        if st.copied is not None:
-            st.copied.synchronize()
+        for ev in st.copied:
+            ev.synchronize()
         return st
 
     def take_out(self, bucket: int) -> torch.Tensor:
@@ -306,26 +325,24 @@ class _Inflight:
         self.batch = None        # the packed batch on the host
         self.out = None          # the plan's output array (CPU tenants)
         self.host = None         # the page-locked output buffer (CUDA)
-        self.done = None         # CUDA event after the copy to the host
-        self.marks = ()          # CUDA events: start, in, plan, out
+        self.done = ()           # CUDA events after the copies to the host
+        self.marks = ()          # per device: start, in, plan, out events
         self.host_ms: dict[str, float] = {}
         self.t_dispatch = t_dispatch
         self.t_packed = t_dispatch
         self.enq_ns = 0
 
     def ready(self) -> bool:
-        if self.done is None:
-            return True
         try:
-            return bool(self.done.query())
+            return all(ev.query() for ev in self.done)
         except Exception:   # noqa: BLE001 — _complete surfaces it
             return True
 
     def wait(self) -> None:
-        """Wait for the batch's copy to the host (device errors surface
-        here)."""
-        if self.done is not None:
-            self.done.synchronize()
+        """Wait for the batch's copies to the host, from every device
+        (device errors surface here)."""
+        for ev in self.done:
+            ev.synchronize()
 
     def rows(self):
         """The requests' output rows, after :meth:`wait`.  On the card
@@ -342,13 +359,15 @@ class _Inflight:
         return rows
 
     def card_ms(self) -> dict[str, float]:
-        if not self.marks:
-            return {}
-        e0, e_in, e_plan, e_out = self.marks
-        return {"copy_in": e0.elapsed_time(e_in),
-                "plan": e_in.elapsed_time(e_plan),
-                "copy_out": e_plan.elapsed_time(e_out),
-                "batch": e0.elapsed_time(e_out)}
+        """The card's ms per part: the slowest device's."""
+        parts: dict[str, float] = {}
+        for e0, e_in, e_plan, e_out in self.marks:
+            for k, v in (("copy_in", e0.elapsed_time(e_in)),
+                         ("plan", e_in.elapsed_time(e_plan)),
+                         ("copy_out", e_plan.elapsed_time(e_out)),
+                         ("batch", e0.elapsed_time(e_out))):
+                parts[k] = max(parts.get(k, 0.0), v)
+        return parts
 
 
 @contextlib.contextmanager
@@ -443,7 +462,8 @@ class PipelineService:
         # the synthetic device track's watermark: end timestamp of the
         # last retired device_run
         self._device_ready_ns = 0
-        # one CUDA stream per card this service runs on
+        # one CUDA stream per card this service runs on (every device of
+        # a tenant's mesh)
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
         # the error that lost a CUDA context: every later batch fails
         # with it (see _lost_by)
@@ -519,8 +539,9 @@ class PipelineService:
         t = Tenant(name, graph, signal_len, batch_size=batch_size,
                    batching=self.batching, options=options,
                    record_batches=record_batches)
-        if t.device.type == "cuda" and t.device not in self._streams:
-            self._streams[t.device] = torch.cuda.Stream(t.device)
+        for d in t.devices:
+            if d.type == "cuda" and d not in self._streams:
+                self._streams[d] = torch.cuda.Stream(d)
         self.tenants[name] = t
         if "bucket_batches" in self._stats:
             with self._stats_lock:
@@ -540,7 +561,8 @@ class PipelineService:
                            f"{sorted(self.tenants)}") from None
 
     def stream(self, tenant=None) -> torch.cuda.Stream | None:
-        """The CUDA stream a tenant's batches run on (None on the CPU)."""
+        """The CUDA stream a tenant's batches run on (its mesh's first
+        device's; None on the CPU)."""
         return self._streams.get(self._tenant(tenant).device)
 
     # -- default-tenant delegation (the single-pipeline API) ---------------
@@ -825,9 +847,10 @@ class PipelineService:
 
     def _start(self, inf: _Inflight, plan) -> None:
         """Check the batch's fault point and start it: on a CUDA tenant
-        the copy in, the plan and the copy out are enqueued on the
-        service's stream and not waited for; on the CPU the plan runs
-        here."""
+        the copies in, the plan and the copies out are enqueued on the
+        service's streams (one per device; under a mesh shard i's rows go
+        to the mesh's device i and come back into the same rows) and not
+        waited for; on the CPU the plan runs here."""
         t = inf.tenant
         faults.check("device_run", payload=inf.batch,
                      tag=t._tags.get(inf.bucket))
@@ -840,24 +863,44 @@ class PipelineService:
             # taken before the batch's first event, so the card's parts
             # time only its work
             inf.host = host = t.take_out(inf.bucket)
-        with torch.cuda.stream(self._streams[t.device]):
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            marks[0].record()
+        streams = [self._streams[d] for d in t.devices]
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                 for _ in streams]
+
+        def mark(j: int) -> None:
+            for m, s in zip(marks, streams):
+                m[j].record(s)
+
+        with contextlib.ExitStack() as ctx:
+            for s in streams:
+                ctx.enter_context(torch.cuda.stream(s))
+            mark(0)
             with _timed(host_ms, "copy_in"):
-                x = torch.empty(inf.batch.shape, dtype=inf.stage.host.dtype,
-                                device=t.device)
-                x.copy_(inf.stage.host, non_blocking=True)
-                marks[1].record()
-                inf.stage.copied = marks[1]
+                src = inf.stage.host
+                if t.mesh is None:
+                    rows, devs = [slice(None)], [t.device]
+                else:
+                    k = inf.bucket // t.mesh.size
+                    rows = [slice(i * k, (i + 1) * k)
+                            for i in range(t.mesh.size)]
+                    devs = t.mesh.devices
+                xs = []
+                for r, d in zip(rows, devs):
+                    x = torch.empty(src[r].shape, dtype=src.dtype, device=d)
+                    xs.append(x.copy_(src[r], non_blocking=True))
+                mark(1)
+                inf.stage.copied = [m[1] for m in marks]
             with _timed(host_ms, "plan"):
-                out = plan(x)
-                marks[2].record()
+                outs = ([plan(xs[0])] if t.mesh is None
+                        else plan.run_shards(Shards(xs)))
+                mark(2)
             t0 = time.perf_counter()
-            host.copy_(out, non_blocking=True)
-            marks[3].record()
+            for r, o in zip(rows, outs):
+                host[r].copy_(o, non_blocking=True)
+            mark(3)
             host_ms["copy_out"] += (time.perf_counter() - t0) * 1e3
-        inf.done = marks[3]
-        inf.marks = tuple(marks)
+        inf.done = tuple(m[3] for m in marks)
+        inf.marks = tuple(tuple(m) for m in marks)
 
     def _retire(self, inf: _Inflight, t_deliver: float) -> None:
         """Record a delivered batch's host and card ms per part."""
@@ -985,7 +1028,8 @@ class PipelineService:
         it."""
         if self._lost is None and tenant.device.type == "cuda":
             try:
-                torch.cuda.synchronize(tenant.device)
+                for d in tenant.devices:
+                    torch.cuda.synchronize(d)
             except Exception:   # noqa: BLE001 — the context is gone
                 self._lost = err
         return self._lost is not None
@@ -1109,7 +1153,9 @@ class PipelineService:
         options = (tenant.options.replace(precision="f32") if on_card
                    else plan_lib.CompileOptions(
                        dtype=str(tenant.dtype), lowering="reference",
-                       device=tenant.options.device))
+                       device=tenant.options.device,
+                       backend=tenant.options.backend,
+                       mesh=tenant.options.mesh))
         try:
             plan = plan_lib.compile(
                 tenant.graph,
@@ -1294,9 +1340,10 @@ def replay_batches(svc: PipelineService, tenant=None) -> int:
     Only packings that delivered results are logged, so a fault-injected
     run replays exactly its healthy dispatches.
 
-    The replay runs on the caller's current stream, ordered after the
-    service's.  ``tenant=`` (a name or :class:`Tenant`) restricts the
-    check to one tenant; the default verifies every recording tenant."""
+    The replay runs on the caller's current streams, ordered after the
+    service's stream on every device of the tenant.  ``tenant=`` (a name
+    or :class:`Tenant`) restricts the check to one tenant; the default
+    verifies every recording tenant."""
     tenants = ([svc._tenant(tenant)] if tenant is not None
                else list(svc.tenants.values()))
     if all(t.batch_log is None for t in tenants):
@@ -1305,9 +1352,10 @@ def replay_batches(svc: PipelineService, tenant=None) -> int:
     for t in tenants:
         if t.batch_log is None:
             continue
-        stream = svc.stream(t)
-        if stream is not None:
-            torch.cuda.current_stream(t.device).wait_stream(stream)
+        for d in t.devices:
+            stream = svc._streams.get(d)
+            if stream is not None:
+                torch.cuda.current_stream(d).wait_stream(stream)
         for bucket, items in t.batch_log:
             if any(f.exception(timeout=0) is not None for _, f in items):
                 # a failed batch delivered exceptions, not rows

@@ -60,8 +60,15 @@ packs (the int8 weight packs, the TF32 planes of a const y) are made at
 its first launch, so on the card this also bounds the memory the plans
 hold.
 
-Not yet ported: ``mesh=`` (sharded batched streams) raises ValueError,
-as :func:`repro_torch.graph.plan.compile` does.
+Sharded batched streams: a runner built with ``mesh=`` (a BatchMesh or
+a device count) takes ``(batch, chunk_len)`` chunks whose batch the
+shard count divides.  It normalizes the mesh once, keeps shard i's carry
+on the mesh's device i, and runs every push through the sharded plan's
+``run_shards`` (the per-shard plan on each shard's window); a push
+returns the shards' steps gathered on the mesh's first device.  The
+carry arithmetic is the unsharded one (the overlap lives on the time
+axis, the batch rides along), so the output still equals offline, and
+``step_buckets`` quantizes every shard's window alike.
 """
 from __future__ import annotations
 
@@ -69,10 +76,11 @@ import dataclasses
 
 import torch
 
-from repro_torch import obs, resolve_device
+from repro_torch import obs
 from repro_torch.core.opdefs import OPDEFS
 from repro_torch.graph import plan as plan_lib
 from repro_torch.graph.graph import Graph, Node
+from repro_torch.launch.mesh import BatchSharding, Shards
 
 
 def _taps_shape(graph: Graph, node: Node) -> tuple:
@@ -153,7 +161,8 @@ class ChunkedRunner:
 
     ``options`` (or keyword arguments naming its fields, as ``compile``
     takes them) say how every push's plan is compiled; its ``device``
-    (default ``"cuda"``) is where the carry lives and the plans run."""
+    (default ``"cuda"``) is where the carry lives and the plans run, and
+    under ``mesh=`` each shard's carry lives on its own device."""
 
     def __init__(self, graph: Graph, *,
                  options: plan_lib.CompileOptions | None = None,
@@ -171,8 +180,10 @@ class ChunkedRunner:
             options = plan_lib.CompileOptions(**compile_opts)
         options = options or plan_lib.CompileOptions()
         plan_lib._check_ported(options)
-        self.options = options
-        self.device = resolve_device(options.device)
+        # the mesh is made once: every push re-enters compile, and steady
+        # pushes must stay cache hits, not rebuild a mesh per chunk
+        self.options, self.mesh, self.device = plan_lib.normalize_mesh(
+            options)
         # step_buckets: quantize each push to a power-of-two number of
         # output steps (carrying the remainder) so irregular push sizes
         # compile a bounded LADDER of plan shapes instead of one plan per
@@ -180,40 +191,55 @@ class ChunkedRunner:
         # deferred remainder, so concatenated output still equals offline.
         self.step_buckets = bool(step_buckets)
         self.window_lens: set[int] = set()   # distinct compiled windows
-        self._carry: torch.Tensor | None = None
+        # the carry: one tensor per shard, each on its shard's device
+        self._carry: list[torch.Tensor] | None = None
 
     @property
     def carry_len(self) -> int:
-        return 0 if self._carry is None else self._carry.shape[-1]
+        return 0 if self._carry is None else self._carry[0].shape[-1]
+
+    def _split(self, x) -> list[torch.Tensor]:
+        """``x`` as the runner's shards: one tensor on the runner's
+        device, or a batch split across the mesh."""
+        if self.mesh is None:
+            return [torch.as_tensor(x, device=self.device)]
+        return list(BatchSharding(self.mesh).place(x))
 
     def push(self, chunk, *, final: bool = False) -> torch.Tensor | None:
-        """Append ``chunk`` (numpy or tensor, ``(..., n)``) to the carry
-        and run every whole output step it completes; None when it
-        completes none."""
-        chunk = torch.as_tensor(chunk, device=self.device)
-        buf = (chunk if self._carry is None
-               else torch.cat([self._carry, chunk], dim=-1))
+        """Append ``chunk`` (numpy or tensor, ``(..., n)``; under a mesh
+        ``(batch, n)``) to the carry and run every whole output step it
+        completes; None when it completes none."""
+        return self._push(self._split(chunk), final)
+
+    def _push(self, parts: list, final: bool) -> torch.Tensor | None:
+        bufs = (parts if self._carry is None
+                else [torch.cat([c, p], dim=-1)
+                      for c, p in zip(self._carry, parts)])
         r, b = self.spec.receptive, self.spec.block
-        if buf.shape[-1] < r:
-            self._carry = buf
+        if bufs[0].shape[-1] < r:
+            self._carry = bufs
             obs.gauge("stream.deferred_samples").set(self.carry_len)
             return None
-        n_steps = (buf.shape[-1] - r) // b + 1
+        n_steps = (bufs[0].shape[-1] - r) // b + 1
         if self.step_buckets and not final:
             n_steps = 1 << (n_steps.bit_length() - 1)  # largest 2^k <= n
         use = r + (n_steps - 1) * b
-        window = buf[..., :use]
+        windows = [buf[..., :use] for buf in bufs]
         self.window_lens.add(int(use))
+        shape = tuple(windows[0].shape)
+        if self.mesh is not None:
+            shape = (shape[0] * len(windows),) + shape[1:]
         with obs.span("stream.push", cat="stream", graph=self.graph.name,
                       steps=int(n_steps), window=int(use)):
             # the dtype as compile's default spells it ("float32"), so a
             # push shares the plan an offline compile of its shape made
-            dtype = str(window.dtype).removeprefix("torch.")
+            dtype = str(windows[0].dtype).removeprefix("torch.")
             p = plan_lib.compile(
-                self.graph, {self.graph.inputs[0]: tuple(window.shape)},
+                self.graph, {self.graph.inputs[0]: shape},
                 options=self.options.replace(dtype=dtype))
-            out = p(window)
-        self._carry = buf[..., n_steps * b:]
+            out = (p(windows[0]) if self.mesh is None
+                   else p.gather(p.run_shards(Shards(windows))))
+        self._carry = [buf[..., n_steps * b:] for buf in bufs]
         # the deferred remainder a bucketed push left behind (plus the
         # ordinary sub-receptive-field overlap): a streaming front door
         # watches this to see how far behind the quantizer is running
@@ -226,16 +252,17 @@ class ChunkedRunner:
         remainders); for others this is a no-op returning None."""
         if self._carry is None:
             return None
-        return self.push(self._carry[..., :0], final=True)
+        return self._push([c[..., :0] for c in self._carry], True)
 
     def run(self, x, chunk_len: int) -> torch.Tensor:
         """Stream ``x`` through in ``chunk_len`` pieces; concatenate
         (finalizing any bucket-deferred remainder).  ``x`` is moved to
-        the runner's device once."""
-        x = torch.as_tensor(x, device=self.device)
+        the runner's device (under a mesh: split across it) once."""
+        parts = self._split(x)
+        n = parts[0].shape[-1]
         outs = []
-        for i in range(0, x.shape[-1], chunk_len):
-            o = self.push(x[..., i:i + chunk_len])
+        for i in range(0, n, chunk_len):
+            o = self._push([p[..., i:i + chunk_len] for p in parts], False)
             if o is not None:
                 outs.append(o)
         o = self.finalize()
@@ -243,7 +270,7 @@ class ChunkedRunner:
             outs.append(o)
         if not outs:
             raise ValueError(
-                f"signal length {x.shape[-1]} is shorter than the "
+                f"signal length {n} is shorter than the "
                 f"pipeline's receptive field ({self.spec.receptive}): "
                 "no output steps were produced")
         return torch.cat(outs, dim=self.spec.concat_axis)

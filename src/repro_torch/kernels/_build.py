@@ -167,10 +167,25 @@ def lib() -> ctypes.CDLL:
         return _LIB
 
 
+def stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, for a C entry point.
+    An entry launches on the current device, so ``dev`` must be it: a
+    tensor on another card raises here rather than launch with that
+    card's stream (run the call under ``torch.cuda.device(dev)``)."""
+    import torch
+    cur = torch.cuda.current_device()
+    if dev.index != cur:
+        raise RuntimeError(f"kernel launch on {dev} while cuda:{cur} is the "
+                           f"current device: run it under "
+                           f"torch.cuda.device({str(dev)!r})")
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def check(code: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
-__all__ = ["build", "lib", "check", "sources", "BUILD_INFO", "BUILD_ROOT"]
+__all__ = ["build", "lib", "stream", "check", "sources", "BUILD_INFO",
+           "BUILD_ROOT"]

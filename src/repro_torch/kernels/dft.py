@@ -202,7 +202,7 @@ def dft(x: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor, *,
         x.data_ptr(), int(cplx), x.shape[1], planes.data_ptr(),
         planes.shape[1], planes.shape[2], out.data_ptr(), b, l, n,
         int(variant == "3mult"), int(hermitian), bm, bn,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "dft")
@@ -301,7 +301,7 @@ def dft_int8(xq: torch.Tensor, fr: torch.Tensor, fi: torch.Tensor,
     code = _build.lib().tina_dft_int8(
         xq.data_ptr(), frt.data_ptr(), fit.data_ptr(), sx.data_ptr(),
         sr.data_ptr(), si.data_ptr(), out.data_ptr(), b, xq.shape[1], n, bm,
-        bn, bk, torch.cuda.current_stream(dev).cuda_stream)
+        bn, bk, _build.stream(dev))
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "dft_int8")

@@ -136,7 +136,7 @@ def elementwise_chain(head: torch.Tensor, operands=(), steps=(), *,
     lib = _build.lib()
     code = lib.tina_chain(
         head.data_ptr(), mode, n, codes, consts, ptrs, len(steps),
-        out.data_ptr(), threads, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), threads, _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "elementwise_chain")
@@ -199,7 +199,7 @@ def _binary(x: torch.Tensor, y: torch.Tensor, op: str, threads: int,
     code = _build.lib().tina_binary(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), max(cols, 1),
         int(row), _BINARY_CODES[op], threads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global BINARY_LAUNCHES
     BINARY_LAUNCHES += 1
     _build.check(code, f"elementwise_{op}")

@@ -143,7 +143,7 @@ def fir_valid(x: torch.Tensor, kern: torch.Tensor, *, pad_left: int = 0,
     code = _build.lib().tina_fir(
         x.data_ptr(), kern.data_ptr(), out.data_ptr(), rows, n, k, pad_left,
         pad_right, int(flip), bn, threads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "fir_valid")
@@ -235,7 +235,7 @@ def fir_valid_int8(x: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor, *,
         return out
     code = _build.lib().tina_fir_int8(
         x.data_ptr(), tq.data_ptr(), ts.data_ptr(), out.data_ptr(), rows, n,
-        k, bn, threads, torch.cuda.current_stream(dev).cuda_stream)
+        k, bn, threads, _build.stream(dev))
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "fir_valid_int8")
@@ -265,7 +265,7 @@ def quantize_check(amax: torch.Tensor) -> torch.Tensor:
     # 132 SMs, walking the floats of each amax with a grid stride
     code = _build.lib().tina_quantize_check(
         amax.data_ptr(), diffs.data_ptr(), amax.numel(), 1056,
-        torch.cuda.current_stream(amax.device).cuda_stream)
+        _build.stream(amax.device))
     _build.check(code, "quantize_check")
     return diffs
 

@@ -152,7 +152,7 @@ def tf32_planes(y: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     code = _build.lib().tina_tf32_planes(
         y.data_ptr(), out.data_ptr(), k, n, out.shape[1], out.shape[2],
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global PLANES_LAUNCHES
     PLANES_LAUNCHES += 1
     _build.check(code, "tf32_planes")
@@ -238,7 +238,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
     code = _build.lib().tina_matmul(
         x.data_ptr(), x.shape[1], yt_planes.data_ptr(), yt_planes.shape[1],
         yt_planes.shape[2], out.data_ptr(), m, n, k, bm, bn, bk,
-        int(order == "nm"), torch.cuda.current_stream(dev).cuda_stream)
+        int(order == "nm"), _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "matmul")
@@ -367,7 +367,7 @@ def _matmul_bf16(x: torch.Tensor, y: torch.Tensor, yt: torch.Tensor | None,
     code = _build.lib().tina_matmul_bf16(
         x.data_ptr(), yt.data_ptr(), out.data_ptr(), m, n, x.shape[1],
         *_bf16_launch_args(m, n, x.shape[1]),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global BF16_LAUNCHES
     BF16_LAUNCHES += 1
     _build.check(code, "matmul_bf16")
@@ -488,7 +488,7 @@ def matmul_int8(xq: torch.Tensor, yq: torch.Tensor, sx: torch.Tensor,
     code = _build.lib().tina_matmul_int8(
         xq.data_ptr(), yt.data_ptr(), sx.data_ptr(), sy.data_ptr(),
         out.data_ptr(), m, n, xq.shape[1], bm, bn, bk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "matmul_int8")

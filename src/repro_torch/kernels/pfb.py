@@ -150,7 +150,7 @@ def pfb_frontend(frames: torch.Tensor, taps_rev: torch.Tensor, *,
         _check("out", y, (b * tout, cols), dev)
     code = _build.lib().tina_pfb_frontend(
         frames.data_ptr(), taps_rev.data_ptr(), y.data_ptr(), b, t, p, m,
-        cols, torch.cuda.current_stream(dev).cuda_stream)
+        cols, _build.stream(dev))
     global FRONTEND_LAUNCHES
     FRONTEND_LAUNCHES += 1
     _build.check(code, "pfb_frontend")
@@ -201,7 +201,7 @@ def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
     code = _build.lib().tina_pfb(
         frames.data_ptr(), taps_rev.data_ptr(), planes.data_ptr(), n_pad,
         l_pad, y.data_ptr(), cols, out.data_ptr(), b, t, p, n, m,
-        int(hermitian), bt, bn, torch.cuda.current_stream(dev).cuda_stream)
+        int(hermitian), bt, bn, _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "pfb_fused")
@@ -417,7 +417,7 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
         frames.data_ptr(), tq.data_ptr(), ts.data_ptr(), frt.data_ptr(),
         fit.data_ptr(), sr.data_ptr(), si.data_ptr(), yq.data_ptr(),
         ys.data_ptr(), out.data_ptr(), b, t, p, n, m, p_pad, bt, bn,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1
     _build.check(code, "pfb_fused_int8")

@@ -113,7 +113,7 @@ def unfold(x: torch.Tensor, window: int, *, bt: int = 8,
         return out
     code = _build.lib().tina_unfold(
         x.data_ptr(), out.data_ptr(), rows, n, j, bt, bj,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
     _build.check(code, "unfold")
@@ -144,7 +144,7 @@ def overlap_add(frames: torch.Tensor, hop: int, *,
                       dtype=torch.float32)
     code = _build.lib().tina_overlap_add(
         frames.data_ptr(), out.data_ptr(), rows, t, j, hop, threads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     global OLA_LAUNCHES
     OLA_LAUNCHES += 1
     _build.check(code, "overlap_add")

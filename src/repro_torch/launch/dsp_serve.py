@@ -45,8 +45,12 @@ its own thread instead of starting the batcher thread.
 ``main`` returns a summary dict (requests served, seconds, the service's
 stats, the profile) for callers that run it in process.
 
-Not yet ported: ``--mesh`` and ``--devices`` (a sharded service) raise
-ValueError.
+Sharding: ``--mesh N`` shards each batch across N devices (a
+:class:`~repro_torch.launch.mesh.BatchMesh`; the continuous ladder then
+starts at N).  ``--devices N`` limits the devices the mesh may take: N
+visible cards (more than the card count raises), or under ``--device
+cpu`` N logical CPU shards, the counterpart of the reference's forced
+host device count (one without it).
 """
 from __future__ import annotations
 
@@ -84,11 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "lowering (lowering=auto already tunes them "
                          "jointly)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard each batch across N devices: not yet "
-                         "ported (raises)")
+                    help="shard each batch across N devices (0 = "
+                         "single-device plan)")
     ap.add_argument("--devices", type=int, default=0, metavar="N",
-                    help="expose N virtual devices: not yet ported "
-                         "(raises; one card cannot fake a device count)")
+                    help="devices the mesh may take: N visible cards "
+                         "(raises above the card count), or N logical "
+                         "shards under --device cpu (default: every card; "
+                         "one CPU shard)")
     ap.add_argument("--batching", default="fixed",
                     choices=["fixed", "continuous"],
                     help="fixed: pad every batch to --batch behind a "
@@ -193,14 +199,16 @@ def _start_metrics_thread(svc, interval: float):
 
 
 def prewarm(graph_obj, batch: int, signal_len: int, *, lowering: str,
-            precision: str = "f32", device=None, repeats: int = 2) -> dict:
+            precision: str = "f32", device=None, mesh=None,
+            repeats: int = 2) -> dict:
     """Measure-and-persist autotune entries for one serving shape.
 
     Temporarily forces ``TINA_AUTOTUNE=on`` (the point is to measure
     ahead of traffic even when serving runs ``cached``), compiles the
     serving-shaped plan with the tuner engaged on ``device``, and
     returns the tuner's stats delta.  ``lowering="auto"`` tunes lowering
-    and tiling jointly; a fixed lowering tunes its tiling only."""
+    and tiling jointly; a fixed lowering tunes its tiling only.  Under
+    ``mesh=`` the tuner measures the per-shard shape."""
     from repro_torch.graph import autotune, plan as plan_lib
 
     prev = os.environ.get("TINA_AUTOTUNE")
@@ -210,7 +218,7 @@ def prewarm(graph_obj, batch: int, signal_len: int, *, lowering: str,
         opts = plan_lib.CompileOptions(
             lowering=lowering,
             block_configs=None if lowering == "auto" else "auto",
-            precision=precision, device=device,
+            precision=precision, device=device, mesh=mesh,
             autotune_kwargs={"repeats": repeats})
         plan_lib.compile(graph_obj,
                          {graph_obj.inputs[0]: (batch, signal_len)},
@@ -244,12 +252,29 @@ def _device_us(prof) -> float:
     return total
 
 
+def _mesh(args):
+    """The BatchMesh ``--mesh``/``--devices`` ask for (None: unsharded)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_batch_mesh
+    on_cpu = torch.device(args.device or "cuda").type == "cpu"
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if args.devices and not on_cpu and args.devices > cards:
+        raise ValueError(f"--devices {args.devices}: {cards} card(s) "
+                         "visible; a card count cannot be faked (--device "
+                         "cpu gives logical shards)")
+    if not args.mesh:
+        return None
+    available = args.devices or (1 if on_cpu else cards)
+    if not 1 <= args.mesh <= available:
+        raise ValueError(f"make_batch_mesh: {args.mesh} devices requested, "
+                         f"{available} available")
+    return make_batch_mesh(args.mesh, device=args.device)
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.devices or args.mesh:
-        raise ValueError(
-            "--mesh / --devices (a service sharded across devices) is not "
-            "yet ported; see ROADMAP.md")
+    mesh = _mesh(args)
 
     from repro_torch import obs
     from repro_torch.core.registry import PIPELINES, pipelines
@@ -277,13 +302,13 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         # a continuous service runs every bucket shape of its ladder:
         # tune them all
-        sizes = (bucket_ladder(args.batch)
+        sizes = (bucket_ladder(args.batch, args.mesh or 1)
                  if args.batching == "continuous" else (args.batch,))
         delta: dict = {}
         for b in sizes:
             d = prewarm(g, b, n, lowering=args.lowering,
                         precision=args.precision, device=args.device,
-                        repeats=args.tune_repeats)
+                        mesh=mesh, repeats=args.tune_repeats)
             delta = {k: delta.get(k, 0) + v for k, v in d.items()}
         print(f"[dsp_serve] prewarm: tuned {len(sizes)} serving shape(s) "
               f"{[(b, n) for b in sizes]} in "
@@ -300,7 +325,7 @@ def main(argv=None) -> dict:
         lowering=args.lowering,
         precision=args.precision,
         block_configs="auto" if args.tune_blocks else None,
-        device=args.device)
+        device=args.device, mesh=mesh)
     overlap = (None if args.overlap == "auto"
                else args.overlap == "on")
     svc = PipelineService(g, signal_len=n, batch_size=args.batch,
@@ -330,6 +355,11 @@ def main(argv=None) -> dict:
             tenant_lens[tn] = tlen
     t_compile = time.perf_counter() - t0
     tuned = {k: v for k, v in svc.plan.configs.items() if v}
+    sharded = ""
+    if svc.plan.mesh is not None:
+        m = svc.plan.mesh
+        sharded = (f", mesh {m.shape} "
+                   f"({args.batch // m.size} rows/device)")
     ladder = (f", buckets {list(svc.buckets)}"
               if args.batching == "continuous" else "")
     prec = ("" if args.precision == "f32"
@@ -341,7 +371,7 @@ def main(argv=None) -> dict:
           f"in {t_compile:.2f}s on {svc.plan.device} (lowerings: "
           f"{svc.plan.lowerings}"
           + (f", block configs: {tuned}" if tuned else "")
-          + prec + ladder + multi + ")")
+          + sharded + prec + ladder + multi + ")")
 
     # round-robin the request load across every tenant; --priority mix
     # alternates rt/batch so both classes are exercised

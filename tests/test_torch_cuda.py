@@ -1171,3 +1171,115 @@ def test_lm_kernel_lowering_on_the_card(dev):
     assert out["native"][1] == (0, 0)
     for k, n in zip(out["kernel"][0], out["native"][0]):
         assert (k - n).abs().max() <= 2e-2 * n.abs().max()
+
+
+# -- the mesh ---------------------------------------------------------------
+MESH_PATHS = [
+    ("pfb_power", graph.build_pfb_power(32, 8), 32 * 300),
+    ("spectrogram", graph.build_spectrogram(), 3000),
+    ("stft_overlap_add", graph.build_stft_overlap_add(64, 32), 4000),
+    ("fir_decimate", graph.build_fir_decimate(), 5000),
+    ("correlate", graph.build_correlate(), 5000),
+    ("cascaded_channelizer", graph.build_cascaded_channelizer(),
+     graph.pipelines._chan_len(5000, 31, 16, 4))]
+
+
+def _mesh_of(dev, shards):
+    from repro_torch.launch.mesh import BatchMesh, make_batch_mesh
+    return make_batch_mesh(1) if shards == 1 else BatchMesh((dev,) * shards)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("prec", ["f32", "int8"])
+@pytest.mark.parametrize("name,g,n", MESH_PATHS,
+                         ids=[p[0] for p in MESH_PATHS])
+def test_mesh_plans_bit_for_bit_on_the_card(dev, name, g, n, prec, shards):
+    """A 1-device mesh and 4 logical shards of the card, each shard on a
+    stream of its own: bit for bit the per-shard plan run on each slice,
+    launching the shard count times its kernels; the output is dense and
+    its own."""
+    mesh = _mesh_of(dev, shards)
+    k = 4 // shards
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        plan = graph.compile(g, {"x": (4, n)}, lowering="kernel",
+                             precision=prec, mesh=mesh)
+        one = graph.compile(g, {"x": (k, n)}, lowering="kernel",
+                            precision=prec)
+    assert plan.shard_plans == {mesh.devices[0]: one}
+    x = torch.randn(4, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    want = torch.cat([one(x[i:i + k]) for i in range(0, 4, k)])
+    before = _int8_counts()
+    one(x[:k])
+    per_shard = {key: v - before[key] for key, v in _int8_counts().items()}
+    before = _int8_counts()
+    got = plan(x)
+    torch.cuda.synchronize()
+    grew = {key: v - before[key] for key, v in _int8_counts().items()}
+    assert grew == {key: shards * v for key, v in per_shard.items()}
+    assert sum(grew.values()) > 0
+    assert torch.equal(got, want), (name, prec, shards)
+    st, xs = got.untyped_storage(), x.untyped_storage()
+    assert got.is_contiguous() and (
+        st.data_ptr() >= xs.data_ptr() + xs.nbytes()
+        or xs.data_ptr() >= st.data_ptr() + st.nbytes())
+
+
+@pytest.mark.parametrize("prec", ["f32", "int8"])
+def test_mesh_service_replays_on_the_card(dev, prec):
+    """A continuous service over 4 logical shards of the card: its ladder
+    starts at 4, every response replays bit for bit, f32 responses hold
+    the oracle."""
+    from repro_torch.graph.service import PipelineService, replay_batches
+    g = graph.build_pfb_power(32, 8)
+    n = 32 * 300
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        svc = PipelineService(g, n, batch_size=8, batching="continuous",
+                              lowering="kernel", precision=prec,
+                              mesh=_mesh_of(dev, 4), record_batches=True)
+    assert svc.buckets == (4, 8) and svc.plan.mesh.size == 4
+    rng = np.random.default_rng(11)
+    xs = [rng.standard_normal(n).astype(np.float32) for _ in range(13)]
+    with svc:
+        outs = [f.result(timeout=120) for f in [svc.submit(x) for x in xs]]
+    assert replay_batches(svc) == len(xs)
+    s = svc.stats()
+    assert s["degraded"] == s["quarantined"] == 0
+    assert s["card_ms"]["plan"]["count"] == s["batches"]
+    if prec == "f32":
+        oracle = graph.pfb_power_oracle(32, 8)
+        for x, o in zip(xs, outs):
+            want = oracle(x)
+            assert np.abs(o - want).max() <= 2e-3 * np.abs(want).max()
+
+
+def test_mesh_shard_runs_while_another_card_is_current(dev):
+    """Two cards: a sharded plan called while the second card is current
+    runs each shard on its own card, bit for bit each card's per-shard
+    plan; a kernel asked to launch on a card that is not current
+    raises."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (torch.cuda.device_count() < 2)")
+    from repro_torch.launch.mesh import make_batch_mesh
+    g, n = graph.build_pfb_power(32, 8), 32 * 300
+    mesh = make_batch_mesh(2)
+    plan = graph.compile(g, {"x": (4, n)}, lowering="kernel", mesh=mesh)
+    x = torch.randn(4, n, device=mesh.devices[0])
+    with torch.cuda.device(mesh.devices[1]):
+        got = plan(x)
+    torch.cuda.synchronize(mesh.devices[0])
+    torch.cuda.synchronize(mesh.devices[1])
+    parts = []
+    for i, d in enumerate(mesh.devices):
+        with torch.cuda.device(d):
+            one = graph.compile(g, {"x": (2, n)}, lowering="kernel",
+                                device=str(d))
+            parts.append(one(x[2 * i:2 * i + 2].to(d)).to(mesh.devices[0]))
+    assert got.device == mesh.devices[0]
+    assert torch.equal(got, torch.cat(parts))
+    with torch.cuda.device(mesh.devices[0]):
+        with pytest.raises(RuntimeError, match="current device"):
+            firk.fir_valid(torch.randn(2, 64, device=mesh.devices[1]),
+                           torch.randn(5, device=mesh.devices[1]))

@@ -95,8 +95,20 @@ def test_dsp_serve_cli_new_pipeline(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2"], ["--devices", "4"]])
 def test_dsp_serve_mesh_flags_not_yet_ported(flag):
-    with pytest.raises(ValueError, match="not yet ported"):
-        dsp_serve.main(["--device", "cpu", *flag])
+    """Ported: ``--mesh N`` takes N of the devices ``--devices`` gives
+    (logical shards under ``--device cpu``, one without it); with its
+    partner each flag serves oracle-checked responses."""
+    if flag[0] == "--mesh":
+        with pytest.raises(ValueError, match="2 devices requested, 1 "
+                                             "available"):
+            dsp_serve.main(["--device", "cpu", *flag])
+        flag = [*flag, "--devices", "2"]
+    else:
+        flag = [*flag, "--mesh", "4"]
+    out = dsp_serve.main(["--device", "cpu", *flag, "--batch", "4",
+                          "--requests", "8", "--signal-len", "1024",
+                          "--check", "2"])
+    assert out["served"] == 8 and out["checked"] == 2
 
 
 def test_dsp_serve_continuous_kernel_int8_tenants(capsys):

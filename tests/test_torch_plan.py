@@ -194,8 +194,8 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
 # the options the port once refused: each now compiles (under
 # TINA_AUTOTUNE=cached with a cold cache, so nothing is measured and every
 # tuned choice is its default: the kernel at its default tile) and equals
-# the kernel plan of the precisions it resolved bit for bit; only mesh= is
-# still not ported
+# the kernel plan of the precisions it resolved bit for bit; mesh= shards
+# a batched input into the kernel plan of one shard, bit for bit
 @pytest.mark.parametrize("changes", [
     {"precision": {"pfb2": "int8", "abs23": "auto"}},
     {"precision": {"pfb2": "auto", "abs23": "bf16"}},
@@ -208,8 +208,14 @@ def test_not_yet_ported_options_raise(changes, tmp_path, monkeypatch):
     monkeypatch.setenv("TINA_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
     g = graph.build_pfb_power(P, M)
     if "mesh" in changes:
-        with pytest.raises(ValueError, match="not yet ported"):
-            graph.compile(g, {"x": (P * 16,)}, device="cpu", **changes)
+        x = _rng("mesh").standard_normal((2, P * 16)).astype(np.float32)
+        plan = graph.compile(g, {"x": x.shape}, device="cpu",
+                             lowering="kernel", **changes)
+        one = graph.compile(g, {"x": (1, P * 16)}, device="cpu",
+                            lowering="kernel")
+        assert plan.mesh.size == 2 and plan.shard_plans == {
+            torch.device("cpu"): one}
+        assert torch.equal(plan(x), torch.cat([one(x[:1]), one(x[1:])]))
         return
     opts = {"lowering": "kernel", **changes}
     with warnings.catch_warnings():
@@ -230,7 +236,11 @@ def test_unknown_lowering_and_op_raise():
     with pytest.raises(ValueError, match="'kernel' here"):
         graph.compile(g, {"x": (P * 16,)}, lowering="pallas", device="cpu")
     with pytest.raises(TypeError):
-        graph.compile(g, {"x": (P * 16,)}, backend="cpu")
+        graph.compile(g, {"x": (P * 16,)}, donate=True)
+    with pytest.raises(ValueError, match="backend='tpu'"):
+        graph.compile(g, {"x": (P * 16,)}, backend="tpu")
+    with pytest.raises(ValueError, match="contradicts"):
+        graph.compile(g, {"x": (P * 16,)}, backend="gpu", device="cpu")
     spec = _spec_of(jgraph.build_fir_decimate())
     spec["nodes"] = [(name, "fir_int8" if op == "fir" else op, inputs,
                       attrs) for name, op, inputs, attrs in spec["nodes"]]

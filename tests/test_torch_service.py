@@ -7,8 +7,8 @@ bit for bit equal to a replay of the packing served), lifecycle
 invariants and robustness contract, on ``device="cpu"`` at ``native``
 and at ``kernel`` (on CPU tensors the kernel wrappers run their plain
 torch versions).  The reference's two sharded tests become the port's
-``bucket_ladder(..., shards)`` arithmetic and ``mesh=`` raising "not yet
-ported".
+``bucket_ladder(..., shards)`` arithmetic and a sharded service's ladder
+(the sharded cases themselves are in ``tests/test_torch_mesh.py``).
 
 The second part feeds the same seeded requests to the JAX
 ``PipelineService`` (``native``, and ``pallas`` in interpret mode, as
@@ -294,7 +294,7 @@ def test_fixed_mode_unchanged_stats_contract():
 
 
 # ---------------------------------------------------------------------------
-# mesh: not yet ported (the reference's two sharded tests)
+# mesh: the ladder of a sharded service (the reference's two sharded tests)
 # ---------------------------------------------------------------------------
 def test_continuous_sharded_ladder_is_shard_divisible():
     """The sharded ladder is pure arithmetic: every rung splits over the
@@ -306,13 +306,16 @@ def test_continuous_sharded_ladder_is_shard_divisible():
 
 
 def test_sharded_service_is_not_yet_ported():
+    """Ported: a sharded service starts its ladder at the shard count; a
+    mesh asked of the card with no card raises, never falls back."""
     g = PIPELINES["spectrogram"].build()
-    with pytest.raises(ValueError, match="not yet ported"):
-        PipelineService(g, signal_len=256, batch_size=4,
-                        batching="continuous", mesh=2, device="cpu")
-    # with no card and no device, the mesh check comes first
-    with pytest.raises(ValueError, match="not yet ported"):
-        PipelineService(g, signal_len=256, batch_size=4, mesh=1)
+    svc = PipelineService(g, signal_len=256, batch_size=4,
+                          batching="continuous", mesh=2, device="cpu")
+    assert svc.buckets == (2, 4) and svc.plan.mesh.size == 2
+    svc.close()
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="0 available"):
+            PipelineService(g, signal_len=256, batch_size=4, mesh=1)
 
 
 def test_service_defaults_to_the_card():

@@ -227,8 +227,10 @@ def test_tenant_validation():
         svc.submit(np.zeros(256, np.float32), priority="urgent")
     with pytest.raises(ValueError, match="512"):
         svc.submit(np.zeros(256, np.float32), tenant="t2")
-    with pytest.raises(ValueError, match="not yet ported"):
-        svc.add_tenant("sharded", spec.build(), 256, mesh=2)
+    sharded = svc.add_tenant("sharded", spec.build(), 256, mesh=2)
+    assert str(sharded.device) == "cpu" and sharded.mesh.size == 2
+    with pytest.raises(ValueError, match="batch divisibility"):
+        svc.add_tenant("odd", spec.build(), 256, mesh=4)
     assert tuple(PRIORITIES) == ("rt", "batch")
     svc.close()
     with pytest.raises(RuntimeError, match="closed"):

@@ -306,8 +306,14 @@ def test_steady_push_is_a_plan_cache_hit():
 
 
 def test_mesh_not_yet_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        graph.ChunkedRunner(graph.build_spectrogram(), mesh=2, device="cpu")
+    """Ported: a 2-shard runner equals the offline plan within the JAX
+    suite's streaming bar (the sharded cases are in test_torch_mesh.py)."""
+    g = graph.build_spectrogram()
+    x = np.stack([_signal("spectrogram", 1024, i) for i in range(2)])
+    runner = graph.ChunkedRunner(g, mesh=2, device="cpu")
+    assert runner.mesh.size == 2
+    want = graph.compile(g, {"x": x.shape}, device="cpu")(x)
+    _close(runner.run(x, 300).numpy(), want.numpy(), 1e-6, "mesh=2")
 
 
 def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
