@@ -252,6 +252,30 @@ Prints one JSON line per phase:
             fails), its runtime launches by launch API and the card's idle
             share; a 2-layer f32 run (the 3xTF32 GEMM) whose decode
             equals its teacher-forced forward within 2e-2
+  lm_zoo    the zoo's other families at their published widths, random
+            weights from a seeded CUDA generator, bf16 compute, kernel
+            lowering, each model freed before the next: arctic-480b (2 of
+            35 layers: 26.8 GB of experts a layer), kimi-k2 (1 of 61),
+            recurrentgemma-9b (14 of 38), rwkv6-3b, internvl2-2b (256
+            patches + 256 tokens) and hubert-xlarge (one encoder forward
+            over 8 x 512 frames), each cut printed; batch 8 x prompt 512,
+            then 8 greedy decode steps: the bf16 GEMM's launches a prefill
+            and a step against the config's ``layers.linear`` calls
+            (``zoo_linears``), logits kernel vs native over the prefill
+            and 4 steps (2e-2 of max, or twice the native bf16 run's
+            distance from the model at f32 compute where the weights are
+            f32, and again on the first layers alone where the native run
+            lies over 0.1 from f32 compute (rwkv6); MoE rows only where
+            both runs routed the token alike in
+            every layer; the tokens the kernel lowering routes otherwise
+            than the plain GEMM's run at most 1 % or 1.5 times the native
+            lowering's share), a MoE forward
+            twice bit for bit, decode vs forward at f32 for recurrentgemma
+            and rwkv6, every bf16 GEMM shape of the path within one ulp of
+            its plain version (timed beside torch.matmul and its bound);
+            prefill and decode ms, tokens/s, peak memory, the profiled
+            decode step's busy share and top kernels, MoE drop fractions
+            and aux losses
   kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
             the GEMM (per decode step of the lm phase: its 112 launches'
             device ms, bounds, plain and torch.matmul times summed):
@@ -319,6 +343,26 @@ LM_RTOL = 2e-2        # kernel vs native lowering logits, of max: the JAX
                       # layer; the two GEMMs sum in other f32 orders)
 LM_DECODE_TOL = 2e-2  # decode vs teacher-forced forward, rtol and atol
                       # (tests/test_system.py::test_decode_matches_forward)
+# the lm_zoo phase: the zoo's other families at their published widths,
+# depth cut only where one card's 80 GB forces it: (arch, layers run, why)
+LM_ZOO = (
+    ("arctic_480b", 2, "its bf16 experts are 26.8 GB a layer "
+     "(128 x 3 x 7168 x 4864 x 2 B)"),
+    ("kimi_k2_1t_a32b", 1, "33.8 GB of bf16 experts a layer "
+     "(384 x 3 x 7168 x 2048 x 2 B), plus 4.7 GB of embedding and head"),
+    ("recurrentgemma_9b", 14, "f32 weights, their bf16 copies and 4.2 GB of "
+     "prefill logits; 4 repeats of (rglru, rglru, attn) and the (rglru, "
+     "rglru) tail the full model has"),
+    ("rwkv6_3b", 32, None),
+    ("internvl2_2b", 24, None),
+    ("hubert_xlarge", 48, None),
+)
+ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS = 8, 512, 8   # internvl2: 256 patches + 256
+ZOO_FLIP_SHARE = 0.01   # MoE tokens the kernel lowering may route otherwise
+                        # than its plain GEMM, beyond 1.5x the native's
+ZOO_DECODE_VS_FORWARD = ("recurrentgemma_9b", "rwkv6_3b")
+ZOO_CHAOTIC = 0.1       # a native bf16 run this far from the f32 model (of
+                        # max) says nothing of a kernel's: check shallower
 
 
 T0 = time.perf_counter()
@@ -697,6 +741,41 @@ def bf16_gemm_cost(m: int, k: int, n: int) -> tuple[int, int]:
     return 2 * (m * k + k * n + m * n), 2 * m * k * n
 
 
+def profile_device(torch, fn, n: int) -> dict:
+    """``fn`` run ``n`` times under ``torch.profiler``: the card's kernel
+    ms a run by group (the bf16 GEMMs, cuBLAS's products, softmax, the
+    rest) and by kernel name, and the runtime launches a run (by launch
+    API: the bf16 skinny kernel's cluster launch is
+    ``cudaLaunchKernelExC``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    groups, top, by_api, launches = {}, {}, {}, 0
+    for ev in events:
+        if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += ev.count
+            by_api[ev.key] = by_api.get(ev.key, 0) + ev.count / n
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        ms = (getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0)) or 0.0) \
+            / n / 1e3
+        name = ev.key
+        group = ("bf16_gemm" if "bf16_matmul" in name else
+                 "cublas" if "gemm" in name or "gemv" in name else
+                 "softmax" if "softmax" in name else "rest")
+        groups[group] = groups.get(group, 0.0) + ms
+        top[name[:72]] = top.get(name[:72], 0.0) + ms
+    return {"groups": groups, "top": top, "by_api": by_api,
+            "launches": launches / n}
+
+
 def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
     """The model zoo's serving path at ``LM_ARCH``'s full width (phase
     ``lm``); returns the kernel table's row of the bf16 GEMM."""
@@ -941,35 +1020,10 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
         torch.bfloat16)
     unembed_ms = device_ms(torch, lambda: layers.unembed(params["embed"], h,
                                                          cfg))
-    prof_steps, groups, launches_rt = 3, {}, 0
-    top = {}
-    from torch.profiler import ProfilerActivity, profile
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(prof_steps):
-                decode(params, tok, c)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    by_api = {}
-    for ev in events:
-        # cudaLaunchKernel, cuLaunchKernel and their Ex forms (the bf16
-        # skinny kernel's cluster launch is cudaLaunchKernelExC)
-        if ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-            launches_rt += ev.count
-            by_api[ev.key] = by_api.get(ev.key, 0) + ev.count / prof_steps
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        ms = (getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0)) or 0.0) \
-            / prof_steps / 1e3
-        name = ev.key
-        group = ("bf16_gemm" if "bf16_matmul" in name else
-                 "cublas_f32" if "gemm" in name or "gemv" in name else
-                 "softmax" if "softmax" in name else "rest")
-        groups[group] = groups.get(group, 0.0) + ms
-        top[name[:72]] = top.get(name[:72], 0.0) + ms
+    prof_steps = 3
+    prof = profile_device(torch, lambda: decode(params, tok, c), prof_steps)
+    groups, top, by_api = prof["groups"], prof["top"], prof["by_api"]
+    launches_rt = prof["launches"] * prof_steps
     busy = sum(groups.values())
     if busy and not groups.get("bf16_gemm"):
         fail(f"lm: the profiler found no bf16 GEMM kernel in a decode step: "
@@ -1053,6 +1107,450 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in dec) else "operations",
             "library_ms": step_sum("torch_matmul_ms")}
+
+
+class MoeRoutes:
+    """While open, every MoE block's routing is kept (its experts and
+    which of them kept each token, per layer, in call order); ``take``
+    returns those of the calls since the last one."""
+
+    def __init__(self, moe_lib):
+        self.moe_lib, self.log = moe_lib, []
+
+    def __enter__(self):
+        self.real = real = self.moe_lib.moe_block
+
+        def recording(p, x, cfg):
+            y, aux = real(p, x, cfg)
+            # the router's margin at the cut: the k-th largest probability
+            # less the (k+1)-th (a near tie flips on an ulp of x)
+            k = cfg.n_experts_per_token
+            probs = router_top(x, p["router"]["w"], k + 1)
+            self.log.append({**aux, "margin": probs[:, k - 1] - probs[:, k]})
+            return y, aux
+
+        self.moe_lib.moe_block = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_lib.moe_block = self.real
+
+    def take(self) -> list:
+        out, self.log = self.log, []
+        return out
+
+
+def router_top(x, w, n: int):
+    """The n largest router probabilities of each token, descending: the
+    MoE block's f32 router on x."""
+    xt = x.reshape(-1, x.shape[-1]).float()
+    probs = (xt @ w.float()).softmax(-1)
+    return probs.sort(-1, descending=True).values[:, :n]
+
+
+def zoo_linears(cfg, prefill: bool) -> int:
+    """The ``layers.linear`` calls (bf16 GEMM launches at the kernel
+    lowering) of one call of ``cfg``'s model: attention 4 and its MLP
+    (SwiGLU/GeGLU 3, GELU 2; a MoE block's shared expert and dense
+    residual MLP 3 each, its experts and router none), an RG-LRU block 5
+    and its MLP, an RWKV block 5 (time mix) + 3 (channel mix), the
+    frontend's projection once a prefill; the untied head is an f32
+    product (none)."""
+    mlp = 2 if cfg.mlp_type == "gelu" else 3
+    ffn = 3 * (bool(cfg.shared_experts) + bool(cfg.dense_residual_ff)) \
+        if cfg.moe else mlp
+    per = {"attn": 4 + ffn, "rglru": 5 + mlp, "rwkv": 8}
+    return sum(per[k] for k in cfg.layer_kinds) + \
+        (1 if prefill and cfg.frontend else 0)
+
+
+def lm_zoo_config(torch, dev, card, zero_counts, counts, arch: str,
+                  layers_run: int, why) -> int:
+    """One config of the ``lm_zoo`` phase; returns the bf16 GEMM's
+    launches in its counted run."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+
+    t_cfg = time.perf_counter()
+    full = get(arch)
+    cfg = full.scaled(n_layers=layers_run, tina_lowering="kernel")
+    if cfg.compute_dtype != "bfloat16":
+        fail(f"lm_zoo: {arch} computes in {cfg.compute_dtype}, not bfloat16")
+    encoder = cfg.family == "audio"
+    b, s, steps = ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
+    max_len = s + steps
+    emit(phase="lm_zoo", case="config", arch=arch, family=cfg.family,
+         layers=layers_run, of_layers=full.n_layers, depth_cut=why,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         experts=cfg.n_experts, top_k=cfg.n_experts_per_token,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = model_lib.prepare(model_lib.init_model(cfg, generator=gen), cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             make_batch(cfg, b, s, seed=LM_SEED).items()}
+    ncfg = cfg.scaled(tina_lowering="native")
+    prefill = step_lib.make_prefill_step(cfg, batch_size=b, seq_len=s)
+    decode = step_lib.make_decode_step(cfg, batch_size=b, cache_len=max_len)
+
+    def caches(c=cfg):
+        return model_lib.init_caches(c, b, max_len, device=dev)
+
+    def encode(c=cfg):
+        return model_lib.forward(params, batch, c)
+
+    # warm-up, then the counted run: counts set to 0 just before the
+    # prefill (the encoder's forward), read after it and after the last
+    # decode step; each bf16 GEMM's (M, K, N) and weight noted
+    if encoder:
+        encode()
+    else:
+        _, c = prefill(params, batch, caches())
+        decode(params, torch.zeros(b, dtype=torch.int32, device=dev), c)
+        del c
+    shapes, real = {}, mmk._matmul_bf16
+
+    def noting(x, y, yt, *rest):
+        shapes.setdefault((x.shape[0], x.shape[1], y.shape[1]),
+                          y.t().contiguous() if yt is None else yt)
+        return real(x, y, yt, *rest)
+
+    c = None if encoder else caches()
+    torch.cuda.synchronize()
+    mmk._matmul_bf16 = noting
+    try:
+        with MoeRoutes(moe_lib) as routes:
+            zero_counts()
+            e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+            t0 = time.perf_counter()
+            e0.record()
+            if encoder:
+                logits0, _, aux = encode()
+            else:
+                logits0, c = prefill(params, batch, c)
+            e1.record()
+            e1.synchronize()
+            prefill_host_ms = (time.perf_counter() - t0) * 1e3
+            at_prefill = counts()
+            prefill_routes = routes.take()
+            toks = [torch.argmax(logits0, -1).to(torch.int32)]
+            t0 = time.perf_counter()
+            for _ in range(0 if encoder else steps):
+                tok, logits, c = decode(params, toks[-1], c)
+                toks.append(tok)
+            e2.record()
+            e2.synchronize()
+            decode_host_ms = (time.perf_counter() - t0) * 1e3
+            launches = counts()
+    finally:
+        mmk._matmul_bf16 = real
+    want_pre = zoo_linears(cfg, True)
+    want_step = zoo_linears(cfg, False)
+    want_total = want_pre + (0 if encoder else steps * want_step)
+    other = {k: v for k, v in launches.items() if v and k != "matmul_bf16"}
+    if at_prefill["matmul_bf16"] != want_pre or \
+            launches["matmul_bf16"] != want_total or other:
+        fail(f"lm_zoo {arch}: bf16 GEMM launches {at_prefill['matmul_bf16']} "
+             f"after the prefill and {launches['matmul_bf16']} in all, want "
+             f"{want_pre} and {want_total}; other kernels {other}")
+    if encoder:
+        finite = bool(torch.isfinite(logits0).all())
+        if tuple(logits0.shape) != (b, s, cfg.vocab_size) or not finite:
+            fail(f"lm_zoo {arch}: encoder logits {tuple(logits0.shape)}, "
+                 f"finite {finite}")
+    else:
+        gen_toks = torch.stack(toks, 1)
+        if tuple(gen_toks.shape) != (b, steps + 1) or not bool(
+                ((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()) or \
+                tuple(logits.shape) != (b, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all() and
+                torch.isfinite(logits0).all()):
+            fail(f"lm_zoo {arch}: tokens {tuple(gen_toks.shape)}, logits "
+                 f"{tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+    prefill_ms = e0.elapsed_time(e1)
+    decode_ms = None if encoder else e1.elapsed_time(e2) / steps
+    moe = {}
+    if cfg.moe:
+        moe = {"drop_frac_per_layer": [float(a["moe_drop_frac"])
+                                       for a in prefill_routes],
+               "aux_loss_per_layer": [float(a["moe_aux_loss"])
+                                      for a in prefill_routes],
+               "capacity_prefill": moe_lib.capacity(b * s, cfg),
+               "capacity_decode": moe_lib.capacity(b, cfg)}
+    del logits0
+    if not encoder:
+        del c
+
+    # the kernel lowering against the native one (torch.matmul at bf16),
+    # the same weights, fed the counted run's tokens: the prefill's last
+    # logits and 4 decode steps' (the encoder: its forward).  Where the
+    # weights are f32, the model at f32 compute (native) too: the bar is
+    # LM_RTOL or twice the native bf16 run's distance from it, whichever
+    # is larger (a bf16 run's own rounding noise, which these models
+    # amplify with depth).  MoE (bf16 weights, no f32 run): the rows
+    # compared are those whose tokens routed alike (experts and kept
+    # slots) in every layer in both runs.  A near tie in the router flips
+    # on an ulp of its input, so the share of tokens routed otherwise is
+    # held against a control: the kernel lowering against the plain
+    # version of its GEMM (exact products summed in f32, rounded once)
+    # may flip no more than LM_ZOO_FLIP_SHARE or 1.5 times what the
+    # native lowering flips against it
+    def teacher_forced(c_, plain=False):
+        real = mmk._matmul_bf16
+        if plain:
+            mmk._matmul_bf16 = lambda x, y, *rest: mmk.matmul_bf16_plain(x, y)
+        try:
+            with MoeRoutes(moe_lib) as r:
+                if encoder:
+                    out = [model_lib.forward(params, batch, c_)[0]]
+                    return out, [r.take()]
+                pre = step_lib.make_prefill_step(c_, batch_size=b, seq_len=s)
+                dec = step_lib.make_decode_step(c_, batch_size=b,
+                                                cache_len=max_len)
+                cc = caches(c_)
+                lg, cc = pre(params, batch, cc)
+                out, rts = [lg], [r.take()]
+                for i in range(4):
+                    _, lg, cc = dec(params, gen_toks[:, i], cc)
+                    out.append(lg)
+                    rts.append(r.take())
+                return out, rts
+        finally:
+            mmk._matmul_bf16 = real
+
+    def alike(ra, rb, tally=None):
+        """Per call, which tokens routed alike in every layer."""
+        out = []
+        for ca, cb in zip(ra, rb):
+            same = torch.ones(ca[0]["moe_experts"].shape[0],
+                              dtype=torch.bool, device=dev)
+            for li, (la, lb) in enumerate(zip(ca, cb)):
+                same_e = (la["moe_experts"] == lb["moe_experts"]).all(-1)
+                same_k = (la["moe_kept"] == lb["moe_kept"]).all(-1)
+                if tally is not None:
+                    tally["experts_per_layer"][li] += int((~same_e).sum())
+                    tally["kept_only_per_layer"][li] += int(
+                        (same_e & ~same_k).sum())
+                    if bool((~same_e).any()):
+                        tally["max_margin_of_flipped"] = max(
+                            tally["max_margin_of_flipped"],
+                            lb["margin"][~same_e].max().item())
+                same &= same_e & same_k
+            out.append(same)
+        return out
+
+    def share(rows):
+        return sum(int((~r).sum()) for r in rows) / sum(r.numel()
+                                                        for r in rows)
+
+    kern, kroutes = teacher_forced(cfg)
+    nat, nroutes = teacher_forced(ncfg)
+    ref32 = None
+    if cfg.param_dtype == "float32":
+        ref32, _ = teacher_forced(ncfg.scaled(compute_dtype="float32"))
+    flips = None
+    if cfg.moe:
+        flips = {"experts_per_layer": [0] * cfg.n_layers,
+                 "kept_only_per_layer": [0] * cfg.n_layers,
+                 "max_margin_of_flipped": 0.0,
+                 "median_margin": torch.cat(
+                     [la["margin"] for c_ in nroutes for la in c_]
+                 ).median().item()}
+        kn = alike(kroutes, nroutes, flips)
+        _, proutes = teacher_forced(cfg, plain=True)
+        flips.update(tokens=sum(r.numel() for r in kn),
+                     share_kernel_vs_native=share(kn),
+                     share_kernel_vs_plain=share(alike(kroutes, proutes)),
+                     share_native_vs_plain=share(alike(nroutes, proutes)))
+        del proutes
+    def hold_logits(kern, nat, ref32, label):
+        """Each call's kernel logits against the native ones: (errors,
+        native bf16 vs f32 compute, bars)."""
+        vs, dref, bars = [], [], []
+        for i, (k_, n_) in enumerate(zip(kern, nat)):
+            rows = torch.ones(k_.shape[:-1], dtype=torch.bool, device=dev)
+            if cfg.moe:
+                rows = kn[i].view(b, -1)[:, -1]
+            err, scale = rel_err(torch, k_[rows], n_[rows])
+            d = None
+            if ref32 is not None:
+                e32, s32 = rel_err(torch, n_, ref32[i])
+                d = e32 / s32
+            bar = LM_RTOL if d is None else max(LM_RTOL, 2 * d)
+            vs.append(err / scale)
+            dref.append(d)
+            bars.append(bar)
+            if not err <= bar * scale:
+                what = "forward" if encoder else \
+                    "prefill" if i == 0 else f"decode step {i}"
+                fail(f"lm_zoo {arch}{label}: {what} logits kernel vs native "
+                     f"{err} > {bar} * {scale} (native bf16 vs f32 compute: "
+                     f"{d})")
+        return vs, dref, bars
+
+    vs_native, d_ref, bars = hold_logits(kern, nat, ref32, "")
+    # where the native bf16 run lies farther than ZOO_CHAOTIC from the f32
+    # model, that comparison says nothing of the kernel: it is made again
+    # on the first repeat of the block pattern, the same weights
+    first = None
+    if ref32 is not None and max(d_ref) > ZOO_CHAOTIC:
+        c1 = cfg.scaled(n_layers=len(cfg.block_pattern))
+        runs1 = [teacher_forced(c_)[0] for c_ in (
+            c1, c1.scaled(tina_lowering="native"),
+            c1.scaled(tina_lowering="native", compute_dtype="float32"))]
+        errs, drefs, bars1 = hold_logits(*runs1, " (first layers)")
+        first = {"layers": c1.n_layers, "kernel_vs_native_rel_err": errs,
+                 "native_bf16_vs_f32_compute_rel_err": drefs, "bars": bars1}
+        del runs1
+    del kern, nat, ref32
+
+    # MoE: the prefill replays bit for bit (the combine adds each token's
+    # contributions in a fixed order: no atomics)
+    replay = None
+    if cfg.moe:
+        r1, _, a1 = model_lib.forward(params, batch, cfg)
+        r2, _, a2 = model_lib.forward(params, batch, cfg)
+        replay = bool(torch.equal(r1, r2)) and all(
+            bool(torch.equal(a1[k], a2[k])) for k in a1)
+        if not replay:
+            fail(f"lm_zoo {arch}: two forwards of the same batch differ")
+        moe["forward_drop_frac"] = float(a1["moe_drop_frac"])
+        moe["forward_aux_loss"] = float(a1["moe_aux_loss"])
+        del r1, r2
+
+    # decode equals the teacher-forced forward at f32 compute (the
+    # 3xTF32 GEMM), the JAX suite's set (recurrentgemma, rwkv6)
+    dec_err = None
+    if arch in ZOO_DECODE_VS_FORWARD:
+        c32 = cfg.scaled(compute_dtype="float32")
+        b32, s32 = 2, 64
+        t32 = torch.randint(0, cfg.vocab_size, (b32, s32), device=dev,
+                            generator=gen, dtype=torch.int32)
+        whole, _, _ = model_lib.forward(params, {"tokens": t32}, c32)
+        cc = model_lib.init_caches(c32, b32, s32, device=dev)
+        _, cc, _ = model_lib.forward(params, {"tokens": t32[:, :s32 - 4]},
+                                     c32, caches=cc)
+        dec_err = 0.0
+        for i in range(s32 - 4, s32):
+            lg, cc = model_lib.decode_step(params, t32[:, i], cc, c32)
+            d = (lg - whole[:, i]).abs()
+            dec_err = max(dec_err, d.max().item())
+            if not bool((d <= LM_DECODE_TOL + LM_DECODE_TOL
+                         * whole[:, i].abs()).all()):
+                fail(f"lm_zoo {arch} f32: decode step {i} differs from the "
+                     f"forward by {d.max().item()}")
+        del whole, cc
+
+    # every bf16 GEMM shape of the path against the plain version (the
+    # model's own K-major weights): within one bf16 ulp; timed beside
+    # torch.matmul at bf16 (timed here only), the plain version and the
+    # bound
+    gemms = []
+    for (m, k, n), wt in sorted(shapes.items()):
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        y = wt.t()
+        got = mmk.matmul(x, y, yt=wt)
+        want_ = mmk.matmul_bf16_plain(x, y)
+        ulps = mmk.bf16_ulps(got, want_).max().item()
+        if not ulps <= 1.0:
+            fail(f"lm_zoo {arch}: matmul_bf16 {(m, k, n)} is {ulps} bf16 "
+                 "ulps from its plain version")
+        nbytes, flops = bf16_gemm_cost(m, k, n)
+        b_ms, b_by = bound_bf16(nbytes, flops)
+        kind, route = mmk.bf16_route(m, n, k)
+        rec = {"mkn": [m, k, n], "route": kind,
+               "splits": route.get("splits"), "max_ulps": ulps,
+               "max_abs_err": (got.float() - want_.float()).abs().max().item(),
+               "ms": device_ms(torch, lambda: mmk.matmul(x, y, yt=wt)),
+               "torch_matmul_ms": device_ms(torch, lambda: torch.matmul(x, y)),
+               "plain_ms": device_ms(torch,
+                                     lambda: mmk.matmul_bf16_plain(x, y)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rec["x_bound"] = rec["ms"] / b_ms
+        gemms.append(rec)
+        del x, got, want_
+
+    # where a decode step's time goes (torch.profiler over 3 steps), or
+    # the encoder's forward
+    if encoder:
+        prof = profile_device(torch, encode, 1)
+        step_ms = prefill_ms
+    else:
+        c = caches()
+        _, c = prefill(params, batch, c)
+        tok = gen_toks[:, 0]
+        prof = profile_device(torch, lambda: decode(params, tok, c), 3)
+        step_ms = decode_ms
+        del c
+    busy = sum(prof["groups"].values())
+    if busy and not prof["groups"].get("bf16_gemm"):
+        fail(f"lm_zoo {arch}: the profiler found no bf16 GEMM kernel: "
+             f"{sorted(prof['top'])}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit(phase="lm_zoo", case="serve", nvidia_smi=card, arch=arch,
+         layers=layers_run, batch=b, prompt=s,
+         decode_steps=0 if encoder else steps,
+         lowering=cfg.tina_lowering, weights_gb=weights_gb,
+         build_seconds=build_s,
+         launches_prefill={"got": at_prefill["matmul_bf16"],
+                           "want": want_pre},
+         launches_per_step={"got": None if encoder else
+                            (launches["matmul_bf16"] - want_pre) / steps,
+                            "want": None if encoder else want_step},
+         prefill_ms=prefill_ms, prefill_host_ms=prefill_host_ms,
+         prefill_tokens_per_s=b * s / (prefill_ms / 1e3),
+         decode_ms_per_step=decode_ms,
+         decode_host_ms_per_step=None if encoder else decode_host_ms / steps,
+         decode_tokens_per_s=None if encoder else b / (decode_ms / 1e3),
+         kernel_vs_native_rel_err=vs_native,
+         native_bf16_vs_f32_compute_rel_err=d_ref, bars=bars,
+         first_layers=first,
+         moe_routing=flips,
+         moe_replay_bit_for_bit=replay, moe=moe or None,
+         decode_vs_forward_f32_max_abs=dec_err,
+         peak_memory_gb=peak_gb,
+         profiled={"what": "forward" if encoder else "decode step",
+                   "ms": step_ms, "device_busy_ms": busy or None,
+                   "device_idle_share": 1 - busy / step_ms if busy else None,
+                   "device_ms_by_group": prof["groups"],
+                   "runtime_launches": prof["launches"],
+                   "top_kernels_ms": dict(sorted(
+                       prof["top"].items(), key=lambda kv: -kv[1])[:6])},
+         gemm_shapes=gemms,
+         seconds=time.perf_counter() - t_cfg)
+    if flips and flips["share_kernel_vs_plain"] > max(
+            ZOO_FLIP_SHARE, 1.5 * flips["share_native_vs_plain"]):
+        fail(f"lm_zoo {arch}: the kernel lowering routes "
+             f"{flips['share_kernel_vs_plain']:.4f} of tokens otherwise than "
+             f"the plain GEMM, the native lowering "
+             f"{flips['share_native_vs_plain']:.4f}")
+    return launches["matmul_bf16"]
+
+
+def lm_zoo_phase(torch, dev, card, zero_counts, counts) -> dict:
+    """The model zoo's other families (phase ``lm_zoo``); returns each
+    config's bf16 GEMM launches in its counted run."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, layers_run, why in LM_ZOO:
+        out[arch] = lm_zoo_config(torch, dev, card, zero_counts, counts,
+                                  arch, layers_run, why)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="lm_zoo", case="done", launches=out,
+         seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def main() -> int:
@@ -4271,6 +4769,11 @@ def main() -> int:
 
     # -- lm: the model zoo's serving path at olmo_1b full width ------------
     lm_row = lm_phase(torch, dev, card, zero_counts, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- lm_zoo: the zoo's MoE, recurrent, vlm and audio families ----------
+    zoo_launches = lm_zoo_phase(torch, dev, card, zero_counts, counts)
 
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
@@ -4340,8 +4843,11 @@ def main() -> int:
                      "library_ms": ms[lib] if lib else None})
     rows.append(lm_row)
     for row in rows:
-        # the kernel's launches in the mesh phase's counted runs
+        # the kernel's launches in the mesh phase's counted runs, and in
+        # each lm_zoo config's (the bf16 GEMM alone runs there)
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
+        row["lm_zoo_launches"] = (zoo_launches if row["name"] == "matmul_bf16"
+                                  else dict.fromkeys(zoo_launches, 0))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

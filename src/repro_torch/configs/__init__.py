@@ -1,8 +1,7 @@
 """Assigned-architecture configs, the data of the reference's
 ``repro.configs``.  ``get(name)`` returns the full config,
 ``get_reduced(name)`` the CPU-smoke-sized one.  ``ARCHS`` lists all ids.
-Every config is here; the model zoo's port runs the dense family
-(:func:`repro_torch.models.model.check_ported`)."""
+Every config is here, and the model zoo's port serves each of them."""
 from __future__ import annotations
 
 import importlib

@@ -6,14 +6,19 @@ decode, on the card unless ``--device cpu``; the port of the reference's
         --batch 4 --steps 32
 
 runs the reduced config; ``--full`` runs the full config on the one
-card (the reference's production mesh belongs to the mesh slice, not
-yet ported).  The server packs ``--batch`` prompts (``make_batch``),
-prefills them in one call that writes the preallocated caches in place,
-then decodes lock-step.  ``--temperature`` is parsed and unused, as in
-the reference, which decodes greedily.  ``--lowering`` sets the
-config's ``tina_lowering`` (default ``kernel``: the hand-written GEMM
-kernels); the weights are random, from seed 0, as the reference's
-``PRNGKey(0)``.
+card (the reference's production mesh belongs to the LM's distributed
+stack, not yet ported).  Every decoder family serves: the dense
+decoders, the MoE ones (kimi-k2, arctic), recurrentgemma, rwkv6 and the
+vlm (internvl2, whose prompt is ``num_patches`` patch embeddings then
+tokens, ``--prompt-len`` counting both); hubert is encoder-only and
+exits, as in the reference.  ``--layers N`` runs the first N layers (the
+full MoE configs fit one card only so cut).  The server packs
+``--batch`` prompts (``make_batch``), prefills them in one call that
+writes the preallocated caches in place, then decodes lock-step.
+``--temperature`` is parsed and unused, as in the reference, which
+decodes greedily.  ``--lowering`` sets the config's ``tina_lowering``
+(default ``kernel``: the hand-written GEMM kernels); the weights are
+random, from seed 0, as the reference's ``PRNGKey(0)``.
 
 ``main`` returns a summary dict for callers that run it in process.
 """
@@ -38,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32, help="tokens to decode")
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run the first N layers (a full MoE config does "
+                    "not fit one card: arctic 2, kimi 1)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--lowering", default="kernel",
@@ -55,7 +63,11 @@ def main(argv=None) -> dict:
     cfg = get(args.arch) if args.full else get_reduced(args.arch)
     if cfg.family == "audio":
         raise SystemExit("hubert is encoder-only: no decode serving")
-    cfg = cfg.scaled(tina_lowering=args.lowering)
+    if cfg.family == "vlm" and args.prompt_len <= cfg.num_patches:
+        raise SystemExit(f"{cfg.name}: --prompt-len {args.prompt_len} leaves "
+                         f"no token after its {cfg.num_patches} patches")
+    cfg = cfg.scaled(tina_lowering=args.lowering,
+                     n_layers=args.layers or cfg.n_layers)
     dev = resolve_device(args.device)
     max_len = args.prompt_len + args.steps
 
@@ -91,7 +103,8 @@ def main(argv=None) -> dict:
           f"{t_decode:.3f}s ({rate:.1f} tok/s)")
     print("generated token ids (first sequence):", gen[0][:16].tolist(),
           "...")
-    return {"arch": cfg.name, "full": args.full, "device": str(dev),
+    return {"arch": cfg.name, "full": args.full, "layers": cfg.n_layers,
+            "device": str(dev),
             "lowering": cfg.tina_lowering, "batch": args.batch,
             "prompt_len": args.prompt_len, "steps": args.steps,
             "prefill_s": t_prefill, "decode_s": t_decode,

@@ -5,9 +5,11 @@ port's parameters (:func:`repro_torch.models.model.init_model`'s layout).
 The reference stacks its superblocks over the repeats with ``jax.vmap``
 (every leaf of ``params["stack"]`` has a leading axis of length
 ``n_layers // len(block_pattern)``); the port keeps one dict per repeat.
-The tied ``embed.table``, the untied ``head.w``, the norms and the tail
-map across as they are.  bfloat16 leaves (numpy's ml_dtypes) keep their
-bits.
+Every other leaf maps across as it is: the tied ``embed.table``, the
+untied ``head.w``, the norms, the tail, the ``frontend`` subtree, the
+experts' (E, d, f) stacks and router, rglru's ``lambda`` and
+``conv_taps``, rwkv's ``mu_*``, ``mix_w*``, ``td_w*``, ``u`` and
+``ln_x``.  bfloat16 leaves (numpy's ml_dtypes) keep their bits.
 """
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
 
@@ -46,7 +47,6 @@ def from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     """The port's parameters on ``device`` (CUDA unless the caller asks
     for the CPU) from the reference's ``init_model`` tree (numpy
     leaves)."""
-    model_lib.check_ported(cfg)
     dev = resolve_device(device)
     reps = cfg.n_layers // len(cfg.block_pattern)
     out = {k: _tree(v, dev) for k, v in tree.items()

@@ -1173,6 +1173,102 @@ def test_lm_kernel_lowering_on_the_card(dev):
         assert (k - n).abs().max() <= 2e-2 * n.abs().max()
 
 
+ZOO = ["kimi_k2_1t_a32b", "arctic_480b", "recurrentgemma_9b", "rwkv6_3b",
+       "internvl2_2b", "hubert_xlarge"]
+
+
+def _linears(cfg, prefill):
+    """``layers.linear`` calls of one call of ``cfg``'s model (its bf16
+    GEMM launches): attention 4 + its MLP (or a MoE block's shared and
+    dense MLPs, 3 each), RG-LRU 5 + MLP, RWKV 8, the frontend once."""
+    mlp = 2 if cfg.mlp_type == "gelu" else 3
+    ffn = 3 * (bool(cfg.shared_experts) + bool(cfg.dense_residual_ff)) \
+        if cfg.moe else mlp
+    per = {"attn": 4 + ffn, "rglru": 5 + mlp, "rwkv": 8}
+    return sum(per[k] for k in cfg.layer_kinds) + bool(prefill and
+                                                        cfg.frontend)
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_lm_zoo_family_on_the_card(dev, arch, monkeypatch):
+    """Each family's reduced config at bf16 compute on the card: the bf16
+    GEMM once per linear (the experts' and router's products are plain
+    torch), the logits against the native lowering (2e-2 of max, or twice
+    the native run's distance from the model at f32 compute where that is
+    larger; MoE rows where both lowerings routed the token alike in every
+    layer), and a MoE forward twice bit for bit (the combine adds in a
+    fixed order)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    log, real = [], moe_lib.moe_block
+
+    def recording(p, x, c):
+        y, aux = real(p, x, c)
+        log.append(torch.cat([aux["moe_experts"], aux["moe_kept"]], -1))
+        return y, aux
+
+    monkeypatch.setattr(moe_lib, "moe_block", recording)
+    cfg = get_reduced(arch).scaled(compute_dtype="bfloat16",
+                                   tina_lowering="kernel")
+    params = model_lib.prepare(model_lib.init_model(cfg, seed=0, device=dev),
+                               cfg)
+    b, s = 2, 24
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in make_batch(cfg, b, s - 4).items()}
+    toks = torch.randint(0, cfg.vocab_size, (b, 4), device=dev,
+                         dtype=torch.int32)
+    out, routes = {}, {}
+    for c in (cfg, cfg.scaled(tina_lowering="native"),
+              cfg.scaled(tina_lowering="native", compute_dtype="float32")):
+        before = mmk.BF16_LAUNCHES
+        rts = []
+        if cfg.family == "audio":
+            logits = [model_lib.forward(params, batch, c)[0]]
+            calls = [True]
+        else:
+            pre = step_lib.make_prefill_step(c, batch_size=b, seq_len=s - 4)
+            dec = step_lib.make_decode_step(c, batch_size=b, cache_len=s)
+            caches = model_lib.init_caches(c, b, s, device=dev)
+            log.clear()
+            lg, caches = pre(params, batch, caches)
+            logits, rts = [lg], [list(log)]
+            for i in range(4):
+                log.clear()
+                _, lg, caches = dec(params, toks[:, i], caches)
+                logits.append(lg)
+                rts.append(list(log))
+            calls = [True] + [False] * 4
+        torch.cuda.synchronize()
+        out[(c.tina_lowering, c.compute_dtype)] = logits
+        routes[c.tina_lowering, c.compute_dtype] = rts
+        want = sum(_linears(cfg, p) for p in calls) \
+            if c.tina_lowering == "kernel" else 0
+        assert mmk.BF16_LAUNCHES - before == want
+    kern, nat, f32 = (out[k] for k in (("kernel", "bfloat16"),
+                                       ("native", "bfloat16"),
+                                       ("native", "float32")))
+    rows = []
+    for i, (k, n, r) in enumerate(zip(kern, nat, f32)):
+        keep = torch.ones(k.shape[0], dtype=torch.bool, device=dev)
+        if cfg.moe:
+            alike = torch.stack([(x == y).all(-1) for x, y in zip(
+                routes["kernel", "bfloat16"][i],
+                routes["native", "bfloat16"][i])]).all(0)
+            keep = alike.view(b, -1)[:, -1]
+            rows.extend(alike.tolist())
+        k, n, r = k[keep], n[keep], r[keep]
+        d_ref = ((n - r).abs().max() / r.abs().max()).item()
+        bar = max(2e-2, 2 * d_ref)
+        assert (k - n).abs().max() <= bar * n.abs().max()
+    assert not rows or sum(rows) >= 0.75 * len(rows)
+    if cfg.moe:
+        a = model_lib.forward(params, batch, cfg)
+        assert torch.equal(a[0], model_lib.forward(params, batch, cfg)[0])
+
+
 # -- the mesh ---------------------------------------------------------------
 MESH_PATHS = [
     ("pfb_power", graph.build_pfb_power(32, 8), 32 * 300),

@@ -182,33 +182,76 @@ def test_attention_prefill_and_rolling_decode_match_jax(window):
 # ---------------------------------------------------------------------------
 # the whole model at f32
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("lowering", ["native", "kernel"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_forward_and_decode_match_jax_f32(arch, lowering):
-    """Forward, then prefill + 4 decode steps, with the JAX weights."""
-    jcfg, tcfg = _cfgs(arch, lowering, attn_chunk=8)
-    params, tp = _weights(jcfg, tcfg)
-    b, s = 2, 12
-    tokens = _rng("lm", arch).integers(0, jcfg.vocab_size,
-                                       (b, s)).astype(np.int32)
-    want, _, _ = jmodel.forward(params, {"tokens": jnp.asarray(tokens)},
-                                jcfg, remat=False)
-    got, _, _ = tmodel.forward(tp, {"tokens": _t(tokens)}, tcfg)
-    _close(got, want, F32_RTOL, f"{arch} forward")
+# recurrentgemma at 5 layers: one (rglru, rglru, attn) repeat and the
+# unrolled (rglru, rglru) tail
+OVER = {"recurrentgemma_9b": {"n_layers": 5}}
 
+
+def model_inputs(cfg, b, s, rng):
+    """numpy inputs of a forward over ``s`` positions: a vlm's patches
+    (``num_patches`` of them) then tokens, an audio model's frames, or
+    tokens."""
+    if cfg.frontend == "audio_stub":
+        return {"frames": rng.standard_normal(
+            (b, s, jmodel.AUDIO_FEAT_DIM)).astype(np.float32)}
+    p = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s - p)).astype(
+        np.int32)}
+    if p:
+        out["patch_embeds"] = rng.standard_normal(
+            (b, p, jmodel.VISION_FEAT_DIM)).astype(np.float32)
+    return out
+
+
+def prompt_of(batch, n):
+    """The batch cut to its first ``n`` text tokens (patches kept)."""
+    return {k: v[:, :n] if k == "tokens" else v for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("lowering", ["native", "kernel"])
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_forward_and_decode_match_jax_f32(arch, lowering):
+    """Forward, then prefill + 4 decode steps, with the JAX weights; the
+    MoE statistics too.  hubert (encoder-only) runs the forward."""
+    jcfg, tcfg = _cfgs(arch, lowering, attn_chunk=8, **OVER.get(arch, {}))
+    params, tp = _weights(jcfg, tcfg)
+    b = 2
+    s = 12 + (jcfg.num_patches if jcfg.frontend == "vision_stub" else 0)
+    batch = model_inputs(jcfg, b, s, _rng("lm", arch))
+    want, _, jaux = jmodel.forward(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg,
+        remat=False)
+    got, _, taux = tmodel.forward(
+        tp, {k: _t(v) for k, v in batch.items()}, tcfg)
+    _close(got, want, F32_RTOL, f"{arch} forward")
+    # the blocks' statistics summed over the layers: each block's are held
+    # exactly in tests/test_torch_moe.py; XLA's scan sums them in f32 in
+    # its own association
+    assert sorted(taux) == sorted(jaux)
+    for k in jaux:
+        assert abs(float(taux[k]) - float(jaux[k])) <= 1e-6, k
+    if jcfg.family == "audio":
+        return
+
+    tokens = batch["tokens"]
+    t0 = tokens.shape[1] - 4
     jc = jmodel.init_caches(jcfg, b, max_len=s)
     tc = tmodel.init_caches(tcfg, b, s, device="cpu")
-    want, jc, _ = jmodel.forward(params, {"tokens": jnp.asarray(
-        tokens[:, :s - 4])}, jcfg, caches=jc, remat=False)
-    got, tc, _ = tmodel.forward(tp, {"tokens": _t(tokens[:, :s - 4])}, tcfg,
-                                caches=tc)
+    prompt = prompt_of(batch, t0)
+    want, jc, _ = jmodel.forward(
+        params, {k: jnp.asarray(v) for k, v in prompt.items()}, jcfg,
+        caches=jc, remat=False)
+    got, tc, _ = tmodel.forward(tp, {k: _t(v) for k, v in prompt.items()},
+                                tcfg, caches=tc)
     _close(got, want, F32_RTOL, f"{arch} prefill")
-    for i in range(s - 4, s):
+    for i in range(t0, tokens.shape[1]):
         want, jc = jmodel.decode_step(params, jnp.asarray(tokens[:, i]), jc,
                                       jcfg)
         got, tc = tmodel.decode_step(tp, _t(tokens[:, i]), tc, tcfg)
         _close(got, want, F32_RTOL, f"{arch} decode {i}")
-        assert tmodel._cache_pos(tc) == i + 1
+        attn = "attn" in jcfg.block_pattern
+        assert tmodel._cache_pos(tc) == (s - tokens.shape[1] + i + 1
+                                         if attn else 0)
 
 
 def test_convert_unstacks_the_vmapped_stack():
