@@ -276,11 +276,36 @@ Prints one JSON line per phase:
             prefill and decode ms, tokens/s, peak memory, the profiled
             decode step's busy share and top kernels, MoE drop fractions
             and aux losses
+  train     the training path (``make_train_step``, ``Trainer``,
+            ``launch.train``): ``step``, olmo_1b's full config (f32
+            params, bf16 compute, AdamW, remat, bf16 wire, clip 1.0, native
+            lowering) on batch 8 x 512 from ``SyntheticDataset(seed=0)``,
+            30 steps of ``warmup_cosine``: the loss a step (the mean of the
+            last 5 at least 0.5 nats below step 1's, else it fails), ms a
+            step (CUDA events, median of steps 3-30), tokens/s, peak
+            memory, one profiled step's busy share and runtime launches,
+            the step's bound (6 N T + the remat forward's 2 N_stack T
+            FLOPs at the bf16 peak, plus the update's bytes at HBM's
+            rate); ``microbatch`` (the same batch at microbatch 2 and 1:
+            losses within 1 %, grad norms within 5 %, peaks printed);
+            ``refuses_kernel``;
+            ``launcher`` (``python -m repro_torch.launch.train --full``
+            for 4 steps in a subprocess: exit 0, 4 metrics lines,
+            checkpoints at steps 2 and 4, step 4 restored into the
+            step's specs, a leaf's bits); ``resume`` (a subprocess under
+            deterministic algorithms: olmo_1b reduced to 2 layers, 6
+            steps, once uninterrupted and once under
+            ``run_with_auto_restart`` failing at step 3: final params bit
+            for bit); ``pfb_features`` (a 64-branch 8-tap PFB at the
+            kernel lowering, one ``pfb_fused`` launch held against its
+            plain version, log1p|.| features into reduced hubert_xlarge:
+            one masked-prediction step lowers the loss)
   kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
             the GEMM (per decode step of the lm phase: its 112 launches'
             device ms, bounds, plain and torch.matmul times summed):
             launches, errors, times, the launches in the mesh phase's
-            counted runs (``mesh_launches``), bounds (an f32 product at
+            counted runs (``mesh_launches``) and the train phase's
+            (``train_launches``), bounds (an f32 product at
             the TF32 tensor-core peak; a bf16 one at the bf16 peak; the fused
             PFB's FIR at the fp32 pipe beside its DFT at TF32; the
             fp32-pipe figures print beside them in the path lines)
@@ -357,6 +382,55 @@ LM_ZOO = (
     ("internvl2_2b", 24, None),
     ("hubert_xlarge", 48, None),
 )
+# the train phase: olmo_1b's full config, batch, length, steps, schedule
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
+TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 1e-3, 5, 0
+TRAIN_DROP = 0.5      # nats, last 5 steps' mean below step 1's: the bar of
+                      # tests/test_system.py::test_train_decreases_loss
+TRAIN_UPDATE_BYTES = 32   # a parameter's bytes in the update: p, g, m, v
+                          # read (16), p, m, v written (12), the bf16
+                          # wire's write and read (4)
+# the kill/resume check, run in a subprocess under deterministic
+# algorithms (tests/test_runtime.py's setup): argv[1] is a scratch dir
+RESUME_SCRIPT = r"""
+import json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch.configs import get_reduced
+from repro_torch.runtime import Trainer, TrainerConfig, run_with_auto_restart
+from repro_torch.tree import leaves
+root = sys.argv[1]
+cfg = get_reduced("olmo_1b").scaled(n_layers=2, remat=False)
+
+
+def mk(wd, fail=None):
+    tc = TrainerConfig(total_steps=6, batch_size=2, seq_len=16, ckpt_every=2,
+                       log_every=100, async_save=False, fail_at_step=fail)
+    return Trainer(cfg, tc, workdir=f"{root}/{wd}", device="cuda",
+                   log_fn=lambda s: None)
+
+
+ref = mk("ref")
+ref.run()
+made = []
+
+
+def make():
+    made.append(mk("sup", 3 if not made else None))
+    return made[-1]
+
+
+final = run_with_auto_restart(make, max_restarts=2)
+a = [t.cpu() for t in leaves(ref.params)]
+b = [t.cpu() for t in leaves(made[-1].params)]
+print(json.dumps({
+    "attempts": len(made), "final_step": final["step"],
+    "bitwise": len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b)),
+    "max_abs_diff": max((x - y).abs().max().item() for x, y in zip(a, b)),
+    "leaves": len(a), "loss": final["loss"],
+    "ref_loss": ref.metrics_log[-1]["loss"]}))
+"""
 ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS = 8, 512, 8   # internvl2: 256 patches + 256
 ZOO_FLIP_SHARE = 0.01   # MoE tokens the kernel lowering may route otherwise
                         # than its plain GEMM, beyond 1.5x the native's
@@ -1551,6 +1625,272 @@ def lm_zoo_phase(torch, dev, card, zero_counts, counts) -> dict:
     emit(phase="lm_zoo", case="done", launches=out,
          seconds=time.perf_counter() - t_phase)
     return out
+
+
+def train_phase(torch, dev, card, zero_counts, counts) -> dict:
+    """The training path at olmo_1b's full width and its checks (phase
+    ``train``); returns each kernel's launches in its counted runs."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get, get_reduced
+    from repro_torch.core import pfb_full, pfb_window
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pfb as pfbk
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import constant, make_optimizer, warmup_cosine
+    from repro_torch.tree import flatten_with_path, leaves
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+             cfg.vocab_size, cfg.compute_dtype, cfg.param_dtype,
+             cfg.tie_embeddings, cfg.tina_lowering, cfg.remat,
+             cfg.optimizer, cfg.opt_state_dtype)
+    if shape != (16, 2048, 16, 8192, 50304, "bfloat16", "float32", True,
+                 "native", True, "adamw", "float32"):
+        fail(f"train: {LM_ARCH} is not the config this phase was written "
+             f"for: {shape}")
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    lr_fn = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, n_steps)
+    fn, specs = step_lib.make_train_step(cfg, batch_size=b, seq_len=s,
+                                         lr_fn=lr_fn, grad_wire="bf16",
+                                         device=dev)
+    params = convert.stack_params(model_lib.init_model(
+        cfg, seed=TRAIN_SEED, device=dev))
+    st = make_optimizer(cfg, lr_fn).init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    n_stack = sum(t.numel() for t in leaves(params["stack"]))
+    data = SyntheticDataset(cfg, b, s, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data[i].items()}
+               for i in range(n_steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    zero_counts()
+    losses, step_ms, gnorms = [], [], []
+    for i in range(n_steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, st, m = fn(params, st, batches[i])
+        e1.record()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    for k, v in counts().items():
+        launches[k] = launches.get(k, 0) + v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        fail(f"train step: a loss is not finite: {losses}")
+    last5 = statistics.mean(losses[-5:])
+    if not last5 <= losses[0] - TRAIN_DROP:
+        fail(f"train step: the last 5 steps' mean loss {last5} is not "
+             f"{TRAIN_DROP} nats below step 1's {losses[0]}")
+    ms = statistics.median(step_ms[2:])
+    prof = profile_device(torch, lambda: fn(params, st, batches[0]), 1)
+    busy = sum(prof["groups"].values())
+    tokens = b * s
+    flops = 6 * n_params * tokens + 2 * n_stack * tokens
+    upd_bytes = TRAIN_UPDATE_BYTES * n_params
+    bound_ms = (flops / PEAK_BF16_FLOPS + upd_bytes / PEAK_BYTES_S) * 1e3
+    emit(phase="train", case="step", nvidia_smi=card, arch=LM_ARCH,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         params=n_params, stack_params=n_stack,
+         param_leaves=len(leaves(params)), compute_dtype=cfg.compute_dtype,
+         lowering=cfg.tina_lowering, remat=cfg.remat, grad_wire="bf16",
+         optimizer=cfg.optimizer, batch=b, seq=s, steps=n_steps,
+         lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, losses=losses,
+         grad_norms=gnorms, last5_mean_loss=last5,
+         drop_nats=losses[0] - last5, ms_per_step=ms,
+         ms_per_step_all=step_ms, first_step_ms=step_ms[0],
+         tokens_per_s=tokens / (ms / 1e3), peak_memory_gb=peak_gb,
+         device_busy_ms=busy or None,
+         device_busy_share=busy / ms if busy else None,
+         runtime_launches_per_step=prof["launches"],
+         runtime_launches_by_api=prof["by_api"], device_ms_by_group=
+         prof["groups"], top_kernels_ms=dict(sorted(
+             prof["top"].items(), key=lambda kv: -kv[1])[:8]),
+         bound_ms=bound_ms, bound_flops=flops, bound_update_bytes=upd_bytes,
+         bound_flops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+         bound_bytes_ms=upd_bytes / PEAK_BYTES_S * 1e3,
+         launches={k: v for k, v in launches.items() if v})
+
+    # microbatch: the same batch in 2 slices against 1, on copies
+    mb = {}
+    for k in (1, 2):
+        fk, _ = step_lib.make_train_step(cfg, batch_size=b, seq_len=s,
+                                         lr_fn=lr_fn, microbatch=k,
+                                         donate=False, device=dev)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, mk = fk(params, st, batches[0])
+        mb[k] = {"loss": float(mk["loss"]), "grad_norm":
+                 float(mk["grad_norm"]),
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    d_loss = abs(mb[2]["loss"] - mb[1]["loss"])
+    d_norm = abs(mb[2]["grad_norm"] - mb[1]["grad_norm"])
+    # the peaks are printed, not held: remat leaves little activation
+    # memory to halve, and the f32 accumulator adds a set of gradients
+    if not (d_loss <= 1e-2 * mb[1]["loss"]
+            and d_norm <= 5e-2 * mb[1]["grad_norm"]):
+        fail(f"train microbatch: 2 slices against 1: {mb}")
+    emit(phase="train", case="microbatch", batch=b, seq=s, runs=mb,
+         loss_abs_diff=d_loss, grad_norm_abs_diff=d_norm,
+         grad_norm_rel_diff=d_norm / mb[1]["grad_norm"])
+
+    # the kernel lowering has no gradient: refused
+    try:
+        step_lib.make_train_step(cfg.scaled(tina_lowering="kernel"),
+                                 batch_size=b, seq_len=s, device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("train: make_train_step accepted tina_lowering='kernel'")
+    emit(phase="train", case="refuses_kernel", error=refused[:120])
+    del params, st, batches, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # launch.train --full in a subprocess, then its checkpoint restored;
+    # its two checkpoints (14 GB each) go to the checkout's build/, the
+    # disk the kernels build on, and are removed after
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        wd = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LM_ARCH, "--full", "--steps", "4", "--batch-size", str(b),
+             "--seq-len", str(s), "--ckpt-every", "2", "--workdir", wd],
+            cwd=str(ROOT), env=env, capture_output=True, text=True,
+            timeout=600)
+        launcher_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"train launcher: exit {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        mgr = CheckpointManager(os.path.join(wd, "ckpt"))
+        if len(lines) != 4 or mgr.steps() != [2, 4]:
+            fail(f"train launcher: {len(lines)} metrics lines, checkpoints "
+                 f"at {mgr.steps()}; want 4 and [2, 4]")
+        t0 = time.perf_counter()
+        tree, meta = mgr.restore({"params": specs.params,
+                                  "opt_state": specs.opt_state}, step=4,
+                                 device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = {k: tuple(t.shape) for k, t in flatten_with_path(
+            {"params": specs.params, "opt_state": specs.opt_state})}
+        got = dict(flatten_with_path(tree))
+        if {k: tuple(t.shape) for k, t in got.items()} != want or \
+                any(not t.is_cuda for t in got.values()):
+            fail("train launcher: the restored tree's shapes or devices "
+                 "differ from the step's specs")
+        key = "params/embed/table"
+        on_disk = np.load(os.path.join(mgr.path(4), "params__embed__table"
+                                       ".npy"))
+        bits = np.array_equal(got[key].cpu().numpy().view(np.int32),
+                              on_disk.view(np.int32))
+        count = int(got["opt_state/count"])
+        if not bits or count != 4 or meta.get("step") != 4:
+            fail(f"train launcher: step 4 restored with count {count}, "
+                 f"metadata {meta}, {key} bit for bit: {bits}")
+        ckpt_gb = sum(os.path.getsize(os.path.join(mgr.path(4), f))
+                      for f in os.listdir(mgr.path(4))) / 1e9
+        del tree, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="train", case="launcher", arch=LM_ARCH, full=True, steps=4,
+         batch=b, seq=s, exit=run.returncode, seconds=launcher_s,
+         metrics_lines=len(lines), losses=[m["loss"] for m in lines],
+         step_s=[m["step_time"] for m in lines], checkpoints=[2, 4],
+         checkpoint_gb=ckpt_gb, restore_s=restore_s, leaves=len(want),
+         leaf_bits_equal=bits, restored_count=count)
+
+    # kill/resume bit for bit, deterministic, in a subprocess of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", RESUME_SCRIPT, tmp], cwd=str(ROOT),
+            env={**env, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+            capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"train resume: exit {run.returncode}: {run.stderr[-2000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    if not (res["bitwise"] and res["attempts"] == 2
+            and res["final_step"] == 6):
+        fail(f"train resume: {res}")
+    emit(phase="train", case="resume", arch=LM_ARCH, layers=2,
+         reduced=True, steps=6, batch=2, seq=16, ckpt_every=2,
+         fail_at_step=3, deterministic=True,
+         seconds=time.perf_counter() - t0, **res)
+
+    # the paper's PFB features into a masked-prediction step (the twin of
+    # examples/pfb_features.py): the PFB at the kernel lowering
+    rng = np.random.default_rng(0)
+    p_br, m_taps, bsz, n_frames = 64, 8, 2, 256
+    n_samples = p_br * (n_frames + m_taps - 1)
+    t = np.arange(n_samples)
+    sig = sum(np.sin(2 * np.pi * f * t + ph)
+              for f, ph in [(0.031, 0.0), (0.125, 1.0), (0.307, 2.0)])
+    sig = torch.as_tensor(sig + 0.1 * rng.standard_normal((bsz, n_samples)),
+                          dtype=torch.float32, device=dev)
+    taps = torch.as_tensor(pfb_window(p_br, m_taps), dtype=torch.float32,
+                           device=dev)
+    zero_counts()
+    spectra = pfb_full(sig, taps, lowering="kernel")
+    torch.cuda.synchronize()
+    pfb_launches = {k: v for k, v in counts().items() if v}
+    for k, v in pfb_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    if pfb_launches != {"pfb_fused": 1}:
+        fail(f"train pfb_features: the PFB launched {pfb_launches}, want "
+             f"pfb_fused once")
+    fr, fi = ops._fourier(p_br, str(dev))
+    plain = pfbk.pfb_fused_plain(ops._frames(sig, p_br),
+                                 taps.flip(0).contiguous(), fr, fi)
+    pfb_err = hold(torch, "train pfb_features pfb_fused", spectra,
+                   plain.reshape(spectra.shape), PFB_RTOL)
+    logmag = torch.log1p(spectra.abs()).float()
+    hcfg = get_reduced("hubert_xlarge")
+    feat = model_lib.AUDIO_FEAT_DIM
+    frames = logmag.repeat(1, 1, -(-feat // p_br))[..., :feat].contiguous()
+    targets = torch.as_tensor(rng.integers(0, hcfg.vocab_size,
+                                           frames.shape[:2]),
+                              dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(rng.random(frames.shape[:2]) < 0.3, device=dev)
+    hbatch = {"frames": frames, "targets": targets, "mask": mask}
+    hfn, _ = step_lib.make_train_step(hcfg, batch_size=bsz,
+                                      seq_len=frames.shape[1],
+                                      lr_fn=constant(1e-3), grad_wire="none",
+                                      device=dev)
+    hp = convert.stack_params(model_lib.init_model(hcfg, seed=0,
+                                                   device=dev))
+    hst = make_optimizer(hcfg, constant(1e-3)).init(hp)
+    hp, hst, hm = hfn(hp, hst, hbatch)
+    with torch.no_grad():
+        loss2, _ = model_lib.loss_fn(convert.unstack_views(hp), hbatch, hcfg)
+    loss1, loss2 = float(hm["loss"]), float(loss2)
+    if not loss2 < loss1:
+        fail(f"train pfb_features: one step took the loss {loss1} to "
+             f"{loss2}")
+    emit(phase="train", case="pfb_features", x=[bsz, n_samples], p=p_br,
+         m=m_taps, spectra=list(spectra.shape), launches=pfb_launches,
+         pfb_max_abs_err=pfb_err,
+         pfb_max_abs_plain=torch.view_as_real(plain).abs().max().item(),
+         features=list(frames.shape), masked_frames=float(hm["tokens"]),
+         loss_before=loss1, loss_after=loss2)
+    emit(phase="train", case="done", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> int:
@@ -4774,6 +5114,11 @@ def main() -> int:
 
     # -- lm_zoo: the zoo's MoE, recurrent, vlm and audio families ----------
     zoo_launches = lm_zoo_phase(torch, dev, card, zero_counts, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- train: the training path at olmo_1b full width ---------------------
+    train_launches = train_phase(torch, dev, card, zero_counts, counts)
 
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
@@ -4843,11 +5188,13 @@ def main() -> int:
                      "library_ms": ms[lib] if lib else None})
     rows.append(lm_row)
     for row in rows:
-        # the kernel's launches in the mesh phase's counted runs, and in
-        # each lm_zoo config's (the bf16 GEMM alone runs there)
+        # the kernel's launches in the mesh phase's counted runs, in each
+        # lm_zoo config's (the bf16 GEMM alone runs there) and in the
+        # train phase's (the native lowering; the PFB of pfb_features)
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
         row["lm_zoo_launches"] = (zoo_launches if row["name"] == "matmul_bf16"
                                   else dict.fromkeys(zoo_launches, 0))
+        row["train_launches"] = train_launches.get(row["name"], 0)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

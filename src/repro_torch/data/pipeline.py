@@ -1,25 +1,34 @@
 """Data pipeline: deterministic synthetic batches, the port of the
-reference's ``repro.data.pipeline`` (``batch_shapes``,
-``_structured_tokens``, ``make_batch``).  numpy only: the same seed gives
-the reference's tokens, bit for bit.
+reference's ``repro.data.pipeline``.  numpy only: the same seed gives
+the reference's batches, bit for bit.
+
+  * ``SyntheticDataset``: a seeded, restart-deterministic stream (a
+    step's batch is a pure function of seed, process index and step),
+    host numpy, double-buffered by ``prefetch``;
+  * ``input_specs``: the same tree as tensors on the ``meta`` device
+    (shapes and dtypes, nothing allocated).
 
 Batch trees per family:
   LM (dense/moe/hybrid/ssm):  {"tokens": (B, S) int32}
   VLM:   {"tokens": (B, S_text) int32, "patch_embeds": (B, P, 1024) f32}
   audio: {"frames": (B, T, 512) f32, "targets": (B, T) int32,
           "mask": (B, T) bool}
-
-Not yet: ``input_specs`` (the dry run), ``SyntheticDataset`` and
-``prefetch`` (training).
 """
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
+import torch
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 
 Batch = dict
+_TORCH_DTYPES = {np.int32: torch.int32, np.float32: torch.float32,
+                 np.bool_: torch.bool}
 
 
 def batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -37,6 +46,12 @@ def batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
             "mask": ((batch, seq), np.bool_),
         }
     return {"tokens": ((batch, seq), np.int32)}
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int) -> Batch:
+    """The batch tree as ``meta`` tensors (zero allocation)."""
+    return {k: torch.empty(shape, dtype=_TORCH_DTYPES[dtype], device="meta")
+            for k, (shape, dtype) in batch_shapes(cfg, batch, seq).items()}
 
 
 def _structured_tokens(rng, shape, vocab: int) -> np.ndarray:
@@ -70,4 +85,51 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, *,
     return out
 
 
-__all__ = ["batch_shapes", "make_batch"]
+class SyntheticDataset:
+    """Deterministic seeded stream of batches.  ``process_index`` gives
+    each data-parallel host its own disjoint stream."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq: int, *,
+                 seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+
+    def __iter__(self) -> Iterator[Batch]:
+        step = 0
+        while True:
+            yield self[step]
+            step += 1
+
+    def __getitem__(self, step: int) -> Batch:
+        # seed folds in (stream step, process) => restart-deterministic
+        s = (self.seed * 1_000_003 + step) * 65_537 + self.process_index
+        return make_batch(self.cfg, self.batch, self.seq, seed=s)
+
+
+def prefetch(it: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
+    """Host-side buffering on a background thread: at most ``depth``
+    items ahead, in order."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        finally:
+            q.put(stop)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is stop:
+            return
+        yield item
+
+
+__all__ = ["batch_shapes", "input_specs", "make_batch", "SyntheticDataset",
+           "prefetch"]

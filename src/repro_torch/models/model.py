@@ -1,12 +1,16 @@
 """Model assembly: one decoder/encoder covering all 10 assigned archs,
-the port of the reference's ``repro.models.model`` for serving (forward,
-prefill into caches, decode).
+the port of the reference's ``repro.models.model``: forward, prefill
+into caches, decode, and the training loss (:func:`loss_fn`).
 
 The reference runs its layer stack as ``lax.scan`` over repeats of
-``cfg.block_pattern`` with remat; serving needs neither, so the stack
-here is a plain loop over the repeats (``params["stack"]``, one dict per
-repeat: the reference's vmapped tree unstacked, see
-:mod:`repro_torch.models.convert`) and then the unrolled tail.
+``cfg.block_pattern``; here the stack is a plain loop over the repeats
+(``params["stack"]``, one dict per repeat: the reference's vmapped tree
+unstacked, see :mod:`repro_torch.models.convert`, whose training layout
+hands the loop views of the stacked leaves) and then the unrolled tail.
+Without caches, and with autograd on, the loop takes the reference's
+remat: one ``torch.utils.checkpoint`` per superblock (``cfg.remat``), or
+per group of ``cfg.remat_group`` superblocks (sqrt-remat, the remainder
+per superblock).  Serving (caches given) runs the blocks as they are.
 
 Blocks: ``attn`` (attention, then an MLP or, for ``cfg.moe``, the
 :mod:`~repro_torch.models.moe` block), ``rglru``
@@ -27,6 +31,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import functions as tina
@@ -234,28 +239,66 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                      for kind in tail]}
 
 
+def _remat_segments(cfg: ModelConfig, reps: int, remat: bool
+                    ) -> list[tuple[range, bool]]:
+    """The stack's superblocks as (repeats, checkpointed) runs, the
+    reference's schedule: one run per superblock, checkpointed where
+    ``remat``; with ``cfg.remat_group`` g > 1 (and ``cfg.use_scan``, as
+    the reference's unrolled stack takes no groups), one checkpointed run
+    per g superblocks, then the remainder one superblock a run."""
+    g = cfg.remat_group if cfg.use_scan else 1
+    if g > 1:
+        n_grp = reps // g
+        return ([(range(j * g, (j + 1) * g), True) for j in range(n_grp)]
+                + [(range(r, r + 1), remat)
+                   for r in range(n_grp * g, reps)])
+    return [(range(r, r + 1), remat) for r in range(reps)]
+
+
 def _run_blocks(params: Params, x: Tensor, cfg: ModelConfig, *,
-                positions: Tensor, pos0: int, caches: Optional[dict]
-                ) -> tuple[Tensor, Optional[dict], dict]:
+                positions: Tensor, pos0: int, caches: Optional[dict],
+                remat: bool = False) -> tuple[Tensor, Optional[dict], dict]:
     """The stack, then the tail; the blocks' MoE statistics summed in
-    layer order, as the reference's ``_run_blocks`` sums them."""
+    layer order, as the reference's ``_run_blocks`` sums them.  ``remat``
+    (and ``cfg.remat_group``) checkpoint the stack when there are no
+    caches and autograd is on."""
     pat, reps, tail = _pattern_layout(cfg)
     angles = layers.rope_angles(positions, cfg)
-    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
-           for k in AUX_KEYS}
-    layout = [(params["stack"][r][f"sub{i}"], kind,
-               None if caches is None else caches["stack"][r][f"sub{i}"])
-              for r in range(reps) for i, kind in enumerate(pat)]
-    layout += [(params["tail"][i], kind,
-                None if caches is None else caches["tail"][i])
-               for i, kind in enumerate(tail)]
-    for p, kind, c in layout:
-        # c is written in place: the returned cache is c itself
-        x, _, aux_l = apply_block(p, x, cfg, kind, positions=positions,
-                                  pos0=pos0, cache=c, angles=angles)
-        for k in AUX_KEYS:
-            if k in aux_l:
-                aux[k] = aux[k] + aux_l[k]
+
+    def run(x, blocks):
+        aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+               for k in AUX_KEYS}
+        for p, kind, c in blocks:
+            # c is written in place: the returned cache is c itself
+            x, _, aux_l = apply_block(p, x, cfg, kind, positions=positions,
+                                      pos0=pos0, cache=c, angles=angles)
+            for k in AUX_KEYS:
+                if k in aux_l:
+                    aux[k] = aux[k] + aux_l[k]
+        return x, aux
+
+    def stack(rs):
+        return [(params["stack"][r][f"sub{i}"], kind,
+                 None if caches is None else caches["stack"][r][f"sub{i}"])
+                for r in rs for i, kind in enumerate(pat)]
+
+    if caches is None and torch.is_grad_enabled():
+        segments = _remat_segments(cfg, reps, remat)
+    else:
+        segments = [(range(reps), False)]
+    aux = None
+    for rs, ckpt in segments:
+        if ckpt:
+            x, aux_s = checkpoint(run, x, stack(rs), use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, aux_s = run(x, stack(rs))
+        aux = aux_s if aux is None else {k: aux[k] + aux_s[k]
+                                         for k in AUX_KEYS}
+    x, aux_t = run(x, [(params["tail"][i], kind,
+                        None if caches is None else caches["tail"][i])
+                       for i, kind in enumerate(tail)])
+    aux = aux_t if aux is None else {k: aux[k] + aux_t[k] for k in AUX_KEYS}
     return x, caches, aux
 
 
@@ -287,15 +330,17 @@ def _logits(params: Params, h: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig, *,
-            caches: Optional[dict] = None
+            caches: Optional[dict] = None, remat: Optional[bool] = None
             ) -> tuple[Tensor, Optional[dict], dict]:
     """Full-sequence forward (prefill when ``caches`` are given: they are
     filled in place).  Returns (logits, caches, aux); aux holds the
     reference's MoE statistics summed over the blocks (zero without
-    experts)."""
+    experts).  ``remat`` (default ``cfg.remat``) checkpoints the stack
+    for training: the same values, recomputed in the backward."""
+    remat = cfg.remat if remat is None else remat
     h, positions = embed_inputs(params, batch, cfg)
     h, caches, aux = _run_blocks(params, h, cfg, positions=positions,
-                                 pos0=0, caches=caches)
+                                 pos0=0, caches=caches, remat=remat)
     return _logits(params, h, cfg), caches, aux
 
 
@@ -319,3 +364,47 @@ def _cache_pos(caches: dict) -> int:
     every = [c for sb in caches["stack"] for c in sb.values()]
     every += caches["tail"]
     return max([0] + [c["pos"] for c in every if "pos" in c])
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _ce(logits: Tensor, targets: Tensor, mask: Tensor
+        ) -> tuple[Tensor, Tensor]:
+    """Mean cross-entropy over ``mask`` and its denominator, the
+    reference's where-iota form: f32 logits, ``logsumexp``, and the gold
+    logit taken as a masked sum over the vocab (not a gather)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, -1)
+    vocab_ids = torch.arange(logits.shape[-1], dtype=torch.int32,
+                             device=logits.device)
+    gold = torch.where(vocab_ids == targets[..., None].to(torch.int32),
+                       logits, 0.0).sum(-1)
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / denom, denom
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig
+            ) -> tuple[Tensor, dict]:
+    """(loss + 0.01 * moe_aux_loss, metrics): causal next-token CE; the
+    vlm's on its text positions alone; hubert's masked-prediction CE on
+    ``batch["targets"]`` where ``batch["mask"]``.  Metrics: ``loss``,
+    ``tokens`` (the CE's denominator), ``moe_aux_loss``,
+    ``moe_drop_frac``."""
+    logits, _, aux = forward(params, batch, cfg)
+    if cfg.frontend == "audio_stub":
+        loss, denom = _ce(logits, batch["targets"], batch["mask"].float())
+    elif cfg.frontend == "vision_stub":
+        npatch = batch["patch_embeds"].shape[1]
+        targets = batch["tokens"][:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        loss, denom = _ce(logits[:, npatch:-1], targets, mask)
+    else:
+        targets = batch["tokens"][:, 1:]
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        loss, denom = _ce(logits[:, :-1], targets, mask)
+    total = loss + 0.01 * aux["moe_aux_loss"]
+    return total, {"loss": loss, "tokens": denom, **aux}
