@@ -7,8 +7,11 @@ and ``cascaded_channelizer`` pipelines, the Table-1 op sweep and a
 and bf16; then streams every pipeline in chunks, autotunes plans,
 serves ``pfb_power`` and the spectrogram through ``PipelineService``,
 runs every pipeline, a stream and a service batch-sharded over a
-1-device mesh and over 4 logical shards of the card, and serves olmo_1b
-(prefill + decode) through the model zoo's port.
+1-device mesh and over 4 logical shards of the card, serves olmo_1b
+(prefill + decode) and the zoo's other families through the model zoo's
+port, trains olmo_1b, runs the dry-run and its roofline against those
+measurements, trains through the GPipe pipeline over logical stages, and
+runs the examples' twins.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -300,12 +303,34 @@ Prints one JSON line per phase:
             kernel lowering, one ``pfb_fused`` launch held against its
             plain version, log1p|.| features into reduced hubert_xlarge:
             one masked-prediction step lowers the loss)
+  dryrun    the port's dry-run (``launch.dryrun``) on meta tensors, the
+            card's allocated memory unmoved: ``count_params`` of the ten
+            full configs (olmo_1b within 1 % of its hand count, kimi
+            above 0.9e12 with under 6 % active), the grid's olmo_1b and
+            kimi cells (6 ok, 2 skip; the whole 40-cell grid runs through
+            ``python -m repro_torch.launch.dryrun --all``), and the lm
+            prefill, a decode step and the train step at this script's
+            shapes: counted FLOPs, the H100 roofline's bound and fraction
+            beside the ms the lm and train phases measured; the train
+            step's counted FLOPs within 10 % of the train phase's hand
+            count, its predicted peak beside the measured one
+  pipeline  olmo_1b at full width through the GPipe step
+            (``distributed.pipeline``) over 4 logical stages of the card,
+            4 microbatches of batch 8 x 512, 10 steps: step 1's loss and
+            grad norm against ``make_train_step(microbatch=4)`` on the
+            same weights and batch (1 %, 5 %), the loss falls, no kernel
+            launched (native); ms a step, tokens/s and peak beside the
+            train phase's; on distinct cards too where there are several
+  examples  each ``examples/torch_*.py`` twin run as a subprocess on the
+            card at its default size: exit 0, its JAX original's OK
+            lines, the kernels it must launch, seconds
   kernels   the kernel table, all 13 TPU kernels and the bf16 instance of
             the GEMM (per decode step of the lm phase: its 112 launches'
             device ms, bounds, plain and torch.matmul times summed):
             launches, errors, times, the launches in the mesh phase's
-            counted runs (``mesh_launches``) and the train phase's
-            (``train_launches``), bounds (an f32 product at
+            counted runs (``mesh_launches``), the train phase's
+            (``train_launches``) and the examples phase's
+            (``examples_launches``), bounds (an f32 product at
             the TF32 tensor-core peak; a bf16 one at the bf16 peak; the fused
             PFB's FIR at the fp32 pipe beside its DFT at TF32; the
             fp32-pipe figures print beside them in the path lines)
@@ -390,6 +415,49 @@ TRAIN_DROP = 0.5      # nats, last 5 steps' mean below step 1's: the bar of
 TRAIN_UPDATE_BYTES = 32   # a parameter's bytes in the update: p, g, m, v
                           # read (16), p, m, v written (12), the bf16
                           # wire's write and read (4)
+# the dryrun phase: the grid's cells of these archs (the whole grid, 40
+# cells, runs through `python -m repro_torch.launch.dryrun --all`: rwkv6's
+# WKV loop alone takes minutes of fake ops at 4k and 32k tokens)
+DRYRUN_ARCHS = ("olmo_1b", "kimi_k2_1t_a32b")
+DRYRUN_FLOPS_GAP = 0.10   # counted train FLOPs vs the train phase's hand
+                          # count (6·N·T + 2·N_stack·T): attention adds
+                          # ~3 %, remat's early stop (no recompute of a
+                          # superblock's down projection) takes ~6 % off
+# the pipeline phase: olmo_1b's full config over 4 logical stages
+PIPE_STAGES, PIPE_MICRO, PIPE_STEPS = 4, 4, 10
+PIPE_TOL = 1e-5   # step 1 against make_train_step(microbatch=PIPE_MICRO,
+                  # grad_wire="none"): the loss and grad norm relative,
+                  # the updated params absolute (the CPU tests' bar),
+                  # AdamW's first moment (the clipped gradient's tenth)
+                  # relative to its largest
+# the examples phase: each twin at its default size on the card, the
+# lines its JAX original prints when it passes, and the kernels its run
+# must launch
+EXAMPLES = (
+    ("torch_quickstart", ["quickstart: all mappings verified"],
+     ("elementwise_binary", "matmul", "dft", "fir_valid", "unfold",
+      "pfb_fused")),
+    ("torch_pipeline_quickstart", ["equals offline",
+                                   "pipeline quickstart: all stages "
+                                   "verified"],
+     ("unfold", "elementwise_binary", "dft", "elementwise_chain")),
+    ("torch_serve_batched", ["arch=olmo-1b", "sample generations"],
+     ("matmul_bf16",)),
+    ("torch_pfb_features", ["(decreased: True)"], ("pfb_fused",)),
+    ("torch_train_lm", ["trained tiny for 200 steps"], ()),
+)
+# runs a twin as __main__ in a subprocess, then prints the launches its
+# kernels' wrappers counted: argv = checkout root, script, its arguments
+EXAMPLE_SCRIPT = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+path = sys.argv[2]
+sys.argv = [path] + sys.argv[3:]
+chip_smoke.zero_counts()
+runpy.run_path(path, run_name="__main__")
+print("launches " + json.dumps(chip_smoke.counts()), flush=True)
+"""
 # the kill/resume check, run in a subprocess under deterministic
 # algorithms (tests/test_runtime.py's setup): argv[1] is a scratch dir
 RESUME_SCRIPT = r"""
@@ -850,9 +918,10 @@ def profile_device(torch, fn, n: int) -> dict:
             "launches": launches / n}
 
 
-def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
+def lm_phase(torch, dev, card, zero_counts, counts) -> tuple:
     """The model zoo's serving path at ``LM_ARCH``'s full width (phase
-    ``lm``); returns the kernel table's row of the bf16 GEMM."""
+    ``lm``); returns the kernel table's row of the bf16 GEMM and the
+    prefill's and a decode step's device ms."""
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import step as step_lib
@@ -1180,7 +1249,9 @@ def lm_phase(torch, dev, card, zero_counts, counts) -> dict:
             "bound_ms": step_sum("bound_ms"),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in dec) else "operations",
-            "library_ms": step_sum("torch_matmul_ms")}
+            "library_ms": step_sum("torch_matmul_ms")}, {
+                "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                "batch": b, "prompt": s, "cache": max_len}
 
 
 class MoeRoutes:
@@ -1627,9 +1698,10 @@ def lm_zoo_phase(torch, dev, card, zero_counts, counts) -> dict:
     return out
 
 
-def train_phase(torch, dev, card, zero_counts, counts) -> dict:
+def train_phase(torch, dev, card, zero_counts, counts) -> tuple:
     """The training path at olmo_1b's full width and its checks (phase
-    ``train``); returns each kernel's launches in its counted runs."""
+    ``train``); returns each kernel's launches in its counted runs and
+    the step's ms, peak memory and hand bound."""
     import numpy as np
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get, get_reduced
@@ -1890,7 +1962,348 @@ def train_phase(torch, dev, card, zero_counts, counts) -> dict:
          loss_before=loss1, loss_after=loss2)
     emit(phase="train", case="done", launches=launches,
          seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, {"ms": ms, "peak_gb": peak_gb, "flops": flops,
+                      "bound_ms": bound_ms, "batch": b, "seq": s}
+
+
+def dryrun_phase(torch, card, lm_times, train_times) -> None:
+    """The port's dry-run (``repro_torch.launch.dryrun``) on the card's
+    host (phase ``dryrun``): parameter counts, the grid's cells of
+    ``DRYRUN_ARCHS``, and the roofline of chip_smoke's own lm and train
+    shapes beside what the lm and train phases measured.  It runs on
+    meta tensors: the card's allocated memory must not move."""
+    from repro_torch.analysis.roofline import HW
+    from repro_torch.configs import ARCHS, get
+    from repro_torch.launch import dryrun, shapes
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+
+    def untouched(what):
+        if torch.cuda.memory_allocated() != before:
+            fail(f"dryrun {what}: the card's allocated memory moved from "
+                 f"{before} to {torch.cuda.memory_allocated()} bytes")
+
+    t0 = time.perf_counter()
+    counted = {a: dryrun.count_params(get(a)) for a in ARCHS}
+    untouched("count_params")
+    d, ff, v, n_l = 2048, 8192, 50304, 16
+    hand = v * d + n_l * (4 * d * d + 3 * d * ff)
+    olmo, olmo_active = counted["olmo_1b"]
+    kimi, kimi_active = counted["kimi_k2_1t_a32b"]
+    if not (abs(olmo - hand) / hand < 0.01 and olmo_active == olmo):
+        fail(f"dryrun count_params: olmo_1b {olmo} ({olmo_active} active) "
+             f"against the hand count {hand}")
+    if not (kimi > 0.9e12 and kimi_active < 0.06 * kimi):
+        fail(f"dryrun count_params: kimi {kimi}, active {kimi_active}")
+    emit(phase="dryrun", case="count_params",
+         total={a: c[0] for a, c in counted.items()},
+         active={a: c[1] for a, c in counted.items()}, olmo_hand=hand,
+         kimi_active_share=kimi_active / kimi,
+         seconds=time.perf_counter() - t0)
+
+    status = {"ok": 0, "skip": 0}
+    for arch, cell, skip in shapes.cells(DRYRUN_ARCHS):
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(arch, cell.name)
+        untouched(f"{arch} {cell.name}")
+        if row["status"] != ("skip" if skip else "ok"):
+            fail(f"dryrun {arch} {cell.name}: {row}")
+        status[row["status"]] += 1
+        extra = {} if skip else dict(
+            bottleneck=row["bottleneck"], t_bound_ms=max(
+                row["t_compute_ms"], row["t_memory_refined_ms"],
+                row["t_collective_ms"]),
+            t_compute_ms=row["t_compute_ms"],
+            t_memory_refined_ms=row["t_memory_refined_ms"],
+            hbm_ok=row["hbm_ok"], useful_ratio=row["useful_ratio"],
+            roofline_fraction=row["roofline_fraction"])
+        emit(phase="dryrun", case="cell", arch=arch, shape=cell.name,
+             status=row["status"], skip_reason=row["skip_reason"],
+             seconds=time.perf_counter() - t0, **extra)
+    if status != {"ok": 6, "skip": 2}:
+        fail(f"dryrun grid ({DRYRUN_ARCHS}): {status}, want 6 ok, 2 skip")
+
+    # the count tied to what the card measured: chip_smoke's own shapes,
+    # the whole step run (no probes), so the peak is the whole step's
+    cells = (("lm_prefill", shapes.ShapeCell(
+        "lm_prefill", "prefill", lm_times["prompt"], lm_times["batch"]),
+              lm_times["prefill_ms"]),
+             ("lm_decode", shapes.ShapeCell(
+                 "lm_decode", "decode", lm_times["cache"],
+                 lm_times["batch"]), lm_times["decode_ms"]),
+             ("train", shapes.ShapeCell("train", "train", train_times["seq"],
+                                        train_times["batch"]),
+              train_times["ms"]))
+    for name, cell, ms in cells:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(LM_ARCH, cell, scan_correct=False)
+        untouched(name)
+        mem = row["memory"]
+        bound_ms = max(row["t_compute_ms"], row["t_memory_refined_ms"])
+        flops = row["hlo_gflops_per_chip"] * 1e9
+        extra = {}
+        if name == "train":
+            gap = flops / train_times["flops"] - 1
+            if abs(gap) > DRYRUN_FLOPS_GAP:
+                fail(f"dryrun train: counted {flops} FLOPs, the train "
+                     f"phase's hand count {train_times['flops']}: "
+                     f"{gap:+.3f}")
+            extra = dict(hand_flops=train_times["flops"],
+                         counted_vs_hand=gap,
+                         predicted_peak_gb=(mem["argument_size_in_bytes"]
+                                            + mem["output_size_in_bytes"]
+                                            + mem["temp_size_in_bytes"])
+                         / 1e9,
+                         measured_peak_gb=train_times["peak_gb"])
+        emit(phase="dryrun", case="measured", nvidia_smi=card, hw=HW.name,
+             arch=LM_ARCH, cell=name, kind=cell.kind,
+             batch=cell.global_batch, seq=cell.seq_len,
+             counted_flops=flops, op_gbytes=row["hlo_gbytes_per_chip"],
+             model_flops=row["model_gflops"] * 1e9,
+             bottleneck=row["bottleneck"], t_bound_ms=bound_ms,
+             t_compute_ms=row["t_compute_ms"],
+             t_memory_refined_ms=row["t_memory_refined_ms"],
+             roofline_fraction=row["roofline_fraction"], measured_ms=ms,
+             bound_over_measured=bound_ms / ms,
+             achieved_model_flops_share=row["model_gflops"] * 1e9
+             / (ms / 1e3 * HW.peak_flops_bf16),
+             memory=mem, seconds=time.perf_counter() - t0, **extra)
+    emit(phase="dryrun", case="done", seconds=time.perf_counter() - t_phase)
+
+
+def pipeline_phase(torch, dev, card, train_times) -> None:
+    """The GPipe train step (``repro_torch.distributed.pipeline``) at
+    olmo_1b's full width over ``PIPE_STAGES`` logical stages of the card
+    (phase ``pipeline``): step 1 against ``make_train_step`` in as many
+    microbatches on the same weights and batch, the loss falling over
+    ``PIPE_STEPS`` steps, ms a step beside the train phase's; across
+    cards too where there are several.  Step 1 is held to ``PIPE_TOL``
+    in its loss, grad norm, updated params and first moments: at random
+    init the loss sits near ln V whatever the blocks do, so the params
+    and moments are what show a dropped microbatch or stage.  The
+    reference step runs without the bf16 gradient wire, which the
+    pipeline (as the reference's) does not cast through: the wire's
+    rounding of the f32 table's gradient flips the sign of AdamW's
+    first step where microbatches nearly cancel."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.distributed.pipeline import make_pipeline_train_step
+    from repro_torch.launch.mesh import BatchMesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.tree import flatten_with_path
+
+    t_phase = time.perf_counter()
+    cfg = get(LM_ARCH)
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, PIPE_STEPS
+    lr_fn = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, n_steps)
+    data = SyntheticDataset(cfg, b, s, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data[i].items()}
+               for i in range(n_steps)]
+
+    def fresh():
+        p = convert.stack_params(model_lib.init_model(cfg, seed=TRAIN_SEED,
+                                                      device=dev))
+        return p, make_optimizer(cfg, lr_fn).init(p)
+
+    params, st = fresh()
+    ref, _ = step_lib.make_train_step(cfg, batch_size=b, seq_len=s,
+                                      lr_fn=lr_fn, microbatch=PIPE_MICRO,
+                                      grad_wire="none", donate=False,
+                                      device=dev)
+    want_p, want_st, mr = ref(params, st, batches[0])
+    want = {"loss": float(mr["loss"]), "grad_norm": float(mr["grad_norm"])}
+    want_p = dict(flatten_with_path(want_p))
+    want_m = dict(flatten_with_path(want_st["m"]))
+    del ref, mr, want_st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def max_diff(tree, want):
+        got = dict(flatten_with_path(tree))
+        if got.keys() != want.keys():
+            fail(f"pipeline step 1: leaves {sorted(got.keys() ^ want.keys())}"
+                 " differ from make_train_step's")
+        return (max(float((got[k].float() - w.float()).abs().max())
+                    for k, w in want.items()),
+                max(float(w.float().abs().max()) for w in want.values()))
+
+    mesh = BatchMesh((dev,) * PIPE_STAGES, axis="stage")
+    step, _ = make_pipeline_train_step(cfg, mesh, n_micro=PIPE_MICRO,
+                                       lr_fn=lr_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, gnorms, step_ms = [], [], []
+    for i in range(n_steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, st, m = step(params, st, batches[i])
+        e1.record()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        if i == 0:          # outside the timed events
+            dp, _ = max_diff(params, want_p)
+            dm, m_max = max_diff(st["m"], want_m)
+            del want_p, want_m
+            torch.cuda.reset_peak_memory_stats()   # the peak without them
+    launches = {k: v for k, v in counts().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"pipeline: a loss or grad norm is not finite: {losses}")
+    if not (abs(losses[0] - want["loss"]) <= PIPE_TOL * want["loss"]
+            and abs(gnorms[0] - want["grad_norm"])
+            <= PIPE_TOL * want["grad_norm"]
+            and dp <= PIPE_TOL and dm <= PIPE_TOL * m_max):
+        fail(f"pipeline step 1: loss {losses[0]}, grad norm {gnorms[0]}, "
+             f"params max |diff| {dp}, first moments max |diff| {dm} (of "
+             f"{m_max}); make_train_step(microbatch={PIPE_MICRO}, "
+             f"grad_wire='none'): {want}")
+    if not losses[-1] < losses[0]:
+        fail(f"pipeline: the loss did not fall: {losses}")
+    if launches:
+        fail(f"pipeline: the native lowering launched kernels: {launches}")
+    ms = statistics.median(step_ms[2:])
+    prof = profile_device(torch, lambda: step(params, st, batches[-1]), 1)
+    busy = sum(prof["groups"].values())
+    emit(phase="pipeline", case="step", nvidia_smi=card, arch=LM_ARCH,
+         stages=PIPE_STAGES, mesh=[str(d) for d in mesh.devices],
+         n_micro=PIPE_MICRO, batch=b, seq=s, steps=n_steps,
+         compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+         optimizer=cfg.optimizer, losses=losses, grad_norms=gnorms,
+         step1_train_step=want,
+         step1_loss_rel_diff=abs(losses[0] - want["loss"]) / want["loss"],
+         step1_grad_norm_rel_diff=abs(gnorms[0] - want["grad_norm"])
+         / want["grad_norm"], step1_params_max_abs_diff=dp,
+         step1_first_moment_max_abs_diff=dm, step1_first_moment_max=m_max,
+         tol=PIPE_TOL, ms_per_step=ms, ms_per_step_all=step_ms,
+         tokens_per_s=b * s / (ms / 1e3), peak_memory_gb=peak_gb,
+         train_ms_per_step=train_times["ms"],
+         train_peak_memory_gb=train_times["peak_gb"],
+         vs_train_step=ms / train_times["ms"],
+         device_busy_ms=busy or None,
+         device_busy_share=busy / ms if busy else None,
+         runtime_launches_per_step=prof["launches"],
+         device_ms_by_group=prof["groups"], top_kernels_ms=dict(sorted(
+             prof["top"].items(), key=lambda kv: -kv[1])[:8]))
+    del params, st, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # across cards: the same first step on as many distinct cards as
+    # split the 16 repeats (2, 4), from the same weights
+    n = torch.cuda.device_count()
+    k = max((c for c in (2, 4) if c <= n), default=1)
+    if k == 1:
+        emit(phase="pipeline", case="cards", cards=n,
+             note="one card: only logical stages ran")
+    else:
+        params, st = fresh()
+        mesh = BatchMesh(tuple(torch.device("cuda", i) for i in range(k)),
+                         axis="stage")
+        step, _ = make_pipeline_train_step(cfg, mesh, n_micro=PIPE_MICRO,
+                                           lr_fn=lr_fn)
+        _, _, m = step(params, st, batches[0])
+        got = float(m["loss"])
+        if abs(got - losses[0]) > PIPE_TOL * losses[0]:
+            fail(f"pipeline on {k} cards: step 1 loss {got}, {losses[0]} "
+                 "on logical stages")
+        emit(phase="pipeline", case="cards", cards=n, stages=k,
+             step1_loss=got, logical_step1_loss=losses[0])
+        del params, st, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="pipeline", case="done", seconds=time.perf_counter() - t_phase)
+
+
+def examples_phase(card) -> dict:
+    """Each example twin (``examples/torch_*.py``) as a subprocess on the
+    card at its default size (phase ``examples``): exit 0, its OK lines,
+    the kernels it must launch; returns the launches summed over the
+    twins."""
+    total: dict = {}
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    for name, ok_lines, must in EXAMPLES:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            args = ["--workdir", os.path.join(tmp, "run")] \
+                if name == "torch_train_lm" else []
+            env = {**os.environ, "PYTHONPATH": str(SRC),
+                   "TINA_AUTOTUNE_CACHE": os.path.join(tmp, "tune.json")}
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-c", EXAMPLE_SCRIPT, str(ROOT),
+                 str(ROOT / "examples" / f"{name}.py"), *args], cwd=tmp,
+                env=env, capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"examples {name}: exit {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        missing = [line for line in ok_lines if line not in run.stdout]
+        tail = [line for line in run.stdout.splitlines()
+                if line.startswith("launches ")]
+        if missing or "MISMATCH" in run.stdout or not tail:
+            fail(f"examples {name}: lines {missing} missing: "
+                 f"{run.stdout[-2000:]}")
+        launches = {k: v for k, v in json.loads(tail[-1][9:]).items() if v}
+        if not all(launches.get(k) for k in must):
+            fail(f"examples {name}: launched {launches}, must launch "
+                 f"{must}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit(phase="examples", case=name, nvidia_smi=card, exit=0,
+             seconds=seconds, launches=launches,
+             ok_lines=[line for line in run.stdout.splitlines()
+                       if any(o in line for o in ok_lines)])
+    emit(phase="examples", case="done", launches=total,
+         seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels import dft as dftk
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import fir as firk
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import pfb as pfbk
+    from repro_torch.kernels import unfold as unfk
+    pfbk.LAUNCHES = pfbk.FRONTEND_LAUNCHES = 0
+    ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
+    dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
+    firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
+    mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = mmk.BF16_LAUNCHES = 0
+    firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
+
+
+def counts() -> dict:
+    """Each kernel wrapper's launches since :func:`zero_counts`."""
+    from repro_torch.kernels import dft as dftk
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import fir as firk
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import pfb as pfbk
+    from repro_torch.kernels import unfold as unfk
+    return {"pfb_fused": pfbk.LAUNCHES,
+            "pfb_frontend": pfbk.FRONTEND_LAUNCHES,
+            "elementwise_chain": ew.LAUNCHES,
+            "elementwise_binary": ew.BINARY_LAUNCHES,
+            "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
+            "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
+            "matmul": mmk.LAUNCHES, "tf32_planes": mmk.PLANES_LAUNCHES,
+            "matmul_bf16": mmk.BF16_LAUNCHES,
+            "matmul_int8": mmk.INT8_LAUNCHES,
+            "dft_int8": dftk.INT8_LAUNCHES,
+            "fir_valid_int8": firk.INT8_LAUNCHES,
+            "pfb_fused_int8": pfbk.INT8_LAUNCHES}
 
 
 def main() -> int:
@@ -1917,28 +2330,6 @@ def main() -> int:
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import pfb as pfbk
     from repro_torch.kernels import unfold as unfk
-
-    def zero_counts() -> None:
-        pfbk.LAUNCHES = pfbk.FRONTEND_LAUNCHES = 0
-        ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
-        dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
-        firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
-        mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = mmk.BF16_LAUNCHES = 0
-        firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
-
-    def counts() -> dict:
-        return {"pfb_fused": pfbk.LAUNCHES,
-                "pfb_frontend": pfbk.FRONTEND_LAUNCHES,
-                "elementwise_chain": ew.LAUNCHES,
-                "elementwise_binary": ew.BINARY_LAUNCHES,
-                "dft": dftk.LAUNCHES, "unfold": unfk.LAUNCHES,
-                "overlap_add": unfk.OLA_LAUNCHES, "fir_valid": firk.LAUNCHES,
-                "matmul": mmk.LAUNCHES, "tf32_planes": mmk.PLANES_LAUNCHES,
-                "matmul_bf16": mmk.BF16_LAUNCHES,
-                "matmul_int8": mmk.INT8_LAUNCHES,
-                "dft_int8": dftk.INT8_LAUNCHES,
-                "fir_valid_int8": firk.INT8_LAUNCHES,
-                "pfb_fused_int8": pfbk.INT8_LAUNCHES}
 
     def binary_yardstick(x, y, op) -> dict:
         """The binary kernel alone at a path's shapes, beside one torch
@@ -5108,7 +5499,7 @@ def main() -> int:
          launches=mesh_launches)
 
     # -- lm: the model zoo's serving path at olmo_1b full width ------------
-    lm_row = lm_phase(torch, dev, card, zero_counts, counts)
+    lm_row, lm_times = lm_phase(torch, dev, card, zero_counts, counts)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5118,7 +5509,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- train: the training path at olmo_1b full width ---------------------
-    train_launches = train_phase(torch, dev, card, zero_counts, counts)
+    train_launches, train_times = train_phase(torch, dev, card, zero_counts,
+                                              counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- dryrun, pipeline, examples: the dry-run and roofline on the card,
+    # the GPipe step over logical stages, the examples' twins -------------
+    dryrun_phase(torch, card, lm_times, train_times)
+    pipeline_phase(torch, dev, card, train_times)
+    examples_launches = examples_phase(card)
 
     full, stft = table["full"], table["stft"]
     dec, mm, add = table["fir_decimate"], table["matmul"], table["add"]
@@ -5195,6 +5595,7 @@ def main() -> int:
         row["lm_zoo_launches"] = (zoo_launches if row["name"] == "matmul_bf16"
                                   else dict.fromkeys(zoo_launches, 0))
         row["train_launches"] = train_launches.get(row["name"], 0)
+        row["examples_launches"] = examples_launches.get(row["name"], 0)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

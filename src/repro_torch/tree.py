@@ -56,6 +56,22 @@ def map_tree(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     return tuple(out) if isinstance(tree, tuple) else out
 
 
+def map_with_path(fn: Callable, tree, is_leaf: Optional[Callable] = None):
+    """``fn(key, leaf)`` over the leaves of ``tree`` (``key`` as in
+    :func:`flatten_with_path`); the result has ``tree``'s structure."""
+    def walk(t, path):
+        if t is None:
+            return None
+        if (is_leaf is not None and is_leaf(t)) or not _is_node(t):
+            return fn("/".join(path), t)
+        if isinstance(t, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in t.items()}
+        out = [walk(v, path + (str(i),)) for i, v in enumerate(t)]
+        return tuple(out) if isinstance(t, tuple) else out
+
+    return walk(tree, ())
+
+
 def unflatten(tree, values):
     """``tree``'s structure (dicts with their keys sorted) with its leaves
     replaced, in :func:`leaves`' order, by ``values``."""
@@ -74,4 +90,5 @@ def unflatten(tree, values):
     return walk(tree)
 
 
-__all__ = ["flatten_with_path", "leaves", "map_tree", "unflatten"]
+__all__ = ["flatten_with_path", "leaves", "map_tree", "map_with_path",
+           "unflatten"]
