@@ -321,6 +321,27 @@ Prints one JSON line per phase:
             same weights and batch (1 %, 5 %), the loss falls, no kernel
             launched (native); ms a step, tokens/s and peak beside the
             train phase's; on distinct cards too where there are several
+  sharded   the sharded LM steps (``make_train_step(mesh=)``, the serving
+            steps with ``mesh=``; ``models/sharded.py``, the collectives)
+            on a (data 2, model 2) mesh of logical shards of the card:
+            olmo_1b at full width, 5 train steps at batch 8 x 512 (steps
+            1 and 2's loss and grad norm, step 1's first moments and
+            AdamW's step on the elements whose sign is sure, against the
+            one-device step at the none wire, ``SHARD_TOL``; ms a step
+            beside the train phase's), prefill 8 x 512 and 8 decode
+            steps at the kernel lowering (logits against the one-device
+            kernel steps within ``LM_RTOL`` of the largest, greedy tokens
+            equal where the one-device margin clears twice the error,
+            launches = 4 shards x 112 a call), every per-shard GEMM shape
+            of olmo_1b (TP 2) and qwen2_7b (TP 2, 4) within one bf16 ulp;
+            kimi-k2, 1 layer, on (1, 4) at the shard_map dispatch:
+            prefill and decode, each shard's routing against the
+            one-device dispatch on its tokens.  With 4 cards visible the
+            same phase also runs qwen2_7b at full width on (2, 2)
+            distinct cards under its fsdp (10 train steps: loss, ms,
+            tokens/s, peak memory a card) and kimi-k2, 4 layers, under
+            4-way expert parallelism (prefill, decode ms a step), and
+            names the collectives' route (NCCL)
   examples  each ``examples/torch_*.py`` twin run as a subprocess on the
             card at its default size: exit 0, its JAX original's OK
             lines, the kernels it must launch, seconds
@@ -329,7 +350,8 @@ Prints one JSON line per phase:
             device ms, bounds, plain and torch.matmul times summed):
             launches, errors, times, the launches in the mesh phase's
             counted runs (``mesh_launches``), the train phase's
-            (``train_launches``) and the examples phase's
+            (``train_launches``), the sharded phase's
+            (``sharded_launches``) and the examples phase's
             (``examples_launches``), bounds (an f32 product at
             the TF32 tensor-core peak; a bf16 one at the bf16 peak; the fused
             PFB's FIR at the fp32 pipe beside its DFT at TF32; the
@@ -344,6 +366,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -430,6 +453,28 @@ PIPE_TOL = 1e-5   # step 1 against make_train_step(microbatch=PIPE_MICRO,
                   # the updated params absolute (the CPU tests' bar),
                   # AdamW's first moment (the clipped gradient's tenth)
                   # relative to its largest
+# the sharded phase: a (data, model) mesh of logical shards of the card;
+# on 4 cards also qwen2_7b on (2, 2) and kimi-k2 under 4-way EP
+SHARD_MESH, SHARD_STEPS, SHARD_DECODE = (2, 2), 5, 8
+SHARD_TOL = {"loss": 1e-4, "grad_norm": 5e-4, "first_moment": 5e-2,
+             "param_step": 1e-6, "loss2": 3e-4, "grad_norm2": 2e-3}
+                          # the sharded step against the one-device step
+                          # (none wire): step 1's and step 2's loss and
+                          # grad norm relative, first moments of their
+                          # largest, and AdamW's step 1 on the elements
+                          # whose one-device first moment clears twice its
+                          # bar (their sign cannot flip) absolute; at step
+                          # 1 lr is 4e-4, which a position whose params
+                          # were left as they were misses by.  Each
+                          # row-parallel product's bf16 partials are summed
+                          # in bf16 over model where one device rounds the
+                          # whole product once; step 2 starts from params
+                          # that differ by up to 2 lr where a gradient near
+                          # 0 flipped sign.  Measured on an H100 (PERF.md
+                          # §6): 9.7e-6, 6.2e-5, 3.0e-2, 3.0e-8, 7.8e-5,
+                          # 7.3e-4
+SHARD_KIMI_MESH = (1, 4)
+SHARD_QWEN_STEPS, SHARD_KIMI_LAYERS = 10, 4
 # the examples phase: each twin at its default size on the card, the
 # lines its JAX original prints when it passes, and the kernels its run
 # must launch
@@ -2222,6 +2267,452 @@ def pipeline_phase(torch, dev, card, train_times) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     emit(phase="pipeline", case="done", seconds=time.perf_counter() - t_phase)
+
+
+def sync_all(torch, devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
+                  lm_times) -> dict:
+    """The sharded LM steps (phase ``sharded``): on logical shards of the
+    card, and on distinct cards where 4 are visible.  Returns the
+    kernels' launches in the counted serving runs."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticDataset, make_batch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert, moe, sharded
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.tree import flatten_with_path
+
+    t_phase = time.perf_counter()
+    axes = ("data", "model")
+    launches: dict = {}
+
+    # -- olmo_1b training on (2, 2) logical shards ------------------------
+    cfg = get(LM_ARCH)
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, SHARD_STEPS
+    lr_fn = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, n_steps)
+    data = SyntheticDataset(cfg, b, s, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data[i].items()}
+               for i in range(n_steps)]
+    opt = make_optimizer(cfg, lr_fn)
+    params = convert.stack_params(model_lib.init_model(cfg, seed=TRAIN_SEED,
+                                                       device=dev))
+    ref, _ = step_lib.make_train_step(cfg, batch_size=b, seq_len=s,
+                                      lr_fn=lr_fn, grad_wire="none",
+                                      donate=False, device=dev)
+    want_p, want_st, mr = ref(params, opt.init(params), batches[0])
+    want = {"loss": float(mr["loss"]), "grad_norm": float(mr["grad_norm"])}
+    mr = ref(want_p, want_st, batches[1])[2]
+    want.update(loss2=float(mr["loss"]), grad_norm2=float(mr["grad_norm"]))
+    want_p = dict(flatten_with_path(want_p))
+    want_m = {k: v for k, v in flatten_with_path(want_st)
+              if k.startswith("m/")}
+    del ref, want_st, mr
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(SHARD_MESH, axes, dev)
+    fn, specs = step_lib.make_train_step(cfg, mesh=mesh, batch_size=b,
+                                         seq_len=s, lr_fn=lr_fn,
+                                         grad_wire="none")
+    ps = convert.shard_params(params, mesh, specs.params_sh)
+    del params
+    st = [opt.init(p) for p in ps]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    diffs = {}
+    for i in range(n_steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ps, st, m = fn(ps, st, batches[i])
+        e1.record()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        if i == 0:          # outside the timed events
+            got = dict(flatten_with_path(convert.unshard(
+                ps, mesh, specs.params_sh)))
+            diffs["param_step"] = 0.0
+            for k, w in want_p.items():
+                m = want_m["m/" + k].abs()
+                sure = m > 2 * SHARD_TOL["first_moment"] * m.max()
+                if bool(sure.any()):
+                    diffs["param_step"] = max(diffs["param_step"], float(
+                        (got[k] - w).abs()[sure].max()))
+            got = dict(flatten_with_path(convert.unshard(
+                st, mesh, specs.opt_state_sh)))
+            diffs["first_moment"] = max(
+                float((got[k] - w).abs().max() / w.abs().max())
+                for k, w in want_m.items())
+            del got, want_p, want_m
+            torch.cuda.reset_peak_memory_stats()
+    for i, tag in ((0, ""), (1, "2")):
+        diffs["loss" + tag] = abs(losses[i] - want["loss" + tag]) \
+            / want["loss" + tag]
+        diffs["grad_norm" + tag] = abs(gnorms[i] - want["grad_norm" + tag]) \
+            / want["grad_norm" + tag]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = {k: v for k, v in diffs.items() if not v <= SHARD_TOL[k]}
+    if bad or not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"sharded train: steps 1-2 against the one-device step {diffs} "
+             f"(bars {SHARD_TOL}); losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"sharded train: the loss did not fall: {losses}")
+    ms = statistics.median(step_ms[1:])
+    emit(phase="sharded", case="train_logical", nvidia_smi=card,
+         arch=LM_ARCH, mesh=dict(zip(axes, SHARD_MESH)),
+         devices=[str(d) for d in mesh.devices],
+         routes=sorted(coll.mesh_routes(mesh, axes)), batch=b, seq=s,
+         steps=n_steps, losses=losses, grad_norms=gnorms,
+         one_device=want, diffs=diffs, tol=SHARD_TOL,
+         ms_per_step=ms, ms_per_step_all=step_ms,
+         tokens_per_s=b * s / (ms / 1e3), peak_memory_gb=peak_gb,
+         one_device_ms_per_step=train_times.get("ms"),
+         one_device_peak_memory_gb=train_times.get("peak_gb"),
+         vs_one_device=ms / train_times["ms"] if train_times.get("ms")
+         else None)
+    del ps, st, fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- olmo_1b serving at the kernel lowering on (2, 2) logical shards --
+    kcfg = cfg.scaled(tina_lowering="kernel")
+    b, s, steps = LM_BATCH, LM_PROMPT, SHARD_DECODE
+    max_len = s + steps
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model_lib.init_model(kcfg, generator=gen)
+    one = model_lib.prepare(params, kcfg)
+    batch = {"tokens": torch.as_tensor(
+        make_batch(kcfg, b, s, seed=LM_SEED)["tokens"], device=dev)}
+    pre1 = step_lib.make_prefill_step(kcfg, batch_size=b, seq_len=s)
+    dec1 = step_lib.make_decode_step(kcfg, batch_size=b, cache_len=max_len)
+    pre = step_lib.make_prefill_step(kcfg, mesh=mesh, batch_size=b,
+                                     seq_len=s)
+    dec = step_lib.make_decode_step(kcfg, mesh=mesh, batch_size=b,
+                                    cache_len=max_len)
+    shards = [model_lib.prepare(t, kcfg) for t in convert.shard_params(
+        params, mesh, dec.specs.params_sh, copy=False)]
+
+    def run(pre_, dec_, p_, caches, toks=None):
+        """Prefill then ``steps`` decode steps (teacher-forced by ``toks``
+        where given): logits, tokens, prefill ms and decode ms a step."""
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        e0.record()
+        lg, caches = pre_(p_, batch, caches)
+        e1.record()
+        out, tok = [lg], torch.argmax(lg, -1).to(torch.int32)
+        picked = [tok]
+        for i in range(steps):
+            tok, lg, caches = dec_(p_, tok if toks is None else toks[i],
+                                   caches)
+            out.append(lg)
+            picked.append(tok)
+        e2.record()
+        e2.synchronize()
+        return out, picked, e0.elapsed_time(e1), e1.elapsed_time(e2) / steps
+
+    run(pre1, dec1, one, model_lib.init_caches(kcfg, b, max_len,
+                                               device=dev))    # warm-up
+    run(pre, dec, shards, step_lib.init_sharded_caches(dec.specs, b,
+                                                       max_len))
+    want_l, want_t, pre1_ms, dec1_ms = run(
+        pre1, dec1, one, model_lib.init_caches(kcfg, b, max_len, device=dev))
+    caches = step_lib.init_sharded_caches(dec.specs, b, max_len)
+    torch.cuda.synchronize()
+    zero_counts()
+    got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches,
+                                       toks=want_t[:-1])
+    counted = {k: v for k, v in counts().items() if v}
+    per_call = 7 * kcfg.n_layers * mesh.size
+    if counted != {"matmul_bf16": per_call * (steps + 1)}:
+        fail(f"sharded serve: launches {counted}, want matmul_bf16 "
+             f"{per_call} x {steps + 1}")
+    for k, v in counted.items():
+        launches[k] = launches.get(k, 0) + v
+    errs, held, free = [], 0, 0
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        err, scale = rel_err(torch, g, w)
+        errs.append(err / scale)
+        if not err <= LM_RTOL * scale:
+            fail(f"sharded serve: {'prefill' if i == 0 else f'step {i}'} "
+                 f"logits {err} from the one-device step's (> {LM_RTOL} * "
+                 f"{scale})")
+        top2 = torch.topk(w.float(), 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        same = torch.argmax(g, -1) == torch.argmax(w, -1)
+        if not bool(same[sure].all()):
+            fail(f"sharded serve: step {i}: a greedy token differs where "
+                 f"the one-device margin exceeds twice the error {err}")
+        held += int(sure.sum())
+        free += int((~sure).sum())
+    emit(phase="sharded", case="serve_logical", nvidia_smi=card,
+         arch=LM_ARCH, lowering="kernel", mesh=dict(zip(axes, SHARD_MESH)),
+         batch=b, prompt=s, steps=steps, launches=counted,
+         launches_per_call=per_call, logits_err_of_max=errs, tol=LM_RTOL,
+         tokens_held_equal=held, tokens_within_error=free,
+         prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+         one_device_prefill_ms=pre1_ms, one_device_decode_ms_per_step=dec1_ms,
+         lm_phase_prefill_ms=lm_times.get("prefill_ms"),
+         lm_phase_decode_ms=lm_times.get("decode_ms"))
+    del params, one, shards, caches, got_l, want_l
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- every per-shard GEMM shape: olmo_1b at TP 2, qwen2_7b at TP 2, 4 --
+    q = get("qwen2_7b")
+    shapes = set()
+    for c_, tp, dp in ((cfg, 2, 2), (q, 2, 2), (q, 4, 1)):
+        hd = c_.head_dim
+        kv = c_.n_kv_heads // tp if c_.n_kv_heads % tp == 0 else 1
+        for m_ in (LM_BATCH // dp * LM_PROMPT, LM_BATCH // dp):
+            d = c_.d_model
+            shapes |= {(m_, d, c_.n_heads // tp * hd), (m_, d, kv * hd),
+                       (m_, c_.n_heads // tp * hd, d),
+                       (m_, d, c_.d_ff // tp), (m_, c_.d_ff // tp, d),
+                       (m_, d, c_.vocab_size // tp)}
+    gemms = []
+    for m_, k_, n_ in sorted(shapes):
+        x = torch.randn(m_, k_, device=dev, generator=gen).to(torch.bfloat16)
+        wt = (torch.randn(n_, k_, device=dev, generator=gen)
+              * k_ ** -0.5).to(torch.bfloat16)
+        got = mmk.matmul(x, wt.t(), yt=wt)
+        want_ = mmk.matmul_bf16_plain(x, wt.t())
+        ulps = mmk.bf16_ulps(got, want_).max().item()
+        if not ulps <= 1.0:
+            fail(f"sharded: matmul_bf16 {(m_, k_, n_)} is {ulps} bf16 ulps "
+                 "from its plain version")
+        kind, route = mmk.bf16_route(m_, n_, k_)
+        nbytes, flops = bf16_gemm_cost(m_, k_, n_)
+        b_ms, b_by = bound_bf16(nbytes, flops)
+        rec = {"mkn": [m_, k_, n_], "route": kind,
+               "splits": route.get("splits"), "max_ulps": ulps,
+               "ms": device_ms(torch, lambda: mmk.matmul(x, wt.t(), yt=wt)),
+               "torch_matmul_ms": device_ms(torch,
+                                            lambda: torch.matmul(x, wt.t())),
+               "bound_ms": b_ms, "bound_by": b_by}
+        gemms.append(rec)
+        del x, wt, got, want_
+    emit(phase="sharded", case="gemm_shapes", nvidia_smi=card,
+         shapes=len(gemms), max_ulps=max(g["max_ulps"] for g in gemms),
+         gemms=gemms)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- kimi-k2, 1 layer, on (1, 4) logical shards: the shard_map EP -----
+    kimi = get("kimi_k2_1t_a32b").scaled(n_layers=1, tina_lowering="kernel",
+                                         moe_dispatch="shard_map")
+    mesh4 = make_mesh(SHARD_KIMI_MESH, axes, dev)
+    launches_k, row = kimi_serve(torch, kimi, mesh4, card, zero_counts,
+                                 counts, dev, gen, logical=True)
+    for k, v in launches_k.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # -- distinct cards ---------------------------------------------------
+    n = torch.cuda.device_count()
+    if n < 4:
+        emit(phase="sharded", case="cards", cards=n,
+             note="fewer than 4 cards: only logical shards ran")
+    else:
+        qwen_cards(torch, card, make_mesh((2, 2), axes))
+        kimi4 = get("kimi_k2_1t_a32b").scaled(
+            n_layers=SHARD_KIMI_LAYERS, tina_lowering="kernel",
+            moe_dispatch="shard_map")
+        kimi_serve(torch, kimi4, make_mesh((1, 4), axes), card, zero_counts,
+                   counts, dev, gen, logical=False)
+    emit(phase="sharded", case="done", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
+def kimi_serve(torch, cfg, mesh, card, zero_counts, counts, dev, gen, *,
+               logical: bool) -> tuple:
+    """kimi-k2 at full width at the shard_map dispatch over ``mesh``:
+    prefill 8 x 512 and ``SHARD_DECODE`` decode steps through the sharded
+    serving steps (finite logits, the bf16 GEMM's launches = the layers'
+    7 linears x shards a call), ms; on logical shards also each shard's
+    routing of random tokens against the one-device dispatch on them.
+    Each layer's weights are drawn on the first card as a 1-layer model
+    and put on their shards before the next is drawn (the whole model
+    does not fit one card)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert, moe, sharded
+    from repro_torch.models import model as model_lib
+
+    b, s, steps = LM_BATCH, LM_PROMPT, SHARD_DECODE
+    max_len = s + steps
+    one = cfg.scaled(n_layers=1)
+    specs1 = step_lib.make_decode_step(one, mesh=mesh, batch_size=b,
+                                       cache_len=max_len).specs
+    trees = None
+    full_ffn = None
+    for layer in range(cfg.n_layers):
+        p = model_lib.init_model(one, generator=gen)
+        part = convert.shard_params(p, mesh, specs1.params_sh,
+                                    copy=not logical)
+        if logical:
+            full_ffn = p["stack"][0]["sub0"]["ffn"]
+        del p
+        if trees is None:
+            trees = part
+        else:
+            for t, u in zip(trees, part):
+                t["stack"].append(u["stack"][0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    trees = [model_lib.prepare(t, cfg) for t in trees]
+    pre = step_lib.make_prefill_step(cfg, mesh=mesh, batch_size=b, seq_len=s)
+    dec = step_lib.make_decode_step(cfg, mesh=mesh, batch_size=b,
+                                    cache_len=max_len)
+    batch = {"tokens": torch.as_tensor(make_batch(cfg, b, s, seed=LM_SEED)[
+        "tokens"], device=mesh.devices[0])}
+
+    def run():
+        caches = step_lib.init_sharded_caches(dec.specs, b, max_len)
+        sync_all(torch, mesh.devices)
+        t0 = time.perf_counter()
+        lg, caches = pre(trees, batch, caches)
+        sync_all(torch, mesh.devices)
+        t1 = time.perf_counter()
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        for _ in range(steps):
+            tok, lg, caches = dec(trees, tok, caches)
+        sync_all(torch, mesh.devices)
+        t2 = time.perf_counter()
+        return lg, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps
+
+    for d in mesh.distinct:                   # the serving peak, not
+        torch.cuda.reset_peak_memory_stats(d)  # the weights' drawing
+    run()                                     # warm-up
+    zero_counts()
+    lg, pre_ms, dec_ms = run()
+    counted = {k: v for k, v in counts().items() if v}
+    per_call = 7 * cfg.n_layers * mesh.size   # q, k, v, o; shared expert
+    if counted != {"matmul_bf16": per_call * (steps + 1)}:
+        fail(f"sharded kimi: launches {counted}, want matmul_bf16 "
+             f"{per_call} x {steps + 1}")
+    if tuple(lg.shape) != (b, cfg.vocab_size) or \
+            not bool(torch.isfinite(lg).all()):
+        fail(f"sharded kimi: logits {tuple(lg.shape)} finite "
+             f"{bool(torch.isfinite(lg).all())}")
+    row = {"phase": "sharded", "case": "kimi_logical" if logical
+           else "kimi_cards", "nvidia_smi": card, "arch": cfg.name,
+           "layers": cfg.n_layers, "dispatch": cfg.moe_dispatch,
+           "mesh": mesh.shape, "devices": [str(d) for d in mesh.devices],
+           "routes": sorted(coll.mesh_routes(mesh, mesh.axes)),
+           "batch": b, "prompt": s, "steps": steps, "launches": counted,
+           "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+           "peak_memory_gb_per_card": {
+               str(d): torch.cuda.max_memory_allocated(d) / 1e9
+               for d in mesh.distinct}}
+    if logical:
+        # each shard's routing of random tokens (bf16, the activations'
+        # dtype) against the one-device dispatch on the same tokens
+        L = dec.specs.layout
+        x = (torch.randn(b, s, cfg.d_model, device=dev, generator=gen)
+             ).to(torch.bfloat16)
+        xs = step_lib._split_batch(L, x)
+        ffn = [t["stack"][0]["sub0"]["ffn"] for t in trees]
+        _, aux = sharded.moe_block(L, ffn, xs)
+        e_per = cfg.n_experts // mesh.count(L.expert)
+        for i in range(mesh.size):
+            n_tok = xs[i].shape[0] * xs[i].shape[1]
+            _, st_ = moe.routed(full_ffn, xs[i].reshape(n_tok, -1), cfg,
+                                lo=0, n_local=cfg.n_experts,
+                                router_in_x_dtype=True)
+            lo = L.rank(i, L.expert) * e_per
+            mine = (st_["experts"] >= lo) & (st_["experts"] < lo + e_per)
+            if not (torch.equal(aux["moe_experts"][i], st_["experts"])
+                    and torch.equal(aux["moe_kept"][i],
+                                    st_["kept_mask"] & mine)):
+                fail(f"sharded kimi: shard {i} routes its tokens otherwise "
+                     "than the one-device dispatch")
+        row.update(routing_checked_shards=mesh.size,
+                   drop_frac=float(aux["moe_drop_frac"]),
+                   aux_loss=float(aux["moe_aux_loss"]))
+        del full_ffn, x, xs, ffn
+    emit(**row)
+    del trees, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, row
+
+
+def qwen_cards(torch, card, mesh) -> None:
+    """qwen2_7b at full width on ``mesh`` (distinct cards) under its own
+    fsdp: ``SHARD_QWEN_STEPS`` train steps at batch 8 x 512 (bf16 wire):
+    the loss must fall; ms a step, tokens/s, peak memory a card.  The
+    weights are drawn on the first card and put on their shards."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.tree import leaves
+
+    cfg = get("qwen2_7b")
+    if not cfg.fsdp:
+        fail("sharded qwen2_7b: the config no longer sets fsdp")
+    b, s, n_steps = TRAIN_BATCH, TRAIN_SEQ, SHARD_QWEN_STEPS
+    lr_fn = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, n_steps)
+    fn, specs = step_lib.make_train_step(cfg, mesh=mesh, batch_size=b,
+                                         seq_len=s, lr_fn=lr_fn)
+    params = convert.stack_params(model_lib.init_model(
+        cfg, seed=TRAIN_SEED, device=mesh.devices[0]))
+    ps = convert.shard_params(params, mesh, specs.params_sh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = make_optimizer(cfg, lr_fn)
+    st = []
+    for p, d in zip(ps, mesh.devices):
+        with torch.cuda.device(d):
+            st.append(opt.init(p))
+    data = SyntheticDataset(cfg, b, s, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in data[i].items()}
+               for i in range(n_steps)]
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        sync_all(torch, mesh.devices)
+        t0 = time.perf_counter()
+        ps, st, m = fn(ps, st, batches[i])
+        sync_all(torch, mesh.devices)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"sharded qwen2_7b: the loss did not fall: {losses}")
+    ms = statistics.median(step_ms[2:])
+    n_params = sum(math.prod(t.shape) for t in leaves(specs.params))
+    emit(phase="sharded", case="qwen_cards", nvidia_smi=card,
+         arch="qwen2_7b", fsdp=cfg.fsdp, params=n_params,
+         mesh=mesh.shape, devices=[str(d) for d in mesh.devices],
+         routes=sorted(coll.mesh_routes(mesh, mesh.axes)), batch=b, seq=s,
+         steps=n_steps, grad_wire="bf16", losses=losses,
+         ms_per_step=ms, ms_per_step_all=step_ms,
+         tokens_per_s=b * s / (ms / 1e3),
+         peak_memory_gb_per_card={str(d): torch.cuda.max_memory_allocated(d)
+                                  / 1e9 for d in mesh.distinct})
+    del ps, st, fn
+    gc.collect()
+    for d in mesh.distinct:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
 
 def examples_phase(card) -> dict:
@@ -5518,6 +6009,12 @@ def main() -> int:
     # the GPipe step over logical stages, the examples' twins -------------
     dryrun_phase(torch, card, lm_times, train_times)
     pipeline_phase(torch, dev, card, train_times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_phase(torch, dev, card, zero_counts, counts,
+                                     train_times, lm_times)
+    gc.collect()
+    torch.cuda.empty_cache()
     examples_launches = examples_phase(card)
 
     full, stft = table["full"], table["stft"]
@@ -5595,6 +6092,7 @@ def main() -> int:
         row["lm_zoo_launches"] = (zoo_launches if row["name"] == "matmul_bf16"
                                   else dict.fromkeys(zoo_launches, 0))
         row["train_launches"] = train_launches.get(row["name"], 0)
+        row["sharded_launches"] = sharded_launches.get(row["name"], 0)
         row["examples_launches"] = examples_launches.get(row["name"], 0)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,6 +14,12 @@ Restore is structure-driven: the caller passes a target tree (tensors,
 or ``meta`` tensors such as a train step's ``StepSpecs``) and each leaf
 is filled by key, cast to the target's dtype and put on its device (a
 ``meta`` target's on ``device``).
+
+A sharded tree (one tree a mesh position, as a sharded step keeps it)
+is saved as its global arrays, the reference's format, and restores onto
+any mesh: ``save(..., mesh=, specs=)`` and ``restore(..., mesh=,
+specs=)`` with the step's ``PartitionSpec`` trees
+(``runtime/elastic.py``).
 """
 from __future__ import annotations
 
@@ -149,13 +155,18 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree, *, metadata: Optional[dict] = None,
-             block: bool = False):
+             block: bool = False, mesh=None, specs=None):
         """Every leaf is copied to host memory before this returns (a
         consistent snapshot: a donated train step may update the same
         tensors next); the file writes go to a background thread when
-        ``async_save``."""
-        flat = flatten_with_path(tree)
-        host = unflatten(tree, [_snapshot(t) for _, t in flat])
+        ``async_save``.  With ``mesh``, ``tree`` is one tree a mesh
+        position, saved as the global tree under ``specs``."""
+        if mesh is not None:
+            from repro_torch.models.convert import unshard
+            host = unshard(tree, mesh, specs, device="cpu")
+        else:
+            flat = flatten_with_path(tree)
+            host = unflatten(tree, [_snapshot(t) for _, t in flat])
         meta = dict(metadata or {})
         meta["step"] = step
         if self.async_save and not block:
@@ -188,15 +199,23 @@ class CheckpointManager:
             raise err
 
     # -- restore ---------------------------------------------------------------
-    def restore(self, target, *, step: Optional[int] = None, device=None):
-        """Returns (tree, metadata) or (None, None) when no checkpoint."""
+    def restore(self, target, *, step: Optional[int] = None, device=None,
+                mesh=None, specs=None):
+        """Returns (tree, metadata) or (None, None) when no checkpoint.
+        With ``mesh``: ``target`` is the global tree (``meta`` tensors)
+        and the result one tree a mesh position, each leaf its block
+        under ``specs`` on the position's device."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         d = self.path(step)
-        return (load_pytree(target, d, device=device),
-                load_manifest(d)["metadata"])
+        meta = load_manifest(d)["metadata"]
+        if mesh is None:
+            return load_pytree(target, d, device=device), meta
+        from repro_torch.models.convert import shard_params
+        return (shard_params(load_pytree(target, d, device="cpu"), mesh,
+                             specs), meta)
 
 
 __all__ = ["CheckpointManager", "save_pytree", "load_pytree",

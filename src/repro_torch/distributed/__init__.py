@@ -1,5 +1,7 @@
 """The model zoo's steps and their distribution rules on the port: the
-train, prefill and decode steps on one device (``step``), the
-logical-axis context (``context``), the parameter / optimizer / batch /
-cache sharding specs (``sharding``) and the GPipe train step over a
-``stage`` mesh (``pipeline``)."""
+train, prefill and decode steps on one device or over a data x model
+mesh (``step``), the collectives a sharded step runs (``collectives``),
+the parameter / optimizer / batch / cache sharding specs
+(``sharding``; the logical-axis context is
+:mod:`repro_torch.partitioning`) and the GPipe train step
+over a ``stage`` mesh (``pipeline``)."""

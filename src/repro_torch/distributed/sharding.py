@@ -15,6 +15,15 @@ tensors, ``meta`` tensors; paths as :mod:`repro_torch.tree` keys them,
 with a ``shape`` dict of axis sizes (``launch.mesh.BatchMesh``) or such a
 dict itself; only its sizes are read.
 
+The sharded steps (:mod:`repro_torch.distributed.step`) read
+:func:`param_shardings` through :func:`step_param_specs` and derive the
+optimizer state's specs from it (:func:`step_opt_state_specs`); they
+split the batch by the rules' ``batch`` axes and hold caches in
+:mod:`repro_torch.models.sharded`'s per-position layout.
+:func:`opt_state_shardings`, :func:`batch_shardings` and
+:func:`cache_shardings` are the reference's functions, kept and tested
+against it, but no step of the port reads them.
+
 TP legality note: specs shard *flattened feature dims* (e.g. the
 ``h*hd`` output of wq), never the per-head axis, so head counts that
 don't divide the model axis (qwen2: 28 heads on 16-way TP) still shard
@@ -27,7 +36,7 @@ import re
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.partitioning import P, PartitionSpec, logical_to_spec
-from repro_torch.tree import map_with_path
+from repro_torch.tree import flatten_with_path, map_with_path
 
 # (path regex, logical spec for the *trailing* dims) — first match wins.
 # "fsdp" resolves to the data axis only when cfg.fsdp (rules handle it).
@@ -197,5 +206,80 @@ def cache_shardings(cache_shape, cfg: ModelConfig, mesh, rules: dict):
     return map_with_path(f, cache_shape)
 
 
+# ---------------------------------------------------------------------------
+# the sharded steps' layouts (repro_torch.distributed.step)
+# ---------------------------------------------------------------------------
+def kv_replicated(cfg: ModelConfig, mesh, rules: dict) -> bool:
+    """Whether the KV heads are replicated over the tensor-parallel axis:
+    it splits the query heads but not the KV heads, whose count divides
+    it (each shard then holds the one KV head its query heads read)."""
+    tp = rules.get("tp")
+    if tp is None:
+        return False
+    n = math.prod(_sizes(mesh)[a] for a in
+                  ((tp,) if isinstance(tp, str) else tp))
+    return n > 1 and cfg.n_kv_heads % n != 0
+
+
+def _drop(spec: PartitionSpec, axes) -> PartitionSpec:
+    """``spec`` without the mesh axes ``axes`` in any entry."""
+    names = set((axes,) if isinstance(axes, str) else axes)
+    out = []
+    for e in spec:
+        kept = tuple(a for a in ((e,) if isinstance(e, str) else e or ())
+                     if a not in names)
+        out.append(kept if kept else None)
+    return P(*out)
+
+
+def step_param_specs(tree, cfg: ModelConfig, mesh, rules: dict, *,
+                     compute: bool = False):
+    """The specs a sharded step keeps a parameter tree in: the
+    reference's (:func:`param_shardings`), except where the KV heads are
+    replicated (:func:`kv_replicated`): there ``wk``/``wv`` are whole
+    over the tensor-parallel axis, since the reference's split of their
+    flat ``hkv * hd`` axis does not fall on heads.  ``compute`` gives the
+    layout each shard computes in: the same without the ZeRO-3 axes
+    (rules' ``"fsdp"``), which a training step gathers before use and a
+    serving step never splits."""
+    if compute:
+        rules = {**rules, "fsdp": None}
+    specs = param_shardings(tree, cfg, mesh, rules)
+    if not kv_replicated(cfg, mesh, rules):
+        return specs
+    kv = re.compile(r"(^|.*/)attn/(wk|wv)/")
+    return map_with_path(
+        lambda path, spec: _drop(spec, rules["tp"]) if kv.match(path)
+        else spec, specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def step_opt_state_specs(opt_state_shape, param_specs):
+    """A sharded step's optimizer-state specs, each the block of its
+    parameter's spec (:func:`step_param_specs`): AdamW's m/v that spec,
+    Adafactor's vr without its last entry, vc without the one before,
+    v that spec; counters replicated.  (The reference's
+    :func:`opt_state_shardings` legalizes each state leaf on its own
+    shape, which can split a factor the parameter leaves whole; a step
+    that updates each position's blocks needs them aligned.)"""
+    flat = dict(flatten_with_path(param_specs,
+                                  is_leaf=lambda x: isinstance(x,
+                                                               PartitionSpec)))
+
+    def f(path, leaf):
+        head, _, rest = path.partition("/")
+        if head in ("m", "v"):
+            return flat[rest]
+        if head == "s":
+            base, _, kind = rest.rpartition("/")
+            spec = tuple(flat[base])
+            if kind == "vr":
+                return P(*spec[:-1])
+            if kind == "vc":
+                return P(*(spec[:-2] + spec[-1:]))
+            return P(*spec)
+        return P(*([None] * len(_shape(leaf))))
+    return map_with_path(f, opt_state_shape)
+
 __all__ = ["legalize", "spec_for", "param_shardings", "opt_state_shardings",
-           "batch_shardings", "cache_shardings"]
+           "batch_shardings", "cache_shardings", "kv_replicated",
+           "step_param_specs", "step_opt_state_specs"]

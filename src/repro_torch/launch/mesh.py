@@ -1,5 +1,8 @@
-"""Device meshes for batch-sharded plans, streams and services (the
-counterpart of ``repro.launch.mesh.make_batch_mesh``).
+"""Device meshes: the 1-D :class:`BatchMesh` of batch-sharded plans,
+streams and services (the counterpart of
+``repro.launch.mesh.make_batch_mesh``), and the n-D :class:`Mesh` of the
+sharded LM steps (``make_mesh``, ``make_local_mesh``,
+``make_production_mesh``).
 
 A :class:`BatchMesh` is a 1-D mesh: a tuple of indexed devices on one
 axis, ``"batch"``.  A sharded plan splits the leading (batch) axis of
@@ -18,15 +21,53 @@ A mesh that mixes device types, or cards of different names, raises: the
 autotuner keys its winners on the card's name, and every shard must run
 the same per-shard plan.
 
-The reference's ``make_production_mesh``, ``make_mesh`` and
-``make_local_mesh`` build the LM's training meshes; they belong to its
-distributed stack and are not ported here.
+A :class:`Mesh` names its axes (``("data", "model")``, ``("pod",
+"data", "model")``) and holds one device a position, in row-major order
+over its shape; as in a :class:`BatchMesh`, a device may repeat (logical
+shards of one card, or of the CPU).  One process drives every position
+(:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+
+def _checked(devices, who: str) -> tuple:
+    """``devices`` as indexed ``torch.device``s: one kind (CPU, cards of
+    one name, or ``meta`` for a mesh that only sizes things); a card
+    index beyond the visible cards raises."""
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError(f"{who}: no devices")
+    kinds = {d.type for d in devs}
+    if len(kinds) > 1:
+        raise ValueError(f"{who}: the devices mix types "
+                         f"{sorted(kinds)}; a mesh runs on one kind")
+    kind = kinds.pop()
+    if kind == "cpu":
+        return tuple(torch.device("cpu") for _ in devs)
+    if kind == "meta" and who == "Mesh":
+        return tuple(torch.device("meta") for _ in devs)
+    if kind != "cuda":
+        raise ValueError(f"{who}: no mesh of {kind!r} devices")
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if any(d.index is None for d in devs):
+        if not count:
+            raise ValueError(f"{who}: 'cuda' requested, 0 cards visible")
+        cur = torch.cuda.current_device()
+        devs = tuple(torch.device("cuda", cur if d.index is None
+                                  else d.index) for d in devs)
+    bad = [str(d) for d in devs if d.index >= count]
+    if bad:
+        raise ValueError(f"{who}: {bad} requested, {count} card(s) visible")
+    names = {torch.cuda.get_device_name(d) for d in set(devs)}
+    if len(names) > 1:
+        raise ValueError(f"{who}: the cards differ ({sorted(names)}); "
+                         "tuned winners are keyed on the card's name")
+    return devs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,37 +78,7 @@ class BatchMesh:
     axis: str = "batch"
 
     def __post_init__(self):
-        devs = tuple(torch.device(d) for d in self.devices)
-        if not devs:
-            raise ValueError("BatchMesh: no devices")
-        kinds = {d.type for d in devs}
-        if len(kinds) > 1:
-            raise ValueError(f"BatchMesh: the devices mix types "
-                             f"{sorted(kinds)}; a mesh runs on one kind")
-        kind = kinds.pop()
-        if kind == "cpu":
-            devs = tuple(torch.device("cpu") for _ in devs)
-        elif kind == "cuda":
-            count = (torch.cuda.device_count()
-                     if torch.cuda.is_available() else 0)
-            if any(d.index is None for d in devs):
-                if not count:
-                    raise ValueError("BatchMesh: 'cuda' requested, 0 cards "
-                                     "visible")
-                cur = torch.cuda.current_device()
-                devs = tuple(torch.device("cuda", cur if d.index is None
-                                          else d.index) for d in devs)
-            bad = [str(d) for d in devs if d.index >= count]
-            if bad:
-                raise ValueError(f"BatchMesh: {bad} requested, {count} "
-                                 "card(s) visible")
-            names = {torch.cuda.get_device_name(d) for d in set(devs)}
-            if len(names) > 1:
-                raise ValueError(f"BatchMesh: the cards differ "
-                                 f"({sorted(names)}); tuned winners are "
-                                 "keyed on the card's name")
-        else:
-            raise ValueError(f"BatchMesh: no mesh of {kind!r} devices")
+        devs = _checked(self.devices, "BatchMesh")
         object.__setattr__(self, "devices", devs)
 
     @property
@@ -151,4 +162,164 @@ def make_batch_mesh(n_devices: int | None = None, *, axis: str = "batch",
     return BatchMesh(tuple(torch.device("cuda", i) for i in range(n)), axis)
 
 
-__all__ = ["BatchMesh", "BatchSharding", "Shards", "make_batch_mesh"]
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An n-D mesh: ``axes`` (names) of ``sizes``, and one device a
+    position, in row-major order over the sizes (a device may repeat).
+    ``shape`` is the ``{axis: size}`` dict that
+    :mod:`repro_torch.distributed.sharding` reads."""
+
+    sizes: tuple
+    axes: tuple
+    devices: tuple
+
+    def __post_init__(self):
+        sizes = tuple(int(n) for n in self.sizes)
+        axes = tuple(self.axes)
+        if len(sizes) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"Mesh: sizes {sizes} and axes {axes} do not "
+                             "pair up")
+        if min(sizes, default=0) < 1:
+            raise ValueError(f"Mesh: sizes {sizes}")
+        if len(self.devices) != math.prod(sizes):
+            raise ValueError(f"Mesh: {len(self.devices)} devices for a "
+                             f"{sizes} mesh")
+        object.__setattr__(self, "sizes", sizes)
+        object.__setattr__(self, "axes", axes)
+        object.__setattr__(self, "devices", _checked(self.devices, "Mesh"))
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0].type
+
+    @property
+    def distinct(self) -> tuple:
+        """Each device once, in mesh order."""
+        return tuple(dict.fromkeys(self.devices))
+
+    def coords(self, i: int) -> dict:
+        """Position ``i``'s index on every axis."""
+        out = {}
+        for a, n in zip(reversed(self.axes), reversed(self.sizes)):
+            i, out[a] = divmod(i, n)
+        return out
+
+    def rank(self, i: int, axes) -> int:
+        """Position ``i``'s index over ``axes`` taken together (the first
+        the slowest), as a spec entry ``("pod", "data")`` splits a dim."""
+        c = self.coords(i)
+        r = 0
+        for a in _names(axes):
+            r = r * self.shape[a] + c[a]
+        return r
+
+    def count(self, axes) -> int:
+        """The number of ranks over ``axes`` (1 for none)."""
+        return math.prod(self.shape[a] for a in _names(axes))
+
+    def groups(self, axes) -> list[list[int]]:
+        """The positions that share every index off ``axes``, one list a
+        group, each in rank order over ``axes``."""
+        names = _names(axes)
+        out: dict = {}
+        for i in range(self.size):
+            c = self.coords(i)
+            key = tuple(c[a] for a in self.axes if a not in names)
+            out.setdefault(key, []).append(i)
+        return [sorted(g, key=lambda i: self.rank(i, names))
+                for g in out.values()]
+
+
+def _names(axes) -> tuple:
+    """A spec entry (None, a name, or a tuple of names) as a tuple."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def make_mesh(shape: tuple, axes: tuple, devices=None) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over ``axes``.  ``devices``: None, the
+    first prod(shape) visible cards, each once (fewer raise ValueError);
+    one device (``"cpu"``, ``"cuda:0"``), repeated at every position
+    (logical shards); or a sequence of prod(shape) devices."""
+    n = math.prod(shape)
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise ValueError(f"make_mesh: a {tuple(shape)} mesh needs {n} "
+                             f"cards, {count} visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    return Mesh(tuple(shape), tuple(axes), tuple(devices))
+
+
+def make_local_mesh(*, model: int = 1, device=None, n: int | None = None
+                    ) -> Mesh:
+    """(data = n / model, model) over what this host has: on ``"cuda"``
+    (the default) the visible cards (``n``: the first n of them); on
+    ``"cpu"`` ``n`` logical shards of the CPU (None: one).  ``model`` is
+    cut to n, as the reference cuts it to its device count."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind == "cpu":
+        n = 1 if n is None else int(n)
+        devices = "cpu"
+    elif kind == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = count if n is None else int(n)
+        if not 1 <= n <= count:
+            raise ValueError(f"make_local_mesh: {n} cards requested, "
+                             f"{count} visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        raise ValueError(f"make_local_mesh: no mesh of {kind!r} devices")
+    model = min(model, n)
+    if n % model:
+        raise ValueError(f"make_local_mesh: {n} devices do not split into "
+                         f"model = {model}")
+    return make_mesh((n // model, model), ("data", "model"), devices)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
+    """The reference's production shapes: (data=16, model=16), or
+    (pod=2, data=16, model=16) with ``multi_pod``.  On ``"meta"`` (the
+    default) the mesh only sizes things (specs, the dry-run); on
+    ``"cuda"`` it takes that many distinct cards and raises ValueError
+    unless they are visible."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if torch.device(device).type == "cuda":
+        return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device)
+
+
+def mesh_from_args(spec, device: str, *, multi_pod: bool = False):
+    """The mesh a launcher's ``--mesh`` asks for, or None: over distinct
+    cards for an unindexed ``cuda``, else logical shards of ``device``."""
+    if multi_pod:
+        raise NotImplementedError(
+            "--multi-pod: the reference's (2, 16, 16) production mesh takes "
+            "512 chips; pass --mesh pod,data,model (ROADMAP.md, item 20)")
+    if spec is None:
+        return None
+    shape = tuple(int(n) for n in spec.split(","))
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
+        len(shape))
+    if axes is None:
+        raise SystemExit(f"--mesh {spec}: data,model or pod,data,model")
+    dev = torch.device(device)
+    return make_mesh(shape, axes, None if dev.type == "cuda"
+                     and dev.index is None else dev)
+
+
+__all__ = ["BatchMesh", "BatchSharding", "Shards", "make_batch_mesh", "Mesh",
+           "make_mesh", "make_local_mesh", "make_production_mesh",
+           "mesh_from_args"]

@@ -5,14 +5,17 @@ decode, on the card unless ``--device cpu``; the port of the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b \\
         --batch 4 --steps 32
 
-runs the reduced config; ``--full`` runs the full config on the one
-card (the reference's production mesh belongs to the LM's distributed
-stack, not yet ported).  Every decoder family serves: the dense
-decoders, the MoE ones (kimi-k2, arctic), recurrentgemma, rwkv6 and the
-vlm (internvl2, whose prompt is ``num_patches`` patch embeddings then
-tokens, ``--prompt-len`` counting both); hubert is encoder-only and
-exits, as in the reference.  ``--layers N`` runs the first N layers (the
-full MoE configs fit one card only so cut).  The server packs
+runs the reduced config; ``--full`` runs the full config.  ``--mesh
+data,model`` (``--layout``) serves through the sharded steps, over
+distinct cards for ``--device cuda`` and over logical shards of one
+device for ``--device cpu`` or an indexed card; the dense decoders and
+MoE shard, the MoE ones by the config's ``moe_dispatch``.  Every
+decoder family serves: the dense decoders, the MoE ones (kimi-k2,
+arctic), recurrentgemma, rwkv6 and the vlm (internvl2, whose prompt
+is ``num_patches`` patch embeddings then tokens, ``--prompt-len``
+counting both); hubert is encoder-only and exits, as in the
+reference.  ``--layers N`` runs the first N layers (the full MoE
+configs fit one card only so cut).  The server packs
 ``--batch`` prompts (``make_batch``), prefills them in one call that
 writes the preallocated caches in place, then decodes lock-step.
 ``--temperature`` is parsed and unused, as in the reference, which
@@ -33,6 +36,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get, get_reduced
 from repro_torch.data.pipeline import make_batch
 from repro_torch.distributed import step as step_lib
+from repro_torch.launch.mesh import mesh_from_args
+from repro_torch.models import convert
 from repro_torch.models import model as model_lib
 
 
@@ -50,12 +55,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--lowering", default="kernel",
                     choices=["native", "conv", "kernel"])
+    ap.add_argument("--mesh", default=None,
+                    help="data,model or pod,data,model sizes")
+    ap.add_argument("--layout", default="tp", choices=["tp", "fsdp", "sp"])
     return ap
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(devs) -> None:
+    for dev in devs:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def main(argv=None) -> dict:
@@ -68,32 +77,42 @@ def main(argv=None) -> dict:
                          f"no token after its {cfg.num_patches} patches")
     cfg = cfg.scaled(tina_lowering=args.lowering,
                      n_layers=args.layers or cfg.n_layers)
-    dev = resolve_device(args.device)
+    mesh = mesh_from_args(args.mesh, args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.devices[0]
+    devs = (dev,) if mesh is None else mesh.distinct
     max_len = args.prompt_len + args.steps
 
     prefill = step_lib.make_prefill_step(cfg, batch_size=args.batch,
-                                         seq_len=args.prompt_len)
+                                         seq_len=args.prompt_len, mesh=mesh,
+                                         layout=args.layout)
     decode = step_lib.make_decode_step(cfg, batch_size=args.batch,
-                                       cache_len=max_len)
-    params = model_lib.prepare(
-        model_lib.init_model(cfg, seed=0, device=dev), cfg)
+                                       cache_len=max_len, mesh=mesh,
+                                       layout=args.layout)
+    params = model_lib.init_model(cfg, seed=0, device=dev)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in
              make_batch(cfg, args.batch, args.prompt_len).items()}
-    caches = model_lib.init_caches(cfg, args.batch, max_len, device=dev)
+    if mesh is None:
+        params = model_lib.prepare(params, cfg)
+        caches = model_lib.init_caches(cfg, args.batch, max_len, device=dev)
+    else:
+        params = [model_lib.prepare(t, cfg) for t in convert.shard_params(
+            params, mesh, decode.specs.params_sh, copy=False)]
+        caches = step_lib.init_sharded_caches(decode.specs, args.batch,
+                                              max_len)
 
-    _sync(dev)
+    _sync(devs)
     t0 = time.perf_counter()
     # prefill writes into the max_len caches directly
     logits, caches = prefill(params, batch, caches)
     tok = torch.argmax(logits, -1).to(torch.int32)
-    _sync(dev)
+    _sync(devs)
     t_prefill = time.perf_counter() - t0
     out_tokens = [tok]
     t0 = time.perf_counter()
     for _ in range(args.steps - 1):
         tok, logits, caches = decode(params, tok, caches)
         out_tokens.append(tok)
-    _sync(dev)
+    _sync(devs)
     t_decode = time.perf_counter() - t0
 
     gen = torch.stack(out_tokens, 1).cpu()
@@ -105,6 +124,7 @@ def main(argv=None) -> dict:
           "...")
     return {"arch": cfg.name, "full": args.full, "layers": cfg.n_layers,
             "device": str(dev),
+            "mesh": None if mesh is None else list(mesh.sizes),
             "lowering": cfg.tina_lowering, "batch": args.batch,
             "prompt_len": args.prompt_len, "steps": args.steps,
             "prefill_s": t_prefill, "decode_s": t_decode,

@@ -5,10 +5,15 @@
 
 Defaults run the *reduced* config, so the whole loop (the train step,
 checkpoint and resume, straggler detection, the metrics log) runs on
-one host; ``--full`` takes the full config on the one card.  The run
-resumes from the latest checkpoint in ``--workdir`` when there is one.
-On the card unless ``--device cpu``; ``--multi-pod`` (a mesh across
-pods) belongs to the multi-device stack, not ported.
+one host; ``--full`` takes the full config.  The run resumes from the
+latest checkpoint in ``--workdir`` when there is one.  On the card
+unless ``--device cpu``.
+
+``--mesh 4,2`` (data, model) or ``--mesh 2,2,2`` (pod, data, model)
+runs the sharded step (``--layout tp|fsdp``): over distinct cards for
+``--device cuda``, over logical shards of one device for ``--device
+cpu`` or an indexed card (``--device cuda:0``).  ``--multi-pod`` takes
+the reference's (2, 16, 16) production mesh, which needs 512 cards.
 
 ``main`` returns the last step's metrics for callers that run it in
 process.
@@ -18,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs import get, get_reduced
+from repro_torch.launch.mesh import mesh_from_args
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 
@@ -35,22 +41,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="data,model or pod,data,model sizes")
+    ap.add_argument("--layout", default="tp", choices=["tp", "fsdp", "sp"])
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the multi-device stack (mesh, sharded steps) is "
-            "not ported yet (ROADMAP.md, item 20)")
+    mesh = mesh_from_args(args.mesh, args.device, multi_pod=args.multi_pod)
     cfg = get(args.arch) if args.full else get_reduced(args.arch)
     tcfg = TrainerConfig(
         total_steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, ckpt_every=args.ckpt_every, lr=args.lr,
         microbatch=args.microbatch,
     )
-    trainer = Trainer(cfg, tcfg, workdir=args.workdir, device=args.device)
+    trainer = Trainer(cfg, tcfg, workdir=args.workdir, device=args.device,
+                      mesh=mesh, layout=args.layout)
     final = trainer.run()
     print(f"final: {final}")
     return final

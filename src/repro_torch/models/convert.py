@@ -28,7 +28,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import flatten_with_path, map_tree
+from repro_torch.tree import flatten_with_path, map_tree, unflatten
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -112,4 +112,88 @@ def train_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     return out
 
 
-__all__ = ["from_jax", "stack_params", "unstack_views", "train_from_jax"]
+# ---------------------------------------------------------------------------
+# over a mesh: a tree in per-position shards, and back
+# ---------------------------------------------------------------------------
+def _entries(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def _is_spec(x) -> bool:
+    from repro_torch.partitioning import PartitionSpec
+    return isinstance(x, PartitionSpec)
+
+
+def _shard_leaf(t, mesh, spec, i: int, *, copy: bool = True):
+    """Position ``i``'s block of a global leaf under ``spec`` (a
+    ``PartitionSpec``), on position i's device: each split dim narrowed
+    to the position's rank over its entry's axes.  A host number (a
+    cache's counter) is returned as it is.  ``copy=False`` leaves a block
+    already on its device a view of ``t``."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    dev = mesh.devices[i]
+    out = t
+    for dim, entry in enumerate(_entries(spec, t.ndim)):
+        if entry is None:
+            continue
+        n = mesh.count(entry)
+        if t.shape[dim] % n:
+            raise ValueError(f"shard: dim {dim} of {tuple(t.shape)} does "
+                             f"not split over {entry} ({n})")
+        size = t.shape[dim] // n
+        out = out.narrow(dim, mesh.rank(i, entry) * size, size)
+    moved = out.to(dev)
+    if copy and moved is out:
+        moved = out.clone()
+    return moved.contiguous() if copy else moved
+
+
+def shard_params(params, mesh, specs, *, copy: bool = True) -> list:
+    """``params`` (a global tree: the training layout, an optimizer
+    state, caches) as one tree a mesh position, each leaf its block under
+    its spec in ``specs`` (a tree of ``PartitionSpec`` aligned with
+    ``params``) on the position's device.  ``copy`` (the default) gives
+    every position memory of its own, as an in-place update of each
+    position's tree needs; ``copy=False`` lets a block that is already
+    on its device be a view of the global leaf (serving weights)."""
+    flat = flatten_with_path(params)
+    sflat = dict(flatten_with_path(specs, is_leaf=_is_spec))
+    out = []
+    for i in range(mesh.size):
+        vals = [_shard_leaf(t, mesh, sflat[k], i, copy=copy)
+                for k, t in flat]
+        out.append(unflatten(params, vals))
+    return out
+
+
+def unshard(trees: list, mesh, specs, *, device=None):
+    """The global tree of per-position ``trees`` (as
+    :func:`shard_params` makes them) under ``specs``: each leaf's blocks
+    put back at their offsets, on ``device`` (default the first
+    position's).  A host number is taken from the first position."""
+    flats = [flatten_with_path(t) for t in trees]
+    sflat = dict(flatten_with_path(specs, is_leaf=_is_spec))
+    dev = mesh.devices[0] if device is None else torch.device(device)
+    vals = []
+    for j, (key, first) in enumerate(flats[0]):
+        if not isinstance(first, torch.Tensor):
+            vals.append(first)
+            continue
+        entries = _entries(sflat[key], first.ndim)
+        shape = [n * (mesh.count(e) if e is not None else 1)
+                 for n, e in zip(first.shape, entries)]
+        g = torch.empty(shape, dtype=first.dtype, device=dev)
+        for i, flat in enumerate(flats):
+            block = g
+            for dim, e in enumerate(entries):
+                if e is not None:
+                    size = first.shape[dim]
+                    block = block.narrow(dim, mesh.rank(i, e) * size, size)
+            block.copy_(flat[j][1].detach())
+        vals.append(g)
+    return unflatten(trees[0], vals)
+
+
+__all__ = ["from_jax", "stack_params", "unstack_views", "train_from_jax",
+           "shard_params", "unshard"]

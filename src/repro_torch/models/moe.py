@@ -1,6 +1,8 @@
 """Mixture-of-Experts block (kimi-k2, arctic): the port of the reference's
-``repro.models.moe`` on its GSPMD path, the one it takes whenever no
-mesh rule is active.
+``repro.models.moe``.  :func:`moe_block` is its GSPMD path on one
+device; :func:`routed` runs the routed experts of one expert group, the
+piece both of its dispatches over a mesh are made of
+(:func:`repro_torch.models.sharded.moe_block`).
 
 Sort-based fixed-capacity token dispatch: top-k routing, the (token,
 expert) assignments flattened token-major and sorted by expert, each
@@ -82,13 +84,47 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig
     routings, ``moe_experts``: the chosen experts (B·S, k), and
     ``moe_kept``: which of them kept the token (B·S, k)."""
     b, s, d = x.shape
+    n, k = b * s, cfg.n_experts_per_token
+    y, st = routed(p, x.reshape(n, d), cfg, lo=0, n_local=cfg.n_experts)
+    y = y.reshape(b, s, d)
+    # the kept share as XLA computes the reference's keep.mean(): the
+    # count times the f32 reciprocal of N*k, so the two agree bit for bit
+    dropped = 1.0 - st["kept"] * (1.0 / (n * k))
+    if cfg.shared_experts:
+        y = y + layers.mlp(p["shared"], x, cfg)
+    if cfg.dense_residual_ff:
+        y = y + layers.mlp(p["dense"], x, cfg)
+    return y, {"moe_aux_loss": st["aux_loss"], "moe_drop_frac": dropped,
+               "moe_experts": st["experts"], "moe_kept": st["kept_mask"]}
+
+
+def routed(p: Params, xt: Tensor, cfg: ModelConfig, *, lo: int,
+           n_local: int, router_in_x_dtype: bool = False
+           ) -> tuple[Tensor, dict]:
+    """The routed experts' output for tokens ``xt`` (N, d), from experts
+    [lo, lo + n_local) only: ``p``'s expert weights are that group's
+    (all of them for lo = 0, n_local = E, :func:`moe_block`; one model
+    shard's under expert parallelism, whose partial outputs sum over the
+    shards).  Every token is routed over all E experts; the dispatch
+    sorts the group's assignments alone (the rest to a trash slot at
+    ``n_local``), which keeps the same tokens as a sort over all experts:
+    a token's slot within its expert counts that expert's earlier
+    assignments only.  ``router_in_x_dtype``: the router product in
+    ``xt``'s dtype, then f32 (the reference's ``shard_map`` body), not in
+    f32.  Stats: ``aux_loss`` (of all the tokens' routing), ``kept`` and
+    ``assigned`` (the group's assignments kept and made, f32 counts),
+    ``experts`` and ``kept_mask`` ((N, k): an assignment outside the
+    group is not kept here)."""
+    n, d = xt.shape
     e, k = cfg.n_experts, cfg.n_experts_per_token
-    n = b * s
-    dev = x.device
-    xt = x.reshape(n, d)
+    dev = xt.device
 
     # routing, in f32
-    logits = xt.float() @ p["router"]["w"].float()
+    w = p["router"]["w"]
+    if router_in_x_dtype:
+        logits = (xt @ w.to(xt.dtype)).float()
+    else:
+        logits = xt.float() @ w.float()
     probs = torch.softmax(logits, -1)
     gate_vals, experts = route(probs, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -96,25 +132,30 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig
     # switch-style load-balance loss; the counts are integer sums (exact
     # in any order), and no host sync, unlike bincount on the card
     flat_e = experts.reshape(-1)                            # (N*k,)
+    ones = torch.ones_like(flat_e)
     counts = torch.zeros(e, dtype=flat_e.dtype, device=dev).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
+        0, flat_e, ones)
     frac_tokens = counts.float() / (n * k)
     aux_loss = e * torch.sum(frac_tokens * probs.mean(0))
 
-    # sort-based dispatch
+    # sort-based dispatch over the group; the rest go to slot n_local
     cap = capacity(n, cfg)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    starts = torch.cumsum(counts, 0) - counts               # exclusive
+    local = (flat_e >= lo) & (flat_e < lo + n_local)
+    le = torch.where(local, flat_e - lo, n_local)
+    lcounts = torch.zeros(n_local + 1, dtype=le.dtype,
+                          device=dev).scatter_add_(0, le, ones)
+    order = torch.argsort(le, stable=True)
+    se = le[order]
+    starts = torch.cumsum(lcounts, 0) - lcounts             # exclusive
     pos = torch.arange(n * k, device=dev) - starts[se]      # slot in expert
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, e * cap)       # drops: trash row
+    keep = (pos < cap) & (se < n_local)
+    slot = torch.where(keep, se * cap + pos, n_local * cap)  # trash row
     st = order // k                                         # token of each
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xt[st]                 # kept slots are distinct; drops land
-    buf = buf[: e * cap].view(e, cap, d)   # on the trash row, cut off here
-
-    # expert FFNs, batched over E
+    buf = torch.zeros((n_local * cap + 1, d), dtype=xt.dtype, device=dev)
+    buf[slot] = xt[st]                 # kept slots are distinct; the rest
+    buf = buf[: n_local * cap].view(n_local, cap, d)   # land on the trash
+                                                       # row, cut off here
+    # expert FFNs, batched over the group
     cd = layers.cdtype(cfg)
     up = torch.bmm(buf, p["w_up"].to(cd))
     gate = torch.bmm(buf, p["w_gate"].to(cd))
@@ -123,7 +164,7 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig
     # combine: back to (token, k) order, summed in ascending k
     inv = torch.empty_like(order)
     inv[order] = torch.arange(n * k, device=dev)
-    out_flat = torch.cat([out.reshape(e * cap, d),
+    out_flat = torch.cat([out.reshape(n_local * cap, d),
                           torch.zeros((1, d), dtype=out.dtype, device=dev)])
     kept = keep[inv]
     contrib = (out_flat[slot[inv]]
@@ -132,17 +173,10 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
-    y = y.reshape(b, s, d)
-
-    # the kept share as XLA computes the reference's keep.mean(): the
-    # count times the f32 reciprocal of N*k, so the two agree bit for bit
-    dropped = 1.0 - keep.sum().float() * (1.0 / (n * k))
-    if cfg.shared_experts:
-        y = y + layers.mlp(p["shared"], x, cfg)
-    if cfg.dense_residual_ff:
-        y = y + layers.mlp(p["dense"], x, cfg)
-    return y, {"moe_aux_loss": aux_loss, "moe_drop_frac": dropped,
-               "moe_experts": experts, "moe_kept": kept.view(n, k)}
+    return y, {"aux_loss": aux_loss, "kept": keep.sum().float(),
+               "assigned": local.sum().float(), "experts": experts,
+               "kept_mask": kept.view(n, k)}
 
 
-__all__ = ["init_moe", "capacity", "route", "moe_block", "EXPERT_WEIGHTS"]
+__all__ = ["init_moe", "capacity", "route", "moe_block", "routed",
+           "EXPERT_WEIGHTS"]

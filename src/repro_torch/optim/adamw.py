@@ -14,7 +14,7 @@ scales and biases included.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -26,6 +26,10 @@ class Optimizer:
     init: Callable      # params -> opt_state
     update: Callable    # (grads, state, params, step) -> (params, state)
     name: str = ""
+    # (grads, states, params, mean, step): ``update`` over a leaf's blocks
+    # held apart (one tree a block), for an update that is not elementwise
+    # (Adafactor's means); None where ``update`` on each block is the same
+    update_blocks: Optional[Callable] = None
 
 
 def _count0(params) -> torch.Tensor:
@@ -105,44 +109,69 @@ def adafactor(lr_fn, *, decay: float = 0.8, eps: float = 1e-30,
             return {"v": torch.zeros(p.shape, **f32)}
         return {"s": map_tree(st, params), "count": _count0(params)}
 
+    is_state = lambda x: isinstance(x, dict) and ("v" in x or "vr" in x)
+
+    def own_mean(j, xs, dim, axis):
+        return [x.mean() if dim is None else x.mean(dim) for x in xs]
+
     @torch.no_grad()
-    def update(grads, state, params, step=None):
-        count = state["count"].add_(1)
-        lr = lr_fn(count if step is None else step)
-        beta = 1.0 - count.float() ** (-decay)
-
-        def upd(s, g, p):
-            g32 = g.float()
-            g2 = g32 * g32 + eps
-            if _factored(p):
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
-                # rank-1 reconstruction of 1/sqrt(v)
-                rfac = torch.rsqrt(
-                    vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
-                )[..., None]
-                cfac = torch.rsqrt(vc)[..., None, :]
-                u = g32 * rfac * cfac
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
+    def update_blocks(grads, states, params, mean=None, step=None):
+        """The update of leaves held as blocks: ``grads``, ``states`` and
+        ``params`` are lists with one tree a block (each tree holding its
+        block of every leaf, on its device).  ``mean(j, xs, dim, axis)``
+        gives, for leaf ``j``, each block's mean of ``xs`` over the whole
+        leaf along the parameter's ``axis`` (-1 or -2; None: every axis),
+        ``xs`` being reduced along their ``dim``; the default is each
+        block's own mean (the block is the whole leaf)."""
+        mean = mean or own_mean
+        lrs, betas = [], []
+        for st in states:
+            count = st["count"].add_(1)
+            lrs.append(lr_fn(count if step is None else step))
+            betas.append(1.0 - count.float() ** (-decay))
+        sflat = [leaves(st["s"], is_leaf=is_state) for st in states]
+        gflat = [leaves(g) for g in grads]
+        pflat = [leaves(p) for p in params]
+        for j in range(len(pflat[0])):
+            ss = [f[j] for f in sflat]
+            ps = [f[j] for f in pflat]
+            g32 = [f[j].float() for f in gflat]
+            g2 = [g * g + eps for g in g32]
+            if _factored(ps[0]):
+                vr = [b * s["vr"] + (1 - b) * r for b, s, r in
+                      zip(betas, ss, mean(j, g2, -1, -1))]
+                vc = [b * s["vc"] + (1 - b) * c for b, s, c in
+                      zip(betas, ss, mean(j, g2, -2, -2))]
+                # rank-1 reconstruction of 1/sqrt(v); vr's last axis is
+                # the parameter's axis -2
+                u = [g * torch.rsqrt(r / torch.clamp(m[..., None], min=eps)
+                                     )[..., None]
+                     * torch.rsqrt(c)[..., None, :]
+                     for g, r, m, c in zip(g32, vr, mean(j, vr, -1, -2), vc)]
+                for s, r, c in zip(ss, vr, vc):
+                    s["vr"].copy_(r)
+                    s["vc"].copy_(c)
             else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g32 * torch.rsqrt(v)
-                s["v"].copy_(v)
+                v = [b * s["v"] + (1 - b) * x
+                     for b, s, x in zip(betas, ss, g2)]
+                u = [g * torch.rsqrt(x) for g, x in zip(g32, v)]
+                for s, x in zip(ss, v):
+                    s["v"].copy_(x)
             # update clipping (RMS of the whole leaf's update <= threshold)
-            rms = torch.sqrt(torch.mean(u * u))
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            p32 = p.float()
-            p_new = p32 - lr * u
-            if weight_decay and p.ndim >= 2:
-                p_new = p_new - lr * weight_decay * p32
-            p.copy_(p_new)
+            ms = mean(j, [x * x for x in u], None, None)
+            for p, x, m, lr in zip(ps, u, ms, lrs):
+                x = x / torch.clamp(torch.sqrt(m) / clip_threshold, min=1.0)
+                p32 = p.float()
+                p_new = p32 - lr * x
+                if weight_decay and p.ndim >= 2:
+                    p_new = p_new - lr * weight_decay * p32
+                p.copy_(p_new)
 
-        is_state = lambda x: isinstance(x, dict) and ("v" in x or "vr" in x)
-        map_tree(upd, state["s"], grads, params, is_leaf=is_state)
+    def update(grads, state, params, step=None):
+        update_blocks([grads], [state], [params], step=step)
         return params, state
 
-    return Optimizer(init, update, "adafactor")
+    return Optimizer(init, update, "adafactor", update_blocks)
 
 
 def make_optimizer(cfg, lr_fn) -> Optimizer:

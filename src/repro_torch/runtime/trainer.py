@@ -1,5 +1,7 @@
-"""Fault-tolerant training loop on one device, the port of the
-reference's ``repro.runtime.trainer``.
+"""Fault-tolerant training loop, the port of the reference's
+``repro.runtime.trainer``: on one device, or over a mesh
+(``Trainer(..., mesh=)``: the sharded step, its state one tree a mesh
+position, checkpoints as global arrays, so a run resumes on any mesh).
 
 Contract:
   * auto-resume: on start, restore the latest complete checkpoint (the
@@ -55,9 +57,12 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *,
                  workdir: str, device=None,
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print, mesh=None,
+                 layout: str = "tp"):
         self.cfg, self.tcfg = cfg, tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.workdir = workdir
         self.log = log_fn
         os.makedirs(workdir, exist_ok=True)
@@ -69,7 +74,7 @@ class Trainer:
         self.step_fn, self.specs = step_lib.make_train_step(
             cfg, batch_size=tcfg.batch_size, seq_len=tcfg.seq_len,
             lr_fn=self.lr_fn, microbatch=tcfg.microbatch,
-            device=self.device)
+            device=self.device, mesh=mesh, layout=layout)
         self.detector = StragglerDetector(
             threshold=tcfg.straggler_threshold,
             on_straggler=self._on_straggler)
@@ -85,28 +90,57 @@ class Trainer:
         self.log(f"[straggler] step {ev.step}: {ev.step_time:.3f}s = "
                  f"{ev.ratio:.1f}x EMA {ev.ema:.3f}s -> checkpointing")
         if self._params is not None:
-            self.ckpt.save(self._step, self._state_tree(),
-                           metadata={"reason": "straggler"})
+            self._save(metadata={"reason": "straggler"})
 
     def _state_tree(self):
-        return {"params": self._params, "opt_state": self._opt_state}
+        if self.mesh is None:
+            return {"params": self._params, "opt_state": self._opt_state}
+        return [{"params": p, "opt_state": o}
+                for p, o in zip(self._params, self._opt_state)]
+
+    def _shard_specs(self):
+        return {"params": self.specs.params_sh,
+                "opt_state": self.specs.opt_state_sh}
+
+    def _save(self, metadata: dict) -> None:
+        if self.mesh is None:
+            self.ckpt.save(self._step, self._state_tree(),
+                           metadata=metadata)
+        else:
+            self.ckpt.save(self._step, self._state_tree(),
+                           metadata=metadata, mesh=self.mesh,
+                           specs=self._shard_specs())
 
     # ------------------------------------------------------------------
     def init_or_restore(self):
         target = {"params": self.specs.params,
                   "opt_state": self.specs.opt_state}
-        tree, meta = self.ckpt.restore(target, device=self.device)
+        if self.mesh is None:
+            tree, meta = self.ckpt.restore(target, device=self.device)
+        else:
+            tree, meta = self.ckpt.restore(target, mesh=self.mesh,
+                                           specs=self._shard_specs())
         if tree is not None:
-            self._params = tree["params"]
-            self._opt_state = tree["opt_state"]
+            if self.mesh is None:
+                self._params = tree["params"]
+                self._opt_state = tree["opt_state"]
+            else:
+                self._params = [t["params"] for t in tree]
+                self._opt_state = [t["opt_state"] for t in tree]
             self._step = int(meta["step"])
             self.log(f"[resume] restored step {self._step} from "
                      f"{self.ckpt.path(self._step)}")
             return
-        self._params = convert.stack_params(model_lib.init_model(
+        params = convert.stack_params(model_lib.init_model(
             self.cfg, seed=self.tcfg.seed, device=self.device))
-        self._opt_state = make_optimizer(self.cfg, self.lr_fn).init(
-            self._params)
+        opt = make_optimizer(self.cfg, self.lr_fn)
+        if self.mesh is None:
+            self._params, self._opt_state = params, opt.init(params)
+        else:
+            self._params = convert.shard_params(params, self.mesh,
+                                                self.specs.params_sh)
+            del params
+            self._opt_state = [opt.init(p) for p in self._params]
         self._step = 0
         self.log("[init] fresh parameters")
 
@@ -118,8 +152,10 @@ class Trainer:
         while self._step < t.total_steps:
             if t.fail_at_step is not None and self._step == t.fail_at_step:
                 raise RuntimeError(f"injected failure at step {self._step}")
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.data[self._step].items()}
+            batch = {k: torch.from_numpy(v) for k, v in
+                     self.data[self._step].items()}
+            if self.mesh is None:
+                batch = {k: v.to(self.device) for k, v in batch.items()}
             t0 = time.perf_counter()
             self._params, self._opt_state, metrics = self.step_fn(
                 self._params, self._opt_state, batch)
@@ -133,8 +169,7 @@ class Trainer:
                 self.log(f"[step {self._step:6d}] loss={metrics['loss']:.4f} "
                          f"gnorm={metrics['grad_norm']:.3f} {dt:.3f}s")
             if self._step % t.ckpt_every == 0 or self._step == t.total_steps:
-                self.ckpt.save(self._step, self._state_tree(),
-                               metadata={"loss": metrics["loss"]})
+                self._save(metadata={"loss": metrics["loss"]})
         self.ckpt.wait()
         with open(os.path.join(self.workdir, "metrics.jsonl"), "w") as f:
             for m in self.metrics_log:
@@ -144,6 +179,7 @@ class Trainer:
     # convenience for tests --------------------------------------------------
     @property
     def params(self):
+        """The parameters (one tree a mesh position over a mesh)."""
         return self._params
 
     @property

@@ -107,3 +107,146 @@ def test_async_save_while_next_step_runs(dev, tmp_path):
                               flatten_with_path(want)):
         assert a.device == dev and torch.equal(a.cpu(), b), k
     assert int(out["opt_state"]["count"]) == 1 and int(st["count"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps: logical shards of the card, and distinct cards
+# ---------------------------------------------------------------------------
+SHARDED = [("olmo_1b", {}), ("qwen2_7b", dict(fsdp=True)),
+           ("kimi_k2_1t_a32b", dict(moe_dispatch="shard_map"))]
+# the optimizer state's bar, of each leaf's largest: 1e-4 (f32 sums in
+# other orders), but 2e-2 for the expert-parallel dispatch, whose combine
+# rounds each shard's partial output to bf16 (the reference's): a partial
+# summed in another f32 order on the card than on the CPU can round to
+# the neighbouring bf16 value, 2^-8 of it, and a second moment squares it
+STATE_TOL = {"olmo_1b": 1e-4, "qwen2_7b": 1e-4, "kimi_k2_1t_a32b": 2e-2}
+
+
+def _sharded_step(cfg, cpu, batch, mesh, wire="none"):
+    """One sharded step from the CPU params ``cpu`` on ``mesh``: the
+    metrics and the global first moments / Adafactor factors on the
+    CPU."""
+    fn, specs = step_lib.make_train_step(cfg, mesh=mesh, batch_size=4,
+                                         seq_len=32, lr_fn=constant(1e-3),
+                                         grad_wire=wire)
+    ps = convert.shard_params(cpu, mesh, specs.params_sh)
+    opt = make_optimizer(cfg, constant(1e-3))
+    st = [opt.init(p) for p in ps]
+    _, st, m = fn(ps, st, batch)
+    state = dict(flatten_with_path(convert.unshard(
+        st, mesh, specs.opt_state_sh, device="cpu")))
+    return {k: float(v) for k, v in m.items()}, state
+
+
+def _hold_sharded(got, want, tol=1e-4):
+    (gm, gs), (wm, ws) = got, want
+    for k in ("loss", "grad_norm", "moe_aux_loss"):
+        np.testing.assert_allclose(gm[k], wm[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    assert gm["moe_drop_frac"] == wm["moe_drop_frac"]
+    for k, w in ws.items():
+        if w.ndim:
+            np.testing.assert_allclose(gs[k].numpy(), w.numpy(), rtol=0,
+                                       atol=tol * float(w.abs().max()),
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("arch,over", SHARDED, ids=[a for a, _ in SHARDED])
+def test_sharded_step_on_logical_shards_of_the_card(dev, arch, over):
+    """f32 compute: a (2, 2) mesh of logical shards of the card against
+    the same mesh of CPU shards (the CPU tests hold those against the
+    reference's sharded step): the metrics 1e-5, the optimizer state
+    within ``STATE_TOL`` of each leaf's largest."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg, cpu, batch = _setup(arch, dev, **over)
+    got = _sharded_step(cfg, cpu, batch, make_mesh((2, 2), ("data", "model"),
+                                                  dev))
+    want = _sharded_step(cfg, cpu, batch, make_mesh((2, 2),
+                                                    ("data", "model"), "cpu"))
+    _hold_sharded(got, want, STATE_TOL[arch])
+
+
+def test_collectives_autograd_on_the_card(dev):
+    """The collectives on 4 logical shards of the card: the forward is
+    the CPU's, bit for bit, and each backward is its forward's adjoint."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    cpu_mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(4, 6, generator=g) for _ in range(4)]
+    for fn in (lambda v, m: coll.all_reduce(v, m, "model"),
+               lambda v, m: coll.all_gather(v, m, "data", 1),
+               lambda v, m: coll.reduce_scatter(v, m, "model", 0)):
+        on = [x.to(dev).requires_grad_() for x in xs]
+        out = fn(on, mesh)
+        want = fn(xs, cpu_mesh)
+        for o, w in zip(out, want):
+            assert o.device == dev and torch.equal(o.cpu(), w)
+        ws = [torch.randn(o.shape, generator=g).to(dev) for o in out]
+        grads = torch.autograd.grad(out, on, ws)
+        lhs = sum(float((o * w).sum()) for o, w in zip(out, ws))
+        rhs = sum(float((x * gr).sum()) for x, gr in zip(on, grads))
+        assert lhs == pytest.approx(rhs, rel=1e-5)
+
+
+def test_sharded_serving_on_logical_shards_of_the_card(dev):
+    """Reduced olmo at the kernel lowering on a (2, 2) mesh of the card,
+    prepared shards: prefill and 3 decode steps within 1e-4 of the
+    one-device steps' largest logit (f32 compute: the 3xTF32 GEMM on
+    each shard's blocks), greedy tokens equal."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_reduced("olmo_1b").scaled(tina_lowering="kernel")
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    params = model_lib.init_model(cfg, seed=3, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+    pre1 = step_lib.make_prefill_step(cfg, batch_size=4, seq_len=16)
+    dec1 = step_lib.make_decode_step(cfg, batch_size=4, cache_len=19)
+    pre = step_lib.make_prefill_step(cfg, mesh=mesh, batch_size=4,
+                                     seq_len=16)
+    dec = step_lib.make_decode_step(cfg, mesh=mesh, batch_size=4,
+                                    cache_len=19)
+    one = model_lib.prepare(params, cfg)
+    ps = [model_lib.prepare(t, cfg) for t in convert.shard_params(
+        params, mesh, dec.specs.params_sh, copy=False)]
+    c1 = model_lib.init_caches(cfg, 4, 19, device=dev)
+    cs = step_lib.init_sharded_caches(dec.specs, 4, 19)
+    l1, c1 = pre1(one, {"tokens": tokens}, c1)
+    ls, cs = pre(ps, {"tokens": tokens}, cs)
+    tok = torch.argmax(l1, -1).to(torch.int32)
+    for _ in range(3):
+        assert torch.allclose(ls, l1, rtol=0,
+                              atol=1e-4 * float(l1.abs().max()))
+        t1, l1, c1 = dec1(one, tok, c1)
+        ts, ls, cs = dec(ps, tok, cs)
+        assert torch.equal(t1, ts)
+        tok = t1
+
+
+@pytest.mark.parametrize("wire", ["none", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)],
+                         ids=["two_cards", "four_cards"])
+def test_sharded_step_on_distinct_cards(dev, shape, wire):
+    """A mesh of distinct cards (the NCCL route) against the same mesh of
+    logical shards of one card: the metrics 1e-5; the optimizer state
+    within 1e-4 of each leaf's largest at the none wire (f32 sums in
+    NCCL's order), 2e-2 at the bf16 wire: NCCL sums a group of bf16
+    gradients (four members for a leaf replicated over both axes) in its
+    own order, each add rounded to bf16, so an element can move by an
+    ulp, 2^-8 of it, which a second moment squares.  Skips without
+    enough cards."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+    n = shape[0] * shape[1]
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, {torch.cuda.device_count()} visible")
+    for arch, over in SHARDED:
+        cfg, cpu, batch = _setup(arch, dev, **over)
+        mesh = make_mesh(shape, ("data", "model"))
+        assert coll.mesh_routes(mesh, "model") == {"nccl"}
+        got = _sharded_step(cfg, cpu, batch, mesh, wire=wire)
+        want = _sharded_step(cfg, cpu, batch,
+                             make_mesh(shape, ("data", "model"), dev),
+                             wire=wire)
+        _hold_sharded(got, want, 1e-4 if wire == "none" else 2e-2)

@@ -77,7 +77,7 @@ def test_twins_import_neither_jax_nor_reference():
         ROOT / "src" / "repro_torch" / f for f in (
             "launch/shapes.py", "launch/dryrun.py", "analysis/__init__.py",
             "analysis/roofline.py", "analysis/summarize.py",
-            "partitioning.py", "distributed/context.py",
+            "partitioning.py",
             "distributed/sharding.py", "distributed/pipeline.py")]
     bad = []
     for f in files:

@@ -30,7 +30,6 @@ from repro.partitioning import logical_to_spec as jlogical
 from repro_torch import configs as tconfigs
 from repro_torch import optim as topt
 from repro_torch.data import pipeline as tdata
-from repro_torch.distributed import context
 from repro_torch.distributed import sharding as tsh
 from repro_torch.distributed import step as step_lib
 from repro_torch.models import model as tmodel
@@ -80,7 +79,7 @@ def test_constrain_inside_context_checks_rank():
     x = torch.ones((2, 3))
     with axis_rules(default_rules()):
         assert current_rules()["tp"] == "model"
-        assert context.constrain(x, ("batch", "tp")) is x
+        assert constrain(x, ("batch", "tp")) is x
         with pytest.raises(ValueError, match="axes"):
             constrain(x, ("batch", None, "tp"))
     assert current_rules() is None
