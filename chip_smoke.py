@@ -475,6 +475,27 @@ SHARD_TOL = {"loss": 1e-4, "grad_norm": 5e-4, "first_moment": 5e-2,
                           # 7.3e-4
 SHARD_KIMI_MESH = (1, 4)
 SHARD_QWEN_STEPS, SHARD_KIMI_LAYERS = 10, 4
+# every family over (2, 2) logical shards at the kernel lowering, against
+# the one-device kernel steps: (arch, layers run, layouts, layers whose
+# logits are held (None: the same)); rwkv6 in bf16 with random weights
+# is chaotic past its first layer (PERF.md §6, PR 25: lm_zoo holds it so)
+SHARD_FAMILIES = (
+    ("recurrentgemma_9b", 5, ("tp", "sp"), None),
+    ("rwkv6_3b", 4, ("tp", "sp"), 1),
+    ("internvl2_2b", 24, ("tp", "sp"), None),
+    ("hubert_xlarge", 48, ("tp", "sp"), None),
+)
+# olmo_1b's sequence-parallel training on (1, 2): layout "sp" keeps the
+# parameters and AdamW state whole on every position (no TP, no ZeRO),
+# so 4 logical positions would hold 4 copies (75 GB); Megatron-SP at the
+# TP degree SHARD_TOL was measured at (at TP 4 step 2's grad norm drifts
+# 2.10e-3 from one device, over its 2e-3: ROADMAP.md queue 3)
+SHARD_SP_MESH = (1, 2)
+# recurrentgemma_9b at 5 layers (one superblock and the tail) trained on
+# (2, 2) under its fsdp, batch 2 x 512, at f32 compute, against the
+# one-device step: 51.5 GB of f32 parameters, gradients and AdamW moments
+SHARD_FAMILY_TRAIN = ("recurrentgemma_9b", 5)
+SHARD_FAMILY_BATCH = 2
 # the examples phase: each twin at its default size on the card, the
 # lines its JAX original prints when it passes, and the kernels its run
 # must launch
@@ -2269,6 +2290,109 @@ def pipeline_phase(torch, dev, card, train_times) -> None:
     emit(phase="pipeline", case="done", seconds=time.perf_counter() - t_phase)
 
 
+def step1_diffs(torch, mesh, specs, ps, st, want_p, want_m) -> dict:
+    """Step 1's parameters and AdamW first moments of a sharded step
+    (per-position trees ``ps``, ``st``) against one device's
+    (``want_p``, ``want_m``: global leaves on the card or the host), one
+    leaf at a time on the mesh's first device: the largest step
+    difference where the one-device first moment clears twice its bar
+    (its sign is sure), and the largest first-moment difference of its
+    leaf's largest."""
+    from repro_torch.models import convert
+    from repro_torch.tree import flatten_with_path
+
+    from repro_torch.partitioning import PartitionSpec
+
+    dev0 = mesh.devices[0]
+    is_spec = lambda x: isinstance(x, PartitionSpec)
+    out = {"param_step": 0.0, "first_moment": 0.0}
+    for trees, tree_specs, want, key in (
+            (ps, specs.params_sh, want_p, "param_step"),
+            (st, specs.opt_state_sh, want_m, "first_moment")):
+        flats = [dict(flatten_with_path(t)) for t in trees]
+        sflat = dict(flatten_with_path(tree_specs, is_leaf=is_spec))
+        for k, w in want.items():
+            got = convert.unshard([f[k] for f in flats], mesh, sflat[k])
+            w = w.to(dev0)
+            if key == "first_moment":
+                out[key] = max(out[key], float(
+                    (got - w).abs().max() / w.abs().max()))
+            else:
+                mm = want_m["m/" + k].to(dev0).abs()
+                sure = mm > 2 * SHARD_TOL["first_moment"] * mm.max()
+                if bool(sure.any()):
+                    out[key] = max(out[key], float(
+                        (got - w).abs()[sure].max()))
+    return out
+
+
+def sharded_train(torch, fn, specs, mesh, ps, st, batches, want, want_p,
+                  want_m) -> tuple:
+    """``len(batches)`` sharded AdamW steps against a one-device run of
+    the same weights and batches: ``want`` its steps 1 and 2's loss and
+    grad norm, ``want_p``/``want_m`` its parameters and first moments
+    after step 1 (:func:`step1_diffs`).  Fails beyond ``SHARD_TOL``;
+    returns the losses, grad norms, ms a step (CUDA events), the diffs
+    and the peak GB after step 1's check."""
+    sync_all(torch, mesh.devices)
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    losses, gnorms, step_ms = [], [], []
+    diffs = {}
+    for i, batch in enumerate(batches):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ps, st, m = fn(ps, st, batch)
+        e1.record()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sync_all(torch, mesh.devices)
+        step_ms.append(e0.elapsed_time(e1))
+        if i == 0:          # outside the timed events, leaf by leaf
+            diffs.update(step1_diffs(torch, mesh, specs, ps, st, want_p,
+                                     want_m))
+            for d in mesh.distinct:
+                torch.cuda.reset_peak_memory_stats(d)
+    for i, tag in ((0, ""), (1, "2")):
+        diffs["loss" + tag] = abs(losses[i] - want["loss" + tag]) \
+            / want["loss" + tag]
+        diffs["grad_norm" + tag] = abs(gnorms[i] - want["grad_norm" + tag]) \
+            / want["grad_norm" + tag]
+    peak_gb = max(torch.cuda.max_memory_allocated(d) / 1e9
+                  for d in mesh.distinct)
+    bad = {k: v for k, v in diffs.items() if not v <= SHARD_TOL[k]}
+    if bad or not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"sharded train: steps 1-2 against the one-device step {diffs} "
+             f"(bars {SHARD_TOL}); losses {losses}")
+    return losses, gnorms, step_ms, diffs, peak_gb
+
+
+def family_gemms(cfg, m: int, tp: int) -> set:
+    """The per-shard (M, K, N) of ``cfg``'s bf16 GEMMs at ``tp``-way
+    tensor parallelism with M rows: attention (KV heads replicated where
+    tp does not divide them), the MLP, the RG-LRU (its gates read the
+    whole gathered conv output), rwkv6's time and channel mix, the
+    frontend's projection, the head's vocabulary block (whole where tp
+    does not divide it)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    out = {(m, d, cfg.d_ff // tp), (m, cfg.d_ff // tp, d)}
+    if "attn" in cfg.block_pattern:
+        kv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
+        q = cfg.n_heads // tp * hd
+        out |= {(m, d, q), (m, d, kv * hd), (m, q, d)}
+    if "rglru" in cfg.block_pattern:
+        lru = cfg.lru_width or d
+        out |= {(m, d, lru // tp), (m, lru, lru // tp), (m, lru // tp, d)}
+    if "rwkv" in cfg.block_pattern:
+        out |= {(m, d, d // tp), (m, d // tp, d)}
+    if cfg.frontend:
+        out.add((m, 1024 if cfg.frontend == "vision_stub" else 512, d))
+    v = cfg.vocab_size
+    out.add((m, d, v // tp if v % tp == 0 else v))
+    return out
+
+
 def sync_all(torch, devices) -> None:
     for d in dict.fromkeys(devices):
         torch.cuda.synchronize(d)
@@ -2322,49 +2446,9 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
                                          seq_len=s, lr_fn=lr_fn,
                                          grad_wire="none")
     ps = convert.shard_params(params, mesh, specs.params_sh)
-    del params
     st = [opt.init(p) for p in ps]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, gnorms, step_ms = [], [], []
-    diffs = {}
-    for i in range(n_steps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        ps, st, m = fn(ps, st, batches[i])
-        e1.record()
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        e1.synchronize()
-        step_ms.append(e0.elapsed_time(e1))
-        if i == 0:          # outside the timed events
-            got = dict(flatten_with_path(convert.unshard(
-                ps, mesh, specs.params_sh)))
-            diffs["param_step"] = 0.0
-            for k, w in want_p.items():
-                m = want_m["m/" + k].abs()
-                sure = m > 2 * SHARD_TOL["first_moment"] * m.max()
-                if bool(sure.any()):
-                    diffs["param_step"] = max(diffs["param_step"], float(
-                        (got[k] - w).abs()[sure].max()))
-            got = dict(flatten_with_path(convert.unshard(
-                st, mesh, specs.opt_state_sh)))
-            diffs["first_moment"] = max(
-                float((got[k] - w).abs().max() / w.abs().max())
-                for k, w in want_m.items())
-            del got, want_p, want_m
-            torch.cuda.reset_peak_memory_stats()
-    for i, tag in ((0, ""), (1, "2")):
-        diffs["loss" + tag] = abs(losses[i] - want["loss" + tag]) \
-            / want["loss" + tag]
-        diffs["grad_norm" + tag] = abs(gnorms[i] - want["grad_norm" + tag]) \
-            / want["grad_norm" + tag]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    bad = {k: v for k, v in diffs.items() if not v <= SHARD_TOL[k]}
-    if bad or not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"sharded train: steps 1-2 against the one-device step {diffs} "
-             f"(bars {SHARD_TOL}); losses {losses}")
+    losses, gnorms, step_ms, diffs, peak_gb = sharded_train(
+        torch, fn, specs, mesh, ps, st, batches, want, want_p, want_m)
     if not losses[-1] < losses[0]:
         fail(f"sharded train: the loss did not fall: {losses}")
     ms = statistics.median(step_ms[1:])
@@ -2380,9 +2464,36 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
          one_device_peak_memory_gb=train_times.get("peak_gb"),
          vs_one_device=ms / train_times["ms"] if train_times.get("ms")
          else None)
-    del ps, st, fn, batches
+    del fn, ps, st
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- olmo_1b's sequence parallelism: layout="sp" and Megatron-SP,
+    # steps 1-2 against the same one-device run ----------------------------
+    mesh_sp = make_mesh(SHARD_SP_MESH, axes, dev)
+    for layout, seqp in (("sp", False), ("tp", True)):
+        fn, specs = step_lib.make_train_step(
+            cfg, mesh=mesh_sp, batch_size=b, seq_len=s, lr_fn=lr_fn,
+            grad_wire="none", layout=layout, sequence_parallel=seqp)
+        ps = convert.shard_params(params, mesh_sp, specs.params_sh)
+        st = [opt.init(p) for p in ps]
+        losses, gnorms, step_ms, diffs, peak_gb = sharded_train(
+            torch, fn, specs, mesh_sp, ps, st, batches[:2], want, want_p,
+            want_m)
+        emit(phase="sharded", case="train_sp_logical", nvidia_smi=card,
+             arch=LM_ARCH, layout=layout, sequence_parallel=seqp,
+             mesh=mesh_sp.shape, batch=b, seq=s,
+             steps=2, losses=losses, grad_norms=gnorms, one_device=want,
+             diffs=diffs, tol=SHARD_TOL, ms_per_step_all=step_ms,
+             tokens_per_s=b * s / (step_ms[-1] / 1e3),
+             peak_memory_gb=peak_gb)
+        del fn, ps, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, want_p, want_m, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_train(torch, dev, card)
 
     # -- olmo_1b serving at the kernel lowering on (2, 2) logical shards --
     kcfg = cfg.scaled(tina_lowering="kernel")
@@ -2468,7 +2579,22 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- every per-shard GEMM shape: olmo_1b at TP 2, qwen2_7b at TP 2, 4 --
+    # -- every family on (2, 2) logical shards at TP and SP --------------
+    fam_mesh = make_mesh(SHARD_MESH, axes, dev)
+    for arch, layers_run, layouts, held in SHARD_FAMILIES:
+        for layout in layouts:
+            rows = [family_serve(torch, dev, card, zero_counts, counts, arch,
+                                 layers_run, layout, fam_mesh, held is None)]
+            if held is not None:
+                rows.append(family_serve(torch, dev, card, zero_counts,
+                                         counts, arch, held, layout,
+                                         fam_mesh, True))
+            for row in rows:
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+
+    # -- every per-shard GEMM shape: olmo_1b at TP 2, qwen2_7b at TP 2, 4,
+    # and each new family's at TP 2 and 4 ---------------------------------
     q = get("qwen2_7b")
     shapes = set()
     for c_, tp, dp in ((cfg, 2, 2), (q, 2, 2), (q, 4, 1)):
@@ -2480,6 +2606,11 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
                        (m_, c_.n_heads // tp * hd, d),
                        (m_, d, c_.d_ff // tp), (m_, c_.d_ff // tp, d),
                        (m_, d, c_.vocab_size // tp)}
+    for arch, *_ in SHARD_FAMILIES:
+        c_ = get(arch)
+        for tp, dp in ((2, 2), (4, 1)):
+            for m_ in (LM_BATCH // dp * LM_PROMPT, LM_BATCH // dp):
+                shapes |= family_gemms(c_, m_, tp)
     gemms = []
     for m_, k_, n_ in sorted(shapes):
         x = torch.randn(m_, k_, device=dev, generator=gen).to(torch.bfloat16)
@@ -2524,6 +2655,7 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
              note="fewer than 4 cards: only logical shards ran")
     else:
         qwen_cards(torch, card, make_mesh((2, 2), axes))
+        rg_cards(torch, card, make_mesh((1, 4), axes), zero_counts, counts)
         kimi4 = get("kimi_k2_1t_a32b").scaled(
             n_layers=SHARD_KIMI_LAYERS, tina_lowering="kernel",
             moe_dispatch="shard_map")
@@ -2647,6 +2779,360 @@ def kimi_serve(torch, cfg, mesh, card, zero_counts, counts, dev, gen, *,
     gc.collect()
     torch.cuda.empty_cache()
     return counted, row
+
+
+def one_device_steps(torch, cfg, host: list, batches, lr_fn, dev) -> tuple:
+    """One-device train steps of ``cfg`` (no wire), one a batch, from the
+    weights ``host`` (the training layout's leaves): each step's loss and
+    grad norm (``loss``, ``grad_norm``, then ``loss2``...), the
+    parameters and first moments after step 1, step 1's ms and the peak
+    GB.  With two batches the parameters and moments go to the host;
+    with one they stay on the card."""
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import flatten_with_path, unflatten
+
+    b, s = batches[0]["tokens"].shape
+    ref, specs = step_lib.make_train_step(cfg, batch_size=b, seq_len=s,
+                                          lr_fn=lr_fn, grad_wire="none",
+                                          device=dev)
+    params = unflatten(specs.params, [t.to(dev, copy=True) for t in host])
+    st = make_optimizer(cfg, lr_fn).init(params)
+    sync_all(torch, [dev])
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    params, st, mr = ref(params, st, batches[0])
+    e1.record()
+    want = {"loss": float(mr["loss"]), "grad_norm": float(mr["grad_norm"])}
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    to = "cpu" if len(batches) > 1 else dev
+    want_p = {k: v.to(to, copy=True) for k, v in flatten_with_path(params)}
+    want_m = {k: v.to(to, copy=True) for k, v in flatten_with_path(st)
+              if k.startswith("m/")}
+    for i, batch in enumerate(batches[1:], 2):
+        mr = ref(params, st, batch)[2]
+        want.update({f"loss{i}": float(mr["loss"]),
+                     f"grad_norm{i}": float(mr["grad_norm"])})
+    del params, st, ref, mr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, want_p, want_m, ms, peak
+
+
+def family_train(torch, dev, card) -> None:
+    """``SHARD_FAMILY_TRAIN`` trained on (2, 2) logical shards under its
+    own fsdp at f32 compute, steps 1-2 against the one-device step at
+    f32 on the same weights and batches (no wire, ``SHARD_TOL``).  The
+    config's own bf16 one-device step 1 is measured against the f32 one
+    too: at bf16 the model's first moments move from f32's by more than
+    ``SHARD_TOL`` allows a sharded step (ROADMAP.md queue 3), so a bf16
+    comparison would hold bf16 rounding, not the sharding.  The
+    one-device runs go first and are freed; the f32 one's results wait
+    on the host."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.tree import leaves, unflatten
+
+    arch, layers_run = SHARD_FAMILY_TRAIN
+    cfg = get(arch).scaled(n_layers=layers_run)
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    b, s = SHARD_FAMILY_BATCH, TRAIN_SEQ
+    lr_fn = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, 2)
+    data = SyntheticDataset(cfg, b, s, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data[i].items()}
+               for i in range(2)]
+    params = convert.stack_params(model_lib.init_model(
+        cfg, seed=TRAIN_SEED, device=dev))
+    host = [t.to("cpu", copy=True) for t in leaves(params)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want, want_p, want_m, one_ms, one_peak = one_device_steps(
+        torch, cfg32, host, batches, lr_fn, dev)
+    bf, _, bf_m, bf_ms, _ = one_device_steps(torch, cfg, host, batches[:1],
+                                             lr_fn, dev)
+    noise = {k: abs(bf[k] - want[k]) / abs(want[k]) for k in bf}
+    noise["first_moment"] = 0.0
+    for k, w in want_m.items():
+        w = w.to(dev)
+        noise["first_moment"] = max(noise["first_moment"], float(
+            (bf_m[k] - w).abs().max() / w.abs().max()))
+    del bf_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(SHARD_MESH, ("data", "model"), dev)
+    fn, specs = step_lib.make_train_step(cfg32, mesh=mesh, batch_size=b,
+                                         seq_len=s, lr_fn=lr_fn,
+                                         grad_wire="none")
+    params = unflatten(specs.params, [t.to(dev, copy=True) for t in host])
+    del host
+    ps = convert.shard_params(params, mesh, specs.params_sh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = [make_optimizer(cfg32, lr_fn).init(p) for p in ps]
+    losses, gnorms, step_ms, diffs, peak_gb = sharded_train(
+        torch, fn, specs, mesh, ps, st, batches, want, want_p, want_m)
+    emit(phase="sharded", case="train_family_logical", nvidia_smi=card,
+         arch=arch, layers=layers_run, of_layers=get(arch).n_layers,
+         fsdp=cfg.fsdp, compute_dtype=cfg32.compute_dtype, mesh=mesh.shape,
+         batch=b, seq=s, steps=2,
+         params=sum(math.prod(t.shape) for t in leaves(specs.params)),
+         losses=losses, grad_norms=gnorms, one_device=want, diffs=diffs,
+         tol=SHARD_TOL, ms_per_step_all=step_ms,
+         one_device_ms_step1=one_ms, one_device_peak_memory_gb=one_peak,
+         peak_memory_gb=peak_gb, one_device_bf16_step1=bf,
+         one_device_bf16_ms_step1=bf_ms, one_device_bf16_vs_f32=noise)
+    del fn, ps, st, want_p, want_m, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_serve(torch, dev, card, zero_counts, counts, arch: str,
+                 layers_run: int, layout: str, mesh, hold: bool) -> dict:
+    """``arch`` at ``layers_run`` layers, published widths, at the kernel
+    lowering: prefill ``ZOO_BATCH`` x ``ZOO_PROMPT`` (a vlm's 256 patches
+    and 256 tokens) and ``SHARD_DECODE`` greedy steps (an encoder: its
+    prefill) through the sharded serving steps on ``mesh`` at ``layout``,
+    against the one-device kernel steps on the same weights.  The
+    sharded run is counted: its bf16 GEMM launches must be the mesh's
+    size times the one-device call's linears.  ``hold``: every call's
+    logits within ``LM_RTOL`` of the largest and the greedy tokens where
+    the one-device margin exceeds twice the error (the decode steps
+    teacher-forced by the one-device tokens).  Returns the row."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+
+    cfg = get(arch).scaled(n_layers=layers_run, tina_lowering="kernel")
+    encoder = cfg.family == "audio"
+    b, s = ZOO_BATCH, ZOO_PROMPT
+    steps = 0 if encoder else SHARD_DECODE
+    max_len = s + steps
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model_lib.init_model(cfg, generator=gen)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             make_batch(cfg, b, s, seed=LM_SEED).items()}
+    one = model_lib.prepare(params, cfg)
+    pre1 = step_lib.make_prefill_step(cfg, batch_size=b, seq_len=s)
+    dec1 = step_lib.make_decode_step(cfg, batch_size=b, cache_len=max_len)
+    pre = step_lib.make_prefill_step(cfg, mesh=mesh, batch_size=b,
+                                     seq_len=s, layout=layout)
+    dec = step_lib.make_decode_step(cfg, mesh=mesh, batch_size=b,
+                                    cache_len=max_len, layout=layout)
+    shards = [model_lib.prepare(t, cfg) for t in convert.shard_params(
+        params, mesh, dec.specs.params_sh, copy=False)]
+
+    def caches1():
+        return model_lib.init_caches(cfg, b, max_len, device=dev)
+
+    def run(pre_, dec_, p_, caches, toks=None):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        e0.record()
+        lg, caches = pre_(p_, batch, caches)
+        e1.record()
+        out, tok = [lg], torch.argmax(lg, -1).to(torch.int32)
+        picked = [tok]
+        for i in range(steps):
+            tok, lg, caches = dec_(p_, tok if toks is None else toks[i],
+                                   caches)
+            out.append(lg)
+            picked.append(tok)
+        e2.record()
+        e2.synchronize()
+        return (out, picked, e0.elapsed_time(e1),
+                e1.elapsed_time(e2) / steps if steps else None)
+
+    run(pre1, dec1, one, caches1())                        # warm-up
+    run(pre, dec, shards, step_lib.init_sharded_caches(dec.specs, b,
+                                                       max_len))
+    want_l, want_t, pre1_ms, dec1_ms = run(pre1, dec1, one, caches1())
+    caches = step_lib.init_sharded_caches(dec.specs, b, max_len)
+    torch.cuda.synchronize()
+    zero_counts()
+    got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches,
+                                       toks=want_t[:-1])
+    counted = {k: v for k, v in counts().items() if v}
+    want_n = mesh.size * (zoo_linears(cfg, True)
+                          + steps * zoo_linears(cfg, False))
+    if counted != {"matmul_bf16": want_n}:
+        fail(f"sharded {arch} {layout}: launches {counted}, want "
+             f"matmul_bf16 {want_n}")
+    # the lm_zoo phase's bar: the larger of LM_RTOL and twice the one-device
+    # bf16 run's distance from the model at f32 compute (native lowering,
+    # teacher-forced by the same tokens): bf16's own noise grows with depth
+    f32 = cfg.scaled(compute_dtype="float32", tina_lowering="native")
+    ref32 = run(step_lib.make_prefill_step(f32, batch_size=b, seq_len=s),
+                step_lib.make_decode_step(f32, batch_size=b,
+                                          cache_len=max_len),
+                params, model_lib.init_caches(f32, b, max_len, device=dev),
+                toks=want_t[:-1])[0]
+    errs, d_ref, bars, held, free = [], [], [], 0, 0
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        if tuple(g.shape) != (b, cfg.vocab_size) or \
+                not bool(torch.isfinite(g).all()):
+            fail(f"sharded {arch} {layout}: call {i}'s logits "
+                 f"{tuple(g.shape)} finite {bool(torch.isfinite(g).all())}")
+        err, scale = rel_err(torch, g, w)
+        e32, s32 = rel_err(torch, w, ref32[i])
+        errs.append(err / scale)
+        d_ref.append(e32 / s32)
+        bars.append(max(LM_RTOL, 2 * d_ref[-1]))
+        if not hold:
+            continue
+        if not err <= bars[-1] * scale:
+            fail(f"sharded {arch} {layout}: call {i}'s logits {err} from "
+                 f"the one-device step's (> {bars[-1]} * {scale}; its bf16 "
+                 f"vs f32 compute: {d_ref[-1]})")
+        top2 = torch.topk(w.float(), 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        same = torch.argmax(g, -1) == torch.argmax(w, -1)
+        if not bool(same[sure].all()):
+            fail(f"sharded {arch} {layout}: call {i}: a greedy token "
+                 f"differs where the one-device margin exceeds twice the "
+                 f"error {err}")
+        held += int(sure.sum())
+        free += int((~sure).sum())
+    row = {"phase": "sharded", "case": "serve_family_logical",
+           "nvidia_smi": card, "arch": arch, "layers": layers_run,
+           "of_layers": get(arch).n_layers, "layout": layout,
+           "lowering": "kernel", "mesh": mesh.shape,
+           "routes": sorted(coll.mesh_routes(mesh, mesh.axes)),
+           "batch": b, "prompt": s, "steps": steps, "launches": counted,
+           "launches_per_prefill": mesh.size * zoo_linears(cfg, True),
+           "held": hold, "logits_err_of_max": errs, "bars": bars,
+           "one_device_bf16_vs_f32_compute": d_ref,
+           "tokens_held_equal": held, "tokens_within_error": free,
+           "prefill_ms": pre_ms, "decode_ms_per_step": dec_ms,
+           "one_device_prefill_ms": pre1_ms,
+           "one_device_decode_ms_per_step": dec1_ms}
+    emit(**row)
+    del params, one, shards, caches, got_l, want_l, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def rg_cards(torch, card, mesh, zero_counts, counts) -> None:
+    """recurrentgemma-9b whole (38 layers) at the kernel lowering, served
+    on ``mesh``'s distinct cards (TP 4, its one KV head replicated):
+    prefill ``ZOO_BATCH`` x ``ZOO_PROMPT`` and ``SHARD_DECODE`` steps
+    against the one-device kernel steps on the first card, logits within
+    the ``lm_zoo`` bar (``LM_RTOL``, or twice the one-device run's
+    distance from the f32 model where larger) of the largest.  The
+    sharded run goes first; the one-device runs then take the whole
+    model on the first card."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_lib
+
+    cfg = get("recurrentgemma_9b").scaled(tina_lowering="kernel")
+    dev = mesh.devices[0]
+    b, s, steps = ZOO_BATCH, ZOO_PROMPT, SHARD_DECODE
+    max_len = s + steps
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model_lib.init_model(cfg, generator=gen)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             make_batch(cfg, b, s, seed=LM_SEED).items()}
+    pre = step_lib.make_prefill_step(cfg, mesh=mesh, batch_size=b,
+                                     seq_len=s)
+    dec = step_lib.make_decode_step(cfg, mesh=mesh, batch_size=b,
+                                    cache_len=max_len)
+    shards = []
+    for t, d in zip(convert.shard_params(params, mesh, dec.specs.params_sh),
+                    mesh.devices):
+        with torch.cuda.device(d):
+            shards.append(model_lib.prepare(t, cfg))
+
+    def run(pre_, dec_, p_, caches, devs, toks=None):
+        sync_all(torch, devs)
+        t0 = time.perf_counter()
+        lg, caches = pre_(p_, batch, caches)
+        sync_all(torch, devs)
+        t1 = time.perf_counter()
+        out, tok = [lg.to(dev)], torch.argmax(lg, -1).to(torch.int32)
+        picked = [tok]
+        for i in range(steps):
+            tok, lg, caches = dec_(p_, tok if toks is None else toks[i],
+                                   caches)
+            out.append(lg.to(dev))
+            picked.append(tok)
+        sync_all(torch, devs)
+        t2 = time.perf_counter()
+        return out, picked, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps
+
+    def caches_sh():
+        return step_lib.init_sharded_caches(dec.specs, b, max_len)
+    run(pre, dec, shards, caches_sh(), mesh.devices)        # warm-up
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    zero_counts()
+    got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches_sh(),
+                                       mesh.devices)
+    counted = {k: v for k, v in counts().items() if v}
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+             for d in mesh.distinct}
+    del shards
+    gc.collect()
+    for d in mesh.distinct:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    want_n = mesh.size * (zoo_linears(cfg, True)
+                          + steps * zoo_linears(cfg, False))
+    if counted != {"matmul_bf16": want_n}:
+        fail(f"sharded recurrentgemma on cards: launches {counted}, want "
+             f"matmul_bf16 {want_n}")
+    # the one-device model at f32 compute, then at the kernel lowering,
+    # both teacher-forced by the sharded run's tokens; the lm_zoo bar
+    f32 = cfg.scaled(compute_dtype="float32", tina_lowering="native")
+    ref32 = run(step_lib.make_prefill_step(f32, batch_size=b, seq_len=s),
+                step_lib.make_decode_step(f32, batch_size=b,
+                                          cache_len=max_len),
+                params, model_lib.init_caches(f32, b, max_len, device=dev),
+                [dev], toks=got_t[:-1])[0]
+    one = model_lib.prepare(params, cfg)
+    pre1 = step_lib.make_prefill_step(cfg, batch_size=b, seq_len=s)
+    dec1 = step_lib.make_decode_step(cfg, batch_size=b, cache_len=max_len)
+    want_l, _, pre1_ms, dec1_ms = run(
+        pre1, dec1, one, model_lib.init_caches(cfg, b, max_len, device=dev),
+        [dev], toks=got_t[:-1])
+    errs, d_ref, bars = [], [], []
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        err, scale = rel_err(torch, g, w)
+        e32, s32 = rel_err(torch, w, ref32[i])
+        errs.append(err / scale)
+        d_ref.append(e32 / s32)
+        bars.append(max(LM_RTOL, 2 * d_ref[-1]))
+        if not err <= bars[-1] * scale:
+            fail(f"sharded recurrentgemma on cards: call {i}'s logits {err} "
+                 f"from the one-device step's (> {bars[-1]} * {scale}; its "
+                 f"bf16 vs f32 compute: {d_ref[-1]})")
+    emit(phase="sharded", case="recurrentgemma_cards", nvidia_smi=card,
+         arch=cfg.name, layers=cfg.n_layers, lowering="kernel",
+         mesh=mesh.shape, devices=[str(d) for d in mesh.devices],
+         routes=sorted(coll.mesh_routes(mesh, mesh.axes)), batch=b,
+         prompt=s, steps=steps, launches=counted, logits_err_of_max=errs,
+         bars=bars, one_device_bf16_vs_f32_compute=d_ref,
+         prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+         one_device_prefill_ms=pre1_ms, one_device_decode_ms_per_step=dec1_ms,
+         peak_memory_gb_per_card=peaks)
+    del params, one, got_l, want_l, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def qwen_cards(torch, card, mesh) -> None:

@@ -16,7 +16,8 @@ with a ``shape`` dict of axis sizes (``launch.mesh.BatchMesh``) or such a
 dict itself; only its sizes are read.
 
 The sharded steps (:mod:`repro_torch.distributed.step`) read
-:func:`param_shardings` through :func:`step_param_specs` and derive the
+:func:`param_shardings` through :func:`step_param_specs` (which also
+gives each shard's compute layout) and derive the
 optimizer state's specs from it (:func:`step_opt_state_specs`); they
 split the batch by the rules' ``batch`` axes and hold caches in
 :mod:`repro_torch.models.sharded`'s per-position layout.
@@ -232,6 +233,29 @@ def _drop(spec: PartitionSpec, axes) -> PartitionSpec:
     return P(*out)
 
 
+# the compute layout's own cuts under tensor parallelism (rwkv6): the
+# time mix's per-channel and per-head leaves, which the reference
+# replicates, cut to a shard's heads; the channel mix's value map split
+# on its d_ff rows, Megatron's row-parallel form (the reference's
+# (wq|wk|wv)/w rule stores it split on its output columns)
+_COMPUTE_TP: list[tuple[str, tuple]] = [
+    (r".*tm/(w0|ln_x)$",       ("tp",)),
+    (r".*tm/u$",               ("tp", None)),
+    (r".*tm/td_w2$",           (None, "tp")),
+    (r".*cm/wv/w$",            ("tp", None)),
+]
+
+
+def _compute_tp(path: str, leaf, spec, rules: dict, mesh):
+    shape = _shape(leaf)
+    for pat, logical in _COMPUTE_TP:
+        if re.match(pat, path):
+            cut = logical_to_spec(logical, rules)
+            return legalize(P(*([None] * (len(shape) - len(cut))
+                                + list(cut))), shape, mesh)
+    return spec
+
+
 def step_param_specs(tree, cfg: ModelConfig, mesh, rules: dict, *,
                      compute: bool = False):
     """The specs a sharded step keeps a parameter tree in: the
@@ -241,16 +265,24 @@ def step_param_specs(tree, cfg: ModelConfig, mesh, rules: dict, *,
     flat ``hkv * hd`` axis does not fall on heads.  ``compute`` gives the
     layout each shard computes in: the same without the ZeRO-3 axes
     (rules' ``"fsdp"``), which a training step gathers before use and a
-    serving step never splits."""
+    serving step never splits, and, under tensor parallelism, rwkv6's
+    cuts of :data:`_COMPUTE_TP` (a training step reshards those leaves
+    from the stored specs at their use)."""
+    is_spec = lambda x: isinstance(x, PartitionSpec)
     if compute:
         rules = {**rules, "fsdp": None}
     specs = param_shardings(tree, cfg, mesh, rules)
+    if compute and rules.get("tp"):
+        flat = dict(flatten_with_path(tree))
+        specs = map_with_path(
+            lambda path, spec: _compute_tp(path, flat[path], spec, rules,
+                                           mesh), specs, is_leaf=is_spec)
     if not kv_replicated(cfg, mesh, rules):
         return specs
     kv = re.compile(r"(^|.*/)attn/(wk|wv)/")
     return map_with_path(
         lambda path, spec: _drop(spec, rules["tp"]) if kv.match(path)
-        else spec, specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+        else spec, specs, is_leaf=is_spec)
 
 
 def step_opt_state_specs(opt_state_shape, param_specs):

@@ -18,9 +18,12 @@ position (:func:`repro_torch.models.convert.shard_params` under the
 step's :class:`StepSpecs`), its batch the global one, which it splits
 over the data axes.  ``layout="tp"``: data parallel over ``("pod",
 "data")``, Megatron tensor parallel and expert parallel over ``model``,
-ZeRO-3 over ``data`` under ``cfg.fsdp``; ``layout="fsdp"``: no tensor
+ZeRO-3 over ``data`` under ``cfg.fsdp`` (with ``sequence_parallel``:
+Megatron-SP, the train step only); ``layout="fsdp"``: no tensor
 parallelism, ZeRO-3 over ``model``, the embedding, head and experts
-still split over it.
+still split over it; ``layout="sp"``: no tensor parallelism, the
+sequence over ``model``, the embedding, head and experts still split
+over it.  Every family shards (:mod:`repro_torch.models.sharded`).
 """
 from __future__ import annotations
 
@@ -288,18 +291,15 @@ def _no_mesh(layout: str, sequence_parallel: bool) -> None:
 def sharded_rules(cfg: ModelConfig, mesh, *, batch_size: Optional[int],
                   layout: str = "tp",
                   sequence_parallel: bool = False) -> dict:
-    """The reference's ``_rules_for``: ``default_rules`` for the mesh, the
-    batch replicated where the data axes do not divide it.  ``layout="sp"``
-    and sequence parallelism raise NotImplementedError (the next slice)."""
-    if layout == "sp" or sequence_parallel:
-        raise NotImplementedError(
-            f"sharded steps: layout={layout!r}, sequence_parallel="
-            f"{sequence_parallel}: sequence parallelism is {sharded.NEXT}")
+    """The reference's ``_rules_for``: ``default_rules`` for the mesh
+    (``layout="sp"`` splits the sequence over ``model``;
+    ``sequence_parallel`` adds Megatron-SP's split of it to ``"tp"``),
+    the batch replicated where the data axes do not divide it."""
     if set(mesh.shape) - {"pod", "data", "model"}:
         raise ValueError(f"sharded steps: mesh axes {mesh.axes}; the LM "
                          "mesh's are data, model (and pod)")
     rules = default_rules(multi_pod="pod" in mesh.shape, fsdp=cfg.fsdp,
-                          layout=layout)
+                          sequence_parallel=sequence_parallel, layout=layout)
     dp = tuple(a for a in rules["batch"] if a in mesh.shape)
     if batch_size is not None and batch_size % mesh.count(dp):
         rules["batch"] = None        # latency-bound serving: TP does the
@@ -318,6 +318,12 @@ def _split_batch(L, x) -> list:
     b = x.shape[0] // n
     return [x.narrow(0, mesh.rank(i, L.dp) * b, b).to(dev)
             for i, dev in enumerate(mesh.devices)]
+
+
+def _split_inputs(L, batch: dict) -> dict:
+    """Every leaf of a global batch split by :func:`_split_batch`: a dict
+    of per-position lists."""
+    return {key: _split_batch(L, x) for key, x in batch.items()}
 
 
 def _rep_axes(mesh, spec) -> tuple:
@@ -364,14 +370,19 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, *, batch_size: int,
     through the whole sharded step; a ZeRO-3 leaf's data-parallel sum in
     its gather's backward), the sum of each leaf's parts over the axes it
     is replicated on, both in bf16 under ``grad_wire="bf16"`` (each
-    shard's gradient rounded to bf16 before the reduction, so bf16 is
-    what crosses the wire), the f32 accumulation over microbatches, the
-    clip at global norm 1.0 (the sum of squares over one copy of each
-    block), and the optimizer on each position's blocks (Adafactor's row,
-    column and RMS means summed over the axes that split them).
+    data shard's gradient rounded to bf16 before the reduction over the
+    data axes, so bf16 is what crosses the wire; its parts over the
+    other axes, tensor-parallel partial sums that the reference adds in
+    f32 inside its backward, summed in f32 first), the f32 accumulation
+    over microbatches, the clip at global norm 1.0 (the sum of squares
+    over one copy of each block), and the optimizer on each position's
+    blocks (Adafactor's row, column and RMS means summed over the axes
+    that split them).
 
-    Raises as the one-device step does, and NotImplementedError for the
-    families and layouts outside this slice."""
+    ``layout="sp"`` splits the sequence over ``model`` (no tensor
+    parallelism); ``sequence_parallel=True`` at ``"tp"`` is Megatron-SP
+    (:mod:`repro_torch.models.sharded`).  Raises as the one-device step
+    does."""
     if cfg.tina_lowering == "kernel":
         raise ValueError(
             "make_train_step: tina_lowering='kernel' has no gradient (the "
@@ -400,17 +411,23 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, *, batch_size: int,
     sflat = dict(flatten_with_path(specs.params_sh,
                                    is_leaf=lambda x: isinstance(x, PartitionSpec)))
     rep = {key: _rep_axes(mesh, sflat[key]) for key in keys}
+    # the wire's sum runs over the data axes; a replicated leaf's parts
+    # over the others (tensor-parallel partial sums) meet in f32 first
+    outer = {key: tuple(a for a in rep[key] if a in L.dp) for key in keys}
+    inner = {key: tuple(a for a in rep[key] if a not in L.dp)
+             for key in keys}
     dev0 = mesh.devices[0]
     block_mean = _block_mean(mesh, specs)
+    want = set(specs.batch)
 
-    def grads_of(params, tokens):
+    def grads_of(params, batch):
         trees = [map_tree(lambda t: t.detach().requires_grad_(), p)
                  for p in params]
         diff = [leaves(t) for t in trees]
         with torch.enable_grad():
             W = sharded.Weights(trees, mesh, specs.params_sh,
                                 specs.compute_sh, grad_dtype=wire)
-            total, metrics = sharded.loss_fn(L, W, tokens)
+            total, metrics = sharded.loss_fn(L, W, batch)
             gs = torch.autograd.grad(total, [x for d in diff for x in d],
                                      allow_unused=True)
         n = len(keys)
@@ -420,10 +437,14 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, *, batch_size: int,
                 col = []
                 for i in range(mesh.size):
                     g = gs[i * n + j]
-                    g = torch.zeros_like(diff[i][j]) if g is None else g
-                    col.append(g.to(wire) if wire is not None
-                               and g.dtype == torch.float32 else g)
-                col = coll.all_reduce(col, mesh, rep[key])
+                    col.append(torch.zeros_like(diff[i][j]) if g is None
+                               else g)
+                if wire is not None and col[0].dtype == torch.float32:
+                    col = coll.all_reduce(col, mesh, inner[key])
+                    col = coll.all_reduce([g.to(wire) for g in col], mesh,
+                                          outer[key])
+                else:
+                    col = coll.all_reduce(col, mesh, rep[key])
                 for i in range(mesh.size):
                     out[i][j] = col[i].float()
         return out, {key: v.detach() for key, v in metrics.items()}
@@ -452,16 +473,17 @@ def make_sharded_train_step(cfg: ModelConfig, mesh, *, batch_size: int,
         if not donate:
             params = [map_tree(torch.clone, p) for p in params]
             opt_state = [map_tree(torch.clone, o) for o in opt_state]
-        tokens = torch.as_tensor(batch["tokens"])
-        rows = tokens.shape[0]
+        batch = {key: torch.as_tensor(v) for key, v in batch.items()
+                 if key in want}
+        rows = next(iter(batch.values())).shape[0]
         if rows % k:
             raise ValueError(f"train_step: a batch of {rows} rows in {k} "
                              "microbatches")
         m = rows // k
         grads = metrics = None
         for mb in range(k):
-            g, met = grads_of(params, _split_batch(
-                L, tokens[mb * m:(mb + 1) * m]))
+            g, met = grads_of(params, _split_inputs(
+                L, {key: v[mb * m:(mb + 1) * m] for key, v in batch.items()}))
             if grads is None:
                 grads, metrics = g, met
             else:
@@ -537,21 +559,25 @@ def make_sharded_serving_steps(cfg: ModelConfig, mesh, *, batch_size: int,
                       batch=input_specs(cfg, batch_size, seq_len),
                       mesh=mesh, rules=rules, layout=L)
 
+    want = {k: tuple(specs.batch[k].shape)
+            for k in _INPUTS.get(cfg.family, ("tokens",))}
+
     def prefill(params, batch, caches):
         _check_trees("prefill params", params, mesh)
-        tokens = torch.as_tensor(batch["tokens"])
-        _check("prefill tokens", tokens.shape, (batch_size, seq_len))
-        logits = sharded.forward_cached(L, sharded.Weights(params, mesh),
-                                        _split_batch(L, tokens), caches)
+        for k, shape in want.items():
+            _check(f"prefill {k}", batch[k].shape, shape)
+        logits = sharded.forward_cached(
+            L, sharded.Weights(params, mesh),
+            _split_inputs(L, {k: batch[k] for k in want}), caches)
         return logits, caches
 
     def decode(params, tokens, caches):
         _check_trees("decode params", params, mesh)
         tokens = torch.as_tensor(tokens)
         _check("decode tokens", tokens.shape, (batch_size,))
-        logits = sharded.forward_cached(L, sharded.Weights(params, mesh),
-                                        _split_batch(L, tokens[:, None]),
-                                        caches)
+        logits = sharded.forward_cached(
+            L, sharded.Weights(params, mesh),
+            _split_inputs(L, {"tokens": tokens[:, None]}), caches)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 
     prefill.specs = decode.specs = specs

@@ -8,8 +8,9 @@ decode, on the card unless ``--device cpu``; the port of the reference's
 runs the reduced config; ``--full`` runs the full config.  ``--mesh
 data,model`` (``--layout``) serves through the sharded steps, over
 distinct cards for ``--device cuda`` and over logical shards of one
-device for ``--device cpu`` or an indexed card; the dense decoders and
-MoE shard, the MoE ones by the config's ``moe_dispatch``.  Every
+device for ``--device cpu`` or an indexed card; every family shards,
+at ``--layout tp|fsdp|sp`` (``sp``: the prompt split over ``model``),
+the MoE ones by the config's ``moe_dispatch``.  Every
 decoder family serves: the dense decoders, the MoE ones (kimi-k2,
 arctic), recurrentgemma, rwkv6 and the vlm (internvl2, whose prompt
 is ``num_patches`` patch embeddings then tokens, ``--prompt-len``

@@ -10,7 +10,8 @@ latest checkpoint in ``--workdir`` when there is one.  On the card
 unless ``--device cpu``.
 
 ``--mesh 4,2`` (data, model) or ``--mesh 2,2,2`` (pod, data, model)
-runs the sharded step (``--layout tp|fsdp``): over distinct cards for
+runs the sharded step of any arch (``--layout tp|fsdp|sp``; ``sp``
+splits the sequence over ``model``): over distinct cards for
 ``--device cuda``, over logical shards of one device for ``--device
 cpu`` or an indexed card (``--device cuda:0``).  ``--multi-pod`` takes
 the reference's (2, 16, 16) production mesh, which needs 512 cards.

@@ -57,9 +57,15 @@ def init_rglru_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def _gates(p: Params, u: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
-    r = torch.sigmoid(layers.linear(p["w_r"], u, cfg).float())
-    i = torch.sigmoid(layers.linear(p["w_i"], u, cfg).float())
+def _gates(p: Params, u: Tensor, cfg: ModelConfig,
+           u_all: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    """(a, b) of the recurrence on ``u``'s channels; ``u_all``: the whole
+    conv output the gates' dense maps read, where ``u`` is a block of its
+    channels (a tensor-parallel shard's, with ``w_r``/``w_i``'s columns
+    and ``lambda`` cut to them)."""
+    u_all = u if u_all is None else u_all
+    r = torch.sigmoid(layers.linear(p["w_r"], u_all, cfg).float())
+    i = torch.sigmoid(layers.linear(p["w_i"], u_all, cfg).float())
     log_a = -_C * r * F.softplus(p["lambda"].float())
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -67,10 +73,14 @@ def _gates(p: Params, u: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     return a, b
 
 
-def linear_scan(a: Tensor, b: Tensor) -> Tensor:
-    """h_t = a_t·h_{t-1} + b_t along axis 1 from h_{-1} = 0, by
-    Hillis–Steele doubling: after the step of distance d, element t holds
-    the composition of elements t-2d+1..t."""
+def linear_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None
+                ) -> Tensor:
+    """h_t = a_t·h_{t-1} + b_t along axis 1 from h_{-1} = ``h0`` (None:
+    0), by Hillis–Steele doubling: after the step of distance d, element
+    t holds the composition of elements t-2d+1..t.  ``h0`` enters as
+    a_0·h0 added to b_0."""
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
     s = a.shape[1]
     d = 1
     while d < s:

@@ -99,12 +99,17 @@ def _wkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     return torch.stack(outs, 1), s
 
 
-def time_mix(p: Params, x: Tensor, cfg: ModelConfig, *,
-             state: Optional[dict] = None) -> tuple[Tensor, Optional[dict]]:
-    b, s, d = x.shape
+def mix_core(p: Params, x: Tensor, cfg: ModelConfig, prev: Optional[Tensor],
+             s0: Optional[Tensor]) -> tuple[Tensor, Tensor]:
+    """The time mix of ``x`` after ``prev`` (the input before x[:, 0];
+    None: zero) from WKV state ``s0`` (None: zero): (out, final state).
+    The heads are ``p["u"]``'s: a block of them (a tensor-parallel
+    shard's, whose ``wr``/``wk``/``wv``/``wg`` columns, ``wo`` rows and
+    ``w0``/``td_w2``/``u``/``ln_x`` are cut to them) gives those heads'
+    part of the output projection."""
+    b, s, _ = x.shape
     hs = cfg.rwkv_head_size
-    h = d // hs
-    prev = state["x_tm"] if state is not None else None
+    h = p["u"].shape[0]
     xx = _shift(x, cfg, prev) - x
     xr, xw, xk, xv, xg = _ddlerp(p, x, xx)
 
@@ -118,20 +123,28 @@ def time_mix(p: Params, x: Tensor, cfg: ModelConfig, *,
     wlog = p["w0"].float() + td.float() @ p["td_w2"].float()
     w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, hs)
 
-    s0 = state["S"] if state is not None else torch.zeros(
-        (b, h, hs, hs), dtype=torch.float32, device=x.device)
+    if s0 is None:
+        s0 = torch.zeros((b, h, hs, hs), dtype=torch.float32,
+                         device=x.device)
     out, s_new = _wkv_scan(r, k, v, w, p["u"].float(), s0)
 
     # per-head group norm (ln_x, population variance), gate, project out
     mu = out.mean(-1, keepdim=True)
     var = out.var(-1, keepdim=True, unbiased=False)
     out = (out - mu) * torch.rsqrt(var + 1e-5)
-    out = out.reshape(b, s, d) * p["ln_x"].float()
+    out = out.reshape(b, s, h * hs) * p["ln_x"].float()
     out = out.to(x.dtype) * g
-    if state is not None:
-        state["S"].copy_(s_new)
-        state["x_tm"].copy_(x[:, -1])
-    return layers.linear(p["wo"], out, cfg), state
+    return layers.linear(p["wo"], out, cfg), s_new
+
+
+def time_mix(p: Params, x: Tensor, cfg: ModelConfig, *,
+             state: Optional[dict] = None) -> tuple[Tensor, Optional[dict]]:
+    if state is None:
+        return mix_core(p, x, cfg, None, None)[0], None
+    out, s_new = mix_core(p, x, cfg, state["x_tm"], state["S"])
+    state["S"].copy_(s_new)
+    state["x_tm"].copy_(x[:, -1])
+    return out, state
 
 
 def init_channel_mix(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -177,5 +190,5 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     }
 
 
-__all__ = ["init_time_mix", "time_mix", "init_channel_mix", "channel_mix",
+__all__ = ["init_time_mix", "time_mix", "mix_core", "init_channel_mix", "channel_mix",
            "init_rwkv_state", "TIME_MIX_LINEARS", "CHANNEL_MIX_LINEARS"]

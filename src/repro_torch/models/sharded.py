@@ -1,26 +1,51 @@
 """The model over a mesh's shards: the forward, the training loss and the
-serving steps of :mod:`repro_torch.models.model` for the dense decoders
-and the MoE family, one process driving every position of a
-:class:`repro_torch.launch.mesh.Mesh` (the reference's single
+serving steps of :mod:`repro_torch.models.model` for every family (the
+dense decoders, MoE, recurrentgemma's RG-LRU and local attention, rwkv6,
+the vision and audio frontends), one process driving every position of
+a :class:`repro_torch.launch.mesh.Mesh` (the reference's single
 controller, ``jax.jit`` over a mesh).
 
 A sharded value is a list with one tensor a mesh position.  Every
 position runs the single-device layers (:mod:`repro_torch.models.layers`)
 on its own block of the parameters with a per-shard config
-(:class:`Layout`: ``n_heads / tp``, the KV heads it holds), and the
-collectives of :mod:`repro_torch.distributed.collectives` stand where
-the reference's GSPMD puts them:
+(:class:`Layout`: ``n_heads / tp``, the KV heads it holds, ``d_ff / tp``,
+``lru_width / tp``), and the collectives of
+:mod:`repro_torch.distributed.collectives` stand where the reference's
+GSPMD puts them.  Under tensor parallelism (``layout="tp"``):
 
 * column-parallel ``wq``/``wk``/``wv`` (and biases), ``up``/``gate``;
   row-parallel ``wo``/``down``, then an all-reduce over the
   tensor-parallel axis.  Heads split whole: the reference splits the flat
   ``h * hd`` axis, which for a head count the axis divides is the same
   blocks; KV heads the axis does not divide but whose count divides it
-  are replicated, each shard reading the one its query heads use;
+  are replicated, each shard reading the one its query heads use
+  (recurrentgemma's one KV head);
+* the RG-LRU: ``in_x``/``in_gate`` column-parallel, the conv, ``lambda``,
+  the scan and ``h * gate`` on the shard's channels; ``w_r``/``w_i`` are
+  dense maps of the whole conv output ``u``, so ``u`` is all-gathered
+  over the axis before the gates (its backward a reduce-scatter);
+  ``out`` row-parallel, then one all-reduce.  A decode state holds the
+  shard's channels of ``h`` and of the conv's last inputs;
+* rwkv6: heads split whole.  The time mix's ``wr``/``wk``/``wv``/``wg``
+  column-parallel, ``w0``/``td_w2``/``u``/``ln_x`` cut to the shard's
+  heads (the reference replicates them; the group norm is per head),
+  ``wo`` row-parallel then an all-reduce; the WKV state ``S`` is kept
+  per head (the reference keeps it whole over the axis, split by batch
+  only).  The channel mix: ``wk`` column-parallel, ``wv`` row-parallel
+  on its ``d_ff`` rows (the compute layout of
+  :func:`repro_torch.distributed.sharding.step_param_specs`; the
+  reference stores it split on its output columns), its partial sums
+  reduce-scattered over ``d``, multiplied by the shard's columns of the
+  column-parallel receptance ``wr``, then all-gathered.  The token shift
+  reads the replicated input and needs no communication;
 * the embedding vocab-parallel: a masked lookup, then an all-reduce;
+  a vocabulary the axis does not divide (internvl2's 92,553) stays whole;
 * the head and cross-entropy vocab-parallel: the max and the sum of
   exponentials all-reduced, so the whole vocabulary's logits are never
   gathered in training;
+* the frontends replicated (``frontend/proj``, ``conv_pos``); a vlm's
+  patches and an audio batch's frames, targets and mask split over the
+  data axes with the batch;
 * the MoE block on the reference's ``shard_map`` path
   (``cfg.moe_dispatch == "shard_map"``): each shard routes and sorts its
   data shard's tokens over its own expert group and the partial outputs
@@ -29,12 +54,40 @@ the reference's GSPMD puts them:
   routes all of them and runs its expert group, and the outputs are
   summed over the expert axis: the unsharded block's result.
 
+Sequence parallelism, in the reference's two forms
+(``repro_torch.partitioning.default_rules``):
+
+* ``layout="sp"``: no tensor parallelism; each position holds its block
+  of the sequence from the embedding to the head.  Attention all-gathers
+  K and V over the sequence axis, its queries' causal mask, RoPE
+  positions and local window offset by the block's start; norms and MLPs
+  are local; the MoE block gathers its input's sequence and keeps its
+  block of the output.  The recurrent blocks pass their carry across the
+  sequence blocks in rank order: the RG-LRU's ``h`` and the conv's last
+  ``w - 1`` inputs, rwkv6's shifted token and WKV state ``S``.  The audio
+  frontend's ``conv_pos`` halo (the 127 frames before a block) is
+  projected again from the frames every position holds.  The embedding
+  and the head stay vocab-parallel: the lookup runs on the whole
+  sequence and each position keeps its block; the last hidden states are
+  all-gathered before the head.  A decode step's one token does not
+  split: prefill leaves every position's caches the whole sequence's K/V
+  and the final recurrent state (the reference puts nothing of the
+  caches on the sequence axis), and decode runs replicated over it;
+* ``sequence_parallel=True`` at ``layout="tp"`` (the train step only,
+  as in the reference): Megatron-SP.  The residual stream stays split
+  over the sequence between blocks; each block all-gathers its normed
+  input's sequence before its column-parallel maps and reduce-scatters
+  after its row-parallel ones, in place of the all-reduce.
+
 Parameters arrive per position in the layout a step keeps them in
 (:func:`repro_torch.distributed.sharding.step_param_specs`); a training
-step's ZeRO-3 blocks are gathered to the compute layout where a layer
-uses them (inside the superblock's recomputed region, so the backward
-gathers again).  Serving steps keep their weights in the compute layout
-(prepared or not) and gather nothing.
+step's ZeRO-3 blocks (and rwkv6's compute cuts) are brought to the
+compute layout where a layer uses them (inside the superblock's
+recomputed region, so the backward gathers again).  Serving steps keep
+their weights in the compute layout (prepared or not) and gather
+nothing.  The unrolled tail (``n_layers`` not a multiple of the pattern:
+recurrentgemma's 38 layers end in two RG-LRU blocks) runs after the
+stack, as on one device.
 """
 from __future__ import annotations
 
@@ -43,11 +96,13 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import functions as tina
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import kv_replicated
 from repro_torch.launch.mesh import _names
-from repro_torch.models import convert, layers, moe
+from repro_torch.models import convert, layers, moe, rglru, rwkv6
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.partitioning import PartitionSpec
@@ -61,15 +116,6 @@ def device_ctx(dev: torch.device):
     """The context a position's work runs in: its card current."""
     return torch.cuda.device(dev) if dev.type == "cuda" \
         else contextlib.nullcontext()
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """The families this slice shards: the dense decoders and MoE."""
-    if cfg.family not in ("dense", "moe") or cfg.frontend \
-            or tuple(cfg.block_pattern) != ("attn",) or not cfg.causal:
-        raise NotImplementedError(
-            f"sharded steps: {cfg.name} ({cfg.family}) is not in this "
-            f"slice (the dense decoders and MoE); see {NEXT}")
 
 
 def _is_spec(x) -> bool:
@@ -90,7 +136,7 @@ class Layout:
     rules: dict
     dp: tuple               # the batch's mesh axes (none: replicated)
     tp: tuple               # the tensor-parallel axes (none: no TP)
-    local: ModelConfig      # one shard's attention config
+    local: ModelConfig      # one shard's attention / MLP / RG-LRU config
     kv_group: int           # > 0: KV heads replicated, this many shards
                             # read each
     vocab: tuple            # the embedding table's vocab axes
@@ -98,13 +144,36 @@ class Layout:
     expert: tuple           # the experts' axes
     ep: bool                # the reference's shard_map dispatch
     canon: list             # one position a data shard, in rank order
+    seq: tuple = ()         # the sequence's axes (sequence parallelism)
 
     @property
     def tp_size(self) -> int:
         return self.mesh.count(self.tp)
 
+    @property
+    def sp(self) -> bool:
+        """``layout="sp"``: the blocks run on sequence blocks."""
+        return bool(self.seq) and not self.tp
+
+    @property
+    def megatron(self) -> bool:
+        """Megatron-SP: the sequence split between blocks only."""
+        return bool(self.seq) and bool(self.tp)
+
     def rank(self, i: int, axes) -> int:
         return self.mesh.rank(i, axes)
+
+    def splits(self, s: int) -> bool:
+        """Whether a sequence of ``s`` positions splits over the sequence
+        axes (a decode step's one token does not); ValueError where they
+        do not divide it."""
+        n = self.mesh.count(self.seq)
+        if n == 1 or s == 1:
+            return False
+        if s % n:
+            raise ValueError(f"sharded steps: a sequence of {s} positions "
+                             f"over {n} sequence shards")
+        return True
 
 
 def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
@@ -113,17 +182,22 @@ def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
     the parameters' compute-layout specs (their vocab and expert axes).
     Raises ValueError for head counts the tensor-parallel axis cannot
     split."""
-    check_family(cfg)
     shape = mesh.shape
     dp = tuple(a for a in _names(rules.get("batch")) if a in shape)
     tp = tuple(a for a in _names(rules.get("tp")) if a in shape)
+    seq = tuple(a for a in _names(rules.get("seq")) if a in shape)
     n = mesh.count(tp)
     h, hkv = cfg.n_heads, cfg.n_kv_heads
+    lru = cfg.lru_width or cfg.d_model
     group = 0
     if n > 1:
         widths = {"n_heads": h, "d_ff": cfg.d_ff,
                   "shared expert d_ff": cfg.d_ff * cfg.shared_experts,
                   "dense_residual_ff": cfg.dense_residual_ff}
+        if "rglru" in cfg.block_pattern:
+            widths["lru_width"] = lru
+        if "rwkv" in cfg.block_pattern:
+            widths["rwkv heads"] = cfg.d_model // cfg.rwkv_head_size
         bad = {k: v for k, v in widths.items() if v % n}
         if bad or (hkv % n and n % hkv):
             raise ValueError(
@@ -135,7 +209,8 @@ def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
             group = n // hkv
     local = cfg.scaled(n_heads=h // n,
                        n_kv_heads=1 if group else hkv // n,
-                       d_ff=cfg.d_ff // n)
+                       d_ff=cfg.d_ff // n,
+                       lru_width=lru // n if cfg.lru_width else None)
     flat = dict(flatten_with_path(compute_specs, is_leaf=_is_spec))
     vocab = _names(_axes_of(flat["embed/table"], 0))
     head_vocab = vocab if cfg.tie_embeddings \
@@ -151,12 +226,16 @@ def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
         raise ValueError(f"sharded steps: the shard_map dispatch needs the "
                          f"experts over 'model', the specs put them over "
                          f"{expert}")
+    if seq and tp and seq != tp:
+        raise ValueError(f"sharded steps: Megatron-SP splits the sequence "
+                         f"over the tensor-parallel axes {tp}, not {seq}")
     others = [a for a in mesh.axes if a not in dp]
     canon = sorted((i for i in range(mesh.size)
                     if all(mesh.coords(i)[a] == 0 for a in others)),
                    key=lambda i: mesh.rank(i, dp))
     return Layout(cfg, mesh, rules, dp, tp, local, group, vocab,
-                  head_vocab, expert, ep, canon)
+                  head_vocab, expert, ep, canon,
+                  seq if mesh.count(seq) > 1 else ())
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +249,12 @@ def reshard(xs: list, mesh, src, dst, *, grad_dtype=None) -> list:
     nd = xs[0].ndim
     src = tuple(src) + (None,) * (nd - len(src))
     dst = tuple(dst) + (None,) * (nd - len(dst))
-    for dim, (s, c) in enumerate(zip(src, dst)):
-        if s == c:
-            continue
-        if s is not None:
+    moved = [(dim, s, c) for dim, (s, c) in enumerate(zip(src, dst))
+             if s != c]
+    for dim, s, _ in moved:       # every gather before any cut: a block
+        if s is not None:         # cut first would gather others' rows
             xs = coll.all_gather(xs, mesh, s, dim, grad_dtype=grad_dtype)
+    for dim, _, c in moved:
         if c is not None:
             n = mesh.count(c)
             xs = [x.narrow(dim, mesh.rank(i, c) * (x.shape[dim] // n),
@@ -232,6 +312,14 @@ class Weights:
                                    is_leaf=_is_spec)
         return self._to_compute(subs, strip(self.store["stack"][sub]),
                                 strip(self.compute["stack"][sub]))
+
+    def tail(self, j: int) -> list:
+        """Block ``j`` of the unrolled tail, per position."""
+        subs = [v["tail"][j] for v in self.views]
+        if self.store is None:
+            return subs
+        return self._to_compute(subs, self.store["tail"][j],
+                                self.compute["tail"][j])
 
 
 def pmap(L: Layout, fn, *lists) -> list:
@@ -332,63 +420,339 @@ def moe_block(L: Layout, ps: list, zs: list) -> tuple[list, dict]:
     return ys, stats
 
 
-def block(L: Layout, ps: list, xs: list, ctx: dict, caches: Optional[list]
-          ) -> tuple[list, dict]:
-    """One attention block (attention, then the MLP or MoE block) over
-    shards; ``ctx`` maps a device to its (positions, pos0, rope angles).
-    Caches are written in place."""
-    cfg, hd = L.cfg, L.cfg.head_dim
-    caches = caches or [None] * len(xs)
+def _gather_seq(L: Layout, xs: list) -> list:
+    """The whole sequence (dim 1) on every position of a sequence group."""
+    return coll.all_gather(xs, L.mesh, L.seq, 1)
 
-    def attn(i, p, x, c):
+
+def _seq_block(L: Layout, xs: list) -> list:
+    """Each position's block of a sequence (dim 1) it holds whole."""
+    n = L.mesh.count(L.seq)
+    return [x.narrow(1, L.rank(i, L.seq) * (x.shape[1] // n),
+                     x.shape[1] // n) for i, x in enumerate(xs)]
+
+
+def _enter(L: Layout, zs: list, split: bool) -> list:
+    """A block's normed input in the layout its maps read: Megatron-SP
+    all-gathers the sequence."""
+    return _gather_seq(L, zs) if L.megatron and split else zs
+
+
+def _leave(L: Layout, hs: list, split: bool) -> list:
+    """Row-parallel partial sums into the residual stream's layout: the
+    all-reduce over the tensor-parallel axis, or under Megatron-SP the
+    reduce-scatter over the sequence."""
+    if L.megatron and split:
+        return coll.reduce_scatter(hs, L.mesh, L.tp, 1)
+    return _tp_sum(L, hs)
+
+
+def _in_rank_order(L: Layout, fn, first, *lists) -> tuple[list, list]:
+    """``fn(i, carry, *items) -> (out, carry)`` along each sequence group
+    in rank order, the carry (a tuple of tensors) passed from block to
+    block; ``first(i)`` is the first block's.  Returns the outputs and,
+    at every position, its group's last carry."""
+    mesh = L.mesh
+    out, last = [None] * mesh.size, [None] * mesh.size
+    for g in mesh.groups(L.seq):
+        carry = None
+        for i in g:
+            dev = mesh.devices[i]
+            with device_ctx(dev):
+                c = first(i) if carry is None else \
+                    tuple(t.to(dev) for t in carry)
+                out[i], carry = fn(i, c, *(lst[i] for lst in lists))
+        for i in g:
+            last[i] = tuple(t.to(mesh.devices[i]) for t in carry)
+    return out, last
+
+
+def _norm(L: Layout, ps: list, key: str, xs: list) -> list:
+    return pmap(L, lambda i, p, x: layers.norm(p[key], x, L.cfg), ps, xs)
+
+
+def _attention(L: Layout, ps: list, zs: list, ctx: list,
+               caches: Optional[list], sp: bool) -> list:
+    """The attention sublayer's output (partial sums under TP).  ``sp``:
+    each position's queries are its sequence block, K and V are
+    all-gathered over the sequence axes, and a cache takes the whole
+    sequence's."""
+    cfg, hd = L.cfg, L.cfg.head_dim
+    lc = L.local
+    caches = caches or [None] * len(zs)
+
+    def wkv(i, p):
         pa = p["attn"]
         if L.kv_group:
             g = L.rank(i, L.tp) // L.kv_group
             pa = {**pa, "wk": _kv_block(pa["wk"], g, hd),
                   "wv": _kv_block(pa["wv"], g, hd)}
-        positions, pos0, angles = ctx[x.device]
-        h, _ = layers.attention(pa, layers.norm(p["ln1"], x, cfg), L.local,
-                                positions=positions, pos0=pos0, cache=c,
-                                window=cfg.local_window, angles=angles)
-        return h
+        return pa
 
-    hs = _tp_sum(L, pmap(L, attn, ps, xs, caches))
-    xs = [x + h for x, h in zip(xs, hs)]
-    zs = pmap(L, lambda i, p, x: layers.norm(p["ln2"], x, cfg), ps, xs)
+    if not sp:
+        def attn(i, p, z, c):
+            positions, pos0, angles = ctx[i]
+            h, _ = layers.attention(wkv(i, p), z, lc, positions=positions,
+                                    pos0=pos0, cache=c,
+                                    window=cfg.local_window, angles=angles)
+            return h
+        return pmap(L, attn, ps, zs, caches)
+
+    def qkv(i, p, z):
+        pa = wkv(i, p)
+        b, s, _ = z.shape
+        positions, _, angles = ctx[i]
+        q = layers.linear(pa["wq"], z, lc).reshape(b, s, lc.n_heads, hd)
+        k = layers.linear(pa["wk"], z, lc).reshape(b, s, lc.n_kv_heads, hd)
+        v = layers.linear(pa["wv"], z, lc).reshape(b, s, lc.n_kv_heads, hd)
+        return (layers.rope(q, positions, lc, angles=angles),
+                layers.rope(k, positions, lc, angles=angles), v)
+    out = pmap(L, qkv, ps, zs)
+    ks = _gather_seq(L, [o[1] for o in out])
+    vs = _gather_seq(L, [o[2] for o in out])
+
+    def attend(i, p, o, k, v, c):
+        q = o[0]
+        b, s = q.shape[:2]
+        if c is not None:
+            size = c["k"].shape[1]
+            kk, vv = (k[:, -size:], v[:, -size:]) if k.shape[1] > size \
+                else (k, v)
+            c["k"][:, :kk.shape[1]] = kk.to(c["k"].dtype)
+            c["v"][:, :vv.shape[1]] = vv.to(c["v"].dtype)
+            c["pos"] = c["pos"] + k.shape[1]
+        a = layers._online_softmax_attn(
+            q, k, v, causal=cfg.causal, window=cfg.local_window,
+            chunk=cfg.attn_chunk, q_offset=ctx[i][1])
+        return layers.linear(p["attn"]["wo"],
+                             a.reshape(b, s, lc.n_heads * hd), lc)
+    return pmap(L, attend, ps, out, ks, vs, caches)
+
+
+def _ffn(L: Layout, ps: list, xs: list, split: bool) -> tuple[list, dict]:
+    """The second sublayer of an attention or RG-LRU block: the MLP, or
+    the MoE block on the whole sequence of each data shard."""
+    zs = _norm(L, ps, "ln2", xs)
     aux: dict = {}
-    if cfg.moe:
-        hs, aux = moe_block(L, [p["ffn"] for p in ps], zs)
+    if L.cfg.moe:
+        whole = _gather_seq(L, zs) if split else zs
+        hs, aux = moe_block(L, [p["ffn"] for p in ps], whole)
+        if split:
+            hs = _seq_block(L, hs)
     else:
-        hs = _tp_sum(L, pmap(L, lambda i, p, z: layers.mlp(p["ffn"], z,
-                                                           L.local), ps, zs))
+        hs = _leave(L, pmap(L, lambda i, p, z: layers.mlp(
+            p["ffn"], z, L.local), ps, _enter(L, zs, split)), split)
     return [x + h for x, h in zip(xs, hs)], aux
 
 
-def _rope_ctx(L: Layout, b: int, s: int, pos0: int) -> dict:
-    out = {}
-    for dev in L.mesh.distinct:
-        with device_ctx(dev):
-            positions = (pos0 + torch.arange(s, dtype=torch.int32,
-                                             device=dev)).expand(b, s)
-            out[dev] = (positions, pos0, layers.rope_angles(positions,
-                                                            L.cfg))
+def _conv_taps(p: dict, xb: Tensor) -> Tensor:
+    return p["conv_taps"].to(xb.dtype)
+
+
+def _rglru(L: Layout, ps: list, zs: list, states: Optional[list],
+           sp: bool) -> list:
+    """The RG-LRU sublayer's output (partial sums under TP): ``ps`` the
+    blocks' ``rec`` parameters, ``states`` written in place (prefill
+    leaves the last h and conv inputs of the whole sequence, decode
+    advances them)."""
+    cfg = L.cfg
+    decode = states is not None and zs[0].shape[1] == 1
+    low = rglru.fir_lowering(cfg)
+
+    def front(i, p, z):
+        gate = F.gelu(layers.linear(p["in_gate"], z, cfg),
+                      approximate="tanh")
+        return gate, layers.linear(p["in_x"], z, cfg)
+    fr = pmap(L, front, ps, zs)
+    xbs = [f[1] for f in fr]
+    w = cfg.conv_width
+    if decode:
+        wins = pmap(L, lambda i, st, xb: torch.cat([st["conv"], xb], 1),
+                    states, xbs)
+        us = pmap(L, lambda i, p, win: torch.einsum(
+            "bwl,wl->bl", win, _conv_taps(p, win))[:, None], ps, wins)
+    elif sp:
+        def conv(i, carry, p, xb):
+            ext = torch.cat([carry[0], xb], 1)
+            u = tina.depthwise_fir(ext, _conv_taps(p, xb), causal=True,
+                                   lowering=low)[:, w - 1:]
+            return u, (ext[:, -(w - 1):],)
+        us, halos = _in_rank_order(
+            L, conv, lambda i: (xbs[i].new_zeros(
+                (xbs[i].shape[0], w - 1, xbs[i].shape[2])),), ps, xbs)
+    else:
+        us = pmap(L, lambda i, p, xb: tina.depthwise_fir(
+            xb, _conv_taps(p, xb), causal=True, lowering=low), ps, xbs)
+    u_all = coll.all_gather(us, L.mesh, L.tp, -1) if L.tp_size > 1 else us
+    ab = pmap(L, lambda i, p, u, ua: rglru._gates(p, u, cfg, ua), ps, us,
+              u_all)
+    if decode:
+        def step(i, st, g, win):
+            a, b = g
+            h = a[:, 0] * st["h"] + b[:, 0]
+            st["h"].copy_(h)
+            st["conv"].copy_(win[:, 1:])
+            return h[:, None]
+        hs = pmap(L, step, states, ab, wins)
+    elif sp:
+        def scan(i, carry, g):
+            h = rglru.linear_scan(*g, carry[0])
+            return h, (h[:, -1],)
+        hs, lasts = _in_rank_order(
+            L, scan, lambda i: (ab[i][0].new_zeros(ab[i][0].shape[::2]),),
+            ab)
+        if states is not None:
+            for st, h, c in zip(states, lasts, halos):
+                st["h"].copy_(h[0])
+                st["conv"].copy_(c[0])
+    else:
+        hs = pmap(L, lambda i, g: rglru.linear_scan(*g), ab)
+        if states is not None:
+            for st, h, xb in zip(states, hs, xbs):
+                st["h"].copy_(h[:, -1])
+                st["conv"].copy_(xb[:, -(w - 1):])
+    return pmap(L, lambda i, p, h, f, z: layers.linear(
+        p["out"], h.to(z.dtype) * f[0], cfg), ps, hs, fr, zs)
+
+
+def _prevs(L: Layout, zs: list, states: Optional[list], key: str,
+           sp: bool) -> tuple[list, list]:
+    """Each position's token before its block (None: zero) for the
+    token shift, and, under ``sp``, its group's last token."""
+    if not sp:
+        prevs = [None] * len(zs) if states is None else \
+            [st[key] for st in states]
+        return prevs, [z[:, -1] for z in zs]
+    first = (lambda i: (states[i][key],)) if states is not None else \
+        (lambda i: (zs[i].new_zeros(zs[i][:, 0].shape),))
+    prevs, lasts = _in_rank_order(
+        L, lambda i, c, z: (c[0], (z[:, -1],)), first, zs)
+    return prevs, [t[0] for t in lasts]
+
+
+def _time_mix(L: Layout, ps: list, zs: list, states: Optional[list],
+              sp: bool) -> list:
+    """rwkv6's time mix (partial sums under TP) from the blocks' ``tm``
+    parameters (cut to the shard's heads); ``sp``: the shifted token and
+    the WKV state passed along the sequence blocks in rank order."""
+    cfg = L.cfg
+    prevs, lasts = _prevs(L, zs, states, "x_tm", sp)
+    if sp:
+        first = (lambda i: (states[i]["S"],)) if states is not None \
+            else (lambda i: (None,))
+
+        def mix(i, carry, p, z, prev):
+            out, s_new = rwkv6.mix_core(p, z, cfg, prev, carry[0])
+            return out, (s_new,)
+        outs, finals = _in_rank_order(L, mix, first, ps, zs, prevs)
+        finals = [f[0] for f in finals]
+    else:
+        res = pmap(L, lambda i, p, z, prev, st: rwkv6.mix_core(
+            p, z, cfg, prev, None if st is None else st["S"]), ps, zs,
+            prevs, states or [None] * len(zs))
+        outs, finals = [r[0] for r in res], [r[1] for r in res]
+    if states is not None:
+        for st, s_new, last in zip(states, finals, lasts):
+            st["S"].copy_(s_new)
+            st["x_tm"].copy_(last)
+    return outs
+
+
+def _channel_mix(L: Layout, ps: list, zs: list, states: Optional[list],
+                 sp: bool) -> list:
+    """rwkv6's channel mix, whole (replicated over the tensor-parallel
+    axis): under TP the value map's partial sums reduce-scattered over
+    ``d``, gated by the shard's receptance columns, then all-gathered."""
+    cfg = L.cfg
+    prevs, lasts = _prevs(L, zs, states, "x_cm", sp)
+
+    def mix(i, p, x, prev):
+        xx = rwkv6._shift(x, cfg, prev) - x
+        xk = x + xx * p["mu_k"].to(x.dtype)
+        xr = x + xx * p["mu_r"].to(x.dtype)
+        kk = torch.square(F.relu(layers.linear(p["wk"], xk, cfg)))
+        return (torch.sigmoid(layers.linear(p["wr"], xr, cfg)),
+                layers.linear(p["wv"], kk, cfg))
+    out = pmap(L, mix, ps, zs, prevs)
+    if L.tp_size > 1:
+        kv = coll.reduce_scatter([o[1] for o in out], L.mesh, L.tp, -1)
+        ys = coll.all_gather([o[0] * v for o, v in zip(out, kv)], L.mesh,
+                             L.tp, -1)
+    else:
+        ys = [r * v for r, v in out]
+    if states is not None:
+        for st, last in zip(states, lasts):
+            st["x_cm"].copy_(last)
+    return ys
+
+
+def block(L: Layout, kind: str, ps: list, xs: list, ctx: list,
+          caches: Optional[list], split: bool = False) -> tuple[list, dict]:
+    """One block of ``kind`` (``attn``: attention, then the MLP or MoE
+    block; ``rglru``: the RG-LRU, then the MLP; ``rwkv``: the time and
+    channel mix) over shards.  ``ctx``: each position's (positions,
+    first position, rope angles); ``split``: the residual stream holds
+    sequence blocks (sequence parallelism).  Caches are written in
+    place."""
+    sp = L.sp and split
+    zs = _enter(L, _norm(L, ps, "ln1", xs), split)
+    if kind == "rwkv":
+        tm = [p["tm"] for p in ps]
+        cm = [p["cm"] for p in ps]
+        hs = _leave(L, _time_mix(L, tm, zs, caches, sp), split)
+        xs = [x + h for x, h in zip(xs, hs)]
+        zs = _enter(L, _norm(L, ps, "ln2", xs), split)
+        hs = _channel_mix(L, cm, zs, caches, sp)
+        if L.megatron and split:
+            hs = _seq_block(L, hs)
+        return [x + h for x, h in zip(xs, hs)], {}
+    if kind == "rglru":
+        hs = _rglru(L, [p["rec"] for p in ps], zs, caches, sp)
+    else:
+        hs = _attention(L, ps, zs, ctx, caches, sp)
+    hs = _leave(L, hs, split)
+    return _ffn(L, ps, [x + h for x, h in zip(xs, hs)], split)
+
+
+def _rope_ctx(L: Layout, b: int, s: int, pos0: int, sp: bool) -> list:
+    """Each position's (positions (b, s), first position, rope angles):
+    from ``pos0``, offset by the position's sequence block under ``sp``."""
+    made: dict = {}
+    out = []
+    for i, dev in enumerate(L.mesh.devices):
+        start = pos0 + (L.rank(i, L.seq) * s if sp else 0)
+        if (dev, start) not in made:
+            with device_ctx(dev):
+                positions = (start + torch.arange(
+                    s, dtype=torch.int32, device=dev)).expand(b, s)
+                made[dev, start] = (positions, start,
+                                    layers.rope_angles(positions, L.cfg))
+        out.append(made[dev, start])
     return out
 
 
 def run_blocks(L: Layout, W: Weights, xs: list, *, pos0: int = 0,
-               caches: Optional[list] = None, remat: bool = False
-               ) -> tuple[list, dict]:
-    """The stack (and tail) over shards; the MoE statistics summed in
-    layer order on the first position's device.  Without caches and with
-    autograd on, each superblock is recomputed in the backward
+               caches: Optional[list] = None, remat: bool = False,
+               split: bool = False) -> tuple[list, dict]:
+    """The stack, then the tail, over shards; the MoE statistics summed
+    in layer order on the first position's device.  Without caches and
+    with autograd on, each superblock is recomputed in the backward
     (:class:`_Remat`) where ``remat``, as the single-device stack's
-    ``torch.utils.checkpoint`` does."""
+    ``torch.utils.checkpoint`` does.  ``split``: ``xs`` are sequence
+    blocks (:meth:`Layout.splits`)."""
     cfg = L.cfg
     pat, reps, tail = model_lib._pattern_layout(cfg)
     b, s = xs[0].shape[:2]
-    ctx = _rope_ctx(L, b, s, pos0)
+    sp = L.sp and split
+    ctx = _rope_ctx(L, b, s * (L.mesh.count(L.seq) if L.megatron and split
+                               else 1), pos0, sp)
     dev0 = L.mesh.devices[0]
     zero = lambda: torch.zeros((), dtype=torch.float32, device=dev0)
+
+    def add(aux, a):
+        for key in model_lib.AUX_KEYS:
+            if key in a:
+                aux[key] = aux[key] + a[key].to(dev0)
 
     def run(rs, parts, *xs):
         """Repeats ``rs`` of the stack; ``parts[j]``: repeat rs[j] as each
@@ -396,19 +760,15 @@ def run_blocks(L: Layout, W: Weights, xs: list, *, pos0: int = 0,
         xs = list(xs)
         aux = {k: zero() for k in model_lib.AUX_KEYS}
         for r, part in zip(rs, parts):
-            for i_sub, _ in enumerate(pat):
+            for i_sub, kind in enumerate(pat):
                 name = f"sub{i_sub}"
                 cs = None if caches is None else \
                     [c["stack"][r][name] for c in caches]
-                xs, a = block(L, W.block(r, name, part), xs, ctx, cs)
-                for key in model_lib.AUX_KEYS:
-                    if key in a:
-                        aux[key] = aux[key] + a[key].to(dev0)
+                xs, a = block(L, kind, W.block(r, name, part), xs, ctx, cs,
+                              split)
+                add(aux, a)
         return (*xs, *[aux[k] for k in model_lib.AUX_KEYS])
 
-    if tail:
-        raise NotImplementedError(f"sharded steps: {cfg.n_layers} layers "
-                                  f"leave a tail; see {NEXT}")
     if caches is None and torch.is_grad_enabled():
         segments = model_lib._remat_segments(cfg, reps, remat)
     else:
@@ -426,6 +786,10 @@ def run_blocks(L: Layout, W: Weights, xs: list, *, pos0: int = 0,
         xs = list(out[:len(xs)])
         for key, v in zip(model_lib.AUX_KEYS, out[len(xs):]):
             aux[key] = aux[key] + v
+    for j, kind in enumerate(tail):
+        cs = None if caches is None else [c["tail"][j] for c in caches]
+        xs, a = block(L, kind, W.tail(j), xs, ctx, cs, split)
+        add(aux, a)
     return xs, aux
 
 
@@ -507,22 +871,84 @@ def cross_entropy(L: Layout, lg: list, targets: list, masks: list) -> list:
             for m, e, g, k in zip(mx, se, gs, masks)]
 
 
-def loss_fn(L: Layout, W: Weights, tokens: list) -> tuple[Tensor, dict]:
-    """``models.model.loss_fn`` over shards, for token models: the total
-    (loss + 0.01 * moe_aux_loss) on the first position's device, from one
-    copy of each data shard's NLL (:attr:`Layout.canon`), and the
-    metrics."""
+def _audio_frontend(L: Layout, ps: list, frames: list, split: bool
+                    ) -> list:
+    """``models.model.apply_frontend`` of an audio batch; ``split``: each
+    position's block of the sequence, its ``conv_pos`` halo (the
+    ``AUDIO_CONV_POS_WIDTH - 1`` frames before the block) projected
+    again from the frames it holds."""
+    cfg = L.cfg
+    if not split:
+        return pmap(L, lambda i, p, f: model_lib.apply_frontend(p, f, cfg),
+                    ps, frames)
+    n = L.mesh.count(L.seq)
+    w = model_lib.AUDIO_CONV_POS_WIDTH
+
+    def local(i, p, f):
+        blk = f.shape[1] // n
+        start = L.rank(i, L.seq) * blk
+        lo = max(0, start - (w - 1))
+        h = layers.linear(p["proj"], f[:, lo:start + blk].to(
+            layers.cdtype(cfg)), cfg)
+        pos = tina.depthwise_fir(h, p["conv_pos"].to(h.dtype), causal=True,
+                                 lowering=rglru.fir_lowering(cfg))
+        return (h + F.gelu(pos, approximate="tanh"))[:, start - lo:]
+    return pmap(L, local, ps, frames)
+
+
+def embed_inputs(L: Layout, W: Weights, batch: dict) -> tuple[list, bool]:
+    """Each position's hidden states of its data shard's ``batch`` (a
+    dict of per-position lists): the patches' projections before the
+    tokens' embeddings (vision), the frames' (audio) or the tokens'.
+    Returns them and whether they are sequence blocks
+    (:meth:`Layout.splits`)."""
+    cfg = L.cfg
+    if cfg.frontend == "audio_stub":
+        split = L.splits(batch["frames"][0].shape[1])
+        return _audio_frontend(L, W.part("frontend"), batch["frames"],
+                               split), split
+    hs = embed(L, [e["table"] for e in W.part("embed")], batch["tokens"])
+    if "patch_embeds" in batch:
+        patches = pmap(L, lambda i, p, f: model_lib.apply_frontend(p, f, cfg),
+                       W.part("frontend"), batch["patch_embeds"])
+        hs = [torch.cat([a, h], 1) for a, h in zip(patches, hs)]
+    split = L.splits(hs[0].shape[1])
+    return (_seq_block(L, hs) if split else hs), split
+
+
+def _targets(cfg: ModelConfig, batch: dict, i: int):
+    """Position ``i``'s (first, last) logits the loss reads, its targets
+    and mask: ``models.model.loss_fn``'s slices."""
+    if cfg.frontend == "audio_stub":
+        return 0, None, batch["targets"][i], batch["mask"][i].float()
+    tokens = batch["tokens"][i]
+    first = batch["patch_embeds"][i].shape[1] \
+        if cfg.frontend == "vision_stub" else 0
+    targets = tokens[:, 1:]
+    return first, -1, targets, torch.ones(targets.shape, dtype=torch.float32,
+                                          device=targets.device)
+
+
+def loss_fn(L: Layout, W: Weights, batch: dict) -> tuple[Tensor, dict]:
+    """``models.model.loss_fn`` over shards: ``batch`` a dict of
+    per-position lists (each its data shard's rows, the whole sequence).
+    The total (loss + 0.01 * moe_aux_loss) on the first position's
+    device, from one copy of each data shard's NLL
+    (:attr:`Layout.canon`), and the metrics."""
     cd = layers.cdtype(L.cfg)
-    hs = embed(L, [e["table"] for e in W.part("embed")], tokens)
-    hs, aux = run_blocks(L, W, [h.to(cd) for h in hs], remat=L.cfg.remat)
+    hs, split = embed_inputs(L, W, batch)
+    hs, aux = run_blocks(L, W, [h.to(cd) for h in hs], remat=L.cfg.remat,
+                         split=split)
+    if split:
+        hs = _gather_seq(L, hs)
     lg = logits(L, W, hs)
-    targets = [t[:, 1:] for t in tokens]
-    masks = [torch.ones(t.shape, dtype=torch.float32, device=t.device)
-             for t in targets]
-    nll = cross_entropy(L, [x[:, :-1] for x in lg], targets, masks)
+    parts = [_targets(L.cfg, batch, i) for i in range(L.mesh.size)]
+    nll = cross_entropy(L, [x[:, a:b] for x, (a, b, _, _) in zip(lg, parts)],
+                        [t for _, _, t, _ in parts],
+                        [m for _, _, _, m in parts])
     dev0 = L.mesh.devices[0]
     nll_sum = sum(nll[i].sum().to(dev0) for i in L.canon)
-    denom = torch.clamp(sum(masks[i].sum().to(dev0) for i in L.canon),
+    denom = torch.clamp(sum(parts[i][3].sum().to(dev0) for i in L.canon),
                         min=1.0)
     loss = nll_sum / denom
     total = loss + 0.01 * aux["moe_aux_loss"]
@@ -538,28 +964,53 @@ def gather_rows(L: Layout, lg: list) -> Tensor:
     return torch.cat([lg[i].to(dev0) for i in L.canon], 0)
 
 
-def forward_cached(L: Layout, W: Weights, tokens: list, caches: list
+def forward_cached(L: Layout, W: Weights, batch: dict, caches: list
                    ) -> Tensor:
-    """Prefill (tokens (b, S) a position) or decode (b, 1) against
+    """Prefill (``batch`` a dict of per-position lists: a position's data
+    shard's prompt) or decode (``{"tokens": (b, 1) a position}``) against
     per-position caches, written in place: the last position's global
     logits (B, V) on the first device."""
-    pos0 = model_lib._cache_pos(caches[0]) if tokens[0].shape[1] == 1 \
-        else 0
-    hs = embed(L, [e["table"] for e in W.part("embed")], tokens)
-    hs, _ = run_blocks(L, W, hs, pos0=pos0, caches=caches)
-    lg = logits(L, W, [h[:, -1:] for h in hs])
+    decode = set(batch) == {"tokens"} and batch["tokens"][0].shape[1] == 1
+    pos0 = model_lib._cache_pos(caches[0]) if decode else 0
+    hs, split = embed_inputs(L, W, batch)
+    hs, _ = run_blocks(L, W, hs, pos0=pos0, caches=caches, split=split)
+    last = [h[:, -1:] for h in hs]
+    if split:
+        last = [x[:, -1:] for x in _gather_seq(L, last)]
+    lg = logits(L, W, last)
     return gather_rows(L, [x[:, 0] for x in lg])
 
 
+def _block_cache(L: Layout, kind: str, b: int, max_len: int, dev) -> dict:
+    """A block's cache on one position: its KV heads, its RG-LRU
+    channels, its rwkv6 heads (the WKV state per head; the shifted
+    tokens whole)."""
+    if kind != "rwkv":
+        return model_lib.init_block_cache(L.local, kind, b, max_len, dev)
+    st = rwkv6.init_rwkv_state(L.cfg, b, device=dev)
+    heads = st["S"].shape[1] // L.tp_size
+    st["S"] = st["S"][:, :heads].contiguous()
+    return st
+
+
 def init_caches(L: Layout, batch: int, max_len: int) -> list:
-    """Per-position caches: the position's rows of the batch and its KV
-    heads."""
+    """Per-position caches: the position's rows of the batch, and its
+    heads or channels under tensor parallelism; whole over the sequence
+    axes (sequence parallelism)."""
     b = batch // L.mesh.count(L.dp) if L.dp else batch
-    return pmap(L, lambda i: model_lib.init_caches(
-        L.local, b, max_len, device=L.mesh.devices[i]))
+    pat, reps, tail = model_lib._pattern_layout(L.cfg)
+
+    def make(i):
+        dev = L.mesh.devices[i]
+        return {"stack": [{f"sub{j}": _block_cache(L, kind, b, max_len, dev)
+                           for j, kind in enumerate(pat)}
+                          for _ in range(reps)],
+                "tail": [_block_cache(L, kind, b, max_len, dev)
+                         for kind in tail]}
+    return pmap(L, lambda i: make(i))
 
 
-__all__ = ["Layout", "Weights", "make_layout", "check_family", "reshard",
-           "pmap", "embed", "moe_block", "block", "run_blocks", "logits",
-           "cross_entropy", "loss_fn", "gather_rows", "forward_cached",
+__all__ = ["Layout", "Weights", "make_layout", "reshard", "pmap", "embed",
+           "moe_block", "block", "run_blocks", "logits", "cross_entropy",
+           "embed_inputs", "loss_fn", "gather_rows", "forward_cached",
            "init_caches", "device_ctx"]

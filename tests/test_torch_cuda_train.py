@@ -250,3 +250,64 @@ def test_sharded_step_on_distinct_cards(dev, shape, wire):
                              make_mesh(shape, ("data", "model"), dev),
                              wire=wire)
         _hold_sharded(got, want, 1e-4 if wire == "none" else 2e-2)
+
+
+@pytest.mark.parametrize("layout", ["tp", "sp"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)],
+                         ids=["two_cards", "four_cards"])
+def test_recurrentgemma_on_distinct_cards(dev, shape, layout):
+    """Reduced recurrentgemma at 5 layers (the RG-LRU with its gathered
+    conv output under TP or its carries along the sequence blocks under
+    SP, MQA local attention, the tail) on distinct cards against the
+    same mesh of logical shards of one card: the train step's metrics
+    1e-5 and optimizer state 1e-4 of each leaf's largest (no wire), and
+    prefill and 3 decode steps at the kernel lowering within 1e-4 of
+    the largest logit, greedy tokens equal.  Skips without enough
+    cards."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+    n = shape[0] * shape[1]
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, {torch.cuda.device_count()} visible")
+    cfg, cpu, batch = _setup("recurrentgemma_9b", dev, n_layers=5)
+    cards = make_mesh(shape, ("data", "model"))
+    logical = make_mesh(shape, ("data", "model"), dev)
+    assert coll.mesh_routes(cards, "model") == {"nccl"}
+
+    def step(mesh):
+        fn, specs = step_lib.make_train_step(
+            cfg, mesh=mesh, batch_size=4, seq_len=32, lr_fn=constant(1e-3),
+            grad_wire="none", layout=layout)
+        ps = convert.shard_params(cpu, mesh, specs.params_sh)
+        opt = make_optimizer(cfg, constant(1e-3))
+        _, st, m = fn(ps, [opt.init(p) for p in ps], batch)
+        return ({k: float(v) for k, v in m.items()},
+                dict(flatten_with_path(convert.unshard(
+                    st, mesh, specs.opt_state_sh, device="cpu"))))
+    _hold_sharded(step(cards), step(logical), 1e-4)
+
+    kcfg = cfg.scaled(tina_lowering="kernel")
+    params = model_lib.init_model(kcfg, seed=3, device=dev)
+    tokens = torch.randint(0, kcfg.vocab_size, (4, 16), device=dev,
+                           generator=torch.Generator(dev).manual_seed(0))
+
+    def serve(mesh):
+        pre = step_lib.make_prefill_step(kcfg, mesh=mesh, batch_size=4,
+                                         seq_len=16, layout=layout)
+        dec = step_lib.make_decode_step(kcfg, mesh=mesh, batch_size=4,
+                                        cache_len=19, layout=layout)
+        ps = [model_lib.prepare(t, kcfg) for t in convert.shard_params(
+            params, mesh, dec.specs.params_sh, copy=False)]
+        cs = step_lib.init_sharded_caches(dec.specs, 4, 19)
+        lg, cs = pre(ps, {"tokens": tokens}, cs)
+        out, tok = [lg], torch.argmax(lg, -1).to(torch.int32)
+        for _ in range(3):
+            tok, lg, cs = dec(ps, tok, cs)
+            out += [lg, tok]
+        return [t.cpu() for t in out]
+    for got, want in zip(serve(cards), serve(logical)):
+        if got.is_floating_point():
+            assert torch.allclose(got, want, rtol=0,
+                                  atol=1e-4 * float(want.abs().max()))
+        else:
+            assert torch.equal(got, want)
