@@ -442,6 +442,11 @@ TRAIN_UPDATE_BYTES = 32   # a parameter's bytes in the update: p, g, m, v
 # cells, runs through `python -m repro_torch.launch.dryrun --all`: rwkv6's
 # WKV loop alone takes minutes of fake ops at 4k and 32k tokens)
 DRYRUN_ARCHS = ("olmo_1b", "kimi_k2_1t_a32b")
+# and on the production meshes: (arch, cell, mesh); olmo's per-card FLOPs
+# times its 512 cards within DRYRUN_POD_GAP of its one-card count
+DRYRUN_POD = (("qwen2_7b", "decode_32k", "pod16x16"),
+              ("olmo_1b", "decode_32k", "pod2x16x16"))
+DRYRUN_POD_GAP = 0.05
 DRYRUN_FLOPS_GAP = 0.10   # counted train FLOPs vs the train phase's hand
                           # count (6·N·T + 2·N_stack·T): attention adds
                           # ~3 %, remat's early stop (no recompute of a
@@ -496,6 +501,23 @@ SHARD_SP_MESH = (1, 2)
 # one-device step: 51.5 GB of f32 parameters, gradients and AdamW moments
 SHARD_FAMILY_TRAIN = ("recurrentgemma_9b", 5)
 SHARD_FAMILY_BATCH = 2
+# the production meshes' tensor-parallel degrees on logical shards, where
+# they do not divide the heads (the flat split): (arch, layers run, mesh,
+# config fields); served 8 x 512 then 8 steps against one device at the
+# zoo's bar; qwen2_7b at 2 layers trained on (2, 8) at f32 compute
+SHARD_FLAT = (
+    ("qwen2_7b", 4, (1, 16), {}),
+    ("qwen2_7b", 4, (2, 8), {}),
+    ("arctic_480b", 1, (1, 16), {"moe_dispatch": "shard_map"}),
+    ("rwkv6_3b", 1, (1, 16), {}),
+)
+SHARD_FLAT_TRAIN = ("qwen2_7b", 2, (2, 8))
+# MoE on logical shards: the share of tokens the sharded run may route
+# otherwise than the one-device run (near ties flipped by the bf16
+# partial sums' order).  arctic 1 layer at EP 16 flips 4.2 %; at reduced
+# widths on (1, 8) on the CPU a correct run flips 3.3 %, one rank's heads
+# zeroed 85 %, two ranks' heads swapped 98 %
+SHARD_FLIP_SHARE = 0.1
 # the examples phase: each twin at its default size on the card, the
 # lines its JAX original prints when it passes, and the kernels its run
 # must launch
@@ -2091,6 +2113,43 @@ def dryrun_phase(torch, card, lm_times, train_times) -> None:
     if status != {"ok": 6, "skip": 2}:
         fail(f"dryrun grid ({DRYRUN_ARCHS}): {status}, want 6 ok, 2 skip")
 
+    # the production meshes, each card's share of the sharded step (one
+    # data row run, the largest position reported): a flat head split
+    # (qwen2's 28 heads on 16 ranks) and the multi-pod mesh; olmo's
+    # per-card FLOPs x 512 against its one-card row
+    pods = {}
+    for arch, shape, mesh in DRYRUN_POD:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(arch, shape, mesh=mesh)
+        untouched(f"{arch} {shape} {mesh}")
+        if row["status"] != "ok" or not (
+                row["coll_gbytes_ici"] + row["coll_gbytes_dcn"] > 0):
+            fail(f"dryrun {arch} {shape} {mesh}: {row}")
+        pods[arch] = row
+        emit(phase="dryrun", case="pod", arch=arch, shape=shape, mesh=mesh,
+             mesh_shape=row["mesh_shape"], chips=row["chips"],
+             per_card_flops=row["hlo_gflops_per_chip"] * 1e9,
+             per_card_op_gbytes=row["hlo_gbytes_per_chip"],
+             coll_gbytes_ici=row["coll_gbytes_ici"],
+             coll_gbytes_dcn=row["coll_gbytes_dcn"],
+             n_collectives=row["n_collectives"],
+             t_compute_ms=row["t_compute_ms"],
+             t_memory_refined_ms=row["t_memory_refined_ms"],
+             t_collective_ms=row["t_collective_ms"],
+             bottleneck=row["bottleneck"], hbm_ok=row["hbm_ok"],
+             memory=row["memory"], counted_s=row["t_compile_s"],
+             seconds=time.perf_counter() - t0)
+    one = dryrun.run_cell("olmo_1b", "decode_32k")
+    olmo = pods["olmo_1b"]
+    gap = olmo["hlo_gflops_per_chip"] * olmo["chips"] \
+        / one["hlo_gflops_per_chip"] - 1
+    if abs(gap) > DRYRUN_POD_GAP:
+        fail(f"dryrun olmo_1b decode_32k: per-card FLOPs x {olmo['chips']} "
+             f"{gap:+.4f} from the one-card row's")
+    emit(phase="dryrun", case="pod_vs_card", arch="olmo_1b",
+         shape="decode_32k", per_card_x_chips_vs_one_card=gap,
+         tol=DRYRUN_POD_GAP)
+
     # the count tied to what the card measured: chip_smoke's own shapes,
     # the whole step run (no probes), so the peak is the whole step's
     cells = (("lm_prefill", shapes.ShapeCell(
@@ -2314,15 +2373,17 @@ def step1_diffs(torch, mesh, specs, ps, st, want_p, want_m) -> dict:
         for k, w in want.items():
             got = convert.unshard([f[k] for f in flats], mesh, sflat[k])
             w = w.to(dev0)
+            scale = float(w.abs().max())
+            diff = (got - w).abs_()       # one leaf at a time: the largest
+            del got, w                    # leaves are GBs on a full card
             if key == "first_moment":
-                out[key] = max(out[key], float(
-                    (got - w).abs().max() / w.abs().max()))
+                out[key] = max(out[key], float(diff.max()) / scale)
             else:
                 mm = want_m["m/" + k].to(dev0).abs()
                 sure = mm > 2 * SHARD_TOL["first_moment"] * mm.max()
+                del mm
                 if bool(sure.any()):
-                    out[key] = max(out[key], float(
-                        (got - w).abs()[sure].max()))
+                    out[key] = max(out[key], float(diff[sure].max()))
     return out
 
 
@@ -2370,17 +2431,32 @@ def sharded_train(torch, fn, specs, mesh, ps, st, batches, want, want_p,
 
 def family_gemms(cfg, m: int, tp: int) -> set:
     """The per-shard (M, K, N) of ``cfg``'s bf16 GEMMs at ``tp``-way
-    tensor parallelism with M rows: attention (KV heads replicated where
-    tp does not divide them), the MLP, the RG-LRU (its gates read the
+    tensor parallelism with M rows: attention's flat column blocks of
+    ``wq`` and row blocks of ``wo`` (whole heads or not), ``wk``/``wv``
+    on each rank's KV heads (the ones its query heads read, out of the
+    whole leaf, where tp does not divide them), the MLP, a MoE block's
+    shared expert and dense residual MLP, the RG-LRU (its gates read the
     whole gathered conv output), rwkv6's time and channel mix, the
     frontend's projection, the head's vocabulary block (whole where tp
     does not divide it)."""
+    from repro_torch.models.sharded import head_ranges
+
     d, hd = cfg.d_model, cfg.head_dim
     out = {(m, d, cfg.d_ff // tp), (m, cfg.d_ff // tp, d)}
     if "attn" in cfg.block_pattern:
-        kv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
-        q = cfg.n_heads // tp * hd
-        out |= {(m, d, q), (m, d, kv * hd), (m, q, d)}
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        q = h * hd // tp
+        out |= {(m, d, q), (m, q, d)}
+        g = h // hkv
+        for lo, hi in head_ranges(h, tp):
+            if hi > lo:
+                kv = hkv // tp if hkv % tp == 0 else \
+                    (hi - 1) // g - lo // g + 1
+                out.add((m, d, kv * hd))
+    if cfg.moe:
+        for f in (cfg.d_ff * cfg.shared_experts, cfg.dense_residual_ff):
+            if f:
+                out |= {(m, d, f // tp), (m, f // tp, d)}
     if "rglru" in cfg.block_pattern:
         lru = cfg.lru_width or d
         out |= {(m, d, lru // tp), (m, lru, lru // tp), (m, lru // tp, d)}
@@ -2391,6 +2467,49 @@ def family_gemms(cfg, m: int, tp: int) -> set:
     v = cfg.vocab_size
     out.add((m, d, v // tp if v % tp == 0 else v))
     return out
+
+
+def shard_linears(cfg, layout, prefill: bool) -> int:
+    """The bf16 GEMM launches of one call of a sharded serving step: each
+    position's :func:`zoo_linears`, but for a position that holds no
+    heads (the flat split's last ranks), which runs no ``wk``/``wv``."""
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds)
+    return sum(zoo_linears(cfg, prefill) - 2 * n_attn
+               * (layout.head_range(i)[0] == layout.head_range(i)[1])
+               for i in range(layout.mesh.size))
+
+
+class ShardedRoutes:
+    """While open, every sharded MoE block's routing is kept (per layer,
+    in call order): its tokens' experts (the first position's: every
+    position of a data shard routes its tokens alike) and which slots
+    were kept by any expert shard.  For a mesh with one data shard."""
+
+    def __init__(self, sharded):
+        self.sharded, self.log = sharded, []
+
+    def __enter__(self):
+        self.real = real = self.sharded.moe_block
+
+        def recording(L, ps, zs):
+            ys, aux = real(L, ps, zs)
+            dev0 = L.mesh.devices[0]
+            kept = aux["moe_kept"][0].to(dev0)
+            for k in aux["moe_kept"][1:]:
+                kept = kept | k.to(dev0)
+            self.log.append({"moe_experts": aux["moe_experts"][0],
+                             "moe_kept": kept})
+            return ys, aux
+
+        self.sharded.moe_block = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.sharded.moe_block = self.real
+
+    def take(self) -> list:
+        out, self.log = self.log, []
+        return out
 
 
 def sync_all(torch, devices) -> None:
@@ -2493,7 +2612,11 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
     del params, want_p, want_m, batches
     gc.collect()
     torch.cuda.empty_cache()
-    family_train(torch, dev, card)
+    family_train(torch, dev, card, *SHARD_FAMILY_TRAIN, SHARD_MESH,
+                 "train_family_logical")
+    # the flat head split: qwen2's 28 heads on 8 ranks (4 a rank, the
+    # last none; KV heads straddled)
+    family_train(torch, dev, card, *SHARD_FLAT_TRAIN, "train_flat_logical")
 
     # -- olmo_1b serving at the kernel lowering on (2, 2) logical shards --
     kcfg = cfg.scaled(tina_lowering="kernel")
@@ -2593,8 +2716,18 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
                 for k, v in row["launches"].items():
                     launches[k] = launches.get(k, 0) + v
 
+    # -- the production meshes' TP degrees on logical shards: head counts
+    # they do not divide (the flat split: qwen2's 28, arctic's 56 and
+    # rwkv6's 40 heads on 16 ranks, qwen2's on 8) ------------------------
+    for arch, layers_run, shape, over in SHARD_FLAT:
+        row = family_serve(torch, dev, card, zero_counts, counts, arch,
+                           layers_run, "tp", make_mesh(shape, axes, dev),
+                           True, case="serve_flat_logical", **over)
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
     # -- every per-shard GEMM shape: olmo_1b at TP 2, qwen2_7b at TP 2, 4,
-    # and each new family's at TP 2 and 4 ---------------------------------
+    # each family's at TP 2 and 4, and the flat split's at TP 16 and 8 ---
     q = get("qwen2_7b")
     shapes = set()
     for c_, tp, dp in ((cfg, 2, 2), (q, 2, 2), (q, 4, 1)):
@@ -2611,6 +2744,9 @@ def sharded_phase(torch, dev, card, zero_counts, counts, train_times,
         for tp, dp in ((2, 2), (4, 1)):
             for m_ in (LM_BATCH // dp * LM_PROMPT, LM_BATCH // dp):
                 shapes |= family_gemms(c_, m_, tp)
+    for arch, _, (dp, tp), _ in SHARD_FLAT:
+        for m_ in (ZOO_BATCH // dp * ZOO_PROMPT, ZOO_BATCH // dp):
+            shapes |= family_gemms(get(arch), m_, tp)
     gemms = []
     for m_, k_, n_ in sorted(shapes):
         x = torch.randn(m_, k_, device=dev, generator=gen).to(torch.bfloat16)
@@ -2821,10 +2957,12 @@ def one_device_steps(torch, cfg, host: list, batches, lr_fn, dev) -> tuple:
     return want, want_p, want_m, ms, peak
 
 
-def family_train(torch, dev, card) -> None:
-    """``SHARD_FAMILY_TRAIN`` trained on (2, 2) logical shards under its
-    own fsdp at f32 compute, steps 1-2 against the one-device step at
-    f32 on the same weights and batches (no wire, ``SHARD_TOL``).  The
+def family_train(torch, dev, card, arch: str, layers_run: int,
+                 mesh_shape: tuple, case: str) -> None:
+    """``arch`` at ``layers_run`` layers trained on ``mesh_shape``
+    logical shards under its own fsdp at f32 compute, steps 1-2 against
+    the one-device step at f32 on the same weights and batches (no wire,
+    ``SHARD_TOL``).  The
     config's own bf16 one-device step 1 is measured against the f32 one
     too: at bf16 the model's first moments move from f32's by more than
     ``SHARD_TOL`` allows a sharded step (ROADMAP.md queue 3), so a bf16
@@ -2840,7 +2978,6 @@ def family_train(torch, dev, card) -> None:
     from repro_torch.optim import make_optimizer, warmup_cosine
     from repro_torch.tree import leaves, unflatten
 
-    arch, layers_run = SHARD_FAMILY_TRAIN
     cfg = get(arch).scaled(n_layers=layers_run)
     cfg32 = cfg.scaled(compute_dtype="float32")
     b, s = SHARD_FAMILY_BATCH, TRAIN_SEQ
@@ -2867,7 +3004,7 @@ def family_train(torch, dev, card) -> None:
     del bf_m
     gc.collect()
     torch.cuda.empty_cache()
-    mesh = make_mesh(SHARD_MESH, ("data", "model"), dev)
+    mesh = make_mesh(mesh_shape, ("data", "model"), dev)
     fn, specs = step_lib.make_train_step(cfg32, mesh=mesh, batch_size=b,
                                          seq_len=s, lr_fn=lr_fn,
                                          grad_wire="none")
@@ -2880,8 +3017,10 @@ def family_train(torch, dev, card) -> None:
     st = [make_optimizer(cfg32, lr_fn).init(p) for p in ps]
     losses, gnorms, step_ms, diffs, peak_gb = sharded_train(
         torch, fn, specs, mesh, ps, st, batches, want, want_p, want_m)
-    emit(phase="sharded", case="train_family_logical", nvidia_smi=card,
+    emit(phase="sharded", case=case, nvidia_smi=card,
          arch=arch, layers=layers_run, of_layers=get(arch).n_layers,
+         flat_head_split=specs.layout.flat,
+         heads_per_rank=[hi - lo for lo, hi in specs.layout.heads],
          fsdp=cfg.fsdp, compute_dtype=cfg32.compute_dtype, mesh=mesh.shape,
          batch=b, seq=s, steps=2,
          params=sum(math.prod(t.shape) for t in leaves(specs.params)),
@@ -2896,25 +3035,31 @@ def family_train(torch, dev, card) -> None:
 
 
 def family_serve(torch, dev, card, zero_counts, counts, arch: str,
-                 layers_run: int, layout: str, mesh, hold: bool) -> dict:
+                 layers_run: int, layout: str, mesh, hold: bool,
+                 case: str = "serve_family_logical", **over) -> dict:
     """``arch`` at ``layers_run`` layers, published widths, at the kernel
-    lowering: prefill ``ZOO_BATCH`` x ``ZOO_PROMPT`` (a vlm's 256 patches
-    and 256 tokens) and ``SHARD_DECODE`` greedy steps (an encoder: its
-    prefill) through the sharded serving steps on ``mesh`` at ``layout``,
-    against the one-device kernel steps on the same weights.  The
-    sharded run is counted: its bf16 GEMM launches must be the mesh's
-    size times the one-device call's linears.  ``hold``: every call's
-    logits within ``LM_RTOL`` of the largest and the greedy tokens where
-    the one-device margin exceeds twice the error (the decode steps
-    teacher-forced by the one-device tokens).  Returns the row."""
+    lowering (``over``: other config fields): prefill ``ZOO_BATCH`` x
+    ``ZOO_PROMPT`` (a vlm's 256 patches and 256 tokens) and
+    ``SHARD_DECODE`` greedy steps (an encoder: its prefill) through the
+    sharded serving steps on ``mesh`` at ``layout``, against the
+    one-device kernel steps on the same weights.  The sharded run is
+    counted: its bf16 GEMM launches must be every position's linears
+    (:func:`shard_linears`).  ``hold``: every call's logits within the
+    zoo's bar (below) of the largest and the greedy tokens where the
+    one-device margin exceeds twice the error (the decode steps
+    teacher-forced by the one-device tokens); a MoE config (one data
+    shard) on the rows whose token routed alike in both runs, as the
+    ``lm_zoo`` phase holds MoE rows.  Returns the row."""
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import step as step_lib
-    from repro_torch.models import convert
+    from repro_torch.models import convert, sharded
     from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
 
-    cfg = get(arch).scaled(n_layers=layers_run, tina_lowering="kernel")
+    cfg = get(arch).scaled(n_layers=layers_run, tina_lowering="kernel",
+                           **over)
     encoder = cfg.family == "audio"
     b, s = ZOO_BATCH, ZOO_PROMPT
     steps = 0 if encoder else SHARD_DECODE
@@ -2954,40 +3099,82 @@ def family_serve(torch, dev, card, zero_counts, counts, arch: str,
         return (out, picked, e0.elapsed_time(e1),
                 e1.elapsed_time(e2) / steps if steps else None)
 
+    L = dec.specs.layout
+    moe_rows = cfg.moe and mesh.count(L.dp) == 1
     run(pre1, dec1, one, caches1())                        # warm-up
     run(pre, dec, shards, step_lib.init_sharded_caches(dec.specs, b,
                                                        max_len))
-    want_l, want_t, pre1_ms, dec1_ms = run(pre1, dec1, one, caches1())
+    with MoeRoutes(moe_lib) as r1:
+        want_l, want_t, pre1_ms, dec1_ms = run(pre1, dec1, one, caches1())
     caches = step_lib.init_sharded_caches(dec.specs, b, max_len)
     torch.cuda.synchronize()
     zero_counts()
-    got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches,
-                                       toks=want_t[:-1])
+    with ShardedRoutes(sharded) as r2:
+        got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches,
+                                           toks=want_t[:-1])
     counted = {k: v for k, v in counts().items() if v}
-    want_n = mesh.size * (zoo_linears(cfg, True)
-                          + steps * zoo_linears(cfg, False))
+    want_n = shard_linears(cfg, L, True) + steps * shard_linears(cfg, L,
+                                                                 False)
     if counted != {"matmul_bf16": want_n}:
         fail(f"sharded {arch} {layout}: launches {counted}, want "
              f"matmul_bf16 {want_n}")
     # the lm_zoo phase's bar: the larger of LM_RTOL and twice the one-device
     # bf16 run's distance from the model at f32 compute (native lowering,
-    # teacher-forced by the same tokens): bf16's own noise grows with depth
-    f32 = cfg.scaled(compute_dtype="float32", tina_lowering="native")
-    ref32 = run(step_lib.make_prefill_step(f32, batch_size=b, seq_len=s),
-                step_lib.make_decode_step(f32, batch_size=b,
-                                          cache_len=max_len),
-                params, model_lib.init_caches(f32, b, max_len, device=dev),
-                toks=want_t[:-1])[0]
+    # teacher-forced by the same tokens): bf16's own noise grows with depth;
+    # bf16 weights (MoE) have no f32 model: LM_RTOL
+    ref32 = None
+    if cfg.param_dtype == "float32":
+        f32 = cfg.scaled(compute_dtype="float32", tina_lowering="native")
+        ref32 = run(step_lib.make_prefill_step(f32, batch_size=b,
+                                               seq_len=s),
+                    step_lib.make_decode_step(f32, batch_size=b,
+                                              cache_len=max_len),
+                    params, model_lib.init_caches(f32, b, max_len,
+                                                  device=dev),
+                    toks=want_t[:-1])[0]
+    # MoE: a row is held where its token (the last of its prompt, or the
+    # step's) routed alike, experts and kept slots, in every layer
+    rows_alike, flipped, routed = None, 0, 0
+    if moe_rows:
+        n_l = sum(k == "attn" for k in cfg.layer_kinds)
+        ra, rb = r1.take(), r2.take()
+        rows_alike = []
+        for c in range(len(want_l)):
+            same = None
+            for la, lb in zip(ra[c * n_l:(c + 1) * n_l],
+                              rb[c * n_l:(c + 1) * n_l]):
+                tok = ((la["moe_experts"] == lb["moe_experts"]).all(-1)
+                       & (la["moe_kept"] == lb["moe_kept"].to(
+                           la["moe_kept"].device)).all(-1))
+                flipped += int((~tok).sum())
+                routed += tok.numel()
+                last = tok.reshape(b, -1)[:, -1]
+                same = last if same is None else same & last
+            rows_alike.append(same)
     errs, d_ref, bars, held, free = [], [], [], 0, 0
     for i, (g, w) in enumerate(zip(got_l, want_l)):
         if tuple(g.shape) != (b, cfg.vocab_size) or \
                 not bool(torch.isfinite(g).all()):
             fail(f"sharded {arch} {layout}: call {i}'s logits "
                  f"{tuple(g.shape)} finite {bool(torch.isfinite(g).all())}")
+        if rows_alike is not None:
+            keep = rows_alike[i].to(g.device)
+            if not bool(keep.any()):
+                if hold:
+                    fail(f"sharded {arch} {layout}: call {i} routed no "
+                         "row's last token alike in both runs")
+                errs.append(None)
+                d_ref.append(0.0)
+                bars.append(LM_RTOL)
+                continue
+            g, w = g[keep], w[keep]
         err, scale = rel_err(torch, g, w)
-        e32, s32 = rel_err(torch, w, ref32[i])
         errs.append(err / scale)
-        d_ref.append(e32 / s32)
+        if ref32 is None:
+            d_ref.append(0.0)
+        else:
+            e32, s32 = rel_err(torch, want_l[i], ref32[i])
+            d_ref.append(e32 / s32)
         bars.append(max(LM_RTOL, 2 * d_ref[-1]))
         if not hold:
             continue
@@ -3004,13 +3191,23 @@ def family_serve(torch, dev, card, zero_counts, counts, arch: str,
                  f"error {err}")
         held += int(sure.sum())
         free += int((~sure).sum())
-    row = {"phase": "sharded", "case": "serve_family_logical",
+    if hold and routed and flipped / routed > SHARD_FLIP_SHARE:
+        fail(f"sharded {arch} {layout}: {flipped} of {routed} tokens routed "
+             f"otherwise than on one device (> {SHARD_FLIP_SHARE})")
+    row = {"phase": "sharded", "case": case,
            "nvidia_smi": card, "arch": arch, "layers": layers_run,
            "of_layers": get(arch).n_layers, "layout": layout,
            "lowering": "kernel", "mesh": mesh.shape,
            "routes": sorted(coll.mesh_routes(mesh, mesh.axes)),
+           "heads_per_rank": [hi - lo for lo, hi in L.heads],
+           "flat_head_split": L.flat,
            "batch": b, "prompt": s, "steps": steps, "launches": counted,
-           "launches_per_prefill": mesh.size * zoo_linears(cfg, True),
+           "launches_per_prefill": shard_linears(cfg, L, True),
+           "moe_rows_held": None if rows_alike is None else
+           [int(r.sum()) for r in rows_alike],
+           "moe_tokens_routed_otherwise": flipped / routed if routed
+           else None,
+           "moe_flip_bar": SHARD_FLIP_SHARE if routed else None,
            "held": hold, "logits_err_of_max": errs, "bars": bars,
            "one_device_bf16_vs_f32_compute": d_ref,
            "tokens_held_equal": held, "tokens_within_error": free,

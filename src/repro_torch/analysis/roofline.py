@@ -12,11 +12,11 @@ holds 8, and traffic between nodes crosses one 400 Gb/s NIC a card
 (50 GB/s).  A card set below 700 W runs slower than these terms say.
 
 The port's dry-run (:mod:`repro_torch.launch.dryrun`) counts FLOPs and
-bytes per card on fake tensors; a collective's bytes come from an
-HLO-style text, parsed here as the reference parses XLA's optimized HLO
-(``parse_collectives``), for every all-gather / all-reduce /
-reduce-scatter / all-to-all / collective-permute, with ring-traffic
-factors:
+bytes per card on fake tensors, and a collective's bytes from what the
+sharded steps' collectives record as they run
+(:mod:`repro_torch.distributed.collectives`, :func:`add_collective`),
+with the ring-traffic factors the reference applies to XLA's optimized
+HLO (``parse_collectives``, kept as its twin; :func:`wire_bytes`):
 
     all-reduce      2 (n-1)/n x bytes     (ring reduce-scatter+all-gather)
     all-gather      (n-1)/n x out_bytes
@@ -24,9 +24,13 @@ factors:
     all-to-all      (n-1)/n x bytes
     collective-permute  1 x bytes
 
-Collectives whose replica groups span a node boundary (device ids on
-both sides of ``chips_per_pod``) are costed at the NIC's bandwidth
-instead of NVLink's.  One card runs no collective: its rows carry 0.
+A mesh position is a card, numbered in row-major order over the mesh; a
+group whose cards span a node boundary (indices on both sides of a
+multiple of ``chips_per_pod``, 8 cards a node) is costed at the NIC's
+bandwidth instead of NVLink's.  So a 16-wide ``model`` axis spans two
+nodes and its layer collectives cross the NIC (``--dp 32 --tp 8`` keeps
+tensor parallelism inside a node).  One card runs no collective: its
+rows carry 0.
 """
 from __future__ import annotations
 
@@ -108,16 +112,57 @@ class CollectiveStats:
         return sum(self.op_bytes.values())
 
 
+def wire_bytes(op: str, n: int, out_bytes: float) -> float:
+    """A collective's ring-model wire bytes per member (the module's
+    table): ``op`` the HLO name, ``n`` the group size, ``out_bytes`` a
+    member's result."""
+    if op == "collective-permute":
+        return out_bytes          # n comes from source_target_pairs
+    if n <= 1:
+        return 0.0
+    if op == "all-reduce":
+        return 2.0 * (n - 1) / n * out_bytes
+    if op == "all-gather":
+        return (n - 1) / n * out_bytes
+    if op == "reduce-scatter":
+        return (n - 1) * out_bytes
+    if op == "all-to-all":
+        return (n - 1) / n * out_bytes
+    return out_bytes
+
+
+def crosses_node(cards, chips_per_pod: int = HW.chips_per_pod) -> bool:
+    """Whether a group's cards (row-major indices) span two nodes."""
+    return len({d // chips_per_pod for d in cards}) > 1
+
+
+def add_collective(stats: CollectiveStats, op: str, n: int,
+                   operand_bytes: float, out_bytes: float,
+                   crosses: bool) -> None:
+    """One member's part of a collective into ``stats``: its operand
+    bytes under ``op``, its wire bytes on the NIC where the group
+    ``crosses`` a node boundary, else on NVLink."""
+    wire = wire_bytes(op, n, out_bytes)
+    stats.op_bytes[op] = stats.op_bytes.get(op, 0.0) + operand_bytes
+    stats.count += 1
+    if crosses:
+        stats.wire_dcn += wire
+    else:
+        stats.wire_ici += wire
+
+
 def parse_collectives(hlo_text: str, *, chips_per_pod: int = HW.chips_per_pod
                       ) -> CollectiveStats:
+    """The reference's count of an XLA HLO text's collectives, kept as
+    its twin (the port makes no HLO; its dry-run fills
+    :class:`CollectiveStats` from the collectives its steps record,
+    :func:`add_collective`)."""
     stats = CollectiveStats()
     for line in hlo_text.splitlines():
         m = _COLL_RE.search(line)
         if m is None:
             continue
         result_type, op = m.group(2), m.group(3).lower()
-        if m.group(4):  # -start of a start/done pair: count once (the start)
-            pass
         out_bytes = _shape_bytes(result_type)
         # operand types appear inline inside the parens
         inside = line[m.end():]
@@ -130,32 +175,8 @@ def parse_collectives(hlo_text: str, *, chips_per_pod: int = HW.chips_per_pod
         operand_bytes = _shape_bytes(inside[:j]) or out_bytes
         groups = _parse_groups(line)
         n = len(groups[0]) if groups else 1
-        crosses_pod = False
-        if groups:
-            for g in groups:
-                if len({d // chips_per_pod for d in g}) > 1:
-                    crosses_pod = True
-                    break
-        if op == "collective-permute":
-            wire = out_bytes          # n comes from source_target_pairs
-        elif n <= 1:
-            wire = 0.0
-        elif op == "all-reduce":
-            wire = 2.0 * (n - 1) / n * out_bytes
-        elif op == "all-gather":
-            wire = (n - 1) / n * out_bytes
-        elif op == "reduce-scatter":
-            wire = (n - 1) * out_bytes
-        elif op == "all-to-all":
-            wire = (n - 1) / n * out_bytes
-        else:
-            wire = out_bytes
-        stats.op_bytes[op] = stats.op_bytes.get(op, 0.0) + operand_bytes
-        stats.count += 1
-        if crosses_pod:
-            stats.wire_dcn += wire
-        else:
-            stats.wire_ici += wire
+        crosses = any(crosses_node(g, chips_per_pod) for g in groups or ())
+        add_collective(stats, op, n, operand_bytes, out_bytes, crosses)
     return stats
 
 
@@ -277,4 +298,5 @@ def analyze(*, arch: str, shape: str, mesh_name: str, chips: int,
 
 
 __all__ = ["HWSpec", "HW", "CollectiveStats", "parse_collectives",
+           "wire_bytes", "crosses_node", "add_collective",
            "RooflineReport", "model_flops", "analyze"]

@@ -26,14 +26,33 @@ loss from one copy of a replicated value therefore gets, on each copy
 of a replicated parameter, a part of its gradient; the parts sum, over
 the axes the parameter is replicated on, to the gradient
 (:func:`repro_torch.distributed.step`).
+
+Each group's members, route and :class:`~repro_torch.launch.mesh.Group`
+(``mesh.group``) are made once a mesh and axes.  A mesh that runs a part
+of its positions (:class:`repro_torch.launch.mesh.RowMesh`, meta tensors
+only) says in its groups which run member each member it does not run
+mirrors.
+
+Under :func:`recording`, every collective that a group of more than one
+runs, forward and backward, is handed to the recorder after it ran
+(:class:`Group`, its members' tensors in and out; the bf16 expert
+combine records as an all-reduce of its bf16 tensors), and the ops that
+carry it out run under the recorder's ``quiet()``: the dry-run counts
+them as wire bytes, never as a card's FLOPs or memory traffic.  With no
+recorder (the default) nothing is recorded and nothing else changes.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 
 import torch
 
+from ..launch.mesh import Group
+
 _LOCK = threading.Lock()
+_RECORDER = None          # the active recorder (:func:`recording`), or None
 _NCCL_OPS = {"sum": 0, "max": 2}     # torch.cuda.nccl.SUM, .MAX
 
 
@@ -72,6 +91,47 @@ def _nccl(fn: str, inputs: list, outputs=None, op: str = "sum") -> None:
             nccl.reduce_scatter(inputs, outputs, op=_NCCL_OPS[op])
 
 
+@contextlib.contextmanager
+def recording(recorder):
+    """Every collective run inside goes to ``recorder``: its ``quiet()``
+    context wraps the ops that carry a collective out, then
+    ``recorder.record(kind, group, ins, outs)`` gets the kind
+    (``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``), the
+    :class:`Group` and its members' tensors (every member, in rank
+    order)."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDER = prev
+
+
+@contextlib.contextmanager
+def glue():
+    """Cross-position host glue (a step's global result gathered on its
+    first device): under a recorder, inside its ``quiet()``, and
+    recorded as nothing."""
+    rec = _RECORDER
+    if rec is None:
+        yield
+        return
+    with rec.quiet():
+        yield
+
+
+def _exec(kind: str, grp: Group, fn, ts: list) -> list:
+    """``fn`` over a group's members' tensors (every member), handed to
+    the recorder where one is active."""
+    rec = _RECORDER
+    if rec is None:
+        return fn(ts)
+    with rec.quiet():
+        outs = fn(ts)
+    rec.record(kind, grp, ts, outs)
+    return outs
+
+
 def _reduce(xs: list, rt: str, op: str = "sum") -> list:
     """All-reduce of one group: a fresh tensor a member."""
     if rt == "sum":
@@ -107,7 +167,10 @@ def _scatter(xs: list, rt: str, dim: int) -> list:
         s = xs[0]
         for x in xs[1:]:
             s = s + x
-        return [c.contiguous() for c in s.chunk(n, dim)]
+        # on meta (the dry-run) each member's slice gets storage of its
+        # own, as on a card of its own; one device shares the sum's
+        return [c.clone(memory_format=torch.contiguous_format) if c.is_meta
+                else c.contiguous() for c in s.chunk(n, dim)]
     ins = [x.movedim(dim, 0).contiguous() for x in xs]
     outs = [torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
                         dtype=t.dtype, device=t.device) for t in ins]
@@ -125,25 +188,33 @@ def _metas(ts) -> list:
     return [(t.shape, t.dtype, t.device) for t in ts]
 
 
+def _run(kind: str, grp: Group, fn, ts) -> list:
+    """``fn`` over the group's members (the run members' tensors
+    ``ts``, expanded), the run members' results kept."""
+    return grp.keep(_exec(kind, grp, fn, grp.expand(list(ts))))
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rt, *xs):
-        ctx.rt = rt
-        outs = _reduce(list(xs), rt)
+    def forward(ctx, rt, grp, *xs):
+        ctx.rt, ctx.grp = rt, grp
+        outs = _run("all-reduce", grp, lambda ts: _reduce(ts, rt), xs)
         ctx.metas = _metas(outs)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, *_reduce(_filled(gs, ctx.metas), ctx.rt))
+        return (None, None, *_run("all-reduce", ctx.grp,
+                                  lambda ts: _reduce(ts, ctx.rt),
+                                  _filled(gs, ctx.metas)))
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rt, dim, grad_dtype, *xs):
-        ctx.rt, ctx.dim, ctx.grad_dtype = rt, dim, grad_dtype
+    def forward(ctx, rt, grp, dim, grad_dtype, *xs):
+        ctx.rt, ctx.grp, ctx.dim, ctx.grad_dtype = rt, grp, dim, grad_dtype
         ctx.in_dtype = xs[0].dtype
-        outs = _gather(list(xs), rt, dim)
+        outs = _run("all-gather", grp, lambda ts: _gather(ts, rt, dim), xs)
         ctx.metas = _metas(outs)
         return tuple(outs)
 
@@ -152,51 +223,72 @@ class _AllGather(torch.autograd.Function):
         gs = _filled(gs, ctx.metas)
         if ctx.grad_dtype is not None:
             gs = [g.to(ctx.grad_dtype) for g in gs]
-        out = _scatter(gs, ctx.rt, ctx.dim)
-        return (None, None, None, *[g.to(ctx.in_dtype) for g in out])
+        out = _run("reduce-scatter", ctx.grp,
+                   lambda ts: _scatter(ts, ctx.rt, ctx.dim), gs)
+        return (None, None, None, None, *[g.to(ctx.in_dtype) for g in out])
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rt, dim, *xs):
-        ctx.rt, ctx.dim = rt, dim
-        outs = _scatter(list(xs), rt, dim)
+    def forward(ctx, rt, grp, dim, *xs):
+        ctx.rt, ctx.grp, ctx.dim = rt, grp, dim
+        outs = _run("reduce-scatter", grp, lambda ts: _scatter(ts, rt, dim),
+                    xs)
         ctx.metas = _metas(outs)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, *_gather(_filled(gs, ctx.metas), ctx.rt,
-                                     ctx.dim))
+        return (None, None, None, *_run(
+            "all-gather", ctx.grp, lambda ts: _gather(ts, ctx.rt, ctx.dim),
+            _filled(gs, ctx.metas)))
 
 
 def _per_group(xs: list, mesh, axes, fn) -> list:
-    """``fn(members' tensors, route)`` over each group of ``axes``, the
-    results put back at their positions; a group of one is left as it
-    is."""
+    """``fn(run members' tensors, route, group)`` over each group of
+    ``axes``, the results put back at their positions; a group of one is
+    left as it is."""
     if len(xs) != mesh.size:
         raise ValueError(f"collectives: {len(xs)} shards on a mesh of "
                          f"{mesh.size}")
+    names = _names(axes)
     out = list(xs)
-    for g in mesh.groups(axes):
-        if len(g) == 1:
-            continue
-        rt = route([mesh.devices[i] for i in g])
-        for i, t in zip(g, fn([xs[i] for i in g], rt)):
+    if mesh.count(names) == 1:
+        return out
+    for g, rt, grp in _plan(mesh, names):
+        for i, t in zip(g, fn([xs[i] for i in g], rt, grp)):
             out[i] = t
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _plan(mesh, names: tuple) -> tuple:
+    """Each group of ``names`` on ``mesh``: its run members, route and
+    :class:`Group` (``mesh.group``), made once a mesh and axes."""
+    return tuple((g, route([mesh.devices[i] for i in g]),
+                  mesh.group(tuple(g), names))
+                 for g in mesh.groups(names))
+
+
+def _names(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
 def all_reduce(xs: list, mesh, axes) -> list:
     """The sum over ``axes``, on every member (differentiable)."""
-    return _per_group(xs, mesh, axes, lambda ts, rt: _AllReduce.apply(rt, *ts))
+    return _per_group(xs, mesh, axes,
+                      lambda ts, rt, grp: _AllReduce.apply(rt, grp, *ts))
 
 
 def all_reduce_max(xs: list, mesh, axes) -> list:
     """The elementwise max over ``axes``, on every member; no gradient
     (a softmax's shift)."""
     return _per_group([x.detach() for x in xs], mesh, axes,
-                      lambda ts, rt: _reduce(ts, rt, "max"))
+                      lambda ts, rt, grp: _run(
+                          "all-reduce", grp,
+                          lambda us: _reduce(us, rt, "max"), ts))
 
 
 def all_gather(xs: list, mesh, axes, dim: int, *, grad_dtype=None) -> list:
@@ -204,30 +296,33 @@ def all_gather(xs: list, mesh, axes, dim: int, *, grad_dtype=None) -> list:
     every member (differentiable: the backward reduce-scatters, in
     ``grad_dtype`` where given)."""
     return _per_group(xs, mesh, axes,
-                      lambda ts, rt: _AllGather.apply(rt, dim, grad_dtype,
-                                                      *ts))
+                      lambda ts, rt, grp: _AllGather.apply(
+                          rt, grp, dim, grad_dtype, *ts))
 
 
 def reduce_scatter(xs: list, mesh, axes, dim: int) -> list:
     """Member r's slice r (of n along ``dim``) of the sum over ``axes``
     (differentiable: the backward all-gathers)."""
     return _per_group(xs, mesh, axes,
-                      lambda ts, rt: _ReduceScatter.apply(rt, dim, *ts))
+                      lambda ts, rt, grp: _ReduceScatter.apply(rt, grp, dim,
+                                                               *ts))
 
 
 class _ExpertCombine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rt, *xs):
-        ctx.rt, ctx.dtype = rt, xs[0].dtype
-        outs = _reduce([x.to(torch.bfloat16) for x in xs], rt)
+    def forward(ctx, rt, grp, *xs):
+        ctx.rt, ctx.grp, ctx.dtype = rt, grp, xs[0].dtype
+        outs = _run("all-reduce", grp, lambda ts: _reduce(ts, rt),
+                    [x.to(torch.bfloat16) for x in xs])
         ctx.metas = _metas(outs)
         return tuple(o.to(ctx.dtype) for o in outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        gs = _reduce(_filled(gs, [(s, ctx.dtype, d)
-                                  for s, _, d in ctx.metas]), ctx.rt)
-        return (None, *[g.to(torch.bfloat16).to(ctx.dtype) for g in gs])
+        gs = _run("all-reduce", ctx.grp, lambda ts: _reduce(ts, ctx.rt),
+                  _filled(gs, [(s, ctx.dtype, d) for s, _, d in ctx.metas]))
+        return (None, None, *[g.to(torch.bfloat16).to(ctx.dtype)
+                              for g in gs])
 
 
 def expert_combine(xs: list, mesh, axes) -> list:
@@ -240,8 +335,9 @@ def expert_combine(xs: list, mesh, axes) -> list:
     if mesh.count(axes) == 1:
         return [x.to(torch.bfloat16).to(x.dtype) for x in xs]
     return _per_group(xs, mesh, axes,
-                      lambda ts, rt: _ExpertCombine.apply(rt, *ts))
+                      lambda ts, rt, grp: _ExpertCombine.apply(rt, grp, *ts))
 
 
 __all__ = ["route", "mesh_routes", "all_reduce", "all_reduce_max",
-           "all_gather", "reduce_scatter", "expert_combine"]
+           "all_gather", "reduce_scatter", "expert_combine", "recording",
+           "glue", "Group"]

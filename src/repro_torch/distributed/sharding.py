@@ -28,7 +28,9 @@ against it, but no step of the port reads them.
 TP legality note: specs shard *flattened feature dims* (e.g. the
 ``h*hd`` output of wq), never the per-head axis, so head counts that
 don't divide the model axis (qwen2: 28 heads on 16-way TP) still shard
-evenly — 3584 = 16 x 224.
+evenly — 3584 = 16 x 224.  The sharded steps keep those flat blocks and
+move activations onto whole heads where they attend
+(:mod:`repro_torch.models.sharded`).
 """
 from __future__ import annotations
 
@@ -212,13 +214,9 @@ def cache_shardings(cache_shape, cfg: ModelConfig, mesh, rules: dict):
 # ---------------------------------------------------------------------------
 def kv_replicated(cfg: ModelConfig, mesh, rules: dict) -> bool:
     """Whether the KV heads are replicated over the tensor-parallel axis:
-    it splits the query heads but not the KV heads, whose count divides
-    it (each shard then holds the one KV head its query heads read)."""
-    tp = rules.get("tp")
-    if tp is None:
-        return False
-    n = math.prod(_sizes(mesh)[a] for a in
-                  ((tp,) if isinstance(tp, str) else tp))
+    its degree does not divide them (each shard then reads the KV heads
+    its query heads use, out of the whole ``wk``/``wv``)."""
+    n = _tp_degree(mesh, rules)
     return n > 1 and cfg.n_kv_heads % n != 0
 
 
@@ -235,21 +233,34 @@ def _drop(spec: PartitionSpec, axes) -> PartitionSpec:
 
 # the compute layout's own cuts under tensor parallelism (rwkv6): the
 # time mix's per-channel and per-head leaves, which the reference
-# replicates, cut to a shard's heads; the channel mix's value map split
-# on its d_ff rows, Megatron's row-parallel form (the reference's
-# (wq|wk|wv)/w rule stores it split on its output columns)
-_COMPUTE_TP: list[tuple[str, tuple]] = [
-    (r".*tm/(w0|ln_x)$",       ("tp",)),
-    (r".*tm/u$",               ("tp", None)),
-    (r".*tm/td_w2$",           (None, "tp")),
-    (r".*cm/wv/w$",            ("tp", None)),
+# replicates, cut to a shard's heads where the degree divides the heads
+# (else they stay whole and each shard reads its heads' part: the
+# shards' head ranges are not equal blocks, models.sharded.head_ranges);
+# the channel mix's value map split on its d_ff rows, Megatron's
+# row-parallel form (the reference's (wq|wk|wv)/w rule stores it split
+# on its output columns)
+_COMPUTE_TP: list[tuple[str, tuple, bool]] = [
+    (r".*tm/(w0|ln_x)$",       ("tp",), True),
+    (r".*tm/u$",               ("tp", None), True),
+    (r".*tm/td_w2$",           (None, "tp"), True),
+    (r".*cm/wv/w$",            ("tp", None), False),
 ]
 
 
-def _compute_tp(path: str, leaf, spec, rules: dict, mesh):
+def _tp_degree(mesh, rules: dict) -> int:
+    tp = rules.get("tp")
+    if tp is None:
+        return 1
+    return math.prod(_sizes(mesh)[a] for a in
+                     ((tp,) if isinstance(tp, str) else tp))
+
+
+def _compute_tp(path: str, leaf, spec, rules: dict, mesh, heads_split: bool):
     shape = _shape(leaf)
-    for pat, logical in _COMPUTE_TP:
+    for pat, logical, per_head in _COMPUTE_TP:
         if re.match(pat, path):
+            if per_head and not heads_split:
+                return spec
             cut = logical_to_spec(logical, rules)
             return legalize(P(*([None] * (len(shape) - len(cut))
                                 + list(cut))), shape, mesh)
@@ -267,16 +278,21 @@ def step_param_specs(tree, cfg: ModelConfig, mesh, rules: dict, *,
     (rules' ``"fsdp"``), which a training step gathers before use and a
     serving step never splits, and, under tensor parallelism, rwkv6's
     cuts of :data:`_COMPUTE_TP` (a training step reshards those leaves
-    from the stored specs at their use)."""
+    from the stored specs at their use).  Every other leaf keeps the
+    reference's flat blocks, also where the degree does not divide the
+    heads (qwen2's 28 on 16 ranks: 224 columns a rank, 1.75 heads)."""
     is_spec = lambda x: isinstance(x, PartitionSpec)
     if compute:
         rules = {**rules, "fsdp": None}
     specs = param_shardings(tree, cfg, mesh, rules)
     if compute and rules.get("tp"):
         flat = dict(flatten_with_path(tree))
+        split = (cfg.d_model // cfg.rwkv_head_size) \
+            % _tp_degree(mesh, rules) == 0
         specs = map_with_path(
             lambda path, spec: _compute_tp(path, flat[path], spec, rules,
-                                           mesh), specs, is_leaf=is_spec)
+                                           mesh, split), specs,
+            is_leaf=is_spec)
     if not kv_replicated(cfg, mesh, rules):
         return specs
     kv = re.compile(r"(^|.*/)attn/(wk|wv)/")

@@ -30,6 +30,7 @@ shards of one card, or of the CPU).  One process drives every position
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -228,14 +229,133 @@ class Mesh:
     def groups(self, axes) -> list[list[int]]:
         """The positions that share every index off ``axes``, one list a
         group, each in rank order over ``axes``."""
-        names = _names(axes)
-        out: dict = {}
-        for i in range(self.size):
-            c = self.coords(i)
-            key = tuple(c[a] for a in self.axes if a not in names)
-            out.setdefault(key, []).append(i)
-        return [sorted(g, key=lambda i: self.rank(i, names))
-                for g in out.values()]
+        return _groups(self, axes)
+
+    def group(self, g, names) -> "Group":
+        """The :class:`Group` of positions ``g`` (one of
+        ``groups(names)``): every member runs."""
+        run = tuple(range(len(g)))
+        return Group(tuple(g), run, run, tuple(g))
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One group of a collective (:mod:`repro_torch.distributed.
+    collectives`).  ``positions``: the whole mesh's positions of its n
+    members, in rank order; ``slots[k]``: which of the run members'
+    tensors member k's is (a member the mesh does not run mirrors a run
+    one); ``kept[j]``: the member whose result is run member j's;
+    ``members``: the run members (indices into a sharded list)."""
+    positions: tuple
+    slots: tuple
+    kept: tuple
+    members: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.positions)
+
+    def expand(self, ts) -> list:
+        return [ts[k] for k in self.slots]
+
+    def keep(self, ts) -> list:
+        return [ts[k] for k in self.kept]
+
+
+def _groups(mesh, axes) -> list[list[int]]:
+    names = _names(axes)
+    out: dict = {}
+    for i in range(mesh.size):
+        c = mesh.coords(i)
+        key = tuple(c[a] for a in mesh.axes if a not in names)
+        out.setdefault(key, []).append(i)
+    return [sorted(g, key=lambda i: mesh.rank(i, names))
+            for g in out.values()]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowMesh:
+    """The positions of ``mesh`` whose index is 0 on every axis off
+    ``keep`` (of a (data, model) or (pod, data, model) mesh, with
+    ``keep=("model",)``: its first data row), standing for the whole
+    mesh: a step on it runs those positions only, and a collective over
+    an axis it leaves out takes each member it does not run as a copy of
+    the run position with the same index on ``keep``
+    (:mod:`repro_torch.distributed.collectives`).  The positions off the
+    row hold blocks of the same shapes as the row's (a data axis splits
+    every batch leaf and ZeRO block evenly), so a ``meta`` run sizes each
+    card; the values would be the row's, so only a ``meta`` mesh may be
+    cut this way.  Counts, ranks and shapes are the whole mesh's; ``size``
+    and ``devices`` the row's."""
+
+    mesh: Mesh
+    keep: tuple = ("model",)
+
+    def __post_init__(self):
+        if self.mesh.device_type != "meta":
+            raise ValueError("RowMesh: a mesh cut to a row sizes things "
+                             "only: its devices must be 'meta'")
+        keep = tuple(_names(self.keep))
+        object.__setattr__(self, "keep", keep)
+        object.__setattr__(self, "index", tuple(
+            i for i in range(self.mesh.size)
+            if all(self.mesh.coords(i)[a] == 0 for a in self.mesh.axes
+                   if a not in keep)))
+
+    axes = property(lambda self: self.mesh.axes)
+    sizes = property(lambda self: self.mesh.sizes)
+    shape = property(lambda self: self.mesh.shape)
+    device_type = property(lambda self: "meta")
+
+    @property
+    def size(self) -> int:
+        return len(self.index)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(self.mesh.devices[i] for i in self.index)
+
+    @property
+    def distinct(self) -> tuple:
+        return tuple(dict.fromkeys(self.devices))
+
+    def coords(self, i: int) -> dict:
+        return self.mesh.coords(self.index[i])
+
+    def rank(self, i: int, axes) -> int:
+        return self.mesh.rank(self.index[i], axes)
+
+    def count(self, axes) -> int:
+        return self.mesh.count(axes)
+
+    def groups(self, axes) -> list[list[int]]:
+        return _groups(self, axes)
+
+    def group(self, g, names) -> Group:
+        """The :class:`Group` of run positions ``g`` over ``names``: its
+        whole mesh's members, each it does not run mirroring the run
+        member with the same index on ``keep``."""
+        return _mirrored(self, tuple(g), _names(names))
+
+
+@functools.lru_cache(maxsize=None)
+def _mirrored(row: RowMesh, g: tuple, names: tuple) -> Group:
+    full = row.mesh
+    positions = tuple(row.index[i] for i in g)
+    if len(g) == full.count(names):
+        run = tuple(range(len(g)))
+        return Group(positions, run, run, g)
+    c0 = full.coords(positions[0])
+    whole = sorted((p for p in range(full.size)
+                    if all(full.coords(p)[a] == c0[a] for a in full.axes
+                           if a not in names)),
+                   key=lambda p: full.rank(p, names))
+    slots = tuple(next(j for j, i in enumerate(g)
+                       if all(row.coords(i)[a] == full.coords(p)[a]
+                              for a in names if a in row.keep))
+                  for p in whole)
+    return Group(tuple(whole), slots,
+                 tuple(whole.index(p) for p in positions), g)
 
 
 def _names(axes) -> tuple:
@@ -293,7 +413,8 @@ def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
     (pod=2, data=16, model=16) with ``multi_pod``.  On ``"meta"`` (the
     default) the mesh only sizes things (specs, the dry-run); on
     ``"cuda"`` it takes that many distinct cards and raises ValueError
-    unless they are visible."""
+    unless they are visible; on ``"cpu"`` or an indexed card, that many
+    logical shards of it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     if torch.device(device).type == "cuda":
@@ -302,12 +423,18 @@ def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
 
 
 def mesh_from_args(spec, device: str, *, multi_pod: bool = False):
-    """The mesh a launcher's ``--mesh`` asks for, or None: over distinct
-    cards for an unindexed ``cuda``, else logical shards of ``device``."""
+    """The mesh a launcher's ``--mesh`` (or ``--multi-pod``: the
+    reference's (2, 16, 16) production mesh) asks for, or None: over
+    distinct cards for an unindexed ``cuda`` (ValueError naming the cards
+    it needs and those visible, where they are fewer), else logical
+    shards of ``device``.  Nothing shrinks a mesh to fit."""
+    dev = torch.device(device)
+    distinct = dev.type == "cuda" and dev.index is None
     if multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the reference's (2, 16, 16) production mesh takes "
-            "512 chips; pass --mesh pod,data,model (ROADMAP.md, item 20)")
+        if spec is not None:
+            raise SystemExit(f"--multi-pod and --mesh {spec}: one mesh")
+        return make_production_mesh(multi_pod=True,
+                                    device="cuda" if distinct else dev)
     if spec is None:
         return None
     shape = tuple(int(n) for n in spec.split(","))
@@ -315,11 +442,10 @@ def mesh_from_args(spec, device: str, *, multi_pod: bool = False):
         len(shape))
     if axes is None:
         raise SystemExit(f"--mesh {spec}: data,model or pod,data,model")
-    dev = torch.device(device)
-    return make_mesh(shape, axes, None if dev.type == "cuda"
-                     and dev.index is None else dev)
+    return make_mesh(shape, axes, None if distinct else dev)
 
 
 __all__ = ["BatchMesh", "BatchSharding", "Shards", "make_batch_mesh", "Mesh",
+           "RowMesh", "Group",
            "make_mesh", "make_local_mesh", "make_production_mesh",
            "mesh_from_args"]

@@ -14,7 +14,9 @@ runs the sharded step of any arch (``--layout tp|fsdp|sp``; ``sp``
 splits the sequence over ``model``): over distinct cards for
 ``--device cuda``, over logical shards of one device for ``--device
 cpu`` or an indexed card (``--device cuda:0``).  ``--multi-pod`` takes
-the reference's (2, 16, 16) production mesh, which needs 512 cards.
+the reference's (2, 16, 16) production mesh: 512 distinct cards on
+``--device cuda`` (fewer raise ValueError, naming the count visible), or
+512 logical shards of ``--device cpu`` or of an indexed card.
 
 ``main`` returns the last step's metrics for callers that run it in
 process.
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--workdir", default="runs/default")
     ap.add_argument("--full", action="store_true",
                     help="the full config, on the one card")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (pod 2, data 16, model 16) production mesh")
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,

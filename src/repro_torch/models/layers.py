@@ -227,42 +227,62 @@ def attention(p: Params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
     x.shape[1] == 1 and cache is given.  A cache is written in place and
     returned."""
     b, s, _ = x.shape
+    q, k, v = qkv(p, x, cfg, positions=positions, angles=angles)
+    decode_pos = None
+    if cache is not None:
+        k, v, decode_pos = write_cache(cache, k, v)
+    out = attend(q, k, v, cfg, window=window,
+                 q_offset=pos0 if cache is not None else 0,
+                 decode_pos=decode_pos)
+    return linear(p["wo"], out.reshape(b, s, -1), cfg), cache
+
+
+def qkv(p: Params, x: Tensor, cfg: ModelConfig, *, positions: Tensor,
+        angles: Optional[tuple[Tensor, Tensor]] = None
+        ) -> tuple[Tensor, Tensor, Tensor]:
+    """x's (B, S, D) rope'd q (B, S, H, hd) and k, and v (B, S, Hkv,
+    hd)."""
+    b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(p["wq"], x, cfg).reshape(b, s, h, hd)
     k = linear(p["wk"], x, cfg).reshape(b, s, hkv, hd)
     v = linear(p["wv"], x, cfg).reshape(b, s, hkv, hd)
-    q = rope(q, positions, cfg, angles=angles)
-    k = rope(k, positions, cfg, angles=angles)
+    return (rope(q, positions, cfg, angles=angles),
+            rope(k, positions, cfg, angles=angles), v)
 
-    new_cache = None
-    if cache is not None:
-        size = cache["k"].shape[1]
-        pos = cache["pos"]                       # host int: tokens so far
-        if s == 1:
-            # decode: rolling write at pos % size (rolling == plain write
-            # while pos < size, which covers full-cache decode too)
-            idx = pos % size
-            cache["k"][:, idx] = k[:, 0]
-            cache["v"][:, idx] = v[:, 0]
-            cache["pos"] = pos + 1
-            out = _decode_attn(q, cache["k"], cache["v"], pos=pos,
-                               size=size, window=window)
-        else:
-            # prefill: write the (window-)tail of k/v into the cache
-            kk, vv = k, v
-            if s > size:
-                kk, vv = k[:, -size:], v[:, -size:]
-            cache["k"][:, :kk.shape[1]] = kk.to(cache["k"].dtype)
-            cache["v"][:, :vv.shape[1]] = vv.to(cache["v"].dtype)
-            cache["pos"] = pos + s
-            out = _online_softmax_attn(q, k, v, causal=cfg.causal,
-                                       window=window, chunk=cfg.attn_chunk,
-                                       q_offset=pos0)
-        new_cache = cache
-    else:
-        out = _online_softmax_attn(q, k, v, causal=cfg.causal, window=window,
-                                   chunk=cfg.attn_chunk, q_offset=0)
-    return linear(p["wo"], out.reshape(b, s, h * hd), cfg), new_cache
+
+def write_cache(cache: dict, k: Tensor, v: Tensor
+                ) -> tuple[Tensor, Tensor, Optional[int]]:
+    """Writes rope'd k / v (B, S, Hkv, hd) into ``cache`` in place: one
+    token (decode) at the rolling slot pos % size (rolling == plain write
+    while pos < size, which covers full-cache decode too), a prefill's
+    (window-)tail from slot 0.  Returns what attention reads: a decode's
+    whole cache and its token's position, or a prefill's k, v and None."""
+    size, pos = cache["k"].shape[1], cache["pos"]      # host int: so far
+    s = k.shape[1]
+    cache["pos"] = pos + s
+    if s == 1:
+        idx = pos % size
+        cache["k"][:, idx] = k[:, 0]
+        cache["v"][:, idx] = v[:, 0]
+        return cache["k"], cache["v"], pos
+    kk, vv = (k[:, -size:], v[:, -size:]) if s > size else (k, v)
+    cache["k"][:, :kk.shape[1]] = kk.to(cache["k"].dtype)
+    cache["v"][:, :vv.shape[1]] = vv.to(cache["v"].dtype)
+    return k, v, None
+
+
+def attend(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig, *,
+           window: int = 0, q_offset: int = 0,
+           decode_pos: Optional[int] = None) -> Tensor:
+    """Attention of rope'd q (B, S, H, hd) over k / v (B, Skv, Hkv, hd):
+    one token at ``decode_pos`` against a (rolling) cache, else the
+    chunked online softmax, the queries from position ``q_offset``."""
+    if decode_pos is not None:
+        return _decode_attn(q, k, v, pos=decode_pos, size=k.shape[1],
+                            window=window)
+    return _online_softmax_attn(q, k, v, causal=cfg.causal, window=window,
+                                chunk=cfg.attn_chunk, q_offset=q_offset)
 
 
 def _decode_attn(q: Tensor, ck: Tensor, cv: Tensor, *, pos: int, size: int,

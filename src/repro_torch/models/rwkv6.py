@@ -99,6 +99,59 @@ def _wkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     return torch.stack(outs, 1), s
 
 
+def mix_inputs(p: Params, x: Tensor, cfg: ModelConfig, prev: Optional[Tensor],
+               cols: Optional[tuple[int, int]] = None) -> tuple[Tensor, ...]:
+    """The time mix's projections of ``x`` after ``prev``: the outputs of
+    the ``wr``/``wk``/``wv`` linears, ``silu`` of ``wg``'s, and the
+    data-dependent decay ``w`` (f32) of the columns ``cols`` of the heads
+    (None: all of ``w0``'s)."""
+    xx = _shift(x, cfg, prev) - x
+    xr, xw, xk, xv, xg = _ddlerp(p, x, xx)
+    r = layers.linear(p["wr"], xr, cfg)
+    k = layers.linear(p["wk"], xk, cfg)
+    v = layers.linear(p["wv"], xv, cfg)
+    g = F.silu(layers.linear(p["wg"], xg, cfg))
+
+    # data-dependent decay w_t = exp(-exp(w0 + lora(x_w))) in (0, 1)
+    w0, w2 = p["w0"], p["td_w2"]
+    if cols is not None:
+        w0, w2 = w0[cols[0]:cols[1]], w2[:, cols[0]:cols[1]]
+    td = torch.tanh(xw @ p["td_w1"].to(x.dtype))
+    wlog = w0.float() + td.float() @ w2.float()
+    return r, k, v, g, torch.exp(-torch.exp(wlog))
+
+
+def mix_heads(p: Params, r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+              g: Tensor, cfg: ModelConfig, s0: Optional[Tensor],
+              dtype: torch.dtype, heads: Optional[tuple[int, int]] = None
+              ) -> tuple[Tensor, Tensor]:
+    """The WKV scan, per-head group norm and gate of heads ``heads`` (None:
+    all of ``p["u"]``'s) from :func:`mix_inputs`' projections of those
+    heads, from WKV state ``s0`` (None: zero): (gated output in
+    ``dtype``, final state)."""
+    b, s = r.shape[:2]
+    hs = cfg.rwkv_head_size
+    u, ln_x = p["u"], p["ln_x"]
+    if heads is not None:
+        u, ln_x = u[heads[0]:heads[1]], ln_x[heads[0] * hs:heads[1] * hs]
+    h = u.shape[0]
+    r = r.reshape(b, s, h, hs).float()
+    k = k.reshape(b, s, h, hs).float()
+    v = v.reshape(b, s, h, hs).float()
+    w = w.reshape(b, s, h, hs)
+    if s0 is None:
+        s0 = torch.zeros((b, h, hs, hs), dtype=torch.float32,
+                         device=r.device)
+    out, s_new = _wkv_scan(r, k, v, w, u.float(), s0)
+
+    # per-head group norm (ln_x, population variance), gate
+    mu = out.mean(-1, keepdim=True)
+    var = out.var(-1, keepdim=True, unbiased=False)
+    out = (out - mu) * torch.rsqrt(var + 1e-5)
+    out = out.reshape(b, s, h * hs) * ln_x.float()
+    return out.to(dtype) * g, s_new
+
+
 def mix_core(p: Params, x: Tensor, cfg: ModelConfig, prev: Optional[Tensor],
              s0: Optional[Tensor]) -> tuple[Tensor, Tensor]:
     """The time mix of ``x`` after ``prev`` (the input before x[:, 0];
@@ -107,33 +160,8 @@ def mix_core(p: Params, x: Tensor, cfg: ModelConfig, prev: Optional[Tensor],
     shard's, whose ``wr``/``wk``/``wv``/``wg`` columns, ``wo`` rows and
     ``w0``/``td_w2``/``u``/``ln_x`` are cut to them) gives those heads'
     part of the output projection."""
-    b, s, _ = x.shape
-    hs = cfg.rwkv_head_size
-    h = p["u"].shape[0]
-    xx = _shift(x, cfg, prev) - x
-    xr, xw, xk, xv, xg = _ddlerp(p, x, xx)
-
-    r = layers.linear(p["wr"], xr, cfg).reshape(b, s, h, hs).float()
-    k = layers.linear(p["wk"], xk, cfg).reshape(b, s, h, hs).float()
-    v = layers.linear(p["wv"], xv, cfg).reshape(b, s, h, hs).float()
-    g = F.silu(layers.linear(p["wg"], xg, cfg))
-
-    # data-dependent decay w_t = exp(-exp(w0 + lora(x_w))) in (0, 1)
-    td = torch.tanh(xw @ p["td_w1"].to(x.dtype))
-    wlog = p["w0"].float() + td.float() @ p["td_w2"].float()
-    w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, hs)
-
-    if s0 is None:
-        s0 = torch.zeros((b, h, hs, hs), dtype=torch.float32,
-                         device=x.device)
-    out, s_new = _wkv_scan(r, k, v, w, p["u"].float(), s0)
-
-    # per-head group norm (ln_x, population variance), gate, project out
-    mu = out.mean(-1, keepdim=True)
-    var = out.var(-1, keepdim=True, unbiased=False)
-    out = (out - mu) * torch.rsqrt(var + 1e-5)
-    out = out.reshape(b, s, h * hs) * p["ln_x"].float()
-    out = out.to(x.dtype) * g
+    r, k, v, g, w = mix_inputs(p, x, cfg, prev)
+    out, s_new = mix_heads(p, r, k, v, w, g, cfg, s0, x.dtype)
     return layers.linear(p["wo"], out, cfg), s_new
 
 
@@ -190,5 +218,6 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     }
 
 
-__all__ = ["init_time_mix", "time_mix", "mix_core", "init_channel_mix", "channel_mix",
+__all__ = ["init_time_mix", "time_mix", "mix_core", "mix_inputs",
+           "mix_heads", "init_channel_mix", "channel_mix",
            "init_rwkv_state", "TIME_MIX_LINEARS", "CHANNEL_MIX_LINEARS"]

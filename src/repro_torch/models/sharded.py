@@ -8,18 +8,22 @@ controller, ``jax.jit`` over a mesh).
 A sharded value is a list with one tensor a mesh position.  Every
 position runs the single-device layers (:mod:`repro_torch.models.layers`)
 on its own block of the parameters with a per-shard config
-(:class:`Layout`: ``n_heads / tp``, the KV heads it holds, ``d_ff / tp``,
+(:class:`Layout`: its heads, the KV heads they read, ``d_ff / tp``,
 ``lru_width / tp``), and the collectives of
 :mod:`repro_torch.distributed.collectives` stand where the reference's
 GSPMD puts them.  Under tensor parallelism (``layout="tp"``):
 
 * column-parallel ``wq``/``wk``/``wv`` (and biases), ``up``/``gate``;
   row-parallel ``wo``/``down``, then an all-reduce over the
-  tensor-parallel axis.  Heads split whole: the reference splits the flat
-  ``h * hd`` axis, which for a head count the axis divides is the same
-  blocks; KV heads the axis does not divide but whose count divides it
-  are replicated, each shard reading the one its query heads use
-  (recurrentgemma's one KV head);
+  tensor-parallel axis.  The parameters keep the reference's flat blocks
+  of the ``h * hd`` axis; each rank attends on whole heads, ceil(h / tp)
+  of them (:func:`head_ranges`): where the degree divides the heads these
+  are its flat blocks, else (qwen2's 28 heads on 16 ranks) q is
+  all-gathered and cut to the rank's heads and their output all-gathered
+  and cut back to ``wo``'s row block.  KV heads the degree does not
+  divide are replicated (``wk``/``wv`` whole), each rank cutting the KV
+  heads its query heads read; its query heads attend in runs, one a KV
+  head, or in one GQA call where they read its KV heads evenly;
 * the RG-LRU: ``in_x``/``in_gate`` column-parallel, the conv, ``lambda``,
   the scan and ``h * gate`` on the shard's channels; ``w_r``/``w_i`` are
   dense maps of the whole conv output ``u``, so ``u`` is all-gathered
@@ -31,7 +35,9 @@ GSPMD puts them.  Under tensor parallelism (``layout="tp"``):
   heads (the reference replicates them; the group norm is per head),
   ``wo`` row-parallel then an all-reduce; the WKV state ``S`` is kept
   per head (the reference keeps it whole over the axis, split by batch
-  only).  The channel mix: ``wk`` column-parallel, ``wv`` row-parallel
+  only).  Where the degree does not divide the heads (40 on 16 ranks)
+  r, k, v and g are moved onto the rank's heads as q is, the per-head
+  leaves stay whole and each rank reads its heads' part.  The channel mix: ``wk`` column-parallel, ``wv`` row-parallel
   on its ``d_ff`` rows (the compute layout of
   :func:`repro_torch.distributed.sharding.step_param_specs`; the
   reference stores it split on its output columns), its partial sums
@@ -93,6 +99,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import threading
 from typing import Optional
 
 import torch
@@ -109,7 +117,6 @@ from repro_torch.partitioning import PartitionSpec
 from repro_torch.tree import flatten_with_path, leaves, map_tree, unflatten
 
 Tensor = torch.Tensor
-NEXT = "ROADMAP.md item 20's remainder"
 
 
 def device_ctx(dev: torch.device):
@@ -136,9 +143,14 @@ class Layout:
     rules: dict
     dp: tuple               # the batch's mesh axes (none: replicated)
     tp: tuple               # the tensor-parallel axes (none: no TP)
-    local: ModelConfig      # one shard's attention / MLP / RG-LRU config
-    kv_group: int           # > 0: KV heads replicated, this many shards
-                            # read each
+    local: ModelConfig      # one shard's MLP / RG-LRU config
+    heads: tuple            # per tensor-parallel rank: its (first, end)
+                            # heads (attention's query heads, rwkv6's)
+    kv: tuple               # per rank: the KV heads its query heads read
+    kv_whole: bool          # wk/wv whole on every position (KV heads
+                            # replicated): a position cuts its KV heads
+    flat: bool              # the heads' ranges are not the flat column
+                            # blocks the parameters are split in
     vocab: tuple            # the embedding table's vocab axes
     head_vocab: tuple       # the head's (== vocab for a tied head)
     expert: tuple           # the experts' axes
@@ -163,6 +175,46 @@ class Layout:
     def rank(self, i: int, axes) -> int:
         return self.mesh.rank(i, axes)
 
+    def head_range(self, i: int) -> tuple[int, int]:
+        """Position ``i``'s heads, (first, end)."""
+        return self.heads[self.rank(i, self.tp)]
+
+    def kv_range(self, i: int) -> tuple[int, int]:
+        """The KV heads position ``i``'s query heads read, (first, end)."""
+        return self.kv[self.rank(i, self.tp)]
+
+    def attn_cfg(self, i: int) -> ModelConfig:
+        """Position ``i``'s attention config: its query and KV heads."""
+        return self._attn_cfgs[self.rank(i, self.tp)]
+
+    @functools.cached_property
+    def _attn_cfgs(self) -> list:
+        return [self.cfg.scaled(n_heads=hi - lo, n_kv_heads=khi - klo)
+                for (lo, hi), (klo, khi) in zip(self.heads, self.kv)]
+
+    def runs(self, i: int) -> list:
+        """Position ``i``'s query heads by the KV head they read: (first,
+        end, KV head), each local to the position; one run of all its
+        heads where they read its KV heads evenly, in order (one GQA
+        attention call serves them)."""
+        return self._runs[self.rank(i, self.tp)]
+
+    @functools.cached_property
+    def _runs(self) -> list:
+        g = self.cfg.n_heads // max(self.cfg.n_kv_heads, 1)
+        out = []
+        for (lo, hi), (klo, khi) in zip(self.heads, self.kv):
+            rs = []
+            for j in range(lo, hi):
+                if rs and rs[-1][2] == j // g - klo:
+                    rs[-1][1] += 1
+                else:
+                    rs.append([j - lo, j - lo + 1, j // g - klo])
+            if rs and all(b - a == rs[0][1] - rs[0][0] for a, b, _ in rs):
+                rs = [[0, hi - lo, None]]
+            out.append([tuple(r) for r in rs])
+        return out
+
     def splits(self, s: int) -> bool:
         """Whether a sequence of ``s`` positions splits over the sequence
         axes (a decode step's one token does not); ValueError where they
@@ -176,40 +228,57 @@ class Layout:
         return True
 
 
+def head_ranges(h: int, n: int) -> tuple:
+    """The heads of each of ``n`` tensor-parallel ranks: ceil(h / n) a
+    rank in order, the last ranks holding fewer or none (GSPMD's padded
+    split of a head axis)."""
+    c = -(-h // n)
+    return tuple((min(r * c, h), min((r + 1) * c, h)) for r in range(n))
+
+
 def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
                 ) -> Layout:
     """The :class:`Layout` of ``cfg`` on ``mesh``; ``compute_specs`` are
     the parameters' compute-layout specs (their vocab and expert axes).
-    Raises ValueError for head counts the tensor-parallel axis cannot
-    split."""
+
+    Tensor parallelism splits every column- and row-parallel width into
+    equal flat blocks, as the reference does; each rank's heads are
+    :func:`head_ranges`' (the flat blocks themselves when the degree
+    divides the head count).  Raises ValueError naming the width where
+    the degree does not divide one (the reference's ``legalize``
+    replicates such a leaf; no step here runs a column- or row-parallel
+    map on a replicated leaf)."""
     shape = mesh.shape
     dp = tuple(a for a in _names(rules.get("batch")) if a in shape)
     tp = tuple(a for a in _names(rules.get("tp")) if a in shape)
     seq = tuple(a for a in _names(rules.get("seq")) if a in shape)
     n = mesh.count(tp)
-    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    rwkv = "rwkv" in cfg.block_pattern
+    h = cfg.d_model // cfg.rwkv_head_size if rwkv else cfg.n_heads
+    hs = cfg.rwkv_head_size if rwkv else cfg.head_dim
     lru = cfg.lru_width or cfg.d_model
-    group = 0
     if n > 1:
-        widths = {"n_heads": h, "d_ff": cfg.d_ff,
-                  "shared expert d_ff": cfg.d_ff * cfg.shared_experts,
-                  "dense_residual_ff": cfg.dense_residual_ff}
+        widths = {"d_ff": cfg.d_ff, "heads' flat columns (h * head_dim)":
+                  h * hs}
+        if cfg.moe:
+            widths.update({"shared expert d_ff":
+                           cfg.d_ff * cfg.shared_experts,
+                           "dense_residual_ff": cfg.dense_residual_ff})
         if "rglru" in cfg.block_pattern:
             widths["lru_width"] = lru
-        if "rwkv" in cfg.block_pattern:
-            widths["rwkv heads"] = cfg.d_model // cfg.rwkv_head_size
         bad = {k: v for k, v in widths.items() if v % n}
-        if bad or (hkv % n and n % hkv):
+        if bad:
             raise ValueError(
                 f"sharded steps: {cfg.name} on {n}-way tensor parallelism: "
-                f"{bad or {'n_kv_heads': hkv}} do not split into whole "
-                f"heads or columns (the reference splits the flat axis; "
-                f"see {NEXT})")
-        if kv_replicated(cfg, mesh, rules):
-            group = n // hkv
-    local = cfg.scaled(n_heads=h // n,
-                       n_kv_heads=1 if group else hkv // n,
-                       d_ff=cfg.d_ff // n,
+                f"{bad} do not split {n} ways (the reference's legalize "
+                "replicates such a leaf; a column- or row-parallel map "
+                "here needs its block)")
+    heads = head_ranges(h, n)
+    g = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
+    kv = heads if rwkv else tuple(
+        (lo // g, (hi - 1) // g + 1) if hi > lo else (lo // g, lo // g)
+        for lo, hi in heads)
+    local = cfg.scaled(d_ff=cfg.d_ff // n,
                        lru_width=lru // n if cfg.lru_width else None)
     flat = dict(flatten_with_path(compute_specs, is_leaf=_is_spec))
     vocab = _names(_axes_of(flat["embed/table"], 0))
@@ -233,8 +302,9 @@ def make_layout(cfg: ModelConfig, mesh, rules: dict, compute_specs
     canon = sorted((i for i in range(mesh.size)
                     if all(mesh.coords(i)[a] == 0 for a in others)),
                    key=lambda i: mesh.rank(i, dp))
-    return Layout(cfg, mesh, rules, dp, tp, local, group, vocab,
-                  head_vocab, expert, ep, canon,
+    return Layout(cfg, mesh, rules, dp, tp, local, heads, kv,
+                  not rwkv and kv_replicated(cfg, mesh, rules),
+                  h % n != 0, vocab, head_vocab, expert, ep, canon,
                   seq if mesh.count(seq) > 1 else ())
 
 
@@ -322,11 +392,31 @@ class Weights:
                                 self.compute["tail"][j])
 
 
+_AT = threading.local()     # the position pmap runs: its work's card
+
+
+def position() -> Optional[int]:
+    """The mesh position whose work runs now (inside :func:`pmap` or a
+    rank-order pass), else None; the dry-run charges that work to it."""
+    return getattr(_AT, "i", None)
+
+
+@contextlib.contextmanager
+def at(i: int, dev: torch.device):
+    """Position ``i``'s work: its device current, :func:`position` i."""
+    _AT.i = i
+    try:
+        with device_ctx(dev):
+            yield
+    finally:
+        _AT.i = None
+
+
 def pmap(L: Layout, fn, *lists) -> list:
     """``fn(i, *items)`` at every position, each under its device."""
     out = []
     for i, dev in enumerate(L.mesh.devices):
-        with device_ctx(dev):
+        with at(i, dev):
             out.append(fn(i, *(lst[i] for lst in lists)))
     return out
 
@@ -334,15 +424,39 @@ def pmap(L: Layout, fn, *lists) -> list:
 # ---------------------------------------------------------------------------
 # layers over shards
 # ---------------------------------------------------------------------------
-def _kv_block(p: dict, g: int, hd: int) -> dict:
-    """A replicated ``wk``/``wv``'s columns (its K-major copy's rows) of KV
-    head ``g``."""
-    out = {"w": p["w"].narrow(1, g * hd, hd)}
+def _kv_block(p: dict, lo: int, hi: int, hd: int) -> dict:
+    """A whole ``wk``/``wv``'s columns (its K-major copy's rows) of KV
+    heads ``lo`` to ``hi``."""
+    out = {"w": p["w"].narrow(1, lo * hd, (hi - lo) * hd)}
     if "b" in p:
-        out["b"] = p["b"].narrow(0, g * hd, hd)
+        out["b"] = p["b"].narrow(0, lo * hd, (hi - lo) * hd)
     if "wt" in p:
-        out["wt"] = p["wt"].narrow(0, g * hd, hd)
+        out["wt"] = p["wt"].narrow(0, lo * hd, (hi - lo) * hd)
     return out
+
+
+def _to_heads(L: Layout, xs: list, hs: int) -> list:
+    """Flat column blocks (last dim) into each position's head range of
+    ``hs``-wide heads: gathered over the tensor-parallel axes, then cut
+    (the backward reduce-scatters)."""
+    whole = coll.all_gather(xs, L.mesh, L.tp, -1)
+    out = []
+    for i, x in enumerate(whole):
+        lo, hi = L.head_range(i)
+        out.append(x.narrow(-1, lo * hs, (hi - lo) * hs))
+    return out
+
+
+def _to_flat(L: Layout, xs: list, hs: int) -> list:
+    """Each position's heads (last dim) into its flat column block, the
+    rows of its row-parallel block: zero-padded to the ranks' common
+    head count, gathered, cut; contiguous, as the GEMM kernels read."""
+    c = L.heads[0][1] - L.heads[0][0]
+    pad = [F.pad(x, (0, c * hs - x.shape[-1])) for x in xs]
+    whole = coll.all_gather(pad, L.mesh, L.tp, -1)
+    w = L.heads[-1][1] * hs // L.tp_size
+    return [x.narrow(-1, L.rank(i, L.tp) * w, w).contiguous()
+            for i, x in enumerate(whole)]
 
 
 def _tp_sum(L: Layout, xs: list) -> list:
@@ -458,7 +572,7 @@ def _in_rank_order(L: Layout, fn, first, *lists) -> tuple[list, list]:
         carry = None
         for i in g:
             dev = mesh.devices[i]
-            with device_ctx(dev):
+            with at(i, dev):
                 c = first(i) if carry is None else \
                     tuple(t.to(dev) for t in carry)
                 out[i], carry = fn(i, c, *(lst[i] for lst in lists))
@@ -471,43 +585,89 @@ def _norm(L: Layout, ps: list, key: str, xs: list) -> list:
     return pmap(L, lambda i, p, x: layers.norm(p[key], x, L.cfg), ps, xs)
 
 
+def _kv_weights(L: Layout, i: int, pa: dict) -> dict:
+    """Position ``i``'s attention parameters, ``wk``/``wv`` cut to its KV
+    heads where they are whole (:attr:`Layout.kv_whole`)."""
+    if not L.kv_whole:
+        return pa
+    klo, khi = L.kv_range(i)
+    hd = L.cfg.head_dim
+    return {**pa, "wk": _kv_block(pa["wk"], klo, khi, hd),
+            "wv": _kv_block(pa["wv"], klo, khi, hd)}
+
+
+def _attend(L: Layout, i: int, q: Tensor, k: Tensor, v: Tensor,
+            c: Optional[dict], pos0: int) -> Tensor:
+    """Position ``i``'s attention of rope'd ``q`` (B, S, its heads, hd)
+    over ``k``/``v`` (its KV heads), a cache written in place
+    (``layers.write_cache``); each run of query heads against the KV head
+    it reads (:meth:`Layout.runs`)."""
+    decode_pos = None
+    if c is not None:
+        k, v, decode_pos = layers.write_cache(c, k, v)
+
+    def core(qj, kj, vj):
+        return layers.attend(qj, kj, vj, L.cfg, window=L.cfg.local_window,
+                             q_offset=pos0 if c is not None else 0,
+                             decode_pos=decode_pos)
+    runs = L.runs(i)
+    if runs[0][2] is None:
+        return core(q, k, v)
+    return torch.cat([core(q[:, :, a:b], k[:, :, j:j + 1], v[:, :, j:j + 1])
+                      for a, b, j in runs], 2)
+
+
 def _attention(L: Layout, ps: list, zs: list, ctx: list,
                caches: Optional[list], sp: bool) -> list:
     """The attention sublayer's output (partial sums under TP).  ``sp``:
     each position's queries are its sequence block, K and V are
     all-gathered over the sequence axes, and a cache takes the whole
-    sequence's."""
+    sequence's.  Where a position's heads are not its flat column
+    blocks (:attr:`Layout.flat`), q is gathered and cut to them, and the
+    heads' output gathered and cut back to the row block of ``wo``; where
+    its query heads read its KV heads unevenly, each run attends apart
+    (:meth:`Layout.runs`)."""
     cfg, hd = L.cfg, L.cfg.head_dim
-    lc = L.local
     caches = caches or [None] * len(zs)
 
-    def wkv(i, p):
-        pa = p["attn"]
-        if L.kv_group:
-            g = L.rank(i, L.tp) // L.kv_group
-            pa = {**pa, "wk": _kv_block(pa["wk"], g, hd),
-                  "wv": _kv_block(pa["wv"], g, hd)}
-        return pa
-
     if not sp:
-        def attn(i, p, z, c):
-            positions, pos0, angles = ctx[i]
-            h, _ = layers.attention(wkv(i, p), z, lc, positions=positions,
-                                    pos0=pos0, cache=c,
-                                    window=cfg.local_window, angles=angles)
-            return h
-        return pmap(L, attn, ps, zs, caches)
+        def proj(i, p, z):
+            pa = _kv_weights(L, i, p["attn"])
+            lo, hi = L.head_range(i)
+            q = layers.linear(pa["wq"], z, cfg)
+            if hi == lo:
+                return q, None, None
+            return (q, layers.linear(pa["wk"], z, cfg),
+                    layers.linear(pa["wv"], z, cfg))
+        out = pmap(L, proj, ps, zs)
+        qs = [o[0] for o in out]
+        if L.flat:
+            qs = _to_heads(L, qs, hd)
 
-    def qkv(i, p, z):
-        pa = wkv(i, p)
-        b, s, _ = z.shape
-        positions, _, angles = ctx[i]
-        q = layers.linear(pa["wq"], z, lc).reshape(b, s, lc.n_heads, hd)
-        k = layers.linear(pa["wk"], z, lc).reshape(b, s, lc.n_kv_heads, hd)
-        v = layers.linear(pa["wv"], z, lc).reshape(b, s, lc.n_kv_heads, hd)
-        return (layers.rope(q, positions, lc, angles=angles),
-                layers.rope(k, positions, lc, angles=angles), v)
-    out = pmap(L, qkv, ps, zs)
+        def attend(i, q, o, c):
+            (lo, hi), (klo, khi) = L.head_range(i), L.kv_range(i)
+            b, s = q.shape[:2]
+            if hi == lo:
+                if c is not None:
+                    c["pos"] = c["pos"] + s
+                return q
+            positions, pos0, angles = ctx[i]
+            q = layers.rope(q.reshape(b, s, hi - lo, hd), positions, cfg,
+                            angles=angles)
+            k = layers.rope(o[1].reshape(b, s, khi - klo, hd), positions,
+                            cfg, angles=angles)
+            a = _attend(L, i, q, k, o[2].reshape(b, s, khi - klo, hd), c,
+                        pos0)
+            return a.reshape(b, s, (hi - lo) * hd)
+        hs = pmap(L, attend, qs, out, caches)
+        if L.flat:
+            hs = _to_flat(L, hs, hd)
+        return pmap(L, lambda i, p, h: layers.linear(p["attn"]["wo"], h,
+                                                     cfg), ps, hs)
+
+    lc = L.attn_cfg(0)
+    out = pmap(L, lambda i, p, z: layers.qkv(
+        p["attn"], z, lc, positions=ctx[i][0], angles=ctx[i][2]), ps, zs)
     ks = _gather_seq(L, [o[1] for o in out])
     vs = _gather_seq(L, [o[2] for o in out])
 
@@ -515,15 +675,9 @@ def _attention(L: Layout, ps: list, zs: list, ctx: list,
         q = o[0]
         b, s = q.shape[:2]
         if c is not None:
-            size = c["k"].shape[1]
-            kk, vv = (k[:, -size:], v[:, -size:]) if k.shape[1] > size \
-                else (k, v)
-            c["k"][:, :kk.shape[1]] = kk.to(c["k"].dtype)
-            c["v"][:, :vv.shape[1]] = vv.to(c["v"].dtype)
-            c["pos"] = c["pos"] + k.shape[1]
-        a = layers._online_softmax_attn(
-            q, k, v, causal=cfg.causal, window=cfg.local_window,
-            chunk=cfg.attn_chunk, q_offset=ctx[i][1])
+            layers.write_cache(c, k, v)
+        a = layers.attend(q, k, v, cfg, window=cfg.local_window,
+                          q_offset=ctx[i][1])
         return layers.linear(p["attn"]["wo"],
                              a.reshape(b, s, lc.n_heads * hd), lc)
     return pmap(L, attend, ps, out, ks, vs, caches)
@@ -636,6 +790,8 @@ def _time_mix(L: Layout, ps: list, zs: list, states: Optional[list],
     parameters (cut to the shard's heads); ``sp``: the shifted token and
     the WKV state passed along the sequence blocks in rank order."""
     cfg = L.cfg
+    if L.flat:
+        return _time_mix_flat(L, ps, zs, states)
     prevs, lasts = _prevs(L, zs, states, "x_tm", sp)
     if sp:
         first = (lambda i: (states[i]["S"],)) if states is not None \
@@ -656,6 +812,43 @@ def _time_mix(L: Layout, ps: list, zs: list, states: Optional[list],
             st["S"].copy_(s_new)
             st["x_tm"].copy_(last)
     return outs
+
+
+def _time_mix_flat(L: Layout, ps: list, zs: list, states: Optional[list]
+                   ) -> list:
+    """The time mix where the tensor-parallel degree does not divide the
+    heads: ``wr``/``wk``/``wv``/``wg`` column-parallel on flat blocks,
+    their outputs gathered and cut to the position's heads
+    (:func:`_to_heads`); the decay from ``td_w2``'s and ``w0``'s columns
+    of those heads, the scan, group norm (``u``, ``ln_x`` cut to them)
+    and gate on them; the gated output cut back to ``wo``'s row block
+    (:func:`_to_flat`).  A position without heads runs the linears only.
+    The per-head leaves arrive whole (the reference replicates them)."""
+    cfg, hs = L.cfg, L.cfg.rwkv_head_size
+    prevs, lasts = _prevs(L, zs, states, "x_tm", False)
+
+    def inputs(i, p, z, prev):
+        lo, hi = L.head_range(i)
+        return rwkv6.mix_inputs(p, z, cfg, prev, cols=(lo * hs, hi * hs))
+    ins = pmap(L, inputs, ps, zs, prevs)
+    r, k, v, g = (_to_heads(L, [t[j] for t in ins], hs) for j in range(4))
+
+    def heads(i, p, z, r, k, v, g, t, st):
+        lo, hi = L.head_range(i)
+        if hi == lo:
+            return g, None
+        return rwkv6.mix_heads(p, r, k, v, t[4], g, cfg,
+                               None if st is None else st["S"], z.dtype,
+                               heads=(lo, hi))
+    res = pmap(L, heads, ps, zs, r, k, v, g, ins,
+               states or [None] * len(zs))
+    outs = _to_flat(L, [o for o, _ in res], hs)
+    if states is not None:
+        for st, (_, s_new), last in zip(states, res, lasts):
+            if s_new is not None:
+                st["S"].copy_(s_new)
+            st["x_tm"].copy_(last)
+    return pmap(L, lambda i, p, o: layers.linear(p["wo"], o, cfg), ps, outs)
 
 
 def _channel_mix(L: Layout, ps: list, zs: list, states: Optional[list],
@@ -947,11 +1140,12 @@ def loss_fn(L: Layout, W: Weights, batch: dict) -> tuple[Tensor, dict]:
                         [t for _, _, t, _ in parts],
                         [m for _, _, _, m in parts])
     dev0 = L.mesh.devices[0]
-    nll_sum = sum(nll[i].sum().to(dev0) for i in L.canon)
-    denom = torch.clamp(sum(parts[i][3].sum().to(dev0) for i in L.canon),
-                        min=1.0)
-    loss = nll_sum / denom
-    total = loss + 0.01 * aux["moe_aux_loss"]
+    sums = [(nll[i].sum(), parts[i][3].sum()) for i in L.canon]
+    with coll.glue():
+        nll_sum = sum(a.to(dev0) for a, _ in sums)
+        denom = torch.clamp(sum(b.to(dev0) for _, b in sums), min=1.0)
+        loss = nll_sum / denom
+        total = loss + 0.01 * aux["moe_aux_loss"]
     return total, {"loss": loss, "tokens": denom, **aux}
 
 
@@ -961,7 +1155,8 @@ def gather_rows(L: Layout, lg: list) -> Tensor:
     dev0 = L.mesh.devices[0]
     if L.head_vocab:
         lg = coll.all_gather(lg, L.mesh, L.head_vocab, lg[0].ndim - 1)
-    return torch.cat([lg[i].to(dev0) for i in L.canon], 0)
+    with coll.glue():
+        return torch.cat([lg[i].to(dev0) for i in L.canon], 0)
 
 
 def forward_cached(L: Layout, W: Weights, batch: dict, caches: list
@@ -981,15 +1176,20 @@ def forward_cached(L: Layout, W: Weights, batch: dict, caches: list
     return gather_rows(L, [x[:, 0] for x in lg])
 
 
-def _block_cache(L: Layout, kind: str, b: int, max_len: int, dev) -> dict:
-    """A block's cache on one position: its KV heads, its RG-LRU
+def _block_cache(L: Layout, i: int, kind: str, b: int, max_len: int
+                 ) -> dict:
+    """A block's cache on position ``i``: its KV heads, its RG-LRU
     channels, its rwkv6 heads (the WKV state per head; the shifted
     tokens whole)."""
+    dev = L.mesh.devices[i]
+    if kind == "attn":
+        return model_lib.init_block_cache(L.attn_cfg(i), kind, b, max_len,
+                                          dev)
     if kind != "rwkv":
         return model_lib.init_block_cache(L.local, kind, b, max_len, dev)
     st = rwkv6.init_rwkv_state(L.cfg, b, device=dev)
-    heads = st["S"].shape[1] // L.tp_size
-    st["S"] = st["S"][:, :heads].contiguous()
+    lo, hi = L.head_range(i)
+    st["S"] = st["S"][:, lo:hi].contiguous()
     return st
 
 
@@ -1001,16 +1201,15 @@ def init_caches(L: Layout, batch: int, max_len: int) -> list:
     pat, reps, tail = model_lib._pattern_layout(L.cfg)
 
     def make(i):
-        dev = L.mesh.devices[i]
-        return {"stack": [{f"sub{j}": _block_cache(L, kind, b, max_len, dev)
+        return {"stack": [{f"sub{j}": _block_cache(L, i, kind, b, max_len)
                            for j, kind in enumerate(pat)}
                           for _ in range(reps)],
-                "tail": [_block_cache(L, kind, b, max_len, dev)
+                "tail": [_block_cache(L, i, kind, b, max_len)
                          for kind in tail]}
     return pmap(L, lambda i: make(i))
 
 
-__all__ = ["Layout", "Weights", "make_layout", "reshard", "pmap", "embed",
+__all__ = ["Layout", "Weights", "make_layout", "head_ranges", "reshard", "pmap", "embed",
            "moe_block", "block", "run_blocks", "logits", "cross_entropy",
            "embed_inputs", "loss_fn", "gather_rows", "forward_cached",
-           "init_caches", "device_ctx"]
+           "init_caches", "device_ctx", "position", "at"]

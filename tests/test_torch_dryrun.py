@@ -266,13 +266,3 @@ def test_main_writes_rows_summarize_renders(tmp_path, capsys):
     assert dryrun.main(["--arch", "stablelm_1_6b", "--shape", "decode_32k",
                         "--out", out, "--skip-existing"]) == 0
     assert "[cached]" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"],
-                                  ["--dp", "4", "--tp", "4"],
-                                  ["--layout", "fsdp"]])
-def test_multi_card_meshes_refused(argv, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP item 20"):
-        dryrun.main(["--arch", "olmo_1b", "--out", str(tmp_path)] + argv)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        dryrun.run_cell("olmo_1b", "train_4k", mesh="pod16x16")

@@ -137,5 +137,7 @@ def test_train_launcher_cpu(tmp_path, capsys):
     assert "[resume] restored step 4" in capsys.readouterr().out
     with open(os.path.join(wd, "metrics.jsonl")) as f:
         assert [json.loads(line)["step"] for line in f] == [5, 6]
-    with pytest.raises(NotImplementedError, match="item 20"):
-        train_launch.main(argv(4) + ["--multi-pod"])
+    # --multi-pod over distinct cards this host cannot see is refused
+    # (512 logical CPU shards: tests/test_torch_dryrun_mesh.py)
+    with pytest.raises(ValueError, match="needs 512 cards"):
+        train_launch.main(argv(4) + ["--multi-pod", "--device", "cuda"])

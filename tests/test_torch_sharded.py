@@ -541,11 +541,15 @@ def test_meshes():
 # (f) refusals
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("over,shape", [
-    (dict(n_heads=4, n_kv_heads=4), (1, 8)),     # 4 heads, 8-way
-    (dict(n_heads=6, n_kv_heads=3), (4, 2)),     # 3 KV heads, 2-way
+    (dict(head_dim=31), (1, 8)),                 # h * hd = 124, 8-way
+    (dict(d_ff=260), (1, 8)),                    # d_ff columns, 8-way
     (dict(d_ff=251), (4, 2)),                    # columns
 ])
 def test_head_counts_that_cannot_split_raise(over, shape):
+    """A width the tensor-parallel degree does not divide raises, naming
+    it (the reference's legalize would replicate the leaf); head counts
+    it does not divide split their flat columns
+    (``tests/test_torch_sharded_flat.py``)."""
     cfg = tconfigs.get_reduced("olmo_1b").scaled(**over)
     with pytest.raises(ValueError, match="do not split"):
         step_lib.make_train_step(cfg, mesh=_mesh(shape), batch_size=B,
