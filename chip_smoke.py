@@ -439,9 +439,10 @@ TRAIN_UPDATE_BYTES = 32   # a parameter's bytes in the update: p, g, m, v
                           # read (16), p, m, v written (12), the bf16
                           # wire's write and read (4)
 # the dryrun phase: the grid's cells of these archs (the whole grid, 40
-# cells, runs through `python -m repro_torch.launch.dryrun --all`: rwkv6's
-# WKV loop alone takes minutes of fake ops at 4k and 32k tokens)
-DRYRUN_ARCHS = ("olmo_1b", "kimi_k2_1t_a32b")
+# cells, runs through `python -m repro_torch.launch.dryrun --all`); rwkv6's
+# WKV scan is one op (kernels/wkv.py), so its 4k and 32k cells count in
+# seconds
+DRYRUN_ARCHS = ("olmo_1b", "kimi_k2_1t_a32b", "rwkv6_3b")
 # and on the production meshes: (arch, cell, mesh); olmo's per-card FLOPs
 # times its 512 cards within DRYRUN_POD_GAP of its one-card count
 DRYRUN_POD = (("qwen2_7b", "decode_32k", "pod16x16"),
@@ -593,6 +594,22 @@ ZOO_FLIP_SHARE = 0.01   # MoE tokens the kernel lowering may route otherwise
 ZOO_DECODE_VS_FORWARD = ("recurrentgemma_9b", "rwkv6_3b")
 ZOO_CHAOTIC = 0.1       # a native bf16 run this far from the f32 model (of
                         # max) says nothing of a kernel's: check shallower
+# the wkv phase: rwkv6's WKV op (B, S, H, hs) at rwkv6_3b's widths: the
+# zoo's prefill, a decode step from a nonzero state, a flat-split rank's
+# 3 heads (40 heads on 16 ranks); the backward at batch 2
+WKV_SEED = 6
+WKV_FWD_SHAPES = (("prefill", (8, 512, 40, 64), False),
+                  ("decode", (8, 1, 40, 64), True),
+                  ("flat_rank", (8, 512, 3, 64), False))
+WKV_BWD_SHAPE = (2, 512, 40, 64)
+WKV_RTOL = 1e-4       # fp32 sums in another order, of max|plain|
+WKV_F64_RATIO = 2.0   # the kernel's distance from a float64 plain run, at
+                      # most this times the f32 plain run's
+# rwkv6_3b's train step at full width, (arch, layers, batch, length), f32
+# compute, against the same step through the plain loop: the loss and the
+# gradient norm, relative (fp32 sums in another order through 2 layers)
+WKV_TRAIN = ("rwkv6_3b", 2, 2, 512)
+WKV_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
 
 
 T0 = time.perf_counter()
@@ -998,6 +1015,7 @@ def profile_device(torch, fn, n: int) -> dict:
             / n / 1e3
         name = ev.key
         group = ("bf16_gemm" if "bf16_matmul" in name else
+                 "wkv6" if "wkv6" in name else
                  "cublas" if "gemm" in name or "gemv" in name else
                  "softmax" if "softmax" in name else "rest")
         groups[group] = groups.get(group, 0.0) + ms
@@ -1399,8 +1417,8 @@ def zoo_linears(cfg, prefill: bool) -> int:
 
 def lm_zoo_config(torch, dev, card, zero_counts, counts, arch: str,
                   layers_run: int, why) -> int:
-    """One config of the ``lm_zoo`` phase; returns the bf16 GEMM's
-    launches in its counted run."""
+    """One config of the ``lm_zoo`` phase; returns the kernels'
+    launches in its counted run (the bf16 GEMM's, rwkv6's WKV's)."""
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import step as step_lib
@@ -1490,12 +1508,16 @@ def lm_zoo_config(torch, dev, card, zero_counts, counts, arch: str,
     want_pre = zoo_linears(cfg, True)
     want_step = zoo_linears(cfg, False)
     want_total = want_pre + (0 if encoder else steps * want_step)
+    # and rwkv6's WKV forward once a layer a call (at any lowering)
+    n_rwkv = sum(k_ == "rwkv" for k_ in cfg.layer_kinds)
+    want_other = {"wkv6_fwd": n_rwkv * (1 + steps)} if n_rwkv else {}
     other = {k: v for k, v in launches.items() if v and k != "matmul_bf16"}
     if at_prefill["matmul_bf16"] != want_pre or \
-            launches["matmul_bf16"] != want_total or other:
+            launches["matmul_bf16"] != want_total or other != want_other:
         fail(f"lm_zoo {arch}: bf16 GEMM launches {at_prefill['matmul_bf16']} "
              f"after the prefill and {launches['matmul_bf16']} in all, want "
-             f"{want_pre} and {want_total}; other kernels {other}")
+             f"{want_pre} and {want_total}; other kernels {other}, want "
+             f"{want_other}")
     if encoder:
         finite = bool(torch.isfinite(logits0).all())
         if tuple(logits0.shape) != (b, s, cfg.vocab_size) or not finite:
@@ -1738,6 +1760,7 @@ def lm_zoo_config(torch, dev, card, zero_counts, counts, arch: str,
          build_seconds=build_s,
          launches_prefill={"got": at_prefill["matmul_bf16"],
                            "want": want_pre},
+         launches_wkv6_fwd=launches["wkv6_fwd"],
          launches_per_step={"got": None if encoder else
                             (launches["matmul_bf16"] - want_pre) / steps,
                             "want": None if encoder else want_step},
@@ -1768,12 +1791,12 @@ def lm_zoo_config(torch, dev, card, zero_counts, counts, arch: str,
              f"{flips['share_kernel_vs_plain']:.4f} of tokens otherwise than "
              f"the plain GEMM, the native lowering "
              f"{flips['share_native_vs_plain']:.4f}")
-    return launches["matmul_bf16"]
+    return {k: v for k, v in launches.items() if v}
 
 
 def lm_zoo_phase(torch, dev, card, zero_counts, counts) -> dict:
     """The model zoo's other families (phase ``lm_zoo``); returns each
-    config's bf16 GEMM launches in its counted run."""
+    config's kernel launches in its counted run."""
     t_phase = time.perf_counter()
     out = {}
     for arch, layers_run, why in LM_ZOO:
@@ -1783,6 +1806,204 @@ def lm_zoo_phase(torch, dev, card, zero_counts, counts) -> dict:
         torch.cuda.empty_cache()
     emit(phase="lm_zoo", case="done", launches=out,
          seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def wkv_inputs(torch, gen, b, s, h, hs, state: bool) -> list:
+    """r, k, v (unit normal), w = exp(-exp(x)) as the model makes it
+    (x normal about -3: decays from ~1 down to ~1e-9), u (H, hs) and the
+    initial state (normal, or zero as a prefill starts), f32 on the
+    card."""
+    dev = gen.device
+
+    def n(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    r, k, v = n(b, s, h, hs), n(b, s, h, hs), n(b, s, h, hs)
+    w = torch.exp(-torch.exp(2 * n(b, s, h, hs) - 3))
+    u = 0.5 * n(h, hs)
+    s0 = n(b, h, hs, hs) if state else torch.zeros(b, h, hs, hs, device=dev)
+    return [r, k, v, w, u, s0]
+
+
+def wkv_cost(b, s, h, hs, backward: bool) -> tuple[int, int]:
+    """(bytes, FLOPs) of the WKV op.  Forward: r, k, v, w read and y
+    written (B·S·H·hs each), u read, the state read and written; 4·hs²
+    FLOPs per (b, t, h) (the output's dot products, the state's update).
+    Backward: r, k, v, w and gy read, gr, gk, gv and gw written, u, the
+    initial state and gS_T read, gu and gS_0 written; 12·hs² FLOPs per
+    (b, t, h): the state recomputed, G's update, and the sums of gr, gk,
+    gv and gw."""
+    n, st = b * s * h * hs, b * h * hs * hs
+    if backward:
+        return 4 * (9 * n + 2 * h * hs + 3 * st), 12 * hs * hs * b * s * h
+    return 4 * (5 * n + h * hs + 2 * st), 4 * hs * hs * b * s * h
+
+
+def wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches
+              ) -> list:
+    """rwkv6's WKV op on the card (phase ``wkv``): the forward kernel
+    against :func:`wkv.plain` at a prefill, a decode step from a nonzero
+    state and a flat-split rank's three heads, the backward kernels
+    against the gradient of the plain loop, each within WKV_RTOL of the
+    plain version's largest value and within WKV_F64_RATIO times the f32
+    plain version's distance from a float64 run of it; their device ms
+    beside the plain versions' and the bound.  Then the main path that
+    reaches the backward: rwkv6_3b's train step at full width (counted),
+    and its loss and gradient norm against the same step with the plain
+    loop.  Returns the kernels line's two rows."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import step as step_lib
+    from repro_torch.kernels import wkv
+    from repro_torch.models import convert, rwkv6
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import constant, make_optimizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(WKV_SEED)
+
+    def f64_dist(got, want32, want64) -> tuple[float, float]:
+        return ((got.double() - want64).abs().max().item(),
+                (want32.double() - want64).abs().max().item())
+
+    def held(label, names, got, want32, want64) -> dict:
+        out = {}
+        for name, g, w32, w64 in zip(names, got, want32, want64):
+            err = hold(torch, f"wkv {label} {name}", g, w32, WKV_RTOL)
+            d_k, d_p = f64_dist(g, w32, w64)
+            if not d_k <= WKV_F64_RATIO * d_p:
+                fail(f"wkv {label} {name}: {d_k} from float64, the plain "
+                     f"loop's f32 {d_p}: over {WKV_F64_RATIO}x")
+            out[name] = {"max_abs_err": err,
+                         "max_abs_plain": w32.abs().max().item(),
+                         "kernel_vs_float64": d_k,
+                         "plain_vs_float64": d_p}
+        return out
+
+    rows = {}
+    for label, (b, s, h, hs), state in WKV_FWD_SHAPES:
+        ins = wkv_inputs(torch, gen, b, s, h, hs, state)
+        got = wkv.wkv6(*ins)
+        torch.cuda.synchronize()
+        want = wkv.plain(*ins)
+        want64 = wkv.plain(*(t.double() for t in ins))
+        errs = held(label, ("out", "state"), got, want, want64)
+        nbytes, flops = wkv_cost(b, s, h, hs, False)
+        b_ms, b_by = bound(nbytes, flops)
+        rec = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "ms": device_ms(torch, lambda: wkv.wkv6(*ins)),
+               "plain_ms": device_ms(torch, lambda: wkv.plain(*ins)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.setdefault("wkv6_fwd", rec)
+        emit(phase="wkv", case="forward", shape=[b, s, h, hs], what=label,
+             nonzero_state=state, errors=errs, rtol=WKV_RTOL,
+             f64_ratio=WKV_F64_RATIO, **{k_: v for k_, v in rec.items()
+                                         if k_ != "max_abs_err"},
+             x_bound=rec["ms"] / b_ms)
+        del ins, got, want, want64
+    # the backward: the op under autograd (the forward's checkpoints),
+    # upstream gradients on both outputs
+    b, s, h, hs = WKV_BWD_SHAPE
+    ins = wkv_inputs(torch, gen, b, s, h, hs, True)
+    gy, gs = torch.randn(b, s, h, hs, device=dev, generator=gen), \
+        torch.randn(b, h, hs, hs, device=dev, generator=gen)
+    leaves_ = [t.clone().requires_grad_() for t in ins]
+    y, s_new = wkv.wkv6(*leaves_)
+    got = torch.autograd.grad((y, s_new), leaves_, (gy, gs))
+    torch.cuda.synchronize()
+    want = wkv.plain_grads(*ins, gy, gs)
+    want64 = wkv.plain_grads(*(t.double() for t in (*ins, gy, gs)))
+    names = ("gr", "gk", "gv", "gw", "gu", "gs0")
+    errs = held("backward", names, got, want, want64)
+    _, _, ckpts = torch.ops.repro_torch.wkv6(*ins, wkv.CHUNK)
+
+    def bwd():
+        return torch.ops.repro_torch.wkv6_bwd(*ins, ckpts, gy, gs, wkv.CHUNK,
+                                              63)
+    nbytes, flops = wkv_cost(b, s, h, hs, True)
+    b_ms, b_by = bound(nbytes, flops)
+    rows["wkv6_bwd"] = {
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "ms": device_ms(torch, bwd),
+        "plain_ms": device_ms(torch, lambda: wkv.plain_grads(*ins, gy, gs)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    fwd_ckpt_ms = device_ms(torch, lambda: torch.ops.repro_torch.wkv6(
+        *ins, wkv.CHUNK))
+    emit(phase="wkv", case="backward", shape=[b, s, h, hs], errors=errs,
+         rtol=WKV_RTOL, f64_ratio=WKV_F64_RATIO, chunk=wkv.CHUNK,
+         checkpoints_mb=ckpts.numel() * 4 / 1e6,
+         forward_with_checkpoints_ms=fwd_ckpt_ms,
+         **{k_: v for k_, v in rows["wkv6_bwd"].items()
+            if k_ != "max_abs_err"},
+         x_bound=rows["wkv6_bwd"]["ms"] / b_ms)
+    del ins, leaves_, y, s_new, got, want, want64, ckpts, gy, gs
+
+    # the main path through the backward: rwkv6_3b's train step (full
+    # width, WKV_TRAIN layers, f32 compute), counted; its loss and
+    # gradient norm against the same step with the plain loop
+    arch, layers_run, tb, ts = WKV_TRAIN
+    cfg = get(arch).scaled(n_layers=layers_run, compute_dtype="float32")
+    batch = {k_: torch.as_tensor(v, device=dev)
+             for k_, v in make_batch(cfg, tb, ts, seed=WKV_SEED).items()}
+
+    def step(scan=None):
+        fn, _ = step_lib.make_train_step(cfg, batch_size=tb, seq_len=ts,
+                                         lr_fn=constant(1e-4),
+                                         grad_wire="none", device=dev)
+        params = convert.stack_params(model_lib.init_model(
+            cfg, seed=WKV_SEED, device=dev))
+        st = make_optimizer(cfg, constant(1e-4)).init(params)
+        real = rwkv6._wkv_scan
+        if scan is not None:
+            rwkv6._wkv_scan = scan
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            _, _, m = fn(params, st, batch)
+            e1.record()
+            e1.synchronize()
+            launched = {k_: v for k_, v in counts().items() if v}
+        finally:
+            rwkv6._wkv_scan = real
+        return ({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])},
+                launched, e0.elapsed_time(e1))
+
+    step()                                                  # warm-up
+    got_m, launched, step_ms = step()
+    want_m, _, plain_step_ms = step(wkv.plain)
+    if launched.get("wkv6_bwd") != layers_run or \
+            launched.get("wkv6_fwd", 0) < layers_run:
+        fail(f"wkv train step: launches {launched}, want wkv6_bwd "
+             f"{layers_run} and wkv6_fwd at least {layers_run}")
+    rel = {k_: abs(got_m[k_] - want_m[k_]) / abs(want_m[k_])
+           for k_ in got_m}
+    if not all(math.isfinite(v) for v in got_m.values()) or \
+            not all(rel[k_] <= WKV_TRAIN_TOL[k_] for k_ in rel):
+        fail(f"wkv train step: {got_m} against the plain loop's {want_m} "
+             f"(bars {WKV_TRAIN_TOL})")
+    emit(phase="wkv", case="train", nvidia_smi=card, arch=arch,
+         layers=layers_run, d_model=cfg.d_model, heads=cfg.d_model
+         // cfg.rwkv_head_size, batch=tb, seq=ts,
+         compute_dtype=cfg.compute_dtype, launches=launched,
+         metrics=got_m, plain_metrics=want_m, rel_err=rel,
+         tol=WKV_TRAIN_TOL, step_ms=step_ms, plain_step_ms=plain_step_ms,
+         seconds=time.perf_counter() - t_phase)
+    out = []
+    for name in ("wkv6_fwd", "wkv6_bwd"):
+        rec = rows[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/wkv6.cu",
+                    "replaces": "src/repro/models/rwkv6.py:86 lax.scan",
+                    "launches": (zoo_launches["rwkv6_3b"].get(name, 0)
+                                 if name == "wkv6_fwd" else
+                                 launched.get(name, 0)),
+                    "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "bound_by": rec["bound_by"], "library_ms": None,
+                    "wkv_train_launches": launched.get(name, 0)})
     return out
 
 
@@ -2110,8 +2331,8 @@ def dryrun_phase(torch, card, lm_times, train_times) -> None:
         emit(phase="dryrun", case="cell", arch=arch, shape=cell.name,
              status=row["status"], skip_reason=row["skip_reason"],
              seconds=time.perf_counter() - t0, **extra)
-    if status != {"ok": 6, "skip": 2}:
-        fail(f"dryrun grid ({DRYRUN_ARCHS}): {status}, want 6 ok, 2 skip")
+    if status != {"ok": 10, "skip": 2}:
+        fail(f"dryrun grid ({DRYRUN_ARCHS}): {status}, want 10 ok, 2 skip")
 
     # the production meshes, each card's share of the sharded step (one
     # data row run, the largest position reported): a flat head split
@@ -2477,6 +2698,14 @@ def shard_linears(cfg, layout, prefill: bool) -> int:
     return sum(zoo_linears(cfg, prefill) - 2 * n_attn
                * (layout.head_range(i)[0] == layout.head_range(i)[1])
                for i in range(layout.mesh.size))
+
+
+def shard_wkv(cfg, layout) -> int:
+    """rwkv6's WKV forward launches of one call of a sharded serving
+    step: one a layer for each position that holds heads."""
+    n_rwkv = sum(k == "rwkv" for k in cfg.layer_kinds)
+    return n_rwkv * sum(layout.head_range(i)[0] < layout.head_range(i)[1]
+                        for i in range(layout.mesh.size))
 
 
 class ShardedRoutes:
@@ -3113,11 +3342,12 @@ def family_serve(torch, dev, card, zero_counts, counts, arch: str,
         got_l, got_t, pre_ms, dec_ms = run(pre, dec, shards, caches,
                                            toks=want_t[:-1])
     counted = {k: v for k, v in counts().items() if v}
-    want_n = shard_linears(cfg, L, True) + steps * shard_linears(cfg, L,
-                                                                 False)
-    if counted != {"matmul_bf16": want_n}:
-        fail(f"sharded {arch} {layout}: launches {counted}, want "
-             f"matmul_bf16 {want_n}")
+    want_n = {"matmul_bf16": shard_linears(cfg, L, True)
+              + steps * shard_linears(cfg, L, False)}
+    if shard_wkv(cfg, L):
+        want_n["wkv6_fwd"] = (1 + steps) * shard_wkv(cfg, L)
+    if counted != want_n:
+        fail(f"sharded {arch} {layout}: launches {counted}, want {want_n}")
     # the lm_zoo phase's bar: the larger of LM_RTOL and twice the one-device
     # bf16 run's distance from the model at f32 compute (native lowering,
     # teacher-forced by the same tokens): bf16's own noise grows with depth;
@@ -3450,12 +3680,14 @@ def zero_counts() -> None:
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import pfb as pfbk
     from repro_torch.kernels import unfold as unfk
+    from repro_torch.kernels import wkv
     pfbk.LAUNCHES = pfbk.FRONTEND_LAUNCHES = 0
     ew.LAUNCHES = ew.BINARY_LAUNCHES = 0
     dftk.LAUNCHES = unfk.LAUNCHES = unfk.OLA_LAUNCHES = 0
     firk.LAUNCHES = mmk.LAUNCHES = mmk.PLANES_LAUNCHES = 0
     mmk.INT8_LAUNCHES = dftk.INT8_LAUNCHES = mmk.BF16_LAUNCHES = 0
     firk.INT8_LAUNCHES = pfbk.INT8_LAUNCHES = 0
+    wkv.FWD_LAUNCHES = wkv.BWD_LAUNCHES = 0
 
 
 def counts() -> dict:
@@ -3466,6 +3698,7 @@ def counts() -> dict:
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import pfb as pfbk
     from repro_torch.kernels import unfold as unfk
+    from repro_torch.kernels import wkv
     return {"pfb_fused": pfbk.LAUNCHES,
             "pfb_frontend": pfbk.FRONTEND_LAUNCHES,
             "elementwise_chain": ew.LAUNCHES,
@@ -3477,7 +3710,8 @@ def counts() -> dict:
             "matmul_int8": mmk.INT8_LAUNCHES,
             "dft_int8": dftk.INT8_LAUNCHES,
             "fir_valid_int8": firk.INT8_LAUNCHES,
-            "pfb_fused_int8": pfbk.INT8_LAUNCHES}
+            "pfb_fused_int8": pfbk.INT8_LAUNCHES,
+            "wkv6_fwd": wkv.FWD_LAUNCHES, "wkv6_bwd": wkv.BWD_LAUNCHES}
 
 
 def main() -> int:
@@ -6682,6 +6916,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- wkv: rwkv6's WKV op, its kernels against the plain loop, and the
+    # train step that reaches its backward ---------------------------------
+    wkv_rows = wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- train: the training path at olmo_1b full width ---------------------
     train_launches, train_times = train_phase(torch, dev, card, zero_counts,
                                               counts)
@@ -6767,13 +7007,15 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": ms[lib] if lib else None})
     rows.append(lm_row)
+    rows.extend(wkv_rows)
     for row in rows:
         # the kernel's launches in the mesh phase's counted runs, in each
-        # lm_zoo config's (the bf16 GEMM alone runs there) and in the
-        # train phase's (the native lowering; the PFB of pfb_features)
+        # lm_zoo config's (the bf16 GEMM and rwkv6's WKV run there) and
+        # in the train phase's (the native lowering; the PFB of
+        # pfb_features)
         row["mesh_launches"] = mesh_launches.get(row["name"], 0)
-        row["lm_zoo_launches"] = (zoo_launches if row["name"] == "matmul_bf16"
-                                  else dict.fromkeys(zoo_launches, 0))
+        row["lm_zoo_launches"] = {a: n.get(row["name"], 0)
+                                  for a, n in zoo_launches.items()}
         row["train_launches"] = train_launches.get(row["name"], 0)
         row["sharded_launches"] = sharded_launches.get(row["name"], 0)
         row["examples_launches"] = examples_launches.get(row["name"], 0)

@@ -37,11 +37,15 @@ Counts come from 1- and 2-superblock probes, as the reference's do: the
 step at ``len(pattern) + len(tail)`` and ``2 * len(pattern) +
 len(tail)`` layers, every count extrapolated as ``c1 + (reps - 1) *
 (c2 - c1)``.  Eager torch needs no probe to see every layer, but the
-probes hold rwkv6's WKV loop and the attention chunks to two
-superblocks' worth of dispatched ops at 32k tokens.  The FLOPs, op
-bytes, operands and results are linear in the repeats, so the probed
-counts equal the full step's (``tests/test_torch_dryrun.py``); the
-peak is not (the phase that holds it moves with depth), so a probed
+probes hold the attention chunks to two superblocks' worth of
+dispatched ops at 32k tokens.  rwkv6's WKV scan is one op
+(``repro_torch::wkv6``, :mod:`repro_torch.kernels.wkv`), as the
+reference's is one ``lax.scan``: one dispatch a layer, whatever the
+length, at FLOPs registered with the flop counter (those the plain
+loop's einsums count), its bytes its operands' and results'.  The
+FLOPs, op bytes, operands and results are linear in the repeats, so the
+probed counts equal the full step's (``tests/test_torch_dryrun.py``);
+the peak is not (the phase that holds it moves with depth), so a probed
 ``temp_size_in_bytes`` is an estimate (a train step's lies below the
 whole step's).
 ``run_cell(..., scan_correct=False)`` runs the whole step instead.

@@ -3,9 +3,12 @@ port of the reference's ``repro.models.rwkv6``.
 
 Token shift is a 2-tap causal FIR: the TINA depthwise FIR at the
 ``conv`` lowering, a pad and a slice otherwise.  The WKV6 recurrence is
-a data-dependent scan, which TINA scopes out: a plain loop over the
-sequence carrying the (B, H, hs, hs) f32 state, in the reference's
-``lax.scan`` order, step for step.
+a data-dependent scan, which TINA scopes out; as the reference's one
+``lax.scan`` it is one op, :func:`repro_torch.kernels.wkv.wkv6`, whatever
+the lowering: on the CPU the plain loop over the sequence carrying the
+(B, H, hs, hs) f32 state in the scan's order, step for step, on the card
+a hand-written kernel (``csrc/wkv6.cu``) and its gradient, on meta one
+dispatch with the loop's FLOPs.
 
 A state (:func:`init_rwkv_state`) is written in place: the time mix
 leaves the WKV state ``S`` and its last input ``x_tm``, the channel mix
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import functions as tina
+from repro_torch.kernels import wkv
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -87,16 +91,7 @@ def _wkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
               state: Tensor) -> tuple[Tensor, Tensor]:
     """r/k/v/w: (B, S, H, hs) f32; u: (H, hs); state: (B, H, hs, hs).
     Returns out (B, S, H, hs) and the final state (a new tensor)."""
-    s = state
-    uk = u[None] * k                                        # (B, S, H, hs)
-    outs = []
-    for t in range(r.shape[1]):
-        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
-        out = torch.einsum("bhi,bhij->bhj", rt, s)
-        bonus = torch.einsum("bhi,bhi->bh", rt, uk[:, t])
-        outs.append(out + bonus[..., None] * vt)
-        s = wt[..., None] * s + kt[..., None] * vt[..., None, :]
-    return torch.stack(outs, 1), s
+    return wkv.wkv6(r, k, v, w, u, state)
 
 
 def mix_inputs(p: Params, x: Tensor, cfg: ModelConfig, prev: Optional[Tensor],
@@ -135,14 +130,17 @@ def mix_heads(p: Params, r: Tensor, k: Tensor, v: Tensor, w: Tensor,
     if heads is not None:
         u, ln_x = u[heads[0]:heads[1]], ln_x[heads[0] * hs:heads[1] * hs]
     h = u.shape[0]
-    r = r.reshape(b, s, h, hs).float()
-    k = k.reshape(b, s, h, hs).float()
-    v = v.reshape(b, s, h, hs).float()
-    w = w.reshape(b, s, h, hs)
+    # the WKV op takes dense f32 blocks (the flat split's heads are a
+    # column cut of the gathered projections)
+    r = r.reshape(b, s, h, hs).float().contiguous()
+    k = k.reshape(b, s, h, hs).float().contiguous()
+    v = v.reshape(b, s, h, hs).float().contiguous()
+    w = w.reshape(b, s, h, hs).contiguous()
     if s0 is None:
         s0 = torch.zeros((b, h, hs, hs), dtype=torch.float32,
                          device=r.device)
-    out, s_new = _wkv_scan(r, k, v, w, u.float(), s0)
+    out, s_new = _wkv_scan(r, k, v, w, u.float().contiguous(),
+                           s0.contiguous())
 
     # per-head group norm (ln_x, population variance), gate
     mu = out.mean(-1, keepdim=True)
