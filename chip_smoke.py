@@ -596,12 +596,21 @@ ZOO_CHAOTIC = 0.1       # a native bf16 run this far from the f32 model (of
                         # max) says nothing of a kernel's: check shallower
 # the wkv phase: rwkv6's WKV op (B, S, H, hs) at rwkv6_3b's widths: the
 # zoo's prefill, a decode step from a nonzero state, a flat-split rank's
-# 3 heads (40 heads on 16 ranks); the backward at batch 2
+# 3 heads (40 heads on 16 ranks), a length no multiple of the chunk, and
+# decays with exact zeros and denormals; the backward at batch 2 (its
+# first case gives the kernels line's row), ragged and at those decays.
+# (label, shape, nonzero initial state, hard decays)
 WKV_SEED = 6
-WKV_FWD_SHAPES = (("prefill", (8, 512, 40, 64), False),
-                  ("decode", (8, 1, 40, 64), True),
-                  ("flat_rank", (8, 512, 3, 64), False))
-WKV_BWD_SHAPE = (2, 512, 40, 64)
+WKV_FWD_SHAPES = (("prefill", (8, 512, 40, 64), False, False),
+                  ("decode", (8, 1, 40, 64), True, False),
+                  ("flat_rank", (8, 512, 3, 64), False, False),
+                  ("ragged", (2, 130, 3, 64), True, False),
+                  ("zero_decay", (2, 130, 3, 64), True, True))
+WKV_BWD_SHAPES = (("train", (2, 512, 40, 64), True, False),
+                  ("ragged", (2, 130, 3, 64), True, False),
+                  ("zero_decay", (2, 130, 3, 64), True, True))
+WKV_HARD_SHARE = 50   # hard decays: a 1/50 share each of w = 0, 1e-40
+                      # (denormal) and 1e-10
 WKV_RTOL = 1e-4       # fp32 sums in another order, of max|plain|
 WKV_F64_RATIO = 2.0   # the kernel's distance from a float64 plain run, at
                       # most this times the f32 plain run's
@@ -1826,6 +1835,19 @@ def wkv_inputs(torch, gen, b, s, h, hs, state: bool) -> list:
     return [r, k, v, w, u, s0]
 
 
+def hard_decays(torch, gen, w):
+    """w with a WKV_HARD_SHARE-th of its entries each set to exactly 0, to
+    a denormal (1e-40) and to 1e-10, in place: the decays a log-space
+    chunked form cannot take (log 0 = -inf, sums that underflow)."""
+    flat = w.view(-1)
+    idx = torch.randperm(flat.numel(), device=w.device, generator=gen)
+    m = max(1, flat.numel() // WKV_HARD_SHARE)
+    flat[idx[:m]] = 0.
+    flat[idx[m:2 * m]] = 1e-40
+    flat[idx[2 * m:3 * m]] = 1e-10
+    return w
+
+
 def wkv_cost(b, s, h, hs, backward: bool) -> tuple[int, int]:
     """(bytes, FLOPs) of the WKV op.  Forward: r, k, v, w read and y
     written (B·S·H·hs each), u read, the state read and written; 4·hs²
@@ -1842,16 +1864,18 @@ def wkv_cost(b, s, h, hs, backward: bool) -> tuple[int, int]:
 
 def wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches
               ) -> list:
-    """rwkv6's WKV op on the card (phase ``wkv``): the forward kernel
+    """rwkv6's WKV op on the card (phase ``wkv``): the forward kernels
     against :func:`wkv.plain` at a prefill, a decode step from a nonzero
-    state and a flat-split rank's three heads, the backward kernels
-    against the gradient of the plain loop, each within WKV_RTOL of the
-    plain version's largest value and within WKV_F64_RATIO times the f32
-    plain version's distance from a float64 run of it; their device ms
-    beside the plain versions' and the bound.  Then the main path that
-    reaches the backward: rwkv6_3b's train step at full width (counted),
-    and its loss and gradient norm against the same step with the plain
-    loop.  Returns the kernels line's two rows."""
+    state, a flat-split rank's three heads, a ragged length and decays
+    with exact zeros, the backward kernel against the gradient of the
+    plain loop (ragged and at those decays too), each within WKV_RTOL of
+    the plain version's largest value, within WKV_F64_RATIO times the f32
+    plain version's distance from a float64 run of it, and finite; their
+    device ms beside the plain versions' and the bound, with the route
+    each call took.  Then the main path that reaches the backward:
+    rwkv6_3b's train step at full width (counted), and its loss and
+    gradient norm against the same step with the plain loop.  Returns
+    the kernels line's two rows."""
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import step as step_lib
@@ -1870,6 +1894,8 @@ def wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches
     def held(label, names, got, want32, want64) -> dict:
         out = {}
         for name, g, w32, w64 in zip(names, got, want32, want64):
+            if not bool(torch.isfinite(g).all()):
+                fail(f"wkv {label} {name}: not finite")
             err = hold(torch, f"wkv {label} {name}", g, w32, WKV_RTOL)
             d_k, d_p = f64_dist(g, w32, w64)
             if not d_k <= WKV_F64_RATIO * d_p:
@@ -1881,9 +1907,22 @@ def wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches
                          "plain_vs_float64": d_p}
         return out
 
-    rows = {}
-    for label, (b, s, h, hs), state in WKV_FWD_SHAPES:
+    def inputs(b, s, h, hs, state, hard):
         ins = wkv_inputs(torch, gen, b, s, h, hs, state)
+        if hard:
+            hard_decays(torch, gen, ins[3])
+        return ins
+
+    def call_launches(fn) -> dict:
+        """The WKV launches of one call of fn (the counts it adds)."""
+        before = (wkv.FWD_LAUNCHES, wkv.BWD_LAUNCHES)
+        fn()
+        return {"wkv6_fwd": wkv.FWD_LAUNCHES - before[0],
+                "wkv6_bwd": wkv.BWD_LAUNCHES - before[1]}
+
+    rows = {}
+    for label, (b, s, h, hs), state, hard in WKV_FWD_SHAPES:
+        ins = inputs(b, s, h, hs, state, hard)
         got = wkv.wkv6(*ins)
         torch.cuda.synchronize()
         want = wkv.plain(*ins)
@@ -1897,47 +1936,54 @@ def wkv_phase(torch, dev, card, zero_counts, counts, zoo_launches
                "bound_ms": b_ms, "bound_by": b_by}
         rows.setdefault("wkv6_fwd", rec)
         emit(phase="wkv", case="forward", shape=[b, s, h, hs], what=label,
-             nonzero_state=state, errors=errs, rtol=WKV_RTOL,
-             f64_ratio=WKV_F64_RATIO, **{k_: v for k_, v in rec.items()
-                                         if k_ != "max_abs_err"},
+             nonzero_state=state, hard_decays=hard,
+             zeros_in_w=int((ins[3] == 0).sum()), route=wkv.route(s, hs),
+             launches_per_call=call_launches(lambda: wkv.wkv6(*ins)),
+             kernels_per_call=1, errors=errs, rtol=WKV_RTOL,
+             f64_ratio=WKV_F64_RATIO, nvidia_smi=card,
+             **{k_: v for k_, v in rec.items() if k_ != "max_abs_err"},
              x_bound=rec["ms"] / b_ms)
         del ins, got, want, want64
     # the backward: the op under autograd (the forward's checkpoints),
     # upstream gradients on both outputs
-    b, s, h, hs = WKV_BWD_SHAPE
-    ins = wkv_inputs(torch, gen, b, s, h, hs, True)
-    gy, gs = torch.randn(b, s, h, hs, device=dev, generator=gen), \
-        torch.randn(b, h, hs, hs, device=dev, generator=gen)
-    leaves_ = [t.clone().requires_grad_() for t in ins]
-    y, s_new = wkv.wkv6(*leaves_)
-    got = torch.autograd.grad((y, s_new), leaves_, (gy, gs))
-    torch.cuda.synchronize()
-    want = wkv.plain_grads(*ins, gy, gs)
-    want64 = wkv.plain_grads(*(t.double() for t in (*ins, gy, gs)))
     names = ("gr", "gk", "gv", "gw", "gu", "gs0")
-    errs = held("backward", names, got, want, want64)
-    _, _, ckpts = torch.ops.repro_torch.wkv6(*ins, wkv.CHUNK)
+    for label, (b, s, h, hs), state, hard in WKV_BWD_SHAPES:
+        ins = inputs(b, s, h, hs, state, hard)
+        gy, gs = torch.randn(b, s, h, hs, device=dev, generator=gen), \
+            torch.randn(b, h, hs, hs, device=dev, generator=gen)
+        leaves_ = [t.clone().requires_grad_() for t in ins]
+        y, s_new = wkv.wkv6(*leaves_)
+        got = torch.autograd.grad((y, s_new), leaves_, (gy, gs))
+        torch.cuda.synchronize()
+        want = wkv.plain_grads(*ins, gy, gs)
+        want64 = wkv.plain_grads(*(t.double() for t in (*ins, gy, gs)))
+        errs = held(f"backward {label}", names, got, want, want64)
+        _, _, ckpts = torch.ops.repro_torch.wkv6(*ins, wkv.CHUNK)
 
-    def bwd():
-        return torch.ops.repro_torch.wkv6_bwd(*ins, ckpts, gy, gs, wkv.CHUNK,
-                                              63)
-    nbytes, flops = wkv_cost(b, s, h, hs, True)
-    b_ms, b_by = bound(nbytes, flops)
-    rows["wkv6_bwd"] = {
-        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-        "ms": device_ms(torch, bwd),
-        "plain_ms": device_ms(torch, lambda: wkv.plain_grads(*ins, gy, gs)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    fwd_ckpt_ms = device_ms(torch, lambda: torch.ops.repro_torch.wkv6(
-        *ins, wkv.CHUNK))
-    emit(phase="wkv", case="backward", shape=[b, s, h, hs], errors=errs,
-         rtol=WKV_RTOL, f64_ratio=WKV_F64_RATIO, chunk=wkv.CHUNK,
-         checkpoints_mb=ckpts.numel() * 4 / 1e6,
-         forward_with_checkpoints_ms=fwd_ckpt_ms,
-         **{k_: v for k_, v in rows["wkv6_bwd"].items()
-            if k_ != "max_abs_err"},
-         x_bound=rows["wkv6_bwd"]["ms"] / b_ms)
-    del ins, leaves_, y, s_new, got, want, want64, ckpts, gy, gs
+        def bwd():
+            return torch.ops.repro_torch.wkv6_bwd(*ins, ckpts, gy, gs,
+                                                  wkv.CHUNK, 63)
+        nbytes, flops = wkv_cost(b, s, h, hs, True)
+        b_ms, b_by = bound(nbytes, flops)
+        rec = {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "ms": device_ms(torch, bwd),
+               "plain_ms": device_ms(torch, lambda: wkv.plain_grads(
+                   *ins, gy, gs)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.setdefault("wkv6_bwd", rec)
+        fwd_ckpt_ms = device_ms(torch, lambda: torch.ops.repro_torch.wkv6(
+            *ins, wkv.CHUNK))
+        emit(phase="wkv", case="backward", shape=[b, s, h, hs], what=label,
+             hard_decays=hard, zeros_in_w=int((ins[3] == 0).sum()),
+             route="chunked", launches_per_call=call_launches(bwd),
+             kernels_per_call=1, errors=errs, rtol=WKV_RTOL,
+             f64_ratio=WKV_F64_RATIO, chunk=wkv.CHUNK,
+             checkpoints_mb=ckpts.numel() * 4 / 1e6,
+             forward_with_checkpoints_ms=fwd_ckpt_ms,
+             forward_route=wkv.route(s, hs), nvidia_smi=card,
+             **{k_: v for k_, v in rec.items() if k_ != "max_abs_err"},
+             x_bound=rec["ms"] / b_ms)
+        del ins, leaves_, y, s_new, got, want, want64, ckpts, gy, gs
 
     # the main path through the backward: rwkv6_3b's train step (full
     # width, WKV_TRAIN layers, f32 compute), counted; its loss and

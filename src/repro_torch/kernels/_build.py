@@ -82,13 +82,14 @@ SIGNATURES = {
     # T, P, N, M, P_pad, bt, bn, stream
     "tina_pfb_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P],
-    # r, k, v, w, u, s0, y, sT, ckpts, B, T, H, hs, chunk, stream
-    "tina_wkv6_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _P],
-    # r, k, v, w, u, ckpts, gy, gsT, gr, gk, gv, gw, gu_part, gs0,
-    # scratch, B, T, H, hs, chunk, stream
+    # r, k, v, w, u, s0, y, sT, ckpts, link, flags, B, T, H, hs, chunk,
+    # route (0 recurrent, 1 chunked: kernels/wkv.py:route), stream
+    "tina_wkv6_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _P],
+    # r, k, v, w, u, ckpts, gy, gsT, gr, gk, gv, gw, gu_part, gs0, links,
+    # flags, B, T, H, hs, chunk, stream
     "tina_wkv6_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _I, _I, _I, _I, _P],
+                      _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -22,10 +22,16 @@ Each op has three implementations:
   the FLOPs ``FlopCounterMode`` counts for the plain loop's ``einsum``s,
   forward and backward.
 
-Under autograd on the card the forward also writes the state before
-every :data:`CHUNK`-th step (``ckpts``); the backward recomputes each
-chunk's states from its checkpoint.  The CPU's backward recomputes the
-plain loop and keeps no checkpoints.
+On the card the forward runs one of two kernels, picked by
+:func:`route` from the length: the recurrent one (a block per (batch,
+head) walks the steps: decode and short prompts) or the chunked one
+(a block per (batch, head, chunk of :data:`CHUNK` steps), the chunks
+joined by a pass over their boundary states).  Under autograd the
+forward also writes the state before every :data:`CHUNK`-th step
+(``ckpts``); the backward is chunked the same way, each chunk from its
+checkpoint and the gradient at its end, with no per-step state in device
+memory.  The CPU's backward recomputes the plain loop and keeps no
+checkpoints.
 """
 from __future__ import annotations
 
@@ -35,10 +41,27 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-CHUNK = 64            # steps between the forward's state checkpoints
+CHUNK = 64            # steps a chunk: between the state checkpoints
+SUB = 16              # steps a sub-chunk of the chunked kernels
 HEAD_SIZES = (8, 16, 32, 64)   # hs the kernels are compiled for
-FWD_LAUNCHES = 0      # tina_wkv6_fwd launches since the last reset
-BWD_LAUNCHES = 0      # tina_wkv6_bwd launches (two kernels each)
+CHUNKED_MIN_STEPS = 56  # the shortest sequence the chunked forward takes:
+                        # the crossing of the two kernels' times at
+                        # rwkv6-3b's widths (tools/wkv_routes.py)
+FWD_LAUNCHES = 0      # tina_wkv6_fwd calls since the last reset (one
+                      # kernel, after a memset on the chunked route)
+BWD_LAUNCHES = 0      # tina_wkv6_bwd calls (one kernel after a memset)
+ROUTES = ("recurrent", "chunked")
+
+
+def route(s: int, hs: int) -> str:
+    """The forward kernel a sequence of ``s`` steps at head size ``hs``
+    runs on the card: ``"recurrent"`` below :data:`CHUNKED_MIN_STEPS`
+    (a decode step, a short prompt: one block per (batch, head) walks
+    the steps), else ``"chunked"`` (a block per chunk of :data:`CHUNK`
+    steps).  Both take every hs of :data:`HEAD_SIZES` at every length."""
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {hs} not one of {HEAD_SIZES}")
+    return "recurrent" if s < CHUNKED_MIN_STEPS else "chunked"
 
 
 def plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
@@ -106,6 +129,49 @@ def _chunks(s: int, chunk: int) -> int:
     return -(-s // chunk) if chunk else 0
 
 
+def _flags(r: Tensor, b: int, h: int, s: int) -> Tensor:
+    """The chunked kernels' counter and per-chunk flags (zeroed by the C
+    entry before its launch)."""
+    return torch.empty(1 + b * h * _chunks(s, CHUNK), dtype=torch.int32,
+                       device=r.device)
+
+
+def forward_kernel(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                   state: Tensor, chunk: int, kind: str
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """One ``tina_wkv6_fwd`` call on the card through the forward kernel
+    ``kind`` (one of :data:`ROUTES`): (out, final state, ckpts), as the
+    op returns them.  The op passes ``route(S, hs)``; a test may pass
+    either."""
+    b, s, h, hs = r.shape
+    _check("wkv6", (b, s, h, hs), r=r, k=k, v=v, w=w, u=u, state=state)
+    if chunk not in (0, CHUNK):
+        raise ValueError(f"wkv6: chunk {chunk}: the card's kernels keep a "
+                         f"checkpoint every {CHUNK} steps or none (0)")
+    if kind not in ROUTES:
+        raise ValueError(f"wkv6: route {kind!r} not one of {ROUTES}")
+    y = torch.empty_like(r)
+    s_new = torch.empty_like(state)
+    ckpts = r.new_empty((b, h, _chunks(s, chunk), hs, hs))
+    if b * h == 0:
+        return y, s_new, ckpts
+    chunked = kind == "chunked" and s > 0
+    # the chunked kernel passes the chunk-start states through ckpts, or
+    # through scratch of the same shape when none are kept
+    link = r.new_empty((b, h, _chunks(s, CHUNK), hs, hs)) \
+        if chunked and not chunk else ckpts
+    flags = _flags(r, b, h, s) if chunked else link
+    code = _build.lib().tina_wkv6_fwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), state.data_ptr(), y.data_ptr(), s_new.data_ptr(),
+        ckpts.data_ptr(), link.data_ptr(), flags.data_ptr(), b, s, h, hs,
+        chunk, int(chunked), _build.stream(r.device))
+    global FWD_LAUNCHES
+    FWD_LAUNCHES += 1
+    _build.check(code, "wkv6")
+    return y, s_new, ckpts
+
+
 @torch.library.custom_op("repro_torch::wkv6", mutates_args=())
 def wkv6_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
             state: Tensor, chunk: int) -> tuple[Tensor, Tensor, Tensor]:
@@ -120,22 +186,7 @@ def wkv6_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
         return y, s_new, r.new_empty((b, h, 0, hs, hs))
     if dev.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {dev}")
-    _check("wkv6", (b, s, h, hs), r=r, k=k, v=v, w=w, u=u, state=state)
-    if chunk < 0:
-        raise ValueError(f"wkv6: chunk {chunk}")
-    y = torch.empty_like(r)
-    s_new = torch.empty_like(state)
-    ckpts = r.new_empty((b, h, _chunks(s, chunk), hs, hs))
-    if b * h == 0:
-        return y, s_new, ckpts
-    code = _build.lib().tina_wkv6_fwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), state.data_ptr(), y.data_ptr(), s_new.data_ptr(),
-        ckpts.data_ptr(), b, s, h, hs, chunk, _build.stream(dev))
-    global FWD_LAUNCHES
-    FWD_LAUNCHES += 1
-    _build.check(code, "wkv6")
-    return y, s_new, ckpts
+    return forward_kernel(r, k, v, w, u, state, chunk, route(s, hs))
 
 
 @wkv6_op.register_fake
@@ -152,9 +203,9 @@ def wkv6_bwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
                                                  Tensor, Tensor, Tensor]:
     """The gradients of r, k, v, w, u and state against (gy, gs), the
     upstream gradients of the output and the final state; ``needs`` has
-    bit i set where input i needs one.  The card's kernels read the
-    forward's ``ckpts`` (``chunk`` steps apart) and compute all six; the
-    CPU recomputes the plain loop."""
+    bit i set where input i needs one.  The card's chunked kernel reads
+    the forward's ``ckpts`` (``chunk`` = :data:`CHUNK` steps apart) and
+    computes all six; the CPU recomputes the plain loop."""
     b, s, h, hs = r.shape
     dev = r.device
     if dev.type == "cpu":
@@ -163,28 +214,33 @@ def wkv6_bwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
         raise ValueError(f"wkv6_bwd: no kernel for device {dev}")
     _check("wkv6_bwd", (b, s, h, hs), r=r, k=k, v=v, w=w, u=u, ckpts=ckpts,
            gy=gy, gs=gs)
-    if chunk <= 0 or tuple(ckpts.shape) != (b, h, _chunks(s, chunk), hs, hs):
+    if chunk != CHUNK or \
+            tuple(ckpts.shape) != (b, h, _chunks(s, chunk), hs, hs):
         raise ValueError(f"wkv6_bwd: checkpoints {tuple(ckpts.shape)} are "
-                         f"not every {chunk} steps of {s}: the forward ran "
-                         f"without them")
+                         f"not every {CHUNK} steps of {s} (chunk {chunk}): "
+                         f"the forward ran without them")
     gr, gk, gv, gw = (torch.empty_like(r) for _ in range(4))
     gs0 = torch.empty_like(gs)
-    gu_part = r.new_empty((b, h, hs))
+    nc = _chunks(s, CHUNK)
+    # u's gradient leaves as float64 partials, one per (b, h, chunk)
+    gu_part = r.new_empty((b, h, nc, hs), dtype=torch.float64)
     if b * h == 0:
-        return gr, gk, gv, gw, gu_part.sum(0), gs0
-    scratch = r.new_empty((b * h, min(chunk, s), hs, hs))
+        return gr, gk, gv, gw, gu_part.sum((0, 2)).float(), gs0
+    # the gradients at the chunk starts, passed from block to block
+    links = r.new_empty((b, h, nc, hs, hs))
     code = _build.lib().tina_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), ckpts.data_ptr(), gy.data_ptr(), gs.data_ptr(),
         gr.data_ptr(), gk.data_ptr(), gv.data_ptr(), gw.data_ptr(),
-        gu_part.data_ptr(), gs0.data_ptr(), scratch.data_ptr(), b, s, h, hs,
-        chunk, _build.stream(dev))
+        gu_part.data_ptr(), gs0.data_ptr(), links.data_ptr(),
+        _flags(r, b, h, s).data_ptr(), b, s, h, hs, chunk,
+        _build.stream(dev))
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     _build.check(code, "wkv6_bwd")
-    # u's gradient: the per-(b, h) partials summed over b in one fixed
-    # order (no float atomics: a step is deterministic)
-    return gr, gk, gv, gw, gu_part.sum(0), gs0
+    # u's gradient: the partials summed in one fixed order (no float
+    # atomics: a step is deterministic), rounded once
+    return gr, gk, gv, gw, gu_part.sum((0, 2)).float(), gs0
 
 
 @wkv6_bwd_op.register_fake
@@ -257,4 +313,5 @@ def wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
 
 
 __all__ = ["wkv6", "plain", "plain_grads", "fwd_flops", "bwd_flops",
-           "CHUNK", "HEAD_SIZES", "FWD_LAUNCHES", "BWD_LAUNCHES"]
+           "route", "forward_kernel", "CHUNK", "SUB", "HEAD_SIZES",
+           "CHUNKED_MIN_STEPS", "ROUTES", "FWD_LAUNCHES", "BWD_LAUNCHES"]

@@ -8,13 +8,17 @@ decode ms, the profiled decode step's busy ms and launches) goes to
 stdout as chip_smoke prints it.  For rwkv6 it then times one call of
 the model's WKV scan (``models/rwkv6.py:_wkv_scan``) at a decode step,
 8 x 1 x 40 heads x 64, from its start to its return, over 2000 calls
-with no synchronisation (``wkv_decode_host_us``).  Run a parent commit
+with no synchronisation (``wkv_decode_host_us``); with ``--wkv-phase``
+it then runs the tree's chip_smoke ``wkv`` phase (the WKV kernels
+against the plain loop, their device ms, rwkv6's 2-layer train step).
+Run a parent commit
 unpacked with ``git archive`` and this tree in turns, each in its own
 process (parent, tree, tree, parent), to compare two trees on one card.
 Prints one JSON line more, with the card's name and power limit as
 ``nvidia-smi`` gives them.
 
     python3 tools/zoo_config.py [--root DIR] [--arch rwkv6_3b] [--layers 32]
+                                [--wkv-phase]
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--arch", default="rwkv6_3b")
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--wkv-phase", action="store_true")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path[:0] = [str(root / "src"), str(root)]
@@ -72,6 +77,9 @@ def main(argv=None) -> int:
             rwkv6._wkv_scan(*ins)
         out["wkv_decode_host_us"] = (time.perf_counter() - t0) / CALLS * 1e6
         torch.cuda.synchronize()
+    if args.wkv_phase:
+        out["wkv_rows"] = cs.wkv_phase(torch, dev, card, cs.zero_counts,
+                                       cs.counts, {args.arch: out["launches"]})
     print(json.dumps(out), flush=True)
     return 0
 
