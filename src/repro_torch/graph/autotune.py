@@ -98,8 +98,8 @@ def backend_of(device) -> str:
 # path -> {"mtime": int | None, "entries": {key: entry}}
 _MEM: dict[str, dict] = {}
 
-# tuner bookkeeping lives on obs counters (visible in obs.snapshot());
-# stats() is a dict view of them
+# tuner bookkeeping lives on obs counters; stats() is a dict view of
+# them (dsp_serve --metrics-interval prints it)
 _MEASURED = obs.counter("autotune.measured")
 _CACHE_HITS = obs.counter("autotune.cache_hits")
 _PRUNED = obs.counter("autotune.pruned")

@@ -156,7 +156,9 @@ def _execute(graph: Graph, env: dict[str, torch.Tensor],
              precisions: dict[str, str] | None = None,
              qconsts: dict[str, tuple] | None = None,
              kconsts: dict[str, list] | None = None):
-    """Run ``graph`` from ``env`` (inputs and consts by name)."""
+    """Run ``graph`` from ``env`` (inputs and consts by name), each node
+    under a ``node.<op>`` span: the host time of its OpDef impl and
+    kernel wrapper (checks, allocations, copies, the launch)."""
     configs = configs or {}
     precisions = precisions or {}
     qconsts = qconsts or {}
@@ -165,12 +167,12 @@ def _execute(graph: Graph, env: dict[str, torch.Tensor],
     for node in graph.topo():
         if node.op in ("input", "const"):
             continue
-        env[node.name] = apply_node(node, [env[i] for i in node.inputs],
-                                    lowerings.get(node.name, "native"),
-                                    configs.get(node.name),
-                                    precisions.get(node.name, "f32"),
-                                    qconsts.get(node.name),
-                                    kconsts.get(node.name))
+        with obs.span(f"node.{node.op}", cat="plan", node=node.name):
+            env[node.name] = apply_node(
+                node, [env[i] for i in node.inputs],
+                lowerings.get(node.name, "native"), configs.get(node.name),
+                precisions.get(node.name, "f32"), qconsts.get(node.name),
+                kconsts.get(node.name))
     outs = tuple(env[o] for o in graph.outputs)
     return outs[0] if len(outs) == 1 else outs
 
@@ -417,29 +419,35 @@ class Plan:
         return torch.cat([o.to(d0) for o in outs])
 
     def __call__(self, *args, **kwargs):
-        if self.mesh is not None:
-            return self.gather(self.run_shards(*args, **kwargs))
-        if self.made is not None:
-            self.made.get()
-        arrays = self._arrays(args, kwargs)
-        env = dict(self.consts)
-        for name, a in zip(self.input_names, arrays):
-            t = torch.as_tensor(a, device=self.device)
-            shape, dtype = self.input_specs[name]
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(
-                    f"plan for {self.graph.name!r} was compiled for {name} "
-                    f"{dtype}{shape}, got {t.dtype}{tuple(t.shape)}")
-            env[name] = t
-        outs = _execute(self.graph, env, self.lowerings, self.configs,
-                        self.precisions, self.qconsts, self.kconsts)
-        held = [*(env[n] for n in self.input_names), *self.consts.values()]
-        if isinstance(outs, tuple):
-            fresh = []
-            for o in outs:
-                fresh.append(_owned(o, held + fresh))
-            return tuple(fresh)
-        return _owned(outs, held)
+        # plan.run: the consts' readiness, the input checks, the nodes
+        # (node.* spans; a sharded plan's per-shard plan.run spans) and
+        # the outputs made the caller's own
+        with obs.span("plan.run", cat="plan", graph=self.graph.name):
+            if self.mesh is not None:
+                return self.gather(self.run_shards(*args, **kwargs))
+            if self.made is not None:
+                self.made.get()
+            arrays = self._arrays(args, kwargs)
+            env = dict(self.consts)
+            for name, a in zip(self.input_names, arrays):
+                t = torch.as_tensor(a, device=self.device)
+                shape, dtype = self.input_specs[name]
+                if tuple(t.shape) != shape or t.dtype != dtype:
+                    raise ValueError(
+                        f"plan for {self.graph.name!r} was compiled for "
+                        f"{name} {dtype}{shape}, got "
+                        f"{t.dtype}{tuple(t.shape)}")
+                env[name] = t
+            outs = _execute(self.graph, env, self.lowerings, self.configs,
+                            self.precisions, self.qconsts, self.kconsts)
+            held = [*(env[n] for n in self.input_names),
+                    *self.consts.values()]
+            if isinstance(outs, tuple):
+                fresh = []
+                for o in outs:
+                    fresh.append(_owned(o, held + fresh))
+                return tuple(fresh)
+            return _owned(outs, held)
 
 
 def _storage_span(t: torch.Tensor) -> tuple:
@@ -502,7 +510,6 @@ _WARNED_DOWNGRADES: set[tuple] = set()
 _HITS = obs.counter("plan.cache.hits")
 _MISSES = obs.counter("plan.cache.misses")
 _EVICTIONS = obs.counter("plan.cache.evictions")
-_DOWNGRADES = obs.counter("plan.downgrades")
 
 
 def cache_stats() -> dict:
@@ -712,66 +719,71 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
     ``mesh=1`` and ``make_batch_mesh(1)`` share an entry (module
     docstring).
     """
-    o = options or CompileOptions()
-    if changes:
-        o = o.replace(**changes)
-    _check_ported(o)
-    req = _device_request(o)
-    mesh, batch_axis = _norm_mesh(o.mesh, o.shard, req)
-    device = mesh.devices[0] if mesh is not None else resolve_device(req)
-    lowering = o.lowering
-    if lowering == "reference":
-        lowering = "native"
-    elif isinstance(lowering, dict):
-        lowering = {n: ("native" if lw == "reference" else lw)
-                    for n, lw in lowering.items()}
-    precision = o.precision if o.precision is not None else "f32"
-    fuse = o.fuse
-    if fuse is None:
-        fuse = "auto" if lowering == "auto" else True
-    block_configs = o.block_configs
-    tune_kw = dict(o.autotune_kwargs or {})
-    prec_auto = (precision == "auto"
-                 or (isinstance(precision, dict)
-                     and "auto" in precision.values()))
-    specs = _norm_specs(graph, shapes, o.dtype)
-    if mesh is not None:
-        for name in graph.inputs:
-            shape = specs[name][0]
-            if len(shape) < 2:
-                raise ValueError(
-                    f"sharded plans need a batch axis: input {name!r} has "
-                    f"shape {shape}; provide (batch, ...) inputs")
-            if shape[0] % mesh.size:
-                raise ValueError(
-                    f"batch divisibility: input {name!r} batch dim "
-                    f"{shape[0]} is not divisible by the mesh's "
-                    f"{batch_axis!r} axis ({mesh.size} shards)")
-    spec_key = tuple((n, specs[n][0], str(specs[n][1])) for n in graph.inputs)
-    low_key = (tuple(sorted(lowering.items()))
-               if isinstance(lowering, dict) else lowering)
-    prec_key = (tuple(sorted(precision.items()))
-                if isinstance(precision, dict) else precision)
-    cfg_key = (tuple(sorted((n, tuple(sorted(c.items())))
-                            for n, c in block_configs.items()))
-               if isinstance(block_configs, dict) else block_configs)
-    tune_key = None
-    if (lowering == "auto" or block_configs == "auto" or fuse == "auto"
-            or prec_auto):
-        # tuned selections depend on the autotune mode, the cache file
-        # (path AND content: another process's entries must reach plans
-        # compiled after its write, hence the mtime) and the tuner kwargs;
-        # none of these may return a stale memoized plan
-        from repro_torch.graph import autotune
-        path = tune_kw.get("path") or autotune.cache_path()
-        tune_key = (autotune.mode(), path, autotune._mtime(path),
-                    repr(sorted(tune_kw.items())))
-    # the quantize engine is part of the key: an engine_override("ref")
-    # compile must not collide with the default "int" plans
-    key = (graph.signature, spec_key, str(device), low_key, prec_key,
-           quantize.engine(), cfg_key, fuse,
-           None if mesh is None else mesh.key, tune_key)
-    plan = _CACHE.get(key)
+    # plan.lookup: the options and shapes made into the cache key, and
+    # the cache's answer; a miss compiles after it, under plan.compile
+    with obs.span("plan.lookup", cat="compile", graph=graph.name) as lookup:
+        o = options or CompileOptions()
+        if changes:
+            o = o.replace(**changes)
+        _check_ported(o)
+        req = _device_request(o)
+        mesh, batch_axis = _norm_mesh(o.mesh, o.shard, req)
+        device = mesh.devices[0] if mesh is not None else resolve_device(req)
+        lowering = o.lowering
+        if lowering == "reference":
+            lowering = "native"
+        elif isinstance(lowering, dict):
+            lowering = {n: ("native" if lw == "reference" else lw)
+                        for n, lw in lowering.items()}
+        precision = o.precision if o.precision is not None else "f32"
+        fuse = o.fuse
+        if fuse is None:
+            fuse = "auto" if lowering == "auto" else True
+        block_configs = o.block_configs
+        tune_kw = dict(o.autotune_kwargs or {})
+        prec_auto = (precision == "auto"
+                     or (isinstance(precision, dict)
+                         and "auto" in precision.values()))
+        specs = _norm_specs(graph, shapes, o.dtype)
+        if mesh is not None:
+            for name in graph.inputs:
+                shape = specs[name][0]
+                if len(shape) < 2:
+                    raise ValueError(
+                        f"sharded plans need a batch axis: input {name!r} "
+                        f"has shape {shape}; provide (batch, ...) inputs")
+                if shape[0] % mesh.size:
+                    raise ValueError(
+                        f"batch divisibility: input {name!r} batch dim "
+                        f"{shape[0]} is not divisible by the mesh's "
+                        f"{batch_axis!r} axis ({mesh.size} shards)")
+        spec_key = tuple((n, specs[n][0], str(specs[n][1]))
+                         for n in graph.inputs)
+        low_key = (tuple(sorted(lowering.items()))
+                   if isinstance(lowering, dict) else lowering)
+        prec_key = (tuple(sorted(precision.items()))
+                    if isinstance(precision, dict) else precision)
+        cfg_key = (tuple(sorted((n, tuple(sorted(c.items())))
+                                for n, c in block_configs.items()))
+                   if isinstance(block_configs, dict) else block_configs)
+        tune_key = None
+        if (lowering == "auto" or block_configs == "auto" or fuse == "auto"
+                or prec_auto):
+            # tuned selections depend on the autotune mode, the cache
+            # file (path AND content: another process's entries must reach
+            # plans compiled after its write, hence the mtime) and the
+            # tuner kwargs; none of these may return a stale memoized plan
+            from repro_torch.graph import autotune
+            path = tune_kw.get("path") or autotune.cache_path()
+            tune_key = (autotune.mode(), path, autotune._mtime(path),
+                        repr(sorted(tune_kw.items())))
+        # the quantize engine is part of the key: an engine_override("ref")
+        # compile must not collide with the default "int" plans
+        key = (graph.signature, spec_key, str(device), low_key, prec_key,
+               quantize.engine(), cfg_key, fuse,
+               None if mesh is None else mesh.key, tune_key)
+        plan = _CACHE.get(key)
+        lookup.set(hit=plan is not None)
     if plan is not None:
         _HITS.add()
         return plan
@@ -942,7 +954,6 @@ def compile(graph: Graph, shapes, *, options: CompileOptions | None = None,
                     else:
                         resolve_prec(node, rp)
             if downgrades:
-                _DOWNGRADES.add(len(downgrades))
                 _warn_downgrades(g, downgrades)
 
             if block_configs == "auto" and lowering != "auto":

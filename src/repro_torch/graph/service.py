@@ -176,16 +176,6 @@ def bucket_ladder(max_batch: int, shards: int = 1) -> tuple[int, ...]:
     return tuple(sizes)
 
 
-# process-wide fault-tolerance books (the per-service ``stats()`` keys
-# mirror these): visible in obs.snapshot() / dsp_serve --metrics-interval
-_SHED = obs.counter("service.shed")
-_EXPIRED = obs.counter("service.expired")
-_RETRIED = obs.counter("service.retried")
-_QUARANTINED = obs.counter("service.quarantined")
-_DEGRADED = obs.counter("service.degraded")
-_INVALID = obs.counter("service.invalid")
-
-
 class _Stage:
     """A reused page-locked staging buffer and the events recorded after
     its last copies to the cards (one per device)."""
@@ -638,7 +628,6 @@ class PipelineService:
         if self.validate == "strict" and not np.isfinite(x).all():
             with self._stats_lock:
                 self._stats["invalid"] += 1
-            _INVALID.add()
             fut.set_exception(InvalidRequest(
                 "payload contains non-finite sample(s) "
                 "(validate='strict'): rejected at submit, never batched"))
@@ -667,7 +656,6 @@ class PipelineService:
                 else:
                     with self._stats_lock:
                         self._stats["shed"] += 1
-                    _SHED.add()
                     err = Overloaded(
                         f"queue full ({self.queue_limit} deep, "
                         f"on_full={self.on_full!r}): request shed")
@@ -724,7 +712,6 @@ class PipelineService:
     def _expire(self, fut: Future) -> None:
         with self._stats_lock:
             self._stats["expired"] += 1
-        _EXPIRED.add()
         fut.set_exception(DeadlineExceeded(
             "deadline expired before a device dispatch picked the "
             "request up"))
@@ -1070,7 +1057,6 @@ class PipelineService:
             attempt += 1
             with self._stats_lock:
                 self._stats["retries"] += 1
-            _RETRIED.add()
             delay = min(
                 self.retry_backoff_ms * (2 ** (attempt - 1)),
                 self.retry_backoff_max_ms) / 1e3
@@ -1129,7 +1115,6 @@ class PipelineService:
         """Deliver the isolating error to exactly one future."""
         with self._stats_lock:
             self._stats["quarantined"] += 1
-        _QUARANTINED.add()
         obs.instant("service.quarantine", cat="serve",
                     error=type(err).__name__)
         fut.set_exception(err)
@@ -1179,7 +1164,6 @@ class PipelineService:
             tenant._tags[bucket] = "reference"
         with self._stats_lock:
             self._stats["degraded"] += 1
-        _DEGRADED.add()
         obs.instant("service.degrade", cat="serve", bucket=bucket,
                     tenant=tenant.name, requested=str(requested),
                     error=type(err).__name__)

@@ -193,6 +193,7 @@ class ChunkedRunner:
         self.window_lens: set[int] = set()   # distinct compiled windows
         # the carry: one tensor per shard, each on its shard's device
         self._carry: list[torch.Tensor] | None = None
+        self._seq = 0    # pushes so far: the push spans' shared identifier
 
     @property
     def carry_len(self) -> int:
@@ -212,25 +213,30 @@ class ChunkedRunner:
         return self._push(self._split(chunk), final)
 
     def _push(self, parts: list, final: bool) -> torch.Tensor | None:
-        bufs = (parts if self._carry is None
-                else [torch.cat([c, p], dim=-1)
-                      for c, p in zip(self._carry, parts)])
-        r, b = self.spec.receptive, self.spec.block
-        if bufs[0].shape[-1] < r:
-            self._carry = bufs
-            obs.gauge("stream.deferred_samples").set(self.carry_len)
-            return None
-        n_steps = (bufs[0].shape[-1] - r) // b + 1
-        if self.step_buckets and not final:
-            n_steps = 1 << (n_steps.bit_length() - 1)  # largest 2^k <= n
-        use = r + (n_steps - 1) * b
-        windows = [buf[..., :use] for buf in bufs]
-        self.window_lens.add(int(use))
-        shape = tuple(windows[0].shape)
-        if self.mesh is not None:
-            shape = (shape[0] * len(windows),) + shape[1:]
+        seq, self._seq = self._seq, self._seq + 1
+        # stream.carry: the carry joined to the chunk, the window cut and
+        # the next carry sliced; stream.push then times the plan's lookup
+        # and run, beside it and not around it
+        with obs.span("stream.carry", cat="stream", seq=seq):
+            bufs = (parts if self._carry is None
+                    else [torch.cat([c, p], dim=-1)
+                          for c, p in zip(self._carry, parts)])
+            r, b = self.spec.receptive, self.spec.block
+            if bufs[0].shape[-1] < r:
+                self._carry = bufs
+                return None
+            n_steps = (bufs[0].shape[-1] - r) // b + 1
+            if self.step_buckets and not final:
+                n_steps = 1 << (n_steps.bit_length() - 1)  # largest 2^k <= n
+            use = r + (n_steps - 1) * b
+            windows = [buf[..., :use] for buf in bufs]
+            carry = [buf[..., n_steps * b:] for buf in bufs]
+            self.window_lens.add(int(use))
+            shape = tuple(windows[0].shape)
+            if self.mesh is not None:
+                shape = (shape[0] * len(windows),) + shape[1:]
         with obs.span("stream.push", cat="stream", graph=self.graph.name,
-                      steps=int(n_steps), window=int(use)):
+                      steps=int(n_steps), window=int(use), seq=seq):
             # the dtype as compile's default spells it ("float32"), so a
             # push shares the plan an offline compile of its shape made
             dtype = str(windows[0].dtype).removeprefix("torch.")
@@ -239,11 +245,7 @@ class ChunkedRunner:
                 options=self.options.replace(dtype=dtype))
             out = (p(windows[0]) if self.mesh is None
                    else p.gather(p.run_shards(Shards(windows))))
-        self._carry = [buf[..., n_steps * b:] for buf in bufs]
-        # the deferred remainder a bucketed push left behind (plus the
-        # ordinary sub-receptive-field overlap): a streaming front door
-        # watches this to see how far behind the quantizer is running
-        obs.gauge("stream.deferred_samples").set(self.carry_len)
+        self._carry = carry
         return out
 
     def finalize(self) -> torch.Tensor | None:

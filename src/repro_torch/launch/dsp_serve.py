@@ -174,14 +174,12 @@ def _result_or_exception(fut, timeout: float = 600.0):
 
 
 def _metrics_snapshot(svc) -> dict:
-    """The service's stats snapshot plus the process-wide plan-cache,
-    autotuner and obs gauges."""
-    from repro_torch import obs
+    """The service's stats snapshot plus the process-wide plan-cache and
+    autotuner counts."""
     from repro_torch.graph import autotune, plan as plan_lib
     return {"time": time.time(), "service": svc.stats(),
             "plan_cache": plan_lib.cache_stats(),
-            "autotune": autotune.stats(),
-            "gauges": obs.snapshot()["gauges"]}
+            "autotune": autotune.stats()}
 
 
 def _start_metrics_thread(svc, interval: float):

@@ -1,29 +1,34 @@
-"""Telemetry core: thread-safe counters, gauges, histograms, and
-nestable spans behind one process-global registry.
+"""Telemetry core: thread-safe counters, histograms, and nestable spans
+behind one process-global registry.
 
-Dependency-free (stdlib only — importable before jax initializes) and
-cheap by construction:
+Cheap by construction:
 
-  * **Counters / gauges / histograms are always live.**  They are the
-    system's bookkeeping — the plan cache's hit/miss counts, the
-    autotuner's measured/cached tallies, a service's request stats all
-    read off them — so they cannot be the thing an env var turns off.
-    Each is one lock acquisition per update (a histogram additionally
-    writes one ring-buffer slot); per-request cost is nanoseconds
-    against multi-millisecond batches.
+  * **Counters are always live.**  They are the system's bookkeeping —
+    the plan cache's hit/miss counts, the autotuner's measured/cached
+    tallies — so they cannot be the thing an env var turns off.  Each is
+    one lock acquisition per update.  A :class:`Histogram` (a service's
+    latency books) is the same: one lock and one ring-buffer slot.
   * **Spans are gated.**  ``TINA_TELEMETRY=off`` (the default) makes
     :meth:`Registry.span` return one shared no-op context manager —
-    no object allocated, no clock read, no event buffered — so an
-    uninstrumented-in-spirit production serve pays only the boolean
-    check.  ``TINA_TELEMETRY=on`` (or :func:`enable`) records every
-    span as a Chrome trace event (wall-relative microsecond timestamps,
-    per-thread track) exportable via :mod:`repro_torch.obs.trace` and
-    viewable in ``chrome://tracing`` / Perfetto.
+    no object allocated, no clock read, no torch call — so production
+    pays only the boolean check.  ``TINA_TELEMETRY=on`` (or
+    :func:`enable`) records every span as a Chrome trace event
+    (wall-relative microsecond timestamps, per-thread track) exportable
+    via :mod:`repro_torch.obs.trace`, and opens a ``torch.profiler``
+    host range of the same name for the span's extent
+    (``RecordFunction``).  Under a running profiler the span therefore
+    sits in the profiler's own trace, on its clock, around the ops and
+    launches it issued, with no clock conversion; with no profiler
+    running the range costs well under a microsecond.  On the card the
+    profiler also draws such a range on the device timeline as a
+    ``gpu_user_annotation``: a range, not device work.
 
 Spans nest naturally: within one thread, a span entered inside another
 span's ``with`` block is fully contained in it on the trace timeline
 (``perf_counter_ns`` is monotonic per thread), which is exactly the
-nesting Perfetto renders — no explicit parent bookkeeping needed.
+nesting Perfetto renders — no explicit parent bookkeeping needed.  The
+profiler ranges nest the same way: each opens before its span's clock
+starts and closes after it stops.
 
 The event buffer is bounded (:attr:`Registry.max_events`); once full,
 further spans are counted in ``dropped_events`` instead of growing
@@ -34,6 +39,8 @@ from __future__ import annotations
 import os
 import threading
 import time
+
+from torch._C._profiler import _RecordFunctionFast
 
 ENV_VAR = "TINA_TELEMETRY"
 
@@ -62,8 +69,6 @@ class Counter:
         with self._lock:
             self._value += n
 
-    inc = add
-
     @property
     def value(self) -> int:
         with self._lock:
@@ -72,29 +77,6 @@ class Counter:
     def reset(self) -> None:
         with self._lock:
             self._value = 0
-
-
-class Gauge:
-    """Last-write-wins scalar (queue depth, deferred samples, ...)."""
-
-    __slots__ = ("name", "_lock", "_value")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
-        self._value = 0.0
-
-    def set(self, v: float) -> None:
-        with self._lock:
-            self._value = float(v)
-
-    @property
-    def value(self) -> float:
-        with self._lock:
-            return self._value
-
-    def reset(self) -> None:
-        self.set(0.0)
 
 
 class Histogram:
@@ -137,20 +119,6 @@ class Histogram:
                 self._sample[self._idx] = v
                 self._idx = (self._idx + 1) % self.sample_size
 
-    @property
-    def count(self) -> int:
-        with self._lock:
-            return self._count
-
-    def quantile(self, q: float) -> float | None:
-        with self._lock:
-            sample = list(self._sample)
-        if not sample:
-            return None
-        sample.sort()
-        return sample[min(len(sample) - 1,
-                          max(0, round(q * (len(sample) - 1))))]
-
     def summary(self) -> dict:
         """count/mean/min/max + p50/p95/p99 (None when empty)."""
         with self._lock:
@@ -170,15 +138,6 @@ class Histogram:
         if self.unit:
             out["unit"] = self.unit
         return out
-
-    def reset(self) -> None:
-        with self._lock:
-            self._count = 0
-            self._sum = 0.0
-            self._min = float("inf")
-            self._max = float("-inf")
-            self._sample = []
-            self._idx = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +166,11 @@ NULL_SPAN = _NullSpan()
 class Span:
     """A timed region: records one Chrome ``"X"`` (complete) event on
     exit — also on exception, so a failed batch still shows up on the
-    trace (the exception propagates; ``__exit__`` returns False)."""
+    trace (the exception propagates; ``__exit__`` returns False) — and
+    holds a ``torch.profiler`` host range of the same name open around
+    its clock (module docstring)."""
 
-    __slots__ = ("name", "cat", "args", "_reg", "_t0")
+    __slots__ = ("name", "cat", "args", "_reg", "_t0", "_range")
 
     def __init__(self, registry: "Registry", name: str, cat: str,
                  args: dict):
@@ -218,18 +179,23 @@ class Span:
         self.args = args
         self._reg = registry
         self._t0 = 0
+        self._range = None
 
     def set(self, **args) -> "Span":
         self.args.update(args)
         return self
 
     def __enter__(self) -> "Span":
+        self._range = _RecordFunctionFast(self.name)
+        self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        self._reg._record(self.name, self.cat, self._t0,
-                          time.perf_counter_ns(), self.args)
+        t1 = time.perf_counter_ns()
+        self._range.__exit__(None, None, None)
+        self._reg._push(("X", self.name, self.cat, self._t0, t1,
+                         threading.get_ident(), *_flat(self.args)))
         return False
 
 
@@ -237,7 +203,7 @@ class Span:
 # registry
 # ---------------------------------------------------------------------------
 class Registry:
-    """Named meters + the span/event buffer.  One process-global
+    """Named counters + the span/event buffer.  One process-global
     instance (:data:`REGISTRY`) backs the module-level API; tests build
     private ones."""
 
@@ -245,37 +211,24 @@ class Registry:
                  max_events: int = 500_000):
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}
-        self._gauges: dict[str, Gauge] = {}
-        self._histograms: dict[str, Histogram] = {}
-        self._events: list[dict] = []
+        # (ph, name, cat, t0 ns, t1 ns | None, tid, key, value, ...) per
+        # event, made Chrome trace dicts only when read.  A span adds one
+        # object, a tuple the collector stops tracking at its first pass
+        # (it holds only strings and numbers), so a long traced window
+        # neither lengthens full collections nor runs many more
+        self._events: list[tuple] = []
         self._dropped = 0
         self.max_events = int(max_events)
         self._t0_ns = time.perf_counter_ns()
         self._on = _env_enabled() if enabled is None else bool(enabled)
 
-    # -- meters (get-or-create) ---------------------------------------------
+    # -- counters (get-or-create) -------------------------------------------
     def counter(self, name: str) -> Counter:
         with self._lock:
             c = self._counters.get(name)
             if c is None:
                 c = self._counters[name] = Counter(name)
             return c
-
-    def gauge(self, name: str) -> Gauge:
-        with self._lock:
-            g = self._gauges.get(name)
-            if g is None:
-                g = self._gauges[name] = Gauge(name)
-            return g
-
-    def histogram(self, name: str, unit: str = "",
-                  sample_size: int = 4096) -> Histogram:
-        with self._lock:
-            h = self._histograms.get(name)
-            if h is None:
-                h = self._histograms[name] = Histogram(
-                    name, unit=unit, sample_size=sample_size)
-            return h
 
     # -- spans / events -----------------------------------------------------
     @property
@@ -290,7 +243,8 @@ class Registry:
 
     def span(self, name: str, cat: str = "span", **args):
         """A context manager timing the enclosed region.  Disabled mode
-        returns the shared :data:`NULL_SPAN` — nothing is allocated."""
+        returns the shared :data:`NULL_SPAN` — nothing is allocated, and
+        no profiler range is opened."""
         if not self._on:
             return NULL_SPAN
         return Span(self, name, cat, args)
@@ -300,11 +254,8 @@ class Registry:
         winner records, downgrade notices, ..."""
         if not self._on:
             return
-        ts = (time.perf_counter_ns() - self._t0_ns) / 1e3
-        self._push({"name": name, "cat": cat, "ph": "i", "s": "t",
-                    "ts": ts, "pid": os.getpid(),
-                    "tid": threading.get_ident(),
-                    "args": {k: _jsonable(v) for k, v in args.items()}})
+        self._push(("i", name, cat, time.perf_counter_ns(), None,
+                    threading.get_ident(), *_flat(args)))
 
     def complete(self, name: str, t0_ns: int, t1_ns: int,
                  cat: str = "span", tid: int | str | None = None,
@@ -316,25 +267,15 @@ class Registry:
         the batcher thread but retired when the array is ready).  An
         explicit ``tid`` places the span on a synthetic track (Chrome
         accepts string tids) so it nests independently of any host
-        thread's spans."""
+        thread's spans.  Buffer only: no profiler range is opened, since
+        a range opens and closes on one thread."""
         if not self._on:
             return
-        self._push({"name": name, "cat": cat, "ph": "X",
-                    "ts": (t0_ns - self._t0_ns) / 1e3,
-                    "dur": max(0.0, (t1_ns - t0_ns) / 1e3),
-                    "pid": os.getpid(),
-                    "tid": threading.get_ident() if tid is None else tid,
-                    "args": {k: _jsonable(v) for k, v in args.items()}})
+        self._push(("X", name, cat, t0_ns, max(t0_ns, t1_ns),
+                    threading.get_ident() if tid is None else tid,
+                    *_flat(args)))
 
-    def _record(self, name: str, cat: str, t0_ns: int, t1_ns: int,
-                args: dict) -> None:
-        self._push({"name": name, "cat": cat, "ph": "X",
-                    "ts": (t0_ns - self._t0_ns) / 1e3,
-                    "dur": (t1_ns - t0_ns) / 1e3,
-                    "pid": os.getpid(), "tid": threading.get_ident(),
-                    "args": {k: _jsonable(v) for k, v in args.items()}})
-
-    def _push(self, event: dict) -> None:
+    def _push(self, event: tuple) -> None:
         with self._lock:
             if len(self._events) >= self.max_events:
                 self._dropped += 1
@@ -342,42 +283,36 @@ class Registry:
             self._events.append(event)
 
     def events(self) -> list[dict]:
-        """A copy of the buffered trace events (chrome-trace dicts)."""
+        """The buffered trace events as Chrome trace dicts (new dicts on
+        every call): microseconds since the registry was made, this
+        process's pid, the recording thread's track."""
         with self._lock:
-            return list(self._events)
+            recs = list(self._events)
+        pid = os.getpid()
+        out = []
+        for ph, name, cat, t0, t1, tid, *kv in recs:
+            e = {"name": name, "cat": cat, "ph": ph,
+                 "ts": (t0 - self._t0_ns) / 1e3}
+            if t1 is None:
+                e["s"] = "t"
+            else:
+                e["dur"] = (t1 - t0) / 1e3
+            e.update(pid=pid, tid=tid, args=dict(zip(kv[::2], kv[1::2])))
+            out.append(e)
+        return out
 
     @property
     def dropped_events(self) -> int:
         with self._lock:
             return self._dropped
 
-    # -- snapshot / reset ---------------------------------------------------
-    def snapshot(self) -> dict:
-        """Every meter's current value — counters and gauges as scalars,
-        histograms as their :meth:`Histogram.summary`."""
-        with self._lock:
-            counters = dict(self._counters)
-            gauges = dict(self._gauges)
-            hists = dict(self._histograms)
-        return {
-            "counters": {k: c.value for k, c in sorted(counters.items())},
-            "gauges": {k: g.value for k, g in sorted(gauges.items())},
-            "histograms": {k: h.summary()
-                           for k, h in sorted(hists.items())},
-        }
 
-    def reset(self) -> None:
-        """Zero every meter and drop buffered events (meters stay
-        registered — outstanding references keep working)."""
-        with self._lock:
-            meters = (list(self._counters.values())
-                      + list(self._gauges.values())
-                      + list(self._histograms.values()))
-            self._events = []
-            self._dropped = 0
-            self._t0_ns = time.perf_counter_ns()
-        for m in meters:
-            m.reset()
+def _flat(args: dict):
+    """``args``' keys and JSON-ready values, alternating: read when the
+    event is recorded, and only strings and numbers kept."""
+    for k, v in args.items():
+        yield k
+        yield _jsonable(v)
 
 
 def _jsonable(v):
@@ -388,5 +323,5 @@ def _jsonable(v):
 
 REGISTRY = Registry()
 
-__all__ = ["Counter", "Gauge", "Histogram", "Span", "Registry",
+__all__ = ["Counter", "Histogram", "Span", "Registry",
            "REGISTRY", "NULL_SPAN", "ENV_VAR"]
