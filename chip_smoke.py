@@ -854,7 +854,8 @@ def tc_kernel(mangled: str):
         args = mangled.split("_kernel", 1)[1].split("Ev", 1)[0]
         flags = ",".join(re.findall(r"Lb(\d)E", args)
                          + re.findall(r"Li(\d+)E", args))
-        return "tina_dft", f"dft_tf32_kernel<{flags}>"
+        fold = "folded_" if "folded_dft" in mangled else ""
+        return "tina_dft", f"{fold}dft_tf32_kernel<{flags}>"
     if "bf16_matmul_skinny_kernel" in mangled and width:
         return ("tina_matmul_bf16",
                 f"bf16_matmul_skinny_kernel<{width.group(1)}>")
@@ -875,11 +876,13 @@ def tc_kernel(mangled: str):
 
 
 def pfb_frontend_label(mangled: str):
-    """The label of one of pfb.cu's frontend kernels (two bool template
-    arguments; qpfb.cu's has one), else None."""
+    """The label of one of pfb.cu's frontend kernels, the plain ones and
+    the folded route's (two bool template arguments; qpfb.cu's has one),
+    else None."""
     import re
-    f = re.search(r"frontend_kernelILb(\d)ELb(\d)E", mangled)
-    return f"pfb_frontend_kernel<{f.group(1)},{f.group(2)}>" if f else None
+    f = re.search(r"(folded_)?frontend_kernelILb(\d)ELb(\d)E", mangled)
+    return (f"pfb_{f.group(1) or ''}frontend_kernel<{f.group(2)},"
+            f"{f.group(3)}>" if f else None)
 
 
 def wgmma_counts(lib_path) -> tuple[dict, dict, dict]:
@@ -3863,10 +3866,10 @@ def main() -> int:
                          .splitlines() if "Performance Loss" in line})
     # spills are read from this run's build log (none when it reused a
     # build of the same sources)
-    if len(pfb_front) != 4 or any(pfb_front.values()) or (usage and any(
+    if len(pfb_front) != 6 or any(pfb_front.values()) or (usage and any(
             usage.get(k, {}).get("spill_bytes", 1) for k in pfb_front)):
-        fail(f"tina_pfb: want its four frontend kernels, without warpgroup "
-             f"MMAs or spills: {pfb_front}, "
+        fail(f"tina_pfb: want its six frontend kernels (four plain, two "
+             f"folded), without warpgroup MMAs or spills: {pfb_front}, "
              f"{ {k: usage.get(k) for k in pfb_front} }")
     # the f32 FIR's ring (dynamic shared memory) at the pipelines' K, for
     # every compiled tile
@@ -3890,12 +3893,15 @@ def main() -> int:
     # 16-byte boundary.  The frontend's y rows as the DFT stage reads them
     # (written over NaN) and the frontend alone bit for bit against their
     # twins; the output against the plain version (1e-4 of max) and at
-    # P = 1024 also against a float64 product of the same y (1e-5 of max)
+    # P >= 1024 also against a float64 product of the same y (1e-5 of
+    # max).  Where the call folds (pfbk.folds), its rows (written over
+    # NaN) bit for bit as their twin; P = 1030 has an odd P/2
     pfb_cases = [(2, 301, 16, 4, True), (1, 203, 32, 8, True),
                  (3, 130, 48, 16, True), (2, 517, 1024, 8, True),
                  (1, 300, 16, 100, True), (1, 700, 16, 600, True),
                  (2, 150, 37, 5, True), (2, 150, 37, 5, False),
-                 (2, 120, 64, 8, False)]
+                 (2, 120, 64, 8, False), (2, 150, 1030, 5, True),
+                 (1, 140, 2048, 4, False)]
     for b, t, p, m, aligned in pfb_cases:
         buf, taps = randn(b * t * p + 1), randn(m, p)
         x = (buf[:-1] if aligned else buf[1:]).view(b, t, p)
@@ -3912,14 +3918,21 @@ def main() -> int:
         for (bt, bn), herm in itertools.product(pfbk.TILES, (False, True)):
             label = f"pfb_fused {(b, t, p, m)} tile {(bt, bn)} " \
                 f"hermitian={herm} aligned={aligned}"
+            fold = pfbk.folds(p, herm, bn)
+            scratch = torch.full((rows, pfbk.y_stride(p)), float("nan"),
+                                 device=dev)
             got = pfbk.pfb_fused(x, taps, fr, fi, hermitian=herm, bt=bt,
-                                 bn=bn)
+                                 bn=bn, scratch=scratch)
+            if fold:
+                hold(torch, label + " folded rows", scratch,
+                     pfbk.pfb_folded_rows_plain(x, taps))
             err = hold(torch, label, got, want, PFB_RTOL)
             f64 = dft_f64_err(torch, y[:, :p], fr, fi, got.reshape(rows, p))
-            if p == 1024 and not f64 <= DFT_F64_RTOL:
+            if p >= 1024 and not f64 <= DFT_F64_RTOL:
                 fail(f"{label} vs float64: {f64} > {DFT_F64_RTOL} of max")
             emit(phase="kernel", kernel="pfb_fused", shape=[b, t, p, m],
-                 tile=[bt, bn], hermitian=herm, frames_aligned=aligned,
+                 tile=[bt, bn], hermitian=herm, folded=fold,
+                 frames_aligned=aligned,
                  y_stride=pfbk.y_stride(p), max_abs_err=err,
                  max_abs_plain=torch.view_as_real(want).abs().max().item(),
                  max_rel_err_vs_float64=f64, frontend_exact=True, ok=True)
@@ -4186,7 +4199,9 @@ def main() -> int:
     def pfb_stages(frames, taps_rev, fr, fi, planes, cfg) -> dict:
         """The f32 PFB's two kernels apart, at a path's shapes (P a
         multiple of 4, so that y's row stride is P): the whole call as the
-        plan makes it (Hermitian: half the columns computed), computing
+        plan makes it (Hermitian: half the columns computed; where
+        pfbk.folds, over P/2 folded pairs), its kernels' ms apart under
+        the profiler, computing
         every column, and on each compiled tile; the frontend alone; the
         DFT stage alone both ways (tina_dft on the frontend's y rows);
         torch.fft.fft over y's last axis as the DFT stage's yardstick
@@ -4231,6 +4246,11 @@ def main() -> int:
         out["dft_stage_bound_all_columns"] = bound_tf32(
             *dft_cost(rows, p, p, False))[0]
         out["dft_stage_bound_3xtf32"] = bound_3xtf32(*dcost)[0]
+        # the call's kernels apart (the folded route's two, where it folds)
+        out["call_kernel_ms"] = profile_device(torch, lambda: pfbk.pfb_fused(
+            frames, taps_rev, fr, fi, planes=planes, hermitian=True,
+            **cfg), 5)["top"]
+        out["folded"] = pfbk.folds(p, True, cfg["bn"])
         out["max_rel_err_vs_float64"] = dft_f64_err(
             torch, yv, fr, fi, z.reshape(rows, p))
         if not out["max_rel_err_vs_float64"] <= DFT_F64_RTOL:

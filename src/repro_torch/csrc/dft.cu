@@ -61,6 +61,14 @@
 // three-product step are tf32_gemm.cuh's, shared with matmul.cu; this
 // file keeps what is the DFT's own: the planes, the A operands of each
 // variant and the complex epilogue.
+//
+// The PFB's folded DFT stage (tina_dft_folded, folded_dft_tf32_kernel;
+// pfb.cu says what it folds) is the complex 4mult path with two of its
+// four products, each on its own A operand: X's real parts s against
+// Fr, its imaginary parts d against Fi, over K = P/2 of a real frame's
+// P, so half the 3xTF32 work of the real X it replaces.  What bounds it
+// is still the 3xTF32 products (three per counted one); the per-tile
+// prologue and epilogue do not halve with them.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -88,19 +96,25 @@ struct Cfg {
   static constexpr bool PROMOTE = NP == 2;
 };
 
-template <bool CPLX, bool KARA, int BN>
-__global__ void __launch_bounds__(THREADS, 1)
-dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
-                const __grid_constant__ CUtensorMap fmap,
-                float2* __restrict__ out, int B, int N, int n_cols,
-                int n_pad, int k_tiles, int n_blocks) {
+// One (BM x BN) tile of Z.  FOLD (a complex X of (s_n, d_n) pairs, the
+// PFB's folded route): Zr = s Fr, Zi = d Fi, then (-1)^n y_{P/2} added to
+// column n's Zr, y_{P/2} read from yh (row m at yh[m * yh_stride]).
+template <bool CPLX, bool KARA, int BN, bool FOLD>
+__device__ __forceinline__ void dft_tile(const CUtensorMap& xmap,
+                                         const CUtensorMap& fmap,
+                                         float2* __restrict__ out, int B,
+                                         int N, int n_cols, int n_pad,
+                                         int k_tiles, int n_blocks,
+                                         const float* __restrict__ yh,
+                                         int yh_stride) {
+  static_assert(!FOLD || (CPLX && !KARA), "the fold is a complex 4mult X");
   using C = Cfg<CPLX, KARA, BN>;
   using R = typename C::R;
   using tina::tf32::mma3;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = tina::tf32::barriers<R>(smem);
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + R::STAGES;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = (blockIdx.x % n_blocks) * BN;
@@ -163,7 +177,10 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
                    int kk) {
     auto bd = [&](int t) { return tina::tf32::b_desc<R>(fs, t, kk); };
     const int sd = (C::PROMOTE && kk == 0) ? 0 : 1;
-    if constexpr (KARA) {
+    if constexpr (FOLD) {
+      mma3(dst(0), hi[0], lo[0], bd(0), bd(1), sd);        // Zr: s Fr
+      mma3(dst(1), hi[1], lo[1], bd(2), bd(3), sd);        // Zi: d Fi
+    } else if constexpr (KARA) {
       constexpr int XR = CPLX ? 1 : 0;                     // Xr
       mma3(dst(0), hi[0], lo[0], bd(0), bd(1), sd);        // k1 (Fr)
       mma3(dst(1), hi[XR], lo[XR], bd(2), bd(3), sd);      // k2
@@ -189,6 +206,15 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int p = 0; p < C::NP; ++p) fence_regs(acc[p]);
 
+  // FOLD: y_{P/2} of rows r0 and r0 + 8 (loaded after the main loop, out
+  // of its registers)
+  float mid[2] = {0.f, 0.f};
+  if constexpr (FOLD)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (m0 + r0 + 8 * h < B)
+        mid[h] = __ldg(yh + (size_t)(m0 + r0 + 8 * h) * yh_stride);
+
   // epilogue: interleaved complex64, two neighbouring columns a store;
   // columns n_cols .. N - 1 (Hermitian) as conjugates of N - n
   const bool pairs = (N % 2) == 0;   // 16-byte aligned (zr, zi) pairs
@@ -212,6 +238,8 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
           zr[e] = acc[0][i];
           zi[e] = acc[1][i];
         }
+        if constexpr (FOLD)   // column n + e: (-1)^e, n even
+          zr[e] = __fadd_rn(zr[e], e ? -mid[h] : mid[h]);
       }
       if (pairs && n + 1 < n_cols) {
         *reinterpret_cast<float4*>(row + n) =
@@ -230,6 +258,36 @@ dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     }
   }
+}
+
+template <bool CPLX, bool KARA, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap fmap,
+                float2* __restrict__ out, int B, int N, int n_cols,
+                int n_pad, int k_tiles, int n_blocks) {
+  dft_tile<CPLX, KARA, BN, false>(xmap, fmap, out, B, N, n_cols, n_pad,
+                                  k_tiles, n_blocks, nullptr, 0);
+}
+
+// The PFB's folded DFT stage (tina_dft_folded).
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+folded_dft_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap fmap,
+                       float2* __restrict__ out, int B, int N, int n_cols,
+                       int n_pad, int k_tiles, int n_blocks,
+                       const float* __restrict__ yh, int yh_stride) {
+  dft_tile<true, false, BN, true>(xmap, fmap, out, B, N, n_cols, n_pad,
+                                  k_tiles, n_blocks, yh, yh_stride);
+}
+
+// The columns a real X's product computes: where hermitian and it saves
+// column tiles (not at N <= bn), 0 .. N/2, the others written as their
+// conjugates; else all N.
+int computed_cols(int N, int bn, bool hermitian) {
+  const int half = N / 2 + 1;
+  return hermitian && (half + bn - 1) / bn < (N + bn - 1) / bn ? half : N;
 }
 
 template <bool CPLX, bool KARA, int BN>
@@ -302,12 +360,51 @@ extern "C" int tina_dft(const void* x, int x_is_complex, int x_cols,
   const int k_tiles = (L + BK - 1) / BK;
   const auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float2*>(out);
-  // the symmetry only where it saves column tiles (not at N <= bn)
-  const int half = N / 2 + 1;
-  const int n_cols =
-      hermitian && (half + bn - 1) / bn < (N + bn - 1) / bn ? half : N;
+  const int n_cols = computed_cols(N, bn, hermitian);
   return bn == 64 ? dispatch<64>(x_is_complex, karatsuba, xm, fm, o, B, N,
                                  n_cols, n_pad, k_tiles, s)
                   : dispatch<16>(x_is_complex, karatsuba, xm, fm, o, B, N,
                                  n_cols, n_pad, k_tiles, s);
+}
+
+// The PFB's folded DFT stage: x (B, x_cols) interleaved complex64, each
+// row the (s_n, d_n) pairs of n = 0 .. P/2 - 1 of a real frame y (s_n =
+// y_n + y_{P-n}, d_n = y_n - y_{P-n}; s_0 = y_0 and d_0 = y_{P/2}), zero
+// past pair P/2 - 1, rows 16-byte aligned; planes: tina_dft's (4, n_pad,
+// l_pad) 4mult planes of the P-point DFM, of which K-rows 0 .. P/2 - 1
+// are read (and beyond, up to a whole chunk, against zero pairs); out (B,
+// P) complex64 = y F, as Zr = s Fr + (-1)^n y_{P/2} and Zi = d Fi: row
+// n of Fr and Fi and row P - n have the same cosine and opposite sines,
+// and Fi's row 0 is zero, so d_0 adds nothing.  Columns past P/2 are
+// conjugates as tina_dft's hermitian mode writes them.  (bm, bn) is the
+// tile, (128, 64).  Launches on `stream`; returns the launch's
+// cudaError_t.
+extern "C" int tina_dft_folded(const void* x, int x_cols, const void* planes,
+                               int n_pad, int l_pad, void* out, int B, int P,
+                               int bm, int bn, void* stream) {
+  const int H = P / 2;
+  if (B <= 0 || P < 2 || P % 2 || bm != BM || bn != 64 || x_cols < H ||
+      x_cols % 2 || n_pad < P || n_pad % N_ALIGN || l_pad < H ||
+      l_pad % BK || !aligned16(x) || !aligned16(planes))
+    return cudaErrorInvalidValue;
+  CUtensorMap xm, fm;
+  if (!tile_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2 * x_cols, B,
+                (uint64_t)x_cols * 8, BK, BM) ||
+      !tile_map(&fm, planes, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, l_pad,
+                (uint64_t)4 * n_pad, (uint64_t)l_pad * 4, BK, bn))
+    return cudaErrorInvalidValue;
+  const int n_cols = computed_cols(P, bn, true);
+  const long long nb = (n_cols + 63) / 64, mb = (B + BM - 1) / BM;
+  if (nb * mb > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int SMEM = Cfg<true, false, 64>::R::SMEM;
+  auto* kern = folded_dft_tf32_kernel<64>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  kern<<<(unsigned)(nb * mb), THREADS, SMEM,
+         static_cast<cudaStream_t>(stream)>>>(
+      xm, fm, static_cast<float2*>(out), B, P, n_cols, n_pad,
+      (H + BK - 1) / BK, (int)nb, static_cast<const float*>(x) + 1,
+      2 * x_cols);
+  return cudaGetLastError();
 }

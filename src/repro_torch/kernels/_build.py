@@ -37,9 +37,9 @@ _F = ctypes.c_float
 # C entry points: name -> (argtypes); every one returns its cudaError_t.
 SIGNATURES = {
     # x, taps_rev, planes, n_pad, l_pad, y, y_cols, out, B, T, P, N, M,
-    # hermitian, bt, bn, stream
+    # hermitian, fold, bt, bn, stream
     "tina_pfb": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                 _I, _I, _P],
+                 _I, _I, _I, _P],
     # x, taps_rev, y, B, T, P, M, y_cols, stream
     "tina_pfb_frontend": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # head, head_mode (0 real, 1 complex abs2, 2 real abs2), n, codes*,

@@ -98,9 +98,10 @@ def pfb(x: torch.Tensor, taps: torch.Tensor, *, variant: str = "4mult",
     (..., n_frames - M + 1, P), one call of the PFB kernels (the
     frontend, then the DFT stage against the DFM's TF32 planes, made once
     per (P, device), computing half the columns and conjugating the
-    rest).  ``variant`` is accepted for the reference's
-    signature: a real y needs two real products, so 3mult and 4mult are
-    the same kernel."""
+    rest; at an even P past 32 over P/2 folded pairs of mirrored
+    branches, ``pfb_kernel.folds``).  ``variant`` is accepted for the
+    reference's signature: a real y needs two real products, so 3mult and
+    4mult are the same kernel."""
     del variant
     m, p = taps.shape
     if x.shape[-1] % p:

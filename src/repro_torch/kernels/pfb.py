@@ -6,6 +6,14 @@ The CUDA kernels are ``csrc/pfb.cu`` (they replace the JAX reference's
 :func:`pfb_fused` is one call of two kernels: a frontend that writes the
 FIR bank's output y as rows whose stride is P rounded up to 4 (zero past
 P), then the 3xTF32 tensor-core DFT of ``csrc/dft.cu`` on those rows.
+Where the matrix is the P-point DFM and P is even (:func:`folds`), the
+call takes the folded route: the frontend writes each frame's pairs
+s_n = y_n + y_{P-n}, d_n = y_n - y_{P-n} of n < P/2 instead of y, and
+the DFT stage takes Re = s Fr and Im = d Fi over those P/2 pairs, half
+the products (:func:`pfb_folded_rows_plain` and
+:func:`pfb_folded_dft_plain` are the two stages' twins).  In TINA's
+terms the fold is a fixed +-1 layer across mirrored branches in front
+of two half-width fully connected layers.
 :func:`pfb_frontend` launches the frontend alone.  For a CPU tensor each
 runs its plain torch twin, :func:`pfb_fused_plain` and
 :func:`pfb_frontend_plain`; the frontend's y equals its twin bit for bit.
@@ -25,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import quantize
 from repro_torch.kernels import _build, tune
 from repro_torch.kernels import dft as dft_kernel
@@ -39,12 +48,23 @@ Y_ALIGN = 4      # y's row stride: P rounded up to 4 floats (16 bytes)
 LAUNCHES = 0     # kernel launches since the last reset (plain runs excluded)
 FRONTEND_LAUNCHES = 0   # the same for pfb_frontend
 INT8_LAUNCHES = 0   # the same for pfb_fused_int8
+_FOLDED = obs.counter("pfb.folded")   # pfb_fused launches on the folded route
 
 
 def y_stride(p: int) -> int:
     """The row stride of the y rows the DFT stage reads: P rounded up to
     a multiple of 4 floats, so that TMA reads the rows directly."""
     return -(-p // Y_ALIGN) * Y_ALIGN
+
+
+def folds(p: int, hermitian: bool, bn: int = 64) -> bool:
+    """Whether :func:`pfb_fused` takes the folded route at P branches: the
+    matrix is the P-point DFM (``hermitian``), P is even, the tile is 64
+    columns wide, and the fold saves K chunks of the DFT stage,
+    ceil((P/2) / 32) < ceil(P / 32), which holds past P = 32."""
+    bk = dft_kernel.BK
+    return (hermitian and p % 2 == 0 and bn == 64
+            and -(-(p // 2) // bk) < -(-p // bk))
 
 
 # ctx: {"m": taps per branch, "p": branches, "t": frames}.  Hard limit: a
@@ -83,6 +103,40 @@ def pfb_frontend_rows_plain(frames: torch.Tensor,
                        dtype=y.dtype, device=y.device)
     rows[:, :p] = y.reshape(-1, p)
     return rows
+
+
+def pfb_folded_rows_plain(frames: torch.Tensor,
+                          taps_rev: torch.Tensor) -> torch.Tensor:
+    """What the folded route's frontend writes inside :func:`pfb_fused`:
+    per frame the pairs (s_n, d_n) of n = 0 .. P/2 - 1, interleaved, of
+    :func:`pfb_frontend_plain`'s y: s_n = y_n + y_{P-n}, d_n = y_n -
+    y_{P-n}, except s_0 = y_0 and d_0 = y_{P/2}; (B (T-M+1),
+    y_stride(P)) rows, zero past pair P/2 - 1.  P even."""
+    y = pfb_frontend_plain(frames, taps_rev)
+    p = y.shape[-1]
+    h = p // 2
+    y = y.reshape(-1, p)
+    mirror = torch.cat([y[:, h:h + 1], y[:, h + 1:].flip(-1)], dim=1)
+    s, d = y[:, :h] + mirror, y[:, :h] - mirror
+    s[:, 0], d[:, 0] = y[:, 0], y[:, h]
+    rows = torch.zeros((y.shape[0], y_stride(p)), dtype=y.dtype,
+                       device=y.device)
+    rows[:, 0:2 * h:2], rows[:, 1:2 * h:2] = s, d
+    return rows
+
+
+def pfb_folded_dft_plain(rows: torch.Tensor, fr: torch.Tensor,
+                         fi: torch.Tensor) -> torch.Tensor:
+    """The folded DFT stage's function in plain torch: rows of
+    :func:`pfb_folded_rows_plain` and the P-point DFM (fr, fi) -> complex
+    (rows, P) = s fr[:P/2] + (-1)^k y_{P/2} + i d fi[:P/2].  Rows n and
+    P - n of the DFM share a cosine and have opposite sines, and the
+    sines of row 0 are zero, so this is y (fr + i fi)."""
+    p = fr.shape[0]
+    h = p // 2
+    s, d = rows[:, 0:2 * h:2], rows[:, 1:2 * h:2]
+    sign = 1.0 - 2.0 * (torch.arange(p, device=rows.device) % 2)
+    return torch.complex(s @ fr[:h] + d[:, :1] * sign, d @ fi[:h])
 
 
 def pfb_fused_plain(frames: torch.Tensor, taps_rev: torch.Tensor,
@@ -160,7 +214,8 @@ def pfb_frontend(frames: torch.Tensor, taps_rev: torch.Tensor, *,
 def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
               fr: torch.Tensor, fi: torch.Tensor, *,
               planes: torch.Tensor | None = None, hermitian: bool = False,
-              bt: int = 128, bn: int = 64) -> torch.Tensor:
+              bt: int = 128, bn: int = 64,
+              scratch: torch.Tensor | None = None) -> torch.Tensor:
     """frames (B, T, P), taps_rev (M, P) pre-reversed taps, fr/fi (P, N)
     Fourier matrix -> complex64 (B, T-M+1, N) = FIR(frames) @ (fr + i fi).
     ``planes``: ``dft.tf32_planes(fr, fi, "4mult")``, made once by a
@@ -168,9 +223,13 @@ def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
     call.  ``hermitian``: the caller vouches that fr + i fi is the P-point
     DFM (N = P), whose symmetry lets the DFT stage compute columns
     0 .. P/2 and write the rest as their conjugates where that saves
-    column tiles (ops.pfb, the plan's path, vouches).  The frontend's y
-    rows go through a buffer made per call (:func:`pfb_frontend` with
-    ``out`` writes the same rows).
+    column tiles (ops.pfb, the plan's path, vouches), and, where
+    :func:`folds`, fold mirrored branches first (half the DFT stage's
+    products; counted by the ``pfb.folded`` counter).  The frontend's
+    rows go through ``scratch``, a contiguous (B (T-M+1), y_stride(P))
+    float32 buffer that the caller may read afterwards, or one made per
+    call (None): y (:func:`pfb_frontend` with ``out`` writes the same
+    rows) or, folded, the pairs of :func:`pfb_folded_rows_plain`.
 
     A CPU tensor runs :func:`pfb_fused_plain`; a CUDA tensor launches the
     frontend and the DFT stage on the current stream (one call, two
@@ -196,14 +255,24 @@ def pfb_fused(frames: torch.Tensor, taps_rev: torch.Tensor,
     l_pad = -(-p // dft_kernel.BK) * dft_kernel.BK
     _check("planes", planes, (4, n_pad, l_pad), dev)
     cols = y_stride(p)
-    y = torch.empty((b * tout, cols), device=dev, dtype=torch.float32)
+    fold = folds(p, hermitian, bn)
+    if scratch is None:
+        scratch = torch.empty((b * tout, cols), device=dev,
+                              dtype=torch.float32)
+    else:
+        _check("scratch", scratch, (b * tout, cols), dev)
+        if scratch.data_ptr() % 16:
+            raise ValueError("pfb_fused: scratch must start 16-byte "
+                             "aligned")
     out = torch.empty((b, tout, n), device=dev, dtype=torch.complex64)
     code = _build.lib().tina_pfb(
         frames.data_ptr(), taps_rev.data_ptr(), planes.data_ptr(), n_pad,
-        l_pad, y.data_ptr(), cols, out.data_ptr(), b, t, p, n, m,
-        int(hermitian), bt, bn, _build.stream(dev))
+        l_pad, scratch.data_ptr(), cols, out.data_ptr(), b, t, p, n, m,
+        int(hermitian), int(fold), bt, bn, _build.stream(dev))
     global LAUNCHES
     LAUNCHES += 1
+    if fold:
+        _FOLDED.add()
     _build.check(code, "pfb_fused")
     return out
 
@@ -426,6 +495,7 @@ def pfb_fused_int8(frames: torch.Tensor, tq: torch.Tensor, ts: torch.Tensor,
 
 __all__ = ["pfb_fused", "pfb_fused_plain", "pfb_frontend",
            "pfb_frontend_plain", "pfb_frontend_rows_plain", "y_stride",
+           "folds", "pfb_folded_rows_plain", "pfb_folded_dft_plain",
            "TUNE_SPACE", "TILES", "LAUNCHES", "FRONTEND_LAUNCHES",
            "pfb_fused_int8", "pfb_fused_int8_plain",
            "pfb_frontend_int8_plain", "TUNE_SPACE_INT8", "TILES_INT8",

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import graph
+from repro_torch import graph, obs
 from repro_torch.core import functions, quantize
 from repro_torch.kernels import dft as dftk
 from repro_torch.kernels import elementwise as ewk
@@ -72,6 +72,65 @@ def test_pfb_fused_matches_plain(dev, b, t, p, m, tile, aligned):
     assert torch.equal(y, pfbk.pfb_frontend_rows_plain(x, taps))
     assert torch.equal(pfbk.pfb_frontend(x, taps),
                        pfbk.pfb_frontend_plain(x, taps))
+
+
+# the folded route: the benchmark cells' shapes (LOFAR: 96 signals'
+# 1024 frames at P = 1024, M = 16; CHIME: 128 signals' 512 at P = 2048,
+# M = 4), frame rows not a multiple of 128, P not a multiple of 4 (an
+# odd P/2: a zero pad pair, the frontend's scalar loads) and P = 34 (K
+# of one chunk)
+FOLD_CASES = [(96, 1024, 1024, 16, True), (128, 512, 2048, 4, True),
+              (2, 150, 1024, 8, True), (3, 130, 2048, 5, False),
+              (2, 150, 1030, 5, True), (1, 203, 34, 3, True),
+              (2, 77, 1030, 16, False)]
+
+
+@pytest.mark.parametrize("b,t,p,m,aligned", FOLD_CASES)
+def test_pfb_fused_folded_matches_plain(dev, b, t, p, m, aligned):
+    """The folded route's rows (written over NaN) bit for bit as their
+    twin, and its output within 1e-5 of max of a float64 product of the
+    frontend's y and within 1e-4 of max of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(b * t + p * m)
+    buf = torch.randn(b * t * p + 1, device=dev, generator=gen)
+    x = (buf[:-1] if aligned else buf[1:]).view(b, t, p)
+    taps = torch.randn(m, p, device=dev, generator=gen)
+    fr, fi = ops._fourier(p, str(dev))
+    assert pfbk.folds(p, True)
+    rows = torch.full((b * (t - m + 1), pfbk.y_stride(p)), float("nan"),
+                      device=dev)
+    got = pfbk.pfb_fused(x, taps, fr, fi, planes=ops._fourier_planes(
+        p, str(dev)), hermitian=True, scratch=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, pfbk.pfb_folded_rows_plain(x, taps))
+    y = pfbk.pfb_frontend_plain(x, taps).reshape(-1, p)
+    want = torch.view_as_real(torch.complex(y.double() @ fr.double(),
+                                            y.double() @ fi.double()))
+    got = torch.view_as_real(got).reshape(-1, p, 2).double()
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    plain = torch.view_as_real(pfbk.pfb_fused_plain(x, taps, fr, fi))
+    assert (got - plain.reshape(-1, p, 2)).abs().max() \
+        <= 1e-4 * plain.abs().max()
+
+
+@pytest.mark.parametrize("p,hermitian,bn,folded", [
+    (1024, True, 64, 1), (1030, True, 64, 1), (1024, False, 64, 0),
+    (1024, True, 16, 0), (16, True, 16, 0), (32, True, 64, 0),
+    (37, True, 64, 0)])
+def test_pfb_folded_counts_the_folded_route(dev, p, hermitian, bn, folded):
+    """pfb.folded counts one a call on the folded route and none on the
+    others; pfb.LAUNCHES counts the call once either way."""
+    x = torch.randn(2, 40, p, device=dev)
+    taps = torch.randn(4, p, device=dev)
+    fr, fi = ops._fourier(p, str(dev))
+    counter = obs.counter("pfb.folded")
+    before = (counter.value, pfbk.LAUNCHES)
+    got = pfbk.pfb_fused(x, taps, fr, fi, hermitian=hermitian, bn=bn)
+    torch.cuda.synchronize()
+    assert (counter.value - before[0], pfbk.LAUNCHES - before[1]) \
+        == (folded, 1)
+    want = torch.view_as_real(pfbk.pfb_fused_plain(x, taps, fr, fi))
+    assert (torch.view_as_real(got) - want).abs().max() \
+        <= 1e-4 * want.abs().max()
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 16, 64, 1024])
@@ -169,6 +228,22 @@ def test_pfb_power_plan_launches_each_kernel_once(dev):
     out = plan(x)
     torch.cuda.synchronize()
     assert (pfbk.LAUNCHES, ewk.LAUNCHES) == (1, 1)
+    ref = graph.compile(g, {"x": tuple(x.shape)}, lowering="native")(x)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_pfb_power_plan_folds_at_1024(dev):
+    """A pfb_power plan at P = 1024 (the LOFAR cell's width) launches the
+    PFB once a call, on the folded route, and the chain once."""
+    g = graph.build_pfb_power(1024, 16)
+    x = torch.randn(2, 1024 * 300, device=dev)
+    plan = graph.compile(g, {"x": tuple(x.shape)}, lowering="kernel")
+    pfbk.LAUNCHES = ewk.LAUNCHES = 0
+    before = obs.counter("pfb.folded").value
+    out = plan(x)
+    torch.cuda.synchronize()
+    assert (pfbk.LAUNCHES, ewk.LAUNCHES) == (1, 1)
+    assert obs.counter("pfb.folded").value - before == 1
     ref = graph.compile(g, {"x": tuple(x.shape)}, lowering="native")(x)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
